@@ -1,0 +1,23 @@
+"""Quickest proof that the PyTorch/CUDA port serves renders on an H100.
+
+Run from the root of a checkout, on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
+against its plain PyTorch version at the main path's shapes, serves
+800x800 novel-view requests through ``repro_torch.serve3d.RenderService`` at
+the paper's field configuration, and prints one JSON line per kernel report
+and, last, the device line.  It exits non-zero, with no result, on any
+failure, and when no CUDA card is present.  The phases live in
+``src/repro_torch/smoke.py``.
+"""
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch import smoke  # noqa: E402
+
+if __name__ == "__main__":
+    sys.exit(smoke.main())

@@ -1,0 +1,113 @@
+"""Radiance fields: the Instant-3D decomposition and the Instant-NGP baseline.
+
+The port of `repro.core.field` (forward only).  Instant-3D (paper section 3,
+Fig. 6) splits the grid into a density grid (density MLP -> sigma) and a
+smaller color grid (color grid + SH(dir) -> color MLP -> rgb); with
+``decomposed=False`` one grid feeds both heads (Instant-NGP).  `init` builds
+a plain dict of tensors with the JAX package's keys and layout; `query`
+maps (params, points, dirs) -> (sigma, rgb).  The fused queries
+(`query_fused`, `query_step`) come with the training slice.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from . import encoding as enc
+from ..kernels.fused_mlp import ops as mlp_ops
+
+
+def trunc_exp(x: torch.Tensor) -> torch.Tensor:
+    """Density activation: exp of x clipped to [-15, 11] (forward)."""
+    return torch.exp(torch.clamp(x, -15.0, 11.0))
+
+
+@dataclass(frozen=True)
+class FieldConfig:
+    # grid geometry (shared by both branches; table sizes differ)
+    n_levels: int = 16
+    n_features: int = 2
+    base_resolution: int = 16
+    max_resolution: int = 1024
+    # Instant-3D: S_D : S_C = 1 : 0.25 -> color table 4x smaller (section 5.1)
+    log2_table_density: int = 18
+    log2_table_color: int = 16
+    decomposed: bool = True         # False => Instant-NGP baseline
+    # MLPs (Instant-NGP sizes: <= 3 layers, 64 hidden)
+    hidden: int = 64
+    geo_features: int = 15          # density MLP extra outputs
+    sh_degree: int = 4
+
+    def grid_cfg(self, branch: str) -> enc.HashGridConfig:
+        log2_t = self.log2_table_density if branch == "density" else self.log2_table_color
+        return enc.HashGridConfig(
+            n_levels=self.n_levels,
+            n_features=self.n_features,
+            log2_table_size=log2_t,
+            base_resolution=self.base_resolution,
+            max_resolution=self.max_resolution,
+        )
+
+
+def _init_linear(generator: torch.Generator, d_in: int, d_out: int, device):
+    """He-uniform weights (d_in, d_out) and zero biases, as tiny-cuda-nn."""
+    bound = (6.0 / d_in) ** 0.5
+    u = torch.rand((d_in, d_out), generator=generator, device=generator.device)
+    w = (u * (2.0 * bound) - bound).to(device)
+    return w, torch.zeros((d_out,), dtype=torch.float32, device=device)
+
+
+class Field:
+    """Shared machinery; `decomposed` switches NGP <-> Instant-3D."""
+
+    def __init__(self, cfg: FieldConfig):
+        self.cfg = cfg
+        self.density_enc = enc.HashEncoding(cfg.grid_cfg("density"))
+        self.color_enc = enc.HashEncoding(cfg.grid_cfg("color")) if cfg.decomposed else None
+        self.sh_dim = enc.sh_dim(cfg.sh_degree)
+
+    # ---- params ----
+
+    def init(self, generator: torch.Generator, device="cuda") -> dict:
+        """Same distributions and keys as the reference's `Field.init`; the
+        draws come from `generator` (a different stream than jax.random, so
+        the values differ -- `repro_torch.bridge` carries JAX params over)."""
+        cfg = self.cfg
+        enc_dim = self.density_enc.cfg.out_dim
+        params = {"density_grid": self.density_enc.init(generator, device)}
+        w1, b1 = _init_linear(generator, enc_dim, cfg.hidden, device)
+        w2, b2 = _init_linear(generator, cfg.hidden, 1 + cfg.geo_features, device)
+        params["density_mlp"] = {"w1": w1, "b1": b1, "w2": w2, "b2": b2}
+        if cfg.decomposed:
+            params["color_grid"] = self.color_enc.init(generator, device)
+            color_in = self.color_enc.cfg.out_dim + self.sh_dim
+        else:
+            color_in = cfg.geo_features + self.sh_dim
+        w1, b1 = _init_linear(generator, color_in, cfg.hidden, device)
+        w2, b2 = _init_linear(generator, cfg.hidden, cfg.hidden, device)
+        w3, b3 = _init_linear(generator, cfg.hidden, 3, device)
+        params["color_mlp"] = {"w1": w1, "b1": b1, "w2": w2, "b2": b2, "w3": w3, "b3": b3}
+        return params
+
+    # ---- queries ----
+
+    def density(self, params: dict, points: torch.Tensor):
+        """points (N, 3) in [0, 1) -> (sigma (N,), geo (N, geo_features))."""
+        h = self.density_enc(points, params["density_grid"])
+        m = params["density_mlp"]
+        out = mlp_ops.mlp2(h, m["w1"], m["b1"], m["w2"], m["b2"])
+        return trunc_exp(out[..., 0]), out[..., 1:]
+
+    def query(self, params: dict, points: torch.Tensor, dirs: torch.Tensor):
+        """-> (sigma (N,), rgb (N, 3)).  dirs must be unit-norm."""
+        hd = self.density_enc(points, params["density_grid"])
+        m = params["density_mlp"]
+        out = mlp_ops.mlp2(hd, m["w1"], m["b1"], m["w2"], m["b2"])
+        sigma, geo = trunc_exp(out[..., 0]), out[..., 1:]
+        hc = (self.color_enc(points, params["color_grid"]) if self.cfg.decomposed
+              else geo)
+        cin = torch.cat([hc, enc.sh_encoding(dirs, self.cfg.sh_degree)], dim=-1)
+        m = params["color_mlp"]
+        raw = mlp_ops.mlp3(cin, m["w1"], m["b1"], m["w2"], m["b2"], m["w3"], m["b3"])
+        return sigma, torch.sigmoid(raw)

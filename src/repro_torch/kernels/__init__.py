@@ -1,0 +1,151 @@
+"""The port's hand-written CUDA kernels: build, load, launch bookkeeping.
+
+Each source in ``repro_torch/csrc/*.cu`` is compiled on first use with
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
+into its own shared library with a plain C interface under
+``build/repro_torch/`` at the root of the checkout (git-ignored), named by a
+hash of its sources so an edited kernel is rebuilt, and loaded with ctypes.
+`build` starts one nvcc per source, all at once.
+
+Dispatch is by device, with no backend knob: every ``ops`` function sends a
+CPU tensor to its plain PyTorch version (``ref.py``) and a CUDA tensor to
+its kernel (``kernel.py``), whose wrapper validates the inputs, launches on
+the current stream and raises if the launch fails; there is no fallback from
+a CUDA tensor to the plain version.
+
+`LAUNCHES` counts, per kernel, the launches its wrapper made -- one per call
+that reached the kernel, nothing else -- so a run can show that its path
+went through the kernels (reset it with `reset_launches`).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("hash_encode", "fused_mlp", "composite")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+LAUNCHES: dict[str, int] = {
+    "hash_encode": 0, "fused_mlp2": 0, "fused_mlp3": 0, "composite": 0,
+}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (CUDA_HOME/bin, /usr/local/cuda/bin, PATH): the "
+            "port's kernels build only where the CUDA toolkit is installed")
+    return found
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names=SOURCES) -> dict[str, str]:
+    """Compile every library of `names` that is not built yet, one nvcc per
+    source, all started together.  Returns {name: compiler log} for the ones
+    compiled (the log holds ptxas's register and shared-memory report);
+    raises with the log of every source that failed."""
+    todo = [(n, library_path(n)) for n in names if not library_path(n).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    exe = nvcc()
+    procs = []
+    try:
+        for name, out in todo:
+            tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
+            cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs.append((name, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = {}, []
+        for name, out, tmp, proc in procs:
+            log, _ = proc.communicate()
+            logs[name] = log
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu: nvcc exited {proc.returncode}\n{log}")
+            else:
+                os.replace(tmp, out)   # atomic: concurrent builds agree
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        return logs
+    finally:
+        for _name, _out, tmp, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            tmp.unlink(missing_ok=True)
+
+
+def function(lib_name: str, fn_name: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point `fn_name` of library `lib_name` (built on first
+    use), with its argument types declared and an int status result."""
+    with _lock:
+        so = _libs.get(lib_name)
+        if so is None:
+            build((lib_name,))
+            so = ctypes.CDLL(str(library_path(lib_name)))
+            so.repro_error_string.argtypes = [ctypes.c_int]
+            so.repro_error_string.restype = ctypes.c_char_p
+            _libs[lib_name] = so
+    fn = getattr(so, fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_status(lib_name: str, status: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error (its cudaGetLastError
+    after the launch): a refused launch never runs, and no later
+    synchronize would report it."""
+    if status != 0:
+        msg = _libs[lib_name].repro_error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
+
+
+def require_cuda_f32(what: str, device: torch.device, **tensors) -> None:
+    """The kernels take f32, contiguous tensors on one CUDA device."""
+    for name, t in tensors.items():
+        if t.device.type != "cuda" or t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, expected {device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{what}: {name} is {t.dtype}, expected torch.float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def stream_handle(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())

@@ -1,0 +1,395 @@
+"""RenderService: batched novel-view rendering from published snapshots.
+
+The port of `repro.serve3d.render` (synchronous plane).  Requests target a
+session; the service resolves each against the session's latest published
+snapshot at drain time, so a render always sees one consistent,
+fully-published view.  A request whose session has not published yet stays
+queued.
+
+Coalescing: pending requests are grouped by geometry (field config, render
+config, image size, focal, chunk, serving path and budget, level); a group
+renders through the trainer's batched chunk renderers
+(`repro_torch.core.trainer`), one member after another -- PyTorch has no
+compiled batch shapes to bucket, so groups are not padded.
+
+Serving paths: a session registered with ``samples_per_ray`` renders
+through pipeline stage 2b (the snapshot's occupancy EMA rebuilds the
+bitfield, S' samples per ray are shaded); ``None`` serves dense, which is
+also the fallback for snapshots without occupancy.
+
+Levels: level 0 renders full resolution from a full snapshot; level k > 0
+renders at h>>k and is answerable by a preview snapshot.
+
+Device: every group renders on the service's device (``"cuda"`` unless the
+caller passes ``device="cpu"``).  The device copy of each session's latest
+snapshot is kept until the session publishes a newer one.
+
+Degradation ladder:
+
+* deadlines -- a request still queued past ``deadline_s`` (or the
+  service's ``default_deadline_s``) is answered with
+  `RenderError("deadline_expired")` at the next drain;
+* shedding -- past ``shed_threshold`` ready requests, a drain halves every
+  redistributed session's per-ray budget (floor 2);
+* retry -- an exception inside a group's render re-queues its requests;
+  after ``max_attempts`` a request gets `RenderError("render_failed")`;
+* staleness -- results for sessions marked with `mark_stale` carry
+  ``stale=True``.
+
+Device placement across cards, the async serving thread and the fault
+injection hook come with later slices.
+"""
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass, field as dc_field
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from ..core import rendering
+from ..core.trainer import (
+    batched_redistributed_render_fn, batched_render_fn, image_rays,
+)
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
+from .snapshot import Snapshot, SnapshotStore
+
+
+@dataclass
+class _SessionGeom:
+    field_cfg: Any
+    render_cfg: rendering.RenderConfig
+    h: int
+    w: int
+    focal: float
+    eval_chunk: int
+    occ_cfg: Any = None                 # OccupancyConfig for the bitfield
+    samples_per_ray: int | None = None  # None => dense serving
+
+
+@dataclass
+class RenderRequest:
+    request_id: int
+    session_id: str
+    pose: np.ndarray
+    submitted_at: float = dc_field(default_factory=obs_trace.clock)
+    deadline_s: float | None = None   # None = no per-request deadline
+    attempts: int = 0                 # failed group renders so far
+    level: int = 0                    # 0 = full res; k > 0 = preview at h>>k
+
+
+class RenderResult(NamedTuple):
+    request_id: int
+    session_id: str
+    rgb: np.ndarray       # (H, W, 3)
+    depth: np.ndarray     # (H, W)
+    snapshot_version: int
+    snapshot_step: int
+    latency_s: float
+    stale: bool = False   # pixels valid, but the session's training is behind
+    level: int = 0        # resolution level the pixels were rendered at
+
+
+class RenderError(NamedTuple):
+    """Typed failure answer: a request that cannot be served errors out
+    instead of hanging in the queue."""
+    request_id: int
+    session_id: str
+    error: str            # "deadline_expired" | "render_failed"
+    latency_s: float
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+class RenderService:
+    def __init__(self, store: SnapshotStore, latency_window: int = 4096,
+                 default_deadline_s: float | None = None,
+                 shed_threshold: int | None = None,
+                 max_attempts: int = 2, device="cuda"):
+        """default_deadline_s: deadline of requests submitted without one
+        (None = never expire).  shed_threshold: ready-queue depth above
+        which a drain halves redistributed budgets (None = never shed).
+        max_attempts: group renders per request before it errors.
+        device: where every group renders."""
+        self.store = store
+        self.default_deadline_s = default_deadline_s
+        self.shed_threshold = shed_threshold
+        self.max_attempts = int(max_attempts)
+        self.device = torch.device(device)
+        self._geom: dict[str, _SessionGeom] = {}
+        self._queue: list[RenderRequest] = []
+        self._next_id = 0
+        self._stale: set[str] = set()
+        self._lock = threading.Lock()
+        self._drain_mutex = threading.Lock()   # one drain at a time
+        # session -> (snapshot version, params on device, occ ema on device)
+        self._resident: dict[str, tuple[int, dict, Any]] = {}
+        self.expired = 0
+        self.failed = 0
+        self.shed_drains = 0
+        self.drains = 0
+        self.latency_window = int(latency_window)
+        self.latencies: dict[str, obs_metrics.Histogram] = {}
+        self.served: dict[str, int] = {}
+        # TTFUV: register -> first served view, per session
+        self._registered_at: dict[str, float] = {}
+        self.ttfuv_s: dict[str, float] = {}
+
+    # ---- registration / submission ----
+
+    def register_session(self, session_id: str, field_cfg, render_cfg,
+                         h: int, w: int, focal: float, eval_chunk: int = 4096,
+                         occ_cfg=None, samples_per_ray: int | None = None):
+        """samples_per_ray: serve through the redistributed path at that
+        per-ray budget (needs occ_cfg to threshold the snapshot's EMA);
+        None serves dense."""
+        if samples_per_ray is not None and occ_cfg is None:
+            raise ValueError("samples_per_ray needs occ_cfg for the bitfield")
+        self._geom[session_id] = _SessionGeom(
+            field_cfg, render_cfg, int(h), int(w), float(focal), int(eval_chunk),
+            occ_cfg=occ_cfg,
+            samples_per_ray=None if samples_per_ray is None else int(samples_per_ray),
+        )
+        self._registered_at.setdefault(session_id, obs_trace.clock())
+
+    def submit(self, session_id: str, pose: np.ndarray,
+               deadline_s: float | None = None, level: int = 0) -> int:
+        """Queue a render of `pose`; level k > 0 asks for the h>>k preview."""
+        if session_id not in self._geom:
+            raise KeyError(f"unknown session {session_id!r}")
+        with self._lock:
+            req = RenderRequest(self._next_id, session_id, np.asarray(pose),
+                                deadline_s=(deadline_s if deadline_s is not None
+                                            else self.default_deadline_s),
+                                level=int(level))
+            self._next_id += 1
+            self._queue.append(req)
+        return req.request_id
+
+    def mark_stale(self, session_id: str, stale: bool = True) -> None:
+        """Results for this session carry ``stale=True`` until cleared."""
+        if stale:
+            self._stale.add(session_id)
+        else:
+            self._stale.discard(session_id)
+
+    @property
+    def pending(self) -> int:
+        with self._lock:
+            return len(self._queue)
+
+    # ---- serving ----
+
+    def drain(self) -> list:
+        """Serve every pending request whose session has a published
+        snapshot; the rest stay queued.  Returns `RenderResult`s and typed
+        `RenderError`s, ordered by request id."""
+        with self._drain_mutex:
+            with obs_trace.span("serve3d/render_drain", cat="serve3d",
+                                args={"pending": self.pending}):
+                results = self._drain()
+        if obs_trace.enabled():
+            obs_metrics.gauge("serve3d.render.queue_depth").set(self.pending)
+        return results
+
+    def _drain(self) -> list:
+        self.drains += 1
+        now = obs_trace.clock()
+        results: list = []
+        obs_on = obs_trace.enabled()
+        with self._lock:
+            queue, self._queue = self._queue, []
+
+        # expiry first: a waiting request is guaranteed to terminate
+        keep: list[RenderRequest] = []
+        for req in queue:
+            if req.deadline_s is not None and now - req.submitted_at > req.deadline_s:
+                self.expired += 1
+                if obs_on:
+                    obs_metrics.counter("serve3d.render.expired").inc()
+                results.append(RenderError(req.request_id, req.session_id,
+                                           "deadline_expired", now - req.submitted_at))
+            else:
+                keep.append(req)
+
+        # full-res requests wait for a full snapshot; previews take the best
+        ready: list[tuple[RenderRequest, Snapshot]] = []
+        waiting: list[RenderRequest] = []
+        for req in keep:
+            snap = (self.store.latest(req.session_id, level=0) if req.level == 0
+                    else self.store.latest(req.session_id))
+            if snap is None:
+                waiting.append(req)
+            else:
+                ready.append((req, snap))
+        with self._lock:
+            self._queue.extend(waiting)
+
+        shed = self.shed_threshold is not None and len(ready) > self.shed_threshold
+        if shed:
+            self.shed_drains += 1
+            if obs_on:
+                obs_metrics.counter("serve3d.render.shed_drains").inc()
+                obs_trace.instant("serve3d/render_shed", cat="serve3d",
+                                  args={"ready": len(ready)})
+
+        groups: dict[tuple, list[tuple[RenderRequest, Snapshot]]] = {}
+        for req, snap in ready:
+            g = self._geom[req.session_id]
+            spr = g.samples_per_ray
+            if shed and spr is not None:
+                spr = max(2, spr // 2)
+            key = (g.field_cfg, g.render_cfg, g.h, g.w, g.focal, g.eval_chunk,
+                   g.occ_cfg, spr, req.level)
+            groups.setdefault(key, []).append((req, snap))
+
+        for key, items in groups.items():
+            try:
+                results.extend(self._render_group(*key, items))
+            except Exception:
+                # the group's render died: re-queue its requests, and answer
+                # the ones out of attempts with a typed error
+                requeue = []
+                for req, _snap in items:
+                    req.attempts += 1
+                    if req.attempts < self.max_attempts:
+                        requeue.append(req)
+                        continue
+                    self.failed += 1
+                    if obs_on:
+                        obs_metrics.counter("serve3d.render.failed").inc()
+                    results.append(RenderError(
+                        req.request_id, req.session_id, "render_failed",
+                        obs_trace.clock() - req.submitted_at))
+                with self._lock:
+                    self._queue.extend(requeue)
+        results.sort(key=lambda r: r.request_id)
+        return results
+
+    def _resident_copy(self, snap: Snapshot):
+        """(params, occ ema) of `snap` on the service's device, copied once
+        per published version."""
+        cached = self._resident.get(snap.session_id)
+        if cached is None or cached[0] != snap.version:
+            occ = None if snap.occ is None else snap.occ[0].to(self.device)
+            cached = (snap.version, _to_device(snap.params, self.device), occ)
+            self._resident[snap.session_id] = cached
+        return cached[1], cached[2]
+
+    def _render_group(self, field_cfg, render_cfg, h, w, focal, eval_chunk,
+                      occ_cfg, samples_per_ray, level, items) -> list[RenderResult]:
+        with obs_trace.span("serve3d/render_group", cat="serve3d",
+                            args={"group": len(items),
+                                  "redistribute": samples_per_ray is not None,
+                                  "level": int(level)}):
+            return self._render_group_inner(field_cfg, render_cfg, h, w, focal,
+                                            eval_chunk, occ_cfg, samples_per_ray,
+                                            level, items)
+
+    def _render_group_inner(self, field_cfg, render_cfg, h, w, focal, eval_chunk,
+                            occ_cfg, samples_per_ray, level,
+                            items) -> list[RenderResult]:
+        if level > 0:
+            h = max(1, h >> level)
+            w = max(1, w >> level)
+        dev = self.device
+        origins, dirs = [], []
+        n = chunk = None
+        for req, _snap in items:
+            o, d, n, chunk = image_rays(req.pose, h, w, focal, eval_chunk, device=dev)
+            origins.append(o)
+            dirs.append(d)
+        origins = torch.stack(origins)   # (G, n_pad, 3)
+        dirs = torch.stack(dirs)
+        resident = [self._resident_copy(snap) for _req, snap in items]
+        params = [p for p, _occ in resident]
+        ts = rendering.sample_ts(None, chunk, render_cfg, device=dev)
+
+        # the redistributed path needs every snapshot to carry occupancy; a
+        # params-only snapshot falls back to dense
+        if samples_per_ray is not None and all(occ is not None for _p, occ in resident):
+            occ_ema = [occ for _p, occ in resident]
+            occ_step = [int(snap.occ[1]) for _req, snap in items]
+            fn_r = batched_redistributed_render_fn(field_cfg, render_cfg, occ_cfg,
+                                                   chunk, samples_per_ray)
+
+            def fn(p, o, d, t):
+                return fn_r(p, o, d, t, occ_ema, occ_step)
+        else:
+            fn = batched_render_fn(field_cfg, render_cfg)
+
+        rgb_chunks, dep_chunks = [], []
+        for i in range(0, origins.shape[1], chunk):
+            rgb_c, dep_c = fn(params, origins[:, i:i + chunk], dirs[:, i:i + chunk], ts)
+            rgb_chunks.append(rgb_c)
+            dep_chunks.append(dep_c)
+        rgb = torch.cat(rgb_chunks, dim=1)[:, :n].cpu().numpy()
+        dep = torch.cat(dep_chunks, dim=1)[:, :n].cpu().numpy()
+
+        now = obs_trace.clock()
+        obs_on = obs_trace.enabled()
+        out = []
+        for gi, (req, snap) in enumerate(items):
+            lat = now - req.submitted_at
+            sid = req.session_id
+            hist = self.latencies.get(sid)
+            if hist is None:
+                hist = self.latencies[sid] = obs_metrics.Histogram(
+                    window=self.latency_window)
+            hist.observe(lat)
+            first = sid not in self.ttfuv_s
+            if first and sid in self._registered_at:
+                self.ttfuv_s[sid] = now - self._registered_at[sid]
+            self.served[sid] = self.served.get(sid, 0) + 1
+            if obs_on:
+                obs_metrics.counter("serve3d.render.served").inc()
+                obs_metrics.histogram("serve3d.render.latency_ms").observe(lat * 1e3)
+                if first and sid in self.ttfuv_s:
+                    obs_metrics.gauge(f"serve3d.render.ttfuv_s.{sid}").set(
+                        self.ttfuv_s[sid])
+            out.append(RenderResult(
+                request_id=req.request_id,
+                session_id=sid,
+                rgb=rgb[gi].reshape(h, w, 3),
+                depth=dep[gi].reshape(h, w),
+                snapshot_version=snap.version,
+                snapshot_step=snap.step,
+                latency_s=lat,
+                stale=sid in self._stale,
+                level=int(level),
+            ))
+        return out
+
+    # ---- telemetry ----
+
+    def latency_stats(self) -> dict:
+        """Percentiles over the recent latency window; counts are lifetime."""
+        merged = obs_metrics.Histogram(
+            window=self.latency_window * max(1, len(self.latencies)))
+        for hist in self.latencies.values():
+            for v in hist.values():
+                merged.observe(v)
+        degraded = {
+            "expired": self.expired,
+            "failed": self.failed,
+            "shed_fraction": self.shed_drains / self.drains if self.drains else 0.0,
+            "stale_sessions": sorted(self._stale),
+        }
+        if merged.count == 0:
+            return {"count": 0, "degraded": degraded}
+        return {
+            "count": sum(self.served.values()),
+            "degraded": degraded,
+            "p50_ms": merged.quantile(0.50) * 1e3,
+            "p95_ms": merged.quantile(0.95) * 1e3,
+            "p99_ms": merged.quantile(0.99) * 1e3,
+            "max_ms": max(merged.values()) * 1e3,
+            "per_session": dict(self.served),
+            "ttfuv_s": dict(self.ttfuv_s),
+        }
