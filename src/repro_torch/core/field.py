@@ -1,12 +1,13 @@
 """Radiance fields: the Instant-3D decomposition and the Instant-NGP baseline.
 
-The port of `repro.core.field` (forward only).  Instant-3D (paper section 3,
-Fig. 6) splits the grid into a density grid (density MLP -> sigma) and a
-smaller color grid (color grid + SH(dir) -> color MLP -> rgb); with
+The port of `repro.core.field`.  Instant-3D (paper section 3, Fig. 6)
+splits the grid into a density grid (density MLP -> sigma) and a smaller
+color grid (color grid + SH(dir) -> color MLP -> rgb); with
 ``decomposed=False`` one grid feeds both heads (Instant-NGP).  `init` builds
 a plain dict of tensors with the JAX package's keys and layout; `query`
-maps (params, points, dirs) -> (sigma, rgb).  The fused queries
-(`query_fused`, `query_step`) come with the training slice.
+maps (params, points, dirs) -> (sigma, rgb), differentiable in the params;
+`query_step` runs the whole shade stage as the one-op fused step.
+`query_fused` (the fused encode, kernel #8) is not ported yet.
 """
 from __future__ import annotations
 
@@ -16,11 +17,29 @@ import torch
 
 from . import encoding as enc
 from ..kernels.fused_mlp import ops as mlp_ops
+from ..kernels.fused_step import ops as fs_ops
+
+
+class _TruncExp(torch.autograd.Function):
+    """exp(clip(x, -15, 11)) whose gradient is g * exp(clip(x, -15, 11))
+    everywhere -- the reference's custom VJP, not the clip's zero gradient
+    outside [-15, 11]."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.exp(torch.clamp(x, -15.0, 11.0))
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (out,) = ctx.saved_tensors
+        return g * out
 
 
 def trunc_exp(x: torch.Tensor) -> torch.Tensor:
-    """Density activation: exp of x clipped to [-15, 11] (forward)."""
-    return torch.exp(torch.clamp(x, -15.0, 11.0))
+    """Density activation: exp of x clipped to [-15, 11]."""
+    return _TruncExp.apply(x)
 
 
 @dataclass(frozen=True)
@@ -38,6 +57,9 @@ class FieldConfig:
     hidden: int = 64
     geo_features: int = 15          # density MLP extra outputs
     sh_degree: int = 4
+    # what the fused step keeps between forward and backward; only the
+    # reference's default, "recompute", is ported
+    residual_policy: str = "recompute"
 
     def grid_cfg(self, branch: str) -> enc.HashGridConfig:
         log2_t = self.log2_table_density if branch == "density" else self.log2_table_color
@@ -66,6 +88,13 @@ class Field:
         self.density_enc = enc.HashEncoding(cfg.grid_cfg("density"))
         self.color_enc = enc.HashEncoding(cfg.grid_cfg("color")) if cfg.decomposed else None
         self.sh_dim = enc.sh_dim(cfg.sh_degree)
+        # the one-op training step (encode both grids + both MLP heads);
+        # decomposed fields only, as in the reference
+        self._fused_step = fs_ops.make_fused_step(
+            self.density_enc.resolutions,
+            (cfg.grid_cfg("density").table_size, cfg.grid_cfg("color").table_size),
+            cfg.n_features, residual_policy=cfg.residual_policy,
+        ) if cfg.decomposed else None
 
     # ---- params ----
 
@@ -111,3 +140,18 @@ class Field:
         m = params["color_mlp"]
         raw = mlp_ops.mlp3(cin, m["w1"], m["b1"], m["w2"], m["b2"], m["w3"], m["b3"])
         return sigma, torch.sigmoid(raw)
+
+    def query_step(self, params: dict, points: torch.Tensor, dirs: torch.Tensor):
+        """One-op query: SH(dirs), then encode(both grids) + both MLP heads in
+        the fused step, then the activations -> (sigma (N,), rgb (N, 3)).
+        The reference falls back to `query_fused` for the NGP baseline; that
+        path (kernel #8) is not ported."""
+        if self._fused_step is None:
+            raise NotImplementedError(
+                "query_step on a non-decomposed field needs query_fused, which is not "
+                "ported yet")
+        sh = enc.sh_encoding(dirs, self.cfg.sh_degree)
+        out, raw = self._fused_step(points, sh, params["density_grid"],
+                                    params["color_grid"], params["density_mlp"],
+                                    params["color_mlp"])
+        return trunc_exp(out[..., 0]), torch.sigmoid(raw)

@@ -1,6 +1,6 @@
 """Staged render pipeline with occupancy-compacted field queries.
 
-The port of `repro.core.pipeline` for the serving path:
+The port of `repro.core.pipeline` for the serving and training paths:
 
     1. generate_samples   rays x ts -> world points, per-sample dirs
     2. cull               AABB test + occupancy-bitfield lookup -> live mask
@@ -9,14 +9,18 @@ The port of `repro.core.pipeline` for the serving path:
                           budget // B per ray, with per-sample deltas
     3. compact            stable argsort to a fixed budget, live points first
                           in Morton (Z-order) key order
-    4. shade              hash encode + MLPs on the compacted points only
+    4. shade              hash encode + MLPs on the compacted points only;
+                          with the fused path on, the one-op fused step
+                          (`Field.query_step`)
     5. scatter/composite  scatter sigma/rgb back to B x S, volume-render
 
 With ``budget=None`` the pipeline runs the dense path (query every point,
-zero the culled sigmas).  Forward only; v3 redistribution, `suggest_budget`
-and the fused shade come with later slices.  Integer stage outputs (Morton
-keys, the compaction order, the redistribute stratum index) match the
-reference exactly on the same inputs.
+zero the culled sigmas).  Every stage is differentiable in the params: the
+compacted scatter is an `index_copy` whose backward gathers the gradient
+back to the compacted sigma / rgb.  `suggest_budget` picks the pow2 point
+budget from a measured live fraction.  Integer stage outputs (Morton keys,
+the compaction order, the redistribute stratum index, the budget) match the
+reference exactly on the same inputs.  Stage 2b v3 is not ported.
 """
 from __future__ import annotations
 
@@ -41,6 +45,21 @@ def _cube_root(n: int) -> int:
         if cand > 0 and cand ** 3 == n:
             return cand
     raise ValueError(f"bitfield length {n} is not a cube")
+
+
+def suggest_budget(live_fraction: float, n_total: int, *, headroom: float = 1.3,
+                   min_budget: int = 512, max_budget: int | None = None) -> int:
+    """Pow2-bucketed point budget for a measured live fraction: the smallest
+    min_budget * 2^k at or above n_total * min(1, live_fraction * headroom),
+    capped at n_total and at `max_budget` (a hard per-step ceiling)."""
+    want = int(n_total * min(1.0, max(0.0, live_fraction) * headroom))
+    b = min_budget
+    while b < want:
+        b *= 2
+    b = min(b, n_total)
+    if max_budget is not None:
+        b = min(b, int(max_budget))
+    return b
 
 
 class CompactionPlan(NamedTuple):
@@ -84,14 +103,23 @@ class RenderPipeline:
     """Callable pipeline; the stages are methods so tests can hold each one
     against the reference.
 
+    fused_path / fused_step: route the compacted shade stage (budgeted branch
+    only) through the field's one-op fused step, `query_step`.  The dense
+    path always uses the plain per-grid `query`.  The reference's fused
+    encode without the fused step (`query_fused`, kernel #8) is not ported,
+    so fused_path with fused_step off raises when it shades.
+
     redistribute: adaptive ray marching (stage 2b, v2).  With a bitfield and
     a budget present, each ray's S samples are re-spent on its live strata,
     S' = budget // B per ray, placed by inverse CDF over the liveness of the
     uniform candidates; off, the stage never runs."""
 
-    def __init__(self, field, cfg: _r.RenderConfig, *, redistribute: bool = False):
+    def __init__(self, field, cfg: _r.RenderConfig, *, fused_path: bool = True,
+                 fused_step: bool = True, redistribute: bool = False):
         self.field = field
         self.cfg = cfg
+        self.fused_path = fused_path
+        self.fused_step = fused_path and fused_step and hasattr(field, "query_step")
         self.redistribute_on = redistribute
 
     # ---- stage 1: sample generation ----
@@ -158,8 +186,15 @@ class RenderPipeline:
 
     # ---- stage 4: shade ----
 
-    def shade(self, params, unit, dirs):
-        """Field query on (already compacted) unit coords -> (sigma, rgb)."""
+    def shade(self, params, unit, dirs, fused: bool = False):
+        """Field query on (already compacted) unit coords -> (sigma, rgb);
+        fused=True takes the one-op fused step."""
+        if fused:
+            if self.fused_step:
+                return self.field.query_step(params, unit, dirs)
+            raise NotImplementedError(
+                "the fused shade without the fused step needs query_fused, which is "
+                "not ported yet")
         return self.field.query(params, unit, dirs)
 
     # ---- stage 5: scatter + composite ----
@@ -219,13 +254,14 @@ class RenderPipeline:
                 plan = self.compact(live, budget, unit)
             with _trace.span("pipeline/shade", cat="pipeline",
                              args={"points": budget, "dense": False}):
-                sigma_c, rgb_c = self.shade(params, unit[plan.idx], flat_dirs[plan.idx])
-            # the plan's indices are unique, so the scatter is deterministic
-            sigma = torch.zeros((n,), dtype=sigma_c.dtype, device=sigma_c.device)
-            sigma.index_copy_(0, plan.idx,
-                              torch.where(plan.keep, sigma_c, torch.zeros_like(sigma_c)))
-            rgb = torch.zeros((n, 3), dtype=rgb_c.dtype, device=rgb_c.device)
-            rgb.index_copy_(0, plan.idx, rgb_c * plan.keep[:, None].to(rgb_c.dtype))
+                sigma_c, rgb_c = self.shade(params, unit[plan.idx], flat_dirs[plan.idx],
+                                            fused=self.fused_path)
+            # the plan's indices are unique, so the scatter is deterministic;
+            # its backward gathers the gradient back to sigma_c / rgb_c
+            sigma = torch.zeros((n,), dtype=sigma_c.dtype, device=sigma_c.device).index_copy(
+                0, plan.idx, torch.where(plan.keep, sigma_c, torch.zeros_like(sigma_c)))
+            rgb = torch.zeros((n, 3), dtype=rgb_c.dtype, device=rgb_c.device).index_copy(
+                0, plan.idx, rgb_c * plan.keep[:, None].to(rgb_c.dtype))
             n_live, overflow = plan.n_live, plan.overflow
             points_queried = budget
 

@@ -8,6 +8,7 @@ everything else is torch on an explicit device.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -22,6 +23,12 @@ class RenderConfig:
     aabb_max: float = 1.5
     white_background: bool = True
     stratified: bool = True
+
+
+class RayBatch(NamedTuple):
+    origins: torch.Tensor   # (B, 3)
+    dirs: torch.Tensor      # (B, 3) unit norm
+    rgb_gt: torch.Tensor    # (B, 3) ground-truth pixel colors (training only)
 
 
 # --- cameras -----------------------------------------------------------------
@@ -79,16 +86,21 @@ def _linspace(start: float, stop: float, num: int, device) -> torch.Tensor:
 
 
 def sample_ts(generator: torch.Generator | None, n_rays: int, cfg: RenderConfig,
-              device="cuda") -> torch.Tensor:
+              device="cuda", u: torch.Tensor | None = None) -> torch.Tensor:
     """Stratified sample distances (B, S) in [near, far].
 
-    One sample per uniform stratum of width (far - near)/S; with
-    generator=None the stratum midpoints (the deterministic serving path).
-    The redistribute stage (2b) reuses these samples' in-stratum jitter."""
+    One sample per uniform stratum of width (far - near)/S, at the in-stratum
+    fraction u: drawn from `generator`, or passed in ready-made as a (B, S)
+    tensor of U(0, 1) draws (the trainer's draw stream; tests pass the
+    reference's draws).  With neither, the stratum midpoints (the
+    deterministic serving path).  The redistribute stage (2b) reuses these
+    samples' in-stratum jitter."""
     s = cfg.n_samples
     edges = _linspace(cfg.near, cfg.far, s + 1, device)
     lo, hi = edges[:-1], edges[1:]
-    if cfg.stratified and generator is not None:
+    if cfg.stratified and u is not None:
+        u = u.to(device=device, dtype=torch.float32)
+    elif cfg.stratified and generator is not None:
         u = torch.rand((n_rays, s), generator=generator,
                        device=generator.device).to(device)
     else:

@@ -31,7 +31,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("hash_encode", "fused_mlp", "composite")
+SOURCES = ("hash_encode", "fused_mlp", "composite", "fused_step", "bum_scatter")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -39,6 +39,7 @@ NVCC_FLAGS = (
 
 LAUNCHES: dict[str, int] = {
     "hash_encode": 0, "fused_mlp2": 0, "fused_mlp3": 0, "composite": 0,
+    "fused_step_fwd": 0, "fused_step_bwd": 0, "bum_scatter": 0,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -132,15 +133,20 @@ def check_status(lib_name: str, status: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
 
 
-def require_cuda_f32(what: str, device: torch.device, **tensors) -> None:
-    """The kernels take f32, contiguous tensors on one CUDA device."""
+def require_cuda(what: str, device: torch.device, dtype: torch.dtype, **tensors) -> None:
+    """The kernels take contiguous tensors of one dtype on one CUDA device."""
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != device:
             raise ValueError(f"{what}: {name} is on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{what}: {name} is {t.dtype}, expected torch.float32")
+        if t.dtype != dtype:
+            raise ValueError(f"{what}: {name} is {t.dtype}, expected {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def require_cuda_f32(what: str, device: torch.device, **tensors) -> None:
+    """The kernels take f32, contiguous tensors on one CUDA device."""
+    require_cuda(what, device, torch.float32, **tensors)
 
 
 def stream_handle(device: torch.device) -> ctypes.c_void_p:

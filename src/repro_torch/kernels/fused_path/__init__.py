@@ -1,1 +1,1 @@
-"""Fused compacted path: for now only the Morton key the compact stage sorts by."""
+"""Fused compacted path: Morton keys and the shared corner geometry (plain versions)."""

@@ -1,0 +1,73 @@
+"""BUM-merged grid updates: sort, then merge runs and commit once per run.
+
+The port of `repro.kernels.grid_update.ops`.  `merged_scatter_add` is
+mathematically the naive duplicate scatter-add (`ref.scatter_add`) with the
+write collisions removed: the stream is stably sorted by address (a
+`torch.sort`, the glue that `jnp.argsort` is in the reference) and the
+commit merges each run of equal addresses into one write.  The commit goes
+by device: a CPU tensor to the plain `ref.segment_commit`, a CUDA tensor to
+the kernel (`kernel.bum_scatter`), which sums each run in stream order on
+one thread -- no float atomics, so the result is the same bits on every run.
+
+`windowed_scatter_add` is ported in its stacked form only: idx (W, M) and
+vals (W, M, F) are W per-step streams committed one after another in step
+order, each exactly as `merged_scatter_add` would commit it (the form the
+fused step's plain backward uses, one row per grid).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import kernel, ref
+
+
+def _commit(table, idx_s, vals_s):
+    """Merge-and-commit of a sorted stream into a copy of `table`."""
+    if table.device.type == "cuda":
+        return kernel.bum_scatter(table.clone(), idx_s.contiguous(),
+                                  vals_s.to(torch.float32).contiguous())
+    if table.device.type != "cpu":
+        raise ValueError(f"merged_scatter_add: no route for device {table.device}")
+    return ref.segment_commit(table, idx_s, vals_s)
+
+
+def _sort_updates(idx, vals, table_size: int, pad_to: int | None = None,
+                  presorted: bool = False):
+    """Sort the update stream by address (stable), and pad it to a multiple
+    of `pad_to` with spill-row (T) entries of value zero.  presorted=True
+    promises idx is already non-decreasing and skips the sort: a stable sort
+    of a sorted stream is the identity, so both give the same bits."""
+    if presorted:
+        idx_s, vals_s = idx, vals
+    else:
+        order = torch.sort(idx, stable=True).indices
+        idx_s, vals_s = idx[order], vals[order]
+    if pad_to is not None and idx.shape[0] % pad_to != 0:
+        pad = pad_to - idx.shape[0] % pad_to
+        idx_s = torch.cat([idx_s, torch.full((pad,), table_size, dtype=idx_s.dtype,
+                                             device=idx_s.device)])
+        vals_s = torch.cat([vals_s, torch.zeros((pad,) + tuple(vals.shape[1:]),
+                                                dtype=vals.dtype, device=vals.device)])
+    return idx_s, vals_s
+
+
+def merged_scatter_add(table: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+                       *, presorted: bool = False) -> torch.Tensor:
+    """table (T, F) += vals (M, F) at rows idx (M,) int64, BUM-merged; returns
+    a new table.  presorted=True promises idx is non-decreasing."""
+    idx_s, vals_s = _sort_updates(idx, vals, table.shape[0], presorted=presorted)
+    return _commit(table, idx_s, vals_s)
+
+
+def windowed_scatter_add(table: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+                         *, presorted: bool = False) -> torch.Tensor:
+    """Stacked per-step streams: idx (W, M), vals (W, M, F), committed window
+    by window in step order, each as `merged_scatter_add` commits it."""
+    if idx.ndim != 2:
+        raise NotImplementedError(
+            "windowed_scatter_add: only the stacked (W, M) form is ported; the "
+            "fixed-size chunking of one long stream is not")
+    out = table
+    for w in range(idx.shape[0]):
+        out = merged_scatter_add(out, idx[w], vals[w], presorted=presorted)
+    return out

@@ -1,18 +1,50 @@
 """Public volume-rendering composite: device dispatch.
 
-A CUDA tensor goes to the CUDA kernel, which returns `RenderOut` with
-``weights=None`` (the kernel never materialises them, as the Pallas kernel
-did not); a CPU tensor goes to the plain version, which returns the weights
-too.  Forward only.
+A CUDA tensor goes to the CUDA kernel through `Composite`, an autograd op
+whose backward is the reference's `_composite_bwd`
+(`repro.kernels.volume_render.ops`): the autograd of the plain version
+re-run on the saved inputs.  It returns `RenderOut` with ``weights=None``
+(the kernel never materialises them, as the Pallas kernel did not).  A CPU
+tensor goes to the plain version, differentiable as it is, which returns the
+weights too.
 """
 from __future__ import annotations
+
+import torch
 
 from . import kernel, ref
 
 
+class Composite(torch.autograd.Function):
+    """(sigma, rgb, deltas, ts) -> (color, depth, opacity); the forward runs
+    the kernel on CUDA tensors and the plain version on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, sigma, rgb, deltas, ts):
+        ctx.save_for_backward(sigma, rgb, deltas, ts)
+        if sigma.device.type == "cuda":
+            return kernel.composite(sigma, rgb, deltas, ts)
+        return ref.composite(sigma, rgb, deltas, ts)[:3]
+
+    @staticmethod
+    def backward(ctx, g_color, g_depth, g_opacity):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        if not wanted:
+            return None, None, None, None
+        with torch.enable_grad():
+            out = ref.composite(*inputs)[:3]
+            grads = iter(torch.autograd.grad(out, wanted, (g_color, g_depth, g_opacity),
+                                             allow_unused=True))
+        got = [next(grads) if t.requires_grad else None for t in inputs]
+        return tuple(torch.zeros_like(t) if t.requires_grad and gr is None else gr
+                     for t, gr in zip(inputs, got))
+
+
 def composite(sigma, rgb, deltas, ts) -> ref.RenderOut:
     if sigma.device.type == "cuda":
-        color, depth, opacity = kernel.composite(sigma, rgb, deltas, ts)
+        color, depth, opacity = Composite.apply(sigma, rgb, deltas, ts)
         return ref.RenderOut(color, depth, opacity, None)
     if sigma.device.type != "cpu":
         raise ValueError(f"composite: no route for device {sigma.device}")

@@ -1,22 +1,29 @@
-"""The phases of ``chip_smoke.py``: build, kernel parity, served main path.
+"""The phases of ``chip_smoke.py``: build, kernel parity, train, serve.
 
 Each phase takes an explicit device, so the CPU tests can rehearse the
-served path at a tiny size with ``device="cpu"``; `main` runs them all on
-the card and fails on anything wrong -- there is no CPU fallback.
+paths at a tiny size with ``device="cpu"``; `main` runs them all on the
+card and fails on anything wrong -- there is no CPU fallback.
 
 1. build: print the card's name and power limit, turn TF32 off, build the
-   kernels (one nvcc per source, all at once) and print the build seconds;
+   kernels (one nvcc per source, all at once) and print the build seconds
+   and ptxas's register / spill summary;
 2. parity: hold each kernel against its plain PyTorch version at the main
-   path's shapes, with the max abs error, its tolerance, the kernel's and
-   the plain version's time (CUDA events), and the least time the card could
-   take (`bound_ms`, from the bytes and operations this run's inputs need);
-3. main path: a `RenderService` serves 800x800 requests from a snapshot of
-   a `FieldConfig()` field (random weights from seed 0, occupancy from the
-   port's `occupancy.update`) on the redistributed and the dense route, plus
-   one level-1 preview, with the launch counters zeroed just before and read
-   just after; then the same service on a small image agrees with the plain
-   versions on the CPU;
-4. report: one JSON line ``{"kernels": [...]}`` and, last, the device line.
+   paths' shapes, with its error and tolerance, the kernel's and the plain
+   version's time (CUDA events), the least time the card could take
+   (`bound_ms`, from the bytes and operations this run's inputs need) and,
+   where one PyTorch call computes the same function, that call's time;
+3. training (this slice's main path): `Instant3DTrainer(Field(FieldConfig()),
+   TrainerConfig()).train(...)` for its 400 steps on the synthetic scene of
+   `build_dataset(0)` with 4 views held out, launch counters zeroed just
+   before and read just after; loss, ms per dense and per compacted step,
+   budgets, live fraction and held-out PSNR; then two short runs from one
+   seed must end byte-identical (params and Adam moments);
+4. serving (slice 1's main path): a `RenderService` serves 800x800 requests
+   from a snapshot of the trained params and occupancy on the redistributed
+   and the dense route plus one level-1 preview, counters zeroed just
+   before and read just after; then the same service on a small image
+   agrees with the plain versions on the CPU;
+5. report: one JSON line ``{"kernels": [...]}`` and, last, the device line.
 """
 from __future__ import annotations
 
@@ -30,13 +37,23 @@ import numpy as np
 import torch
 
 from . import kernels
+from .core import encoding as enc
 from .core import occupancy
 from .core.field import Field, FieldConfig
 from .core.rendering import RenderConfig, sphere_poses
-from .core.trainer import default_samples_per_ray
+from .core.trainer import Instant3DTrainer, TrainerConfig, default_samples_per_ray
+from .data.rays_dataset import RaySampler
+from .data.synthetic_scene import build_dataset
 from .kernels.fused_mlp import kernel as mlp_kernel
 from .kernels.fused_mlp import ref as mlp_ref
+from .kernels.fused_path import ref as fp_ref
+from .kernels.fused_step import kernel as fs_kernel
+from .kernels.fused_step import ops as fs_ops
+from .kernels.fused_step import ref as fs_ref
+from .kernels.grid_update import kernel as gu_kernel
+from .kernels.grid_update import ref as gu_ref
 from .kernels.hash_encode import kernel as he_kernel
+from .kernels.hash_encode import ops as he_ops
 from .kernels.hash_encode import ref as he_ref
 from .kernels.volume_render import kernel as vr_kernel
 from .kernels.volume_render import ref as vr_ref
@@ -61,15 +78,48 @@ KERNELS = {
     "composite": {
         "route": "cuda", "source": "src/repro_torch/csrc/composite.cu",
         "replaces": "src/repro/kernels/volume_render/kernel.py:35"},
+    "fused_step_fwd": {
+        "route": "cuda", "source": "src/repro_torch/csrc/fused_step.cu",
+        "replaces": "src/repro/kernels/fused_step/kernel.py:122"},
+    "fused_step_bwd": {
+        "route": "cuda", "source": "src/repro_torch/csrc/fused_step.cu",
+        "replaces": "src/repro/kernels/fused_step/kernel.py:266"},
+    "bum_scatter": {
+        "route": "cuda", "source": "src/repro_torch/csrc/bum_scatter.cu",
+        "replaces": "src/repro/kernels/grid_update/kernel.py:69"},
 }
+TRAIN_KERNELS = ("fused_step_fwd", "fused_step_bwd", "bum_scatter")
+SERVE_KERNELS = ("hash_encode", "fused_mlp2", "fused_mlp3", "composite")
 
-# Max abs error allowed between a kernel and its plain version on the card.
-# The two sum in different orders and the kernels contract multiply-adds
-# into FMAs: an 8-corner sum of values in [-1, 1] (hash encode) and the MLPs'
-# O(1) outputs stay within 1e-5; the composite's depth sums 48 terms of
-# w * t with t up to 6, so its bound is 5e-5.
+# Error allowed between a kernel and its plain version on the card, in the
+# measure each case reports as `err`.  The two sum in different orders and
+# the kernels contract multiply-adds into FMAs.  Max abs error: an 8-corner
+# sum of values in [-1, 1] (hash encode) and the MLPs' O(1) outputs stay
+# within 1e-5, the fused step's outputs too; the composite's depth sums 48
+# terms of w * t with t up to 6, so its bound is 5e-5.  The fused backward
+# (relative: max abs error over max |value|) sums each table row's updates
+# block by block where the plain version sums them in one stream (1e-5 of
+# the largest table gradient) and its MLP gradients over blocks of 64
+# points (1e-4).  bum_scatter sums each run in stream order, as the plain
+# version does on the CPU, so it is exact; 1e-6 of the largest value is
+# what it is held to.
 TOLERANCE = {"hash_encode": 1e-5, "fused_mlp2": 1e-5, "fused_mlp3": 1e-5,
-             "composite": 5e-5}
+             "composite": 5e-5, "fused_step_fwd": 1e-5, "fused_step_bwd": 1e-4,
+             "bum_scatter": 1e-6}
+BWD_TABLE_TOL = 1e-5        # relative, the fused backward's table gradients
+
+# The training main path: TrainerConfig() on build_dataset(0)'s defaults
+# (24 views, 64x64), the first HELD_OUT views held out for the PSNR gate.
+HELD_OUT = 4
+MIN_PSNR_DB = 20.0
+# Two runs of this many steps from one seed must end byte-identical; the
+# first compacted step of TrainerConfig() is step 96 (the live fraction is
+# first measured at the fold after step 95), so 104 covers both routes.
+DETERMINISM_STEPS = 104
+# The compacted shade's budget at the parity cases (2^15, the bucket of a
+# ~0.5 live fraction at 1024 rays x 48 samples) and the dense step's points.
+PARITY_BUDGET = 32768
+DENSE_POINTS = 1024 * 48
 
 # The served image: NeRF-Synthetic size, 50 degree field of view
 # (`repro.data.synthetic_scene`: focal = 0.5 * w / tan(25 deg)).
@@ -139,6 +189,17 @@ def _max_err(a, b) -> float:
     if isinstance(a, torch.Tensor):
         a, b = (a,), (b,)
     return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def _rel_err(a, b) -> float:
+    """Max abs error over the largest |value| of the plain version."""
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _same_nonzero_rows(a, b) -> bool:
+    """Whether two gradient tables have nonzero entries in the same rows."""
+    rows = lambda t: t.reshape(-1, t.shape[-1]).ne(0).any(dim=-1)  # noqa: E731
+    return bool(torch.equal(rows(a), rows(b)))
 
 
 # ---- phase 2: kernel parity ---------------------------------------------------
@@ -211,6 +272,143 @@ def _composite_case(gen, device, r, s, label):
     }
 
 
+def _fused_step_inputs(gen, device, n: int, field: Field):
+    """Morton-sorted points, SH of random unit dirs, tables U(-1, 1) and the
+    field's MLPs (He-uniform weights, biases U(-0.1, 0.1)) at its widths."""
+    cfg = field.cfg
+    pts = _uniform(gen, (n, 3), 0.0, 1.0 - 1e-6, device)
+    pts = pts[torch.sort(fp_ref.morton_key(pts), stable=True).indices].contiguous()
+    dirs = _uniform(gen, (n, 3), -1.0, 1.0, device)
+    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    sh = enc.sh_encoding(dirs, cfg.sh_degree).contiguous()
+    params = field.init(gen, device)
+    tables = []
+    for key in ("density_grid", "color_grid"):
+        tables.append(_uniform(gen, tuple(params[key].shape), -1.0, 1.0, device))
+    for key in ("density_mlp", "color_mlp"):
+        for name, t in params[key].items():
+            if name.startswith("b"):
+                params[key][name] = _uniform(gen, tuple(t.shape), -0.1, 0.1, device)
+    geometry = (field.density_enc.resolutions, field.density_enc.dense_flags,
+                field.color_enc.dense_flags)
+    return pts, sh, tables, params["density_mlp"], params["color_mlp"], geometry
+
+
+def _fused_counts(pts, tables, mlp_d, mlp_c, geometry):
+    """(bytes, flops) of one fused forward on these inputs: points read once,
+    each table row the points touch read once, every MLP parameter read
+    once; encode flops as hash_encode's for both grids plus 2 per MLP
+    multiply-add."""
+    n = pts.shape[0]
+    res, dense_d, dense_c = geometry
+    corners, _ = fp_ref.corner_geometry(pts, res)
+    rows = 0
+    for t, dense in zip(tables, (dense_d, dense_c)):
+        idx = fp_ref.level_indices(corners, res, t.shape[1], dense)
+        rows += int(torch.unique(fp_ref.address_stream(idx, t.shape[1])).numel())
+    levels, _, f = tables[0].shape
+    mlp_params = sum(t.numel() for t in list(mlp_d.values()) + list(mlp_c.values()))
+    macs = sum(mlp_d[k].numel() for k in ("w1", "w2")) + \
+        sum(mlp_c[k].numel() for k in ("w1", "w2", "w3"))
+    n_bytes = 4 * (n * 3 + rows * f + mlp_params)
+    n_flops = 2 * n * levels * (25 + 16 * f) + 2 * n * macs
+    return n_bytes, n_flops
+
+
+def _fused_step_fwd_case(gen, device, n: int, field: Field, label: str):
+    pts, sh, tables, mlp_d, mlp_c, geometry = _fused_step_inputs(gen, device, n, field)
+    pts[-4:] = -1.0                                     # sentinel rows
+    got = fs_kernel.fused_step_fwd(pts, sh, *tables, mlp_d, mlp_c, *geometry)
+    want = list(fs_ref.fused_step_ref(pts[:-4], sh[:-4], *tables, mlp_d, mlp_c, *geometry))
+    # a sentinel row reads row 0 at weight 0: its features are exactly zero
+    feat = tables[0].shape[0] * tables[0].shape[2]
+    zeros = torch.zeros((4, feat), device=device)
+    tail = fs_ref.mlp_heads(zeros, zeros, sh[-4:], mlp_d, mlp_c)
+    want = [torch.cat([w, t]) for w, t in zip(want, tail)]
+    n_bytes, n_flops = _fused_counts(pts[:-4], tables, mlp_d, mlp_c, geometry)
+    n_bytes += 4 * n * (sh.shape[1] + got[0].shape[1] + got[1].shape[1])
+    err = _max_err(got, want)
+    return {
+        "kernel": "fused_step_fwd", "case": label, "shape": [n, *tables[0].shape],
+        "max_abs_err": err, "err": err,
+        "ms": cuda_ms(lambda: fs_kernel.fused_step_fwd(pts, sh, *tables, mlp_d, mlp_c,
+                                                       *geometry)),
+        "plain_ms": cuda_ms(lambda: fs_ref.fused_step_ref(pts, sh, *tables, mlp_d, mlp_c,
+                                                          *geometry), iters=10),
+        "bound": bound(n_bytes, n_flops),
+    }
+
+
+def _fused_step_bwd_case(gen, device, n: int, field: Field, label: str):
+    """The backward kernel against the plain backward run on CPU copies (the
+    exact stream-order reference); the plain time is the plain backward on
+    the card, whose table commits go through bum_scatter."""
+    pts, sh, tables, mlp_d, mlp_c, geometry = _fused_step_inputs(gen, device, n, field)
+    g_d = _uniform(gen, (n, mlp_d["w2"].shape[1]), -1.0, 1.0, device)
+    g_c = _uniform(gen, (n, mlp_c["w3"].shape[1]), -1.0, 1.0, device)
+    run = lambda: fs_kernel.fused_step_bwd(pts, sh, g_d, g_c, *tables, mlp_d, mlp_c,  # noqa: E731
+                                           *geometry)
+    got = run()
+    cpu = lambda t: {k: v.cpu() for k, v in t.items()} if isinstance(t, dict) else t.cpu()  # noqa: E731
+    want = fs_ops._plain_backward(geometry, *(cpu(t) for t in (pts, sh, *tables, mlp_d, mlp_c,
+                                                                g_d, g_c)), (True, True))
+    table_err = max(_rel_err(g.cpu(), w) for g, w in zip(got[:2], want[:2]))
+    rows_same = all(_same_nonzero_rows(g.cpu(), w) for g, w in zip(got[:2], want[:2]))
+    mlp_err = max(_rel_err(got[k][name].cpu(), want[k][name])
+                  for k in (2, 3) for name in got[k])
+    sh_err = _rel_err(got[4].cpu(), want[4])
+    abs_err = max([_max_err(g.cpu(), w) for g, w in zip(got[:2], want[:2])] +
+                  [_max_err(got[k][name].cpu(), want[k][name])
+                   for k in (2, 3) for name in got[k]] + [_max_err(got[4].cpu(), want[4])])
+    n_bytes, n_flops = _fused_counts(pts, tables, mlp_d, mlp_c, geometry)
+    # plus the cotangents and SH read, the gradient tables, MLP gradients and
+    # d_sh written once; the backward's multiply-adds are twice the forward's
+    n_bytes += 4 * (g_d.numel() + g_c.numel() + 2 * sh.numel()
+                    + sum(t.numel() for t in tables)
+                    + sum(t.numel() for t in list(mlp_d.values()) + list(mlp_c.values())))
+    n_flops *= 3
+    plain = lambda: fs_ops._plain_backward(geometry, pts, sh, *tables, mlp_d, mlp_c,  # noqa: E731
+                                           g_d, g_c, (True, True))
+    return {
+        "kernel": "fused_step_bwd", "case": label, "shape": [n, *tables[0].shape],
+        "max_abs_err": abs_err, "err": max(mlp_err, sh_err), "table_rel_err": table_err,
+        "nonzero_rows_equal": rows_same,
+        "ok": rows_same and table_err <= BWD_TABLE_TOL
+        and max(mlp_err, sh_err) <= TOLERANCE["fused_step_bwd"],
+        "ms": cuda_ms(run, iters=20),
+        "plain_ms": cuda_ms(plain, iters=5, warmup=2),
+        "bound": bound(n_bytes, n_flops),
+    }
+
+
+def _bum_scatter_case(gen, device, n: int, enc, label: str):
+    """A dense step's table-gradient stream of one grid: N points x 8 corners
+    x L levels, sorted; the kernel against the plain merge on CPU copies."""
+    cfg = enc.cfg
+    pts = _uniform(gen, (n, 3), 0.0, 1.0 - 1e-6, device)
+    grad = _uniform(gen, (n, cfg.n_levels, cfg.n_features), -1.0, 1.0, device)
+    idx, vals = he_ops.corner_updates(pts, enc.resolutions, enc.dense_flags,
+                                      cfg.table_size, grad)
+    order = torch.sort(idx, stable=True).indices
+    idx_s, vals_s = idx[order].contiguous(), vals[order].contiguous()
+    table = torch.zeros((cfg.n_levels * cfg.table_size, cfg.n_features), device=device)
+    got = gu_kernel.bum_scatter(table.clone(), idx_s, vals_s)
+    want = gu_ref.segment_commit(table.cpu(), idx_s.cpu(), vals_s.cpu())
+    exact = bool(torch.equal(got.cpu(), want))
+    rows = int(torch.unique(idx_s).numel())
+    m, f = idx_s.shape[0], cfg.n_features
+    scratch = table.clone()
+    return {
+        "kernel": "bum_scatter", "case": label, "shape": [m, *table.shape],
+        "max_abs_err": _max_err(got.cpu(), want), "err": _rel_err(got.cpu(), want),
+        "exact": exact, "nonzero_rows_equal": _same_nonzero_rows(got.cpu(), want),
+        "ms": cuda_ms(lambda: gu_kernel.bum_scatter(scratch, idx_s, vals_s)),
+        "plain_ms": cuda_ms(lambda: gu_ref.segment_commit(table, idx_s, vals_s), iters=10),
+        "library_ms": cuda_ms(lambda: scratch.index_add_(0, idx_s, vals_s)),
+        "bound": bound(m * (8 + 4 * f) + 2 * 4 * f * rows, m * f),
+    }
+
+
 def kernel_parity(device, field_cfg: FieldConfig = FieldConfig(),
                   render_cfg: RenderConfig = RenderConfig(), seed: int = 0) -> list[dict]:
     """Every kernel against its plain version at the main path's shapes:
@@ -235,7 +433,26 @@ def kernel_parity(device, field_cfg: FieldConfig = FieldConfig(),
     cases.append(_composite_case(gen, device, EVAL_CHUNK, s_red,
                                  f"redistributed, S={s_red}"))
     cases.append(_composite_case(gen, device, EVAL_CHUNK, s, f"dense, S={s}"))
+    cases.extend(train_kernel_parity(device, field_cfg, seed=seed))
     return cases
+
+
+def train_kernel_parity(device, field_cfg: FieldConfig = FieldConfig(),
+                        budget: int = PARITY_BUDGET, dense_points: int = DENSE_POINTS,
+                        seed: int = 0) -> list[dict]:
+    """The training slice's kernels at the training path's shapes: the fused
+    step forward and backward at a compacted step's budget, and bum_scatter
+    on a dense step's stream of each grid."""
+    gen = torch.Generator().manual_seed(seed + 1)
+    field = Field(field_cfg)
+    return [
+        _fused_step_fwd_case(gen, device, budget, field, f"budget {budget}"),
+        _fused_step_bwd_case(gen, device, budget, field, f"budget {budget}"),
+        _bum_scatter_case(gen, device, dense_points, field.density_enc,
+                          f"density grid, N={dense_points}"),
+        _bum_scatter_case(gen, device, dense_points, field.color_enc,
+                          f"color grid, N={dense_points}"),
+    ]
 
 
 # ---- phase 3: the served main path ---------------------------------------------
@@ -248,10 +465,7 @@ def make_snapshot_store(device, field_cfg: FieldConfig, occ_cfg, seed: int = 0):
     params = field.init(gen, device)
     state = occupancy.update(field, params, occupancy.init_state(occ_cfg, device),
                              occ_cfg, generator=gen)
-    store = SnapshotStore()
-    for sid in ("redist", "dense"):
-        store.publish(sid, params, step=1, occ=state)
-    return store
+    return snapshot_store(params, state)
 
 
 def make_service(store, device, field_cfg, render_cfg, occ_cfg, hw: int,
@@ -320,6 +534,95 @@ def path_parity(store, device, field_cfg, render_cfg, occ_cfg, hw: int = 32,
     return out
 
 
+# ---- phase 3: the training main path -------------------------------------------
+
+def train_main_path(device, field_cfg: FieldConfig = FieldConfig(),
+                    cfg: TrainerConfig = TrainerConfig(), dataset: dict | None = None,
+                    held_out: int = HELD_OUT):
+    """Build the synthetic scene, train `cfg.iters` steps on all but the first
+    `held_out` views, evaluate those.  Launch counters are zeroed just before
+    the run and read just after (evaluation included).  Returns a dict with
+    the trainer, final state, history (every step logged), held-out PSNR,
+    launches and the per-route step times."""
+    _, ds = build_dataset(0, device=device, **(dataset or {}))
+    views = range(held_out, ds.images.shape[0])
+    sampler = RaySampler(ds, views=views, device=device)
+    trainer = Instant3DTrainer(Field(field_cfg), cfg, device=device)
+    state = trainer.init()
+    kernels.reset_launches()
+    state, hist = trainer.train(state, sampler, log_every=1)
+    evaluation = trainer.evaluate(state.params, ds, views=range(held_out))
+    if device != "cpu" and torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    # wall_s is read after each step's loss reached the host: its differences
+    # are step times
+    walls = np.diff(np.asarray([0.0] + hist["wall_s"])) * 1e3
+    dense = [w for w, b in zip(walls, hist["budget"]) if b is None]
+    compact = [w for w, b in zip(walls, hist["budget"]) if b is not None]
+    return {"trainer": trainer, "state": state, "hist": hist, "ds": ds,
+            "eval": evaluation, "launches": launches,
+            "dense_ms": dense, "compact_ms": compact}
+
+
+def check_training(run: dict) -> list[str]:
+    """What the training gate refuses: no step of a route, a non-finite
+    loss, held-out PSNR under MIN_PSNR_DB, a training kernel never launched."""
+    hist, problems = run["hist"], []
+    if not run["dense_ms"]:
+        problems.append("no dense steps")
+    if not run["compact_ms"]:
+        problems.append("no compacted steps")
+    if not all(np.isfinite(hist["loss"])):
+        problems.append("non-finite loss")
+    if not run["eval"]["psnr_rgb"] >= MIN_PSNR_DB:
+        problems.append(f"held-out PSNR {run['eval']['psnr_rgb']:.2f} dB < {MIN_PSNR_DB}")
+    missing = [k for k in TRAIN_KERNELS if run["launches"].get(k, 0) == 0]
+    if missing:
+        problems.append(f"training never launched {missing}")
+    return problems
+
+
+def _bits(tree) -> list[bytes]:
+    """Every leaf's raw bytes, in key order."""
+    from .optim.adamw import tree_paths
+    return [t.detach().cpu().contiguous().view(torch.int32).numpy().tobytes()
+            for _, t in tree_paths(tree)]
+
+
+def determinism(device, field_cfg: FieldConfig = FieldConfig(),
+                cfg: TrainerConfig = TrainerConfig(), steps: int = DETERMINISM_STEPS,
+                dataset: dict | None = None, held_out: int = HELD_OUT) -> dict:
+    """Two runs of `steps` steps from one seed: params and Adam moments must
+    be byte-identical."""
+    _, ds = build_dataset(0, device=device, **(dataset or {}))
+    sampler = RaySampler(ds, views=range(held_out, ds.images.shape[0]), device=device)
+    ends = []
+    for _ in range(2):
+        trainer = Instant3DTrainer(Field(field_cfg), cfg, device=device)
+        state, hist = trainer.train(trainer.init(), sampler, iters=steps, log_every=1)
+        ends.append((state, hist))
+    (a, ha), (b, _) = ends
+    return {
+        "steps": steps,
+        "params_equal": _bits(a.params) == _bits(b.params),
+        "moments_equal": _bits(a.opt_state.m) == _bits(b.opt_state.m)
+        and _bits(a.opt_state.v) == _bits(b.opt_state.v),
+        "occupancy_equal": _bits({"e": a.occ_state.density_ema}) == _bits(
+            {"e": b.occ_state.density_ema}),
+        "compacted_steps": sum(b is not None for b in ha["budget"]),
+    }
+
+
+def snapshot_store(params, occ_state) -> SnapshotStore:
+    """A store holding one snapshot of `params` and `occ_state` for each of
+    the sessions "redist" and "dense"."""
+    store = SnapshotStore()
+    for sid in ("redist", "dense"):
+        store.publish(sid, params, step=1, occ=occ_state)
+    return store
+
+
 # ---- the script ---------------------------------------------------------------
 
 def _ptxas_summary(logs: dict[str, str]) -> list[str]:
@@ -329,6 +632,47 @@ def _ptxas_summary(logs: dict[str, str]) -> list[str]:
             if re.search(r"Used \d+ registers|spill", line):
                 lines.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return lines
+
+
+def _print_case(c: dict, card: str) -> bool:
+    tol = TOLERANCE[c["kernel"]]
+    err = c.get("err", c["max_abs_err"])
+    ok = c.get("ok", err <= tol)
+    bound_ms, bound_by = c["bound"]
+    extra = ""
+    if "table_rel_err" in c:
+        extra += (f" table_rel_err {c['table_rel_err']:.3e} (tol {BWD_TABLE_TOL:.0e}) "
+                  f"nonzero_rows_equal {c['nonzero_rows_equal']}")
+    if "exact" in c:
+        extra += f" exact {c['exact']} nonzero_rows_equal {c['nonzero_rows_equal']}"
+    if c.get("library_ms") is not None:
+        extra += f"  library {c['library_ms']:.4f} ms"
+    print(f"parity {c['kernel']:<14} {c['case']:<28} err {err:.3e} (tol {tol:.0e}) "
+          f"max_abs_err {c['max_abs_err']:.3e}{extra} {'ok' if ok else 'FAIL'}  "
+          f"kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  "
+          f"bound {bound_ms:.4f} ms ({bound_by})  [{card}]", flush=True)
+    return ok
+
+
+def _print_training(run: dict, card: str) -> None:
+    hist = run["hist"]
+    for k in range(49, len(hist["step"]), 50):
+        print(f"train step {hist['step'][k]:>4} loss {hist['loss'][k]:.6f} "
+              f"live_fraction {hist['live_fraction'][k]:.4f} "
+              f"budget {hist['budget'][k]}")
+    budgets = sorted({b for b in hist["budget"] if b is not None})
+    for name in ("dense", "compact"):
+        ms = np.asarray(run[f"{name}_ms"])
+        if ms.size:
+            warm = ms[2:] if ms.size > 2 else ms
+            print(f"train {name} steps {ms.size}: median {np.median(warm):.3f} ms, "
+                  f"mean {warm.mean():.3f} ms (after the first 2), first {ms[0]:.1f} ms "
+                  f"[{card}]")
+    print(f"train budgets {budgets} first compacted step "
+          f"{next((s - 1 for s, b in zip(hist['step'], hist['budget']) if b), None)} "
+          f"occupancy folds {hist['occ_folds']} overflow_total {hist['overflow_total']}")
+    print(f"train held-out PSNR [{card}]: {json.dumps(run['eval'])}")
+    print(f"train-path launches: {json.dumps(run['launches'])}", flush=True)
 
 
 def main() -> int:
@@ -349,46 +693,47 @@ def main() -> int:
         print(f"ptxas {line}")
 
     cases = kernel_parity(device)
-    failed = []
-    for c in cases:
-        tol = TOLERANCE[c["kernel"]]
-        ok = c["max_abs_err"] <= tol
-        bound_ms, bound_by = c["bound"]
-        print(f"parity {c['kernel']:<11} {c['case']:<30} max_abs_err {c['max_abs_err']:.3e} "
-              f"(tol {tol:.0e}) {'ok' if ok else 'FAIL'}  kernel {c['ms']:.4f} ms  "
-              f"plain {c['plain_ms']:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})  "
-              f"[{card}]", flush=True)
-        if not ok:
-            failed.append(f"{c['kernel']} {c['case']}")
+    failed = [f"{c['kernel']} {c['case']}" for c in cases if not _print_case(c, card)]
     if failed:
         raise RuntimeError(f"kernel parity failed: {failed}")
 
+    # this slice's main path: training
+    t0 = time.perf_counter()
+    run = train_main_path(device)
+    print(f"train: {TrainerConfig().iters} steps + held-out eval in "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
+    _print_training(run, card)
+    problems = check_training(run)
+    if problems:
+        raise RuntimeError(f"training gate failed: {problems}")
+    det = determinism(device)
+    print(f"determinism: {json.dumps(det)}", flush=True)
+    if not (det["params_equal"] and det["moments_equal"] and det["occupancy_equal"]
+            and det["compacted_steps"] > 0):
+        raise RuntimeError(f"two runs from one seed differ: {det}")
+
+    # slice 1's main path: serving, from the trained snapshot
     field_cfg, render_cfg = FieldConfig(), RenderConfig()
     occ_cfg = occupancy.OccupancyConfig()
     n_requests = 4
-    kernels.reset_launches()
-    store = make_snapshot_store(device, field_cfg, occ_cfg, seed=0)
+    store = snapshot_store(run["state"].params, run["state"].occ_state)
     svc = make_service(store, device, field_cfg, render_cfg, occ_cfg, IMAGE_HW, EVAL_CHUNK)
-    rounds = []
-    for rnd in range(2):
-        t0 = time.perf_counter()
-        results = serve_requests(svc, IMAGE_HW, n_requests, seed=rnd)
-        rounds.append((time.perf_counter() - t0, results))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    results = serve_requests(svc, IMAGE_HW, n_requests, seed=0)
+    wall = time.perf_counter() - t0
     torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
-    missing = [k for k in KERNELS if launches.get(k, 0) == 0]
+    serve_launches = dict(kernels.LAUNCHES)
+    missing = [k for k in SERVE_KERNELS if serve_launches.get(k, 0) == 0]
     if missing:
-        raise RuntimeError(f"main path never launched: {missing} (counts {launches})")
-    for rnd, (wall, results) in enumerate(rounds):
-        print(f"round {rnd}: drained {len(results)} requests in {wall:.3f} s [{card}]")
-        for r in results:
-            print(f"  request {r.request_id} {r.session_id:<6} level {r.level} "
-                  f"{r.rgb.shape[0]}x{r.rgb.shape[1]} latency {r.latency_s * 1e3:.1f} ms "
-                  f"rgb [{r.rgb.min():.4f}, {r.rgb.max():.4f}] "
-                  f"depth mean {r.depth.mean():.4f}")
+        raise RuntimeError(f"serving never launched: {missing} (counts {serve_launches})")
+    print(f"serve: drained {len(results)} requests in {wall:.3f} s [{card}]")
+    for r in results:
+        print(f"  request {r.request_id} {r.session_id:<6} level {r.level} "
+              f"{r.rgb.shape[0]}x{r.rgb.shape[1]} latency {r.latency_s * 1e3:.1f} ms "
+              f"rgb [{r.rgb.min():.4f}, {r.rgb.max():.4f}] depth mean {r.depth.mean():.4f}")
     print(f"latency_stats [{card}]: {json.dumps(svc.latency_stats())}")
-    print(f"main-path launches: {json.dumps(launches)}")
-
+    print(f"serve-path launches: {json.dumps(serve_launches)}")
     agree = path_parity(store, device, field_cfg, render_cfg, occ_cfg)
     print(f"path vs plain versions on the CPU (32x32): {json.dumps(agree)}")
     for sid, e in agree.items():
@@ -398,19 +743,21 @@ def main() -> int:
     report = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == name]
-        head = mine[0]   # the served default: redistributed, S' = S/4, density grid
+        head = mine[0]   # the main path's default shape (first case of each kernel)
         report.append({
             "name": name, **meta,
-            "launches": launches[name],
+            "launches": run["launches"][name],
+            "launches_serve": serve_launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "err": max(c.get("err", c["max_abs_err"]) for c in mine),
             "tolerance": TOLERANCE[name],
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound"][0], "bound_by": head["bound"][1],
-            "library_ms": None,
+            "library_ms": head.get("library_ms"),
             "cases": [{"case": c["case"], "shape": c["shape"],
                        "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-                       "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0],
-                       "bound_by": c["bound"][1]} for c in mine],
+                       "plain_ms": c["plain_ms"], "library_ms": c.get("library_ms"),
+                       "bound_ms": c["bound"][0], "bound_by": c["bound"][1]} for c in mine],
         })
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,12 @@ installed.  Run on the card with
 
 Tolerances (max abs error): hash encode 1e-5 (8-corner sums of table values
 in [-1, 1], FMA-contracted in the kernel), MLPs 1e-5 (O(1) outputs),
-composite 5e-5 (48-term depth sums with t up to 6).
+composite 5e-5 (48-term depth sums with t up to 6), the fused step's
+forward 1e-5.  Gradients: within 1e-5 of the largest |value| for table
+gradients (the fused backward merges per block, the plain one per stream)
+and 1e-4 for MLP gradients (summed over blocks in another order), with the
+same nonzero rows; bum_scatter bit for bit against the plain merge on CPU
+copies (both sum each run in stream order).
 """
 import ctypes
 
@@ -20,6 +25,11 @@ from repro_torch.core.field import Field, FieldConfig
 from repro_torch.kernels.fused_mlp import kernel as mlp_kernel
 from repro_torch.kernels.fused_mlp import ops as mlp_ops
 from repro_torch.kernels.fused_mlp import ref as mlp_ref
+from repro_torch.kernels.fused_step import kernel as fs_kernel
+from repro_torch.kernels.fused_step import ops as fs_ops
+from repro_torch.kernels.fused_step import ref as fs_ref
+from repro_torch.kernels.grid_update import kernel as gu_kernel
+from repro_torch.kernels.grid_update import ref as gu_ref
 from repro_torch.kernels.hash_encode import kernel as he_kernel
 from repro_torch.kernels.hash_encode import ops as he_ops
 from repro_torch.kernels.hash_encode import ref as he_ref
@@ -127,3 +137,109 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(card):
     assert status != 0
     with pytest.raises(RuntimeError, match="CUDA error"):
         kernels.check_status("hash_encode", status, "hash_encode")
+
+
+def _rel(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _rows(t):
+    return t.reshape(-1, t.shape[-1]).ne(0).any(dim=-1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,t", [(6_291_456, 1 << 22), (1000, 64), (1, 8)])
+def test_bum_scatter_kernel_is_the_plain_merge_bit_for_bit(m, t, card):
+    gen = torch.Generator().manual_seed(m)
+    idx = torch.sort(torch.randint(0, t + 1, (m,), generator=gen)).values  # t = spill row
+    vals = torch.rand((m, 2), generator=gen) * 2 - 1
+    table = torch.rand((t, 2), generator=gen)
+    before = kernels.LAUNCHES["bum_scatter"]
+    got = gu_kernel.bum_scatter(table.to(card), idx.to(card), vals.to(card))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bum_scatter"] == before + 1
+    assert torch.equal(got.cpu(), gu_ref.segment_commit(table, idx, vals))
+
+
+def _step_inputs(gen, n, card, field):
+    pts = _u(gen, (n, 3), 0.0, 1.0 - 1e-6, card)
+    sh = _u(gen, (n, 16), -0.5, 0.5, card)
+    params = field.init(gen, card)
+    tables = [_u(gen, tuple(params[k].shape), -1, 1, card)
+              for k in ("density_grid", "color_grid")]
+    geometry = (field.density_enc.resolutions, field.density_enc.dense_flags,
+                field.color_enc.dense_flags)
+    return pts, sh, tables, params["density_mlp"], params["color_mlp"], geometry
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [8192, 77])
+def test_fused_step_kernels_match_plain(n, card):
+    field = Field(FieldConfig())
+    gen = torch.Generator().manual_seed(n)
+    pts, sh, tables, mlp_d, mlp_c, geometry = _step_inputs(gen, n, card, field)
+    got = fs_kernel.fused_step_fwd(pts, sh, *tables, mlp_d, mlp_c, *geometry)
+    want = fs_ref.fused_step_ref(pts, sh, *tables, mlp_d, mlp_c, *geometry)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5
+    g_d, g_c = _u(gen, got[0].shape, -1, 1, card), _u(gen, got[1].shape, -1, 1, card)
+    for need_color in (True, False):
+        before = kernels.LAUNCHES["fused_step_bwd"]
+        d_td, d_tc, d_md, d_mc, d_sh = fs_kernel.fused_step_bwd(
+            pts, sh, g_d, g_c, *tables, mlp_d, mlp_c, *geometry, need_color=need_color)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["fused_step_bwd"] == before + 1
+        cpu = lambda x: {k: v.cpu() for k, v in x.items()} if isinstance(x, dict) else x.cpu()  # noqa: E731
+        w_td, w_tc, w_md, w_mc, w_sh = fs_ops._plain_backward(
+            geometry, *(cpu(x) for x in (pts, sh, *tables, mlp_d, mlp_c, g_d, g_c)),
+            (True, need_color))
+        assert _rel(d_td.cpu(), w_td) <= 1e-5 and torch.equal(_rows(d_td.cpu()), _rows(w_td))
+        if need_color:
+            assert _rel(d_tc.cpu(), w_tc) <= 1e-5 and torch.equal(_rows(d_tc.cpu()), _rows(w_tc))
+        else:
+            assert d_tc is None and w_tc is None
+        for k in d_md:
+            assert _rel(d_md[k].cpu(), w_md[k]) <= 1e-4
+        for k in d_mc:
+            assert _rel(d_mc[k].cpu(), w_mc[k]) <= 1e-4
+        assert _rel(d_sh.cpu(), w_sh) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_dense_route_ops_backward_on_the_card(card):
+    """hash_encode (merged backward through bum_scatter), the MLPs and the
+    composite differentiate on CUDA tensors as their plain versions do on
+    the CPU."""
+    enc = Field(FieldConfig()).density_enc
+    gen = torch.Generator().manual_seed(3)
+    pts = torch.rand((4096, 3), generator=gen) * 0.999
+    tables = torch.rand((16, enc.cfg.table_size, 2), generator=gen) * 2 - 1
+    g = torch.rand((4096, 32), generator=gen)
+    grads = []
+    for dev in (card, "cpu"):
+        t = tables.to(dev).requires_grad_(True)
+        (he_ops.hash_encode(pts.to(dev), t, enc.resolutions, enc.dense_flags)
+         * g.to(dev)).sum().backward()
+        grads.append(t.grad.cpu())
+    assert _rel(grads[0], grads[1]) <= 1e-5 and torch.equal(_rows(grads[0]), _rows(grads[1]))
+    x = torch.rand((1000, 48), generator=gen)
+    ws = [torch.rand(sh, generator=gen) * 0.2 - 0.1
+          for sh in [(48, 64), (64,), (64, 64), (64,), (64, 3), (3,)]]
+    out = {}
+    for dev in (card, "cpu"):
+        leaves = [v.to(dev).requires_grad_(True) for v in (x, *ws)]
+        mlp_ops.mlp3(*leaves).square().sum().backward()
+        out[str(dev)] = [v.grad.cpu() for v in leaves]
+    for a, b in zip(out[str(card)], out["cpu"]):
+        assert _rel(a, b) <= 1e-4
+    sigma = torch.rand((64, 48), generator=gen) * 10
+    rgb = torch.rand((64, 48, 3), generator=gen)
+    ts = torch.sort(torch.rand((64, 48), generator=gen) * 4 + 2, dim=-1).values
+    deltas = torch.diff(ts, dim=-1, append=ts[:, -1:] + 4.0 / 48)
+    res = {}
+    for dev in (card, "cpu"):
+        s = sigma.to(dev).requires_grad_(True)
+        o = vr_ops.composite(s, rgb.to(dev), deltas.to(dev), ts.to(dev))
+        (o.color.sum() + o.opacity.sum()).backward()
+        res[str(dev)] = s.grad.cpu()
+    assert _rel(res[str(card)], res["cpu"]) <= 1e-4
