@@ -1,16 +1,17 @@
-"""Quickest proof that the PyTorch/CUDA port serves renders on an H100.
+"""Quickest proof that the PyTorch/CUDA port trains and serves on an H100.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
-against its plain PyTorch version at the main path's shapes, serves
-800x800 novel-view requests through ``repro_torch.serve3d.RenderService`` at
-the paper's field configuration, and prints one JSON line per kernel report
-and, last, the device line.  It exits non-zero, with no result, on any
-failure, and when no CUDA card is present.  The phases live in
-``src/repro_torch/smoke.py``.
+against its plain PyTorch version at the main paths' shapes, trains
+``TrainerConfig()`` for 400 steps on the paper's Instant-3D field and on
+its Instant-NGP baseline, serves 800x800 novel-view requests through
+``repro_torch.serve3d.RenderService`` from the trained snapshot, and prints
+one JSON line with every kernel's report and, last, the device line.  It
+exits non-zero, with no result, on any failure, and when no CUDA card is
+present.  The phases live in ``src/repro_torch/smoke.py``.
 """
 import sys
 from pathlib import Path

@@ -5,8 +5,11 @@ The JAX `Field.init` pytree is a dict with ``density_grid`` (L, T, F),
 {w1, b1, w2, b2, w3, b3}; the port keeps the same keys, shapes, dtypes and
 (d_in, d_out) layout, so conversion is a copy of every leaf through numpy.
 A snapshot's occupancy pair (density EMA (R^3,), fold count) and the AdamW
-state (step, m, v) convert the same way.  Inputs are anything `numpy.asarray` accepts (numpy arrays, or
-JAX arrays handed over by the caller); this module imports no JAX.
+state (step, m, v) convert the same way.  Inputs are anything
+`numpy.asarray` accepts (numpy arrays, or JAX arrays handed over by the
+caller); this module imports no JAX.  The converters to torch put the
+tensors on `device`, by default the card, as every entry point of the port
+does.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import numpy as np
 import torch
 
 
-def params_to_torch(tree, device="cpu"):
+def params_to_torch(tree, device="cuda"):
     """Nested dict of arrays -> the same dict of torch tensors on `device`."""
     if isinstance(tree, dict):
         return {k: params_to_torch(v, device) for k, v in tree.items()}
@@ -28,7 +31,7 @@ def params_to_numpy(tree):
     return tree.detach().cpu().numpy().copy()
 
 
-def occ_to_torch(occ, device="cpu") -> tuple[torch.Tensor, int]:
+def occ_to_torch(occ, device="cuda") -> tuple[torch.Tensor, int]:
     """(density_ema (R^3,), step) -> (tensor on `device`, int)."""
     ema, step = occ
     return torch.from_numpy(np.array(ema, copy=True)).to(device), int(np.asarray(step))
@@ -40,7 +43,7 @@ def occ_to_numpy(occ) -> tuple[np.ndarray, int]:
     return ema.detach().cpu().numpy().copy(), int(step)
 
 
-def opt_to_torch(opt, device="cpu"):
+def opt_to_torch(opt, device="cuda"):
     """The reference's AdamWState (step, m, v) -> the port's AdamWState: an
     int32 step tensor and the moments' dicts, on `device`."""
     from .optim import AdamWState

@@ -6,8 +6,10 @@ color grid (color grid + SH(dir) -> color MLP -> rgb); with
 ``decomposed=False`` one grid feeds both heads (Instant-NGP).  `init` builds
 a plain dict of tensors with the JAX package's keys and layout; `query`
 maps (params, points, dirs) -> (sigma, rgb), differentiable in the params;
-`query_step` runs the whole shade stage as the one-op fused step.
-`query_fused` (the fused encode, kernel #8) is not ported yet.
+`query_fused` encodes every grid in one fused pass (kernel #8, in-block
+deduplicated reads) before the MLP heads; `query_step` runs the whole shade
+stage as the one-op fused step, and falls back to `query_fused` for the
+Instant-NGP baseline.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 
 from . import encoding as enc
 from ..kernels.fused_mlp import ops as mlp_ops
+from ..kernels.fused_path import ops as fp_ops
 from ..kernels.fused_step import ops as fs_ops
 
 
@@ -57,7 +60,7 @@ class FieldConfig:
     hidden: int = 64
     geo_features: int = 15          # density MLP extra outputs
     sh_degree: int = 4
-    # what the fused step keeps between forward and backward; only the
+    # what the fused ops keep between forward and backward; only the
     # reference's default, "recompute", is ported
     residual_policy: str = "recompute"
 
@@ -88,12 +91,19 @@ class Field:
         self.density_enc = enc.HashEncoding(cfg.grid_cfg("density"))
         self.color_enc = enc.HashEncoding(cfg.grid_cfg("color")) if cfg.decomposed else None
         self.sh_dim = enc.sh_dim(cfg.sh_degree)
+        # the fused compacted-path encoder: every grid in one pass (shared
+        # corner geometry, presorted BUM backward)
+        sizes = [cfg.grid_cfg("density").table_size]
+        if cfg.decomposed:
+            sizes.append(cfg.grid_cfg("color").table_size)
+        self._fused_encode = fp_ops.make_fused_encode(
+            self.density_enc.resolutions, tuple(sizes), cfg.n_features,
+            residual_policy=cfg.residual_policy)
         # the one-op training step (encode both grids + both MLP heads);
         # decomposed fields only, as in the reference
         self._fused_step = fs_ops.make_fused_step(
-            self.density_enc.resolutions,
-            (cfg.grid_cfg("density").table_size, cfg.grid_cfg("color").table_size),
-            cfg.n_features, residual_policy=cfg.residual_policy,
+            self.density_enc.resolutions, tuple(sizes), cfg.n_features,
+            residual_policy=cfg.residual_policy,
         ) if cfg.decomposed else None
 
     # ---- params ----
@@ -128,28 +138,48 @@ class Field:
         out = mlp_ops.mlp2(h, m["w1"], m["b1"], m["w2"], m["b2"])
         return trunc_exp(out[..., 0]), out[..., 1:]
 
-    def query(self, params: dict, points: torch.Tensor, dirs: torch.Tensor):
-        """-> (sigma (N,), rgb (N, 3)).  dirs must be unit-norm."""
-        hd = self.density_enc(points, params["density_grid"])
+    def _mlp_heads(self, params: dict, hd: torch.Tensor, hc, dirs: torch.Tensor):
+        """Encodings -> (sigma, rgb).  hd: density features (N, L*F); hc:
+        color-grid features, or None for the NGP baseline (the color MLP then
+        eats the density head's geo features)."""
         m = params["density_mlp"]
         out = mlp_ops.mlp2(hd, m["w1"], m["b1"], m["w2"], m["b2"])
         sigma, geo = trunc_exp(out[..., 0]), out[..., 1:]
-        hc = (self.color_enc(points, params["color_grid"]) if self.cfg.decomposed
-              else geo)
-        cin = torch.cat([hc, enc.sh_encoding(dirs, self.cfg.sh_degree)], dim=-1)
+        cin = torch.cat([hc if hc is not None else geo,
+                         enc.sh_encoding(dirs, self.cfg.sh_degree)], dim=-1)
         m = params["color_mlp"]
         raw = mlp_ops.mlp3(cin, m["w1"], m["b1"], m["w2"], m["b2"], m["w3"], m["b3"])
         return sigma, torch.sigmoid(raw)
 
+    def query(self, params: dict, points: torch.Tensor, dirs: torch.Tensor):
+        """-> (sigma (N,), rgb (N, 3)).  dirs must be unit-norm."""
+        hd = self.density_enc(points, params["density_grid"])
+        hc = (self.color_enc(points, params["color_grid"]) if self.cfg.decomposed
+              else None)
+        return self._mlp_heads(params, hd, hc, dirs)
+
+    def query_fused(self, params: dict, points: torch.Tensor, dirs: torch.Tensor):
+        """Fused compacted-path query: every grid encoded in one pass with
+        shared corner geometry (kernel #8 on the card, one launch per grid),
+        whose backward commits each table gradient presorted, then the MLP
+        heads.  The same values and gradients as `query`; callers feed
+        Morton-ordered points for the kernel's dedup."""
+        if self.cfg.decomposed:
+            hd, hc = self._fused_encode(points, params["density_grid"],
+                                        params["color_grid"])
+        else:
+            (hd,) = self._fused_encode(points, params["density_grid"])
+            hc = None
+        return self._mlp_heads(params, hd, hc, dirs)
+
     def query_step(self, params: dict, points: torch.Tensor, dirs: torch.Tensor):
         """One-op query: SH(dirs), then encode(both grids) + both MLP heads in
         the fused step, then the activations -> (sigma (N,), rgb (N, 3)).
-        The reference falls back to `query_fused` for the NGP baseline; that
-        path (kernel #8) is not ported."""
+        Falls back to `query_fused` for the NGP baseline (one grid: the color
+        MLP eats the density head's geo features, which only the split path
+        wires), as the reference does."""
         if self._fused_step is None:
-            raise NotImplementedError(
-                "query_step on a non-decomposed field needs query_fused, which is not "
-                "ported yet")
+            return self.query_fused(params, points, dirs)
         sh = enc.sh_encoding(dirs, self.cfg.sh_degree)
         out, raw = self._fused_step(points, sh, params["density_grid"],
                                     params["color_grid"], params["density_mlp"],

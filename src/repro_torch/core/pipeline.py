@@ -10,7 +10,9 @@ The port of `repro.core.pipeline` for the serving and training paths:
     3. compact            stable argsort to a fixed budget, live points first
                           in Morton (Z-order) key order
     4. shade              hash encode + MLPs on the compacted points only;
-                          with the fused path on, the one-op fused step
+                          with the fused path on, the fused encode and the
+                          MLP heads (`Field.query_fused`), or with the fused
+                          step on too, the one-op fused step
                           (`Field.query_step`)
     5. scatter/composite  scatter sigma/rgb back to B x S, volume-render
 
@@ -103,11 +105,11 @@ class RenderPipeline:
     """Callable pipeline; the stages are methods so tests can hold each one
     against the reference.
 
-    fused_path / fused_step: route the compacted shade stage (budgeted branch
-    only) through the field's one-op fused step, `query_step`.  The dense
-    path always uses the plain per-grid `query`.  The reference's fused
-    encode without the fused step (`query_fused`, kernel #8) is not ported,
-    so fused_path with fused_step off raises when it shades.
+    fused_path: route the compacted shade stage (budgeted branch only)
+    through the field's fused encode, `query_fused` (kernel #8 on the card,
+    then the MLP heads); with fused_step also on, through the one-op fused
+    step, `query_step` (which the NGP baseline answers with `query_fused`).
+    The dense path always uses the plain per-grid `query`.
 
     redistribute: adaptive ray marching (stage 2b, v2).  With a bitfield and
     a budget present, each ray's S samples are re-spent on its live strata,
@@ -118,8 +120,8 @@ class RenderPipeline:
                  fused_step: bool = True, redistribute: bool = False):
         self.field = field
         self.cfg = cfg
-        self.fused_path = fused_path
-        self.fused_step = fused_path and fused_step and hasattr(field, "query_step")
+        self.fused_path = fused_path and hasattr(field, "query_fused")
+        self.fused_step = self.fused_path and fused_step and hasattr(field, "query_step")
         self.redistribute_on = redistribute
 
     # ---- stage 1: sample generation ----
@@ -188,13 +190,12 @@ class RenderPipeline:
 
     def shade(self, params, unit, dirs, fused: bool = False):
         """Field query on (already compacted) unit coords -> (sigma, rgb);
-        fused=True takes the one-op fused step."""
+        fused=True takes the fused encode (`query_fused`), or the one-op
+        fused step (`query_step`) when the pipeline's fused_step is on."""
         if fused:
             if self.fused_step:
                 return self.field.query_step(params, unit, dirs)
-            raise NotImplementedError(
-                "the fused shade without the fused step needs query_fused, which is "
-                "not ported yet")
+            return self.field.query_fused(params, unit, dirs)
         return self.field.query(params, unit, dirs)
 
     # ---- stage 5: scatter + composite ----

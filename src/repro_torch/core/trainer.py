@@ -155,7 +155,9 @@ class TrainerConfig:
     compact: bool = True
     budget_headroom: float = 1.3
     min_budget: int = 512
-    # compacted shade through the one-op fused step (query_step)
+    # compacted shade through the fused encode (query_fused), and with
+    # fused_step also on through the one-op fused step (query_step; the NGP
+    # baseline answers it with query_fused)
     fused_path: bool = True
     fused_step: bool = True
     # stage 2b v2 (uniform S' per ray); v3 is not ported

@@ -298,26 +298,6 @@ struct BwdLayout {
     }
 };
 
-// Bitonic sort of kSort 64-bit keys in shared memory by the whole block.
-__device__ void bitonic_sort(unsigned long long* keys) {
-    for (int k = 2; k <= kSort; k <<= 1) {
-        for (int j = k >> 1; j > 0; j >>= 1) {
-            for (int t = threadIdx.x; t < kSort; t += blockDim.x) {
-                const int u = t ^ j;
-                if (u > t) {
-                    const unsigned long long a = keys[t], b = keys[u];
-                    const bool ascending = (t & k) == 0;
-                    if ((a > b) == ascending) {
-                        keys[t] = b;
-                        keys[u] = a;
-                    }
-                }
-            }
-            __syncthreads();
-        }
-    }
-}
-
 // One (level, grid) of the in-block BUM: the sorted keys (address << 32 |
 // stream position p*8 + c) become one (address + l*T, run sum) entry at each
 // run start's slot and a spill entry everywhere else.
@@ -522,13 +502,13 @@ fused_step_bwd_kernel(const float* __restrict__ points, const float* __restrict_
         __syncthreads();
         const size_t slot = (static_cast<size_t>(blockIdx.x) * d.levels + l) * kSort;
         if (addr_d != nullptr) {
-            bitonic_sort(keys_d);
+            bitonic_sort<kSort>(keys_d);
             commit_runs<F>(keys_d, cw, GHD, lay.ld_xd, l, d.table_d,
                            static_cast<long long>(d.levels) * d.table_d,
                            addr_d + slot, val_d + slot * F);
         }
         if (addr_c != nullptr) {
-            bitonic_sort(keys_c);
+            bitonic_sort<kSort>(keys_c);
             commit_runs<F>(keys_c, cw, GHC, lay.ld_xd, l, d.table_c,
                            static_cast<long long>(d.levels) * d.table_c,
                            addr_c + slot, val_c + slot * F);

@@ -1,1 +1,2 @@
-"""Fused compacted path: Morton keys and the shared corner geometry (plain versions)."""
+"""Fused compacted path: Morton keys, the shared corner geometry and the fused
+encode (plain version, CUDA kernel, autograd op)."""

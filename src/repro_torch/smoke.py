@@ -1,4 +1,5 @@
-"""The phases of ``chip_smoke.py``: build, kernel parity, train, serve.
+"""The phases of ``chip_smoke.py``: build, kernel parity, train (Instant-3D
+and the Instant-NGP baseline), serve.
 
 Each phase takes an explicit device, so the CPU tests can rehearse the
 paths at a tiny size with ``device="cpu"``; `main` runs them all on the
@@ -12,21 +13,33 @@ card and fails on anything wrong -- there is no CPU fallback.
    version's time (CUDA events), the least time the card could take
    (`bound_ms`, from the bytes and operations this run's inputs need) and,
    where one PyTorch call computes the same function, that call's time;
-3. training (this slice's main path): `Instant3DTrainer(Field(FieldConfig()),
+   for the fused encode also its distinct reads per (block, level) against
+   the plain count.  Then the fused encode's table gradients must equal the
+   hash encode's bit for bit for one fixed upstream gradient;
+3. training (slice 2's main path): `Instant3DTrainer(Field(FieldConfig()),
    TrainerConfig()).train(...)` for its 400 steps on the synthetic scene of
    `build_dataset(0)` with 4 views held out, launch counters zeroed just
    before and read just after; loss, ms per dense and per compacted step,
    budgets, live fraction and held-out PSNR; then two short runs from one
-   seed must end byte-identical (params and Adam moments);
+   seed must end byte-identical (params, Adam moments, occupancy EMA); then
+   one compacted step on the split route (`fused_step=False`: the fused
+   encode, then the MLPs) against the one-op step, same params and batch;
+3b. training the Instant-NGP baseline (this slice's main path):
+   `FieldConfig(decomposed=False)` with `TrainerConfig()`, the same run and
+   gates, its compacted steps through the fused encode (kernel #8) and none
+   through the fused step; two short runs byte-identical;
 4. serving (slice 1's main path): a `RenderService` serves 800x800 requests
    from a snapshot of the trained params and occupancy on the redistributed
    and the dense route plus one level-1 preview, counters zeroed just
    before and read just after; then the same service on a small image
    agrees with the plain versions on the CPU;
-5. report: one JSON line ``{"kernels": [...]}`` and, last, the device line.
+5. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
+   summed over the three main paths, and per path) and, last, the device
+   line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -40,12 +53,14 @@ from . import kernels
 from .core import encoding as enc
 from .core import occupancy
 from .core.field import Field, FieldConfig
-from .core.rendering import RenderConfig, sphere_poses
-from .core.trainer import Instant3DTrainer, TrainerConfig, default_samples_per_ray
+from .core.rendering import RenderConfig, sample_ts, sphere_poses
+from .core.trainer import (Instant3DTrainer, TrainerConfig, default_draws,
+                           default_samples_per_ray)
 from .data.rays_dataset import RaySampler
 from .data.synthetic_scene import build_dataset
 from .kernels.fused_mlp import kernel as mlp_kernel
 from .kernels.fused_mlp import ref as mlp_ref
+from .kernels.fused_path import kernel as fp_kernel
 from .kernels.fused_path import ref as fp_ref
 from .kernels.fused_step import kernel as fs_kernel
 from .kernels.fused_step import ops as fs_ops
@@ -57,6 +72,7 @@ from .kernels.hash_encode import ops as he_ops
 from .kernels.hash_encode import ref as he_ref
 from .kernels.volume_render import kernel as vr_kernel
 from .kernels.volume_render import ref as vr_ref
+from .optim.adamw import tree_paths
 from .serve3d import RenderResult, RenderService, SnapshotStore
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
@@ -87,8 +103,14 @@ KERNELS = {
     "bum_scatter": {
         "route": "cuda", "source": "src/repro_torch/csrc/bum_scatter.cu",
         "replaces": "src/repro/kernels/grid_update/kernel.py:69"},
+    "fused_encode": {
+        "route": "cuda", "source": "src/repro_torch/csrc/fused_encode.cu",
+        "replaces": "src/repro/kernels/fused_path/kernel.py:66"},
 }
-TRAIN_KERNELS = ("fused_step_fwd", "fused_step_bwd", "bum_scatter")
+# (kernels a path must launch, kernels it must not) per main path
+TRAIN_KERNELS = (("fused_step_fwd", "fused_step_bwd", "bum_scatter"), ("fused_encode",))
+NGP_TRAIN_KERNELS = (("fused_encode", "bum_scatter", "hash_encode", "fused_mlp2",
+                      "fused_mlp3", "composite"), ("fused_step_fwd", "fused_step_bwd"))
 SERVE_KERNELS = ("hash_encode", "fused_mlp2", "fused_mlp3", "composite")
 
 # Error allowed between a kernel and its plain version on the card, in the
@@ -102,24 +124,40 @@ SERVE_KERNELS = ("hash_encode", "fused_mlp2", "fused_mlp3", "composite")
 # the largest table gradient) and its MLP gradients over blocks of 64
 # points (1e-4).  bum_scatter sums each run in stream order, as the plain
 # version does on the CPU, so it is exact; 1e-6 of the largest value is
-# what it is held to.
+# what it is held to.  The fused encode sums the same 8 corners as the hash
+# encode (1e-5); its distinct-read counts must equal the plain count and
+# its block dedup ratio the plain `dedup_stats` within 1e-12.
 TOLERANCE = {"hash_encode": 1e-5, "fused_mlp2": 1e-5, "fused_mlp3": 1e-5,
              "composite": 5e-5, "fused_step_fwd": 1e-5, "fused_step_bwd": 1e-4,
-             "bum_scatter": 1e-6}
+             "bum_scatter": 1e-6, "fused_encode": 1e-5}
 BWD_TABLE_TOL = 1e-5        # relative, the fused backward's table gradients
+DEDUP_RATIO_TOL = 1e-12
+# The split route (fused encode, then the MLPs) against the one-op step on
+# one compacted step: the fused backward merges table updates per block and
+# sums the MLP gradients over blocks of 64 points, the split route per
+# stream and in one matmul (relative to the one-op step's largest value).
+SPLIT_TABLE_TOL, SPLIT_MLP_TOL = 1e-5, 1e-4
 
 # The training main path: TrainerConfig() on build_dataset(0)'s defaults
 # (24 views, 64x64), the first HELD_OUT views held out for the PSNR gate.
 HELD_OUT = 4
 MIN_PSNR_DB = 20.0
-# Two runs of this many steps from one seed must end byte-identical; the
-# first compacted step of TrainerConfig() is step 96 (the live fraction is
-# first measured at the fold after step 95), so 104 covers both routes.
-DETERMINISM_STEPS = 104
+# Two runs from one seed must be byte-identical after each of these step
+# counts.  The live fraction is first measured at the fold after step 95, so
+# the first compacted step of TrainerConfig() is step 96 at the earliest: at
+# the Instant-3D field's live fraction (~0.1) it is, so 104 steps cover both
+# routes.  The Instant-NGP field's live fraction stays near 0.5 and its
+# first compacted step is 128 (the fold after step 127), so its runs go on
+# to 136.
+DETERMINISM_STEPS = (104,)
+NGP_DETERMINISM_STEPS = (104, 136)
 # The compacted shade's budget at the parity cases (2^15, the bucket of a
-# ~0.5 live fraction at 1024 rays x 48 samples) and the dense step's points.
+# ~0.5 live fraction at 1024 rays x 48 samples) and the dense step's points;
+# the fused encode's padded case: a size that is not a multiple of its
+# 256-point block, with sentinel rows at the end.
 PARITY_BUDGET = 32768
 DENSE_POINTS = 1024 * 48
+PADDED_POINTS, SENTINEL_ROWS = 30000, 4
 
 # The served image: NeRF-Synthetic size, 50 degree field of view
 # (`repro.data.synthetic_scene`: focal = 0.5 * w / tan(25 deg)).
@@ -188,7 +226,7 @@ def _uniform(gen, shape, lo, hi, device):
 def _max_err(a, b) -> float:
     if isinstance(a, torch.Tensor):
         a, b = (a,), (b,)
-    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+    return max(float((x - y).detach().abs().max()) for x, y in zip(a, b))
 
 
 def _rel_err(a, b) -> float:
@@ -409,6 +447,89 @@ def _bum_scatter_case(gen, device, n: int, enc, label: str):
     }
 
 
+def _morton_points(gen, n: int, device):
+    pts = _uniform(gen, (n, 3), 0.0, 1.0 - 1e-6, device)
+    return pts[torch.sort(fp_ref.morton_key(pts), stable=True).indices].contiguous()
+
+
+def _fused_encode_case(gen, device, n: int, enc, label: str, n_sentinel: int = 0):
+    """Kernel #8 against the plain fused encode on Morton-sorted points, the
+    last `n_sentinel` rows sentinels; its distinct reads per (block, level)
+    against the plain count on the valid rows, and its block dedup ratio
+    against `dedup_stats`."""
+    cfg = enc.cfg
+    res, dense = enc.resolutions, enc.dense_flags
+    pts = _morton_points(gen, n, device)
+    if n_sentinel:
+        pts[n - n_sentinel:] = -1.0
+    tables = _uniform(gen, (cfg.n_levels, cfg.table_size, cfg.n_features), -1.0, 1.0, device)
+    got, reads = fp_kernel.fused_encode(pts, tables, res, dense)
+    want = fp_ref.fused_encode(pts, tables, res, dense)
+    n_valid = n - n_sentinel
+    valid = pts[:n_valid]
+    corners, _ = fp_ref.corner_geometry(valid, res)
+    plain_reads = fp_ref.block_distinct_reads(
+        fp_ref.level_indices(corners, res, cfg.table_size, dense)).cpu()
+    reads = reads.cpu().to(torch.int64)
+    nb = plain_reads.shape[0]
+    stats = fp_ref.dedup_stats(valid, res, dense, cfg.table_size)
+    ratio = fp_ref.unique_ratio_block(reads[:nb], n_valid)
+    dedup = {
+        "reads_kernel": int(reads.sum()), "reads_plain": stats["unique_reads_block"],
+        "per_block_equal": bool(torch.equal(reads[:nb], plain_reads)
+                                and not reads[nb:].any()),
+        "unique_ratio_block_kernel": ratio, "unique_ratio_block_plain":
+            stats["unique_ratio_block"],
+        "unique_ratio_global": stats["unique_ratio_global"],
+    }
+    dedup["ok"] = (dedup["per_block_equal"]
+                   and dedup["reads_kernel"] == dedup["reads_plain"]
+                   and abs(ratio - stats["unique_ratio_block"]) <= DEDUP_RATIO_TOL)
+    err = _max_err(got, want)
+    sentinel_zero = not got[n_valid:].any()
+    f = cfg.n_features
+    n_bytes = 4 * (n * 3 + n * cfg.n_levels * f + stats["unique_reads_global"] * f)
+    n_flops = n_valid * cfg.n_levels * 8 * f * 2
+    return {
+        "kernel": "fused_encode", "case": label, "shape": [n, *tables.shape],
+        "max_abs_err": err, "dedup": dedup, "sentinel_rows_zero": sentinel_zero,
+        "ok": err <= TOLERANCE["fused_encode"] and dedup["ok"] and sentinel_zero,
+        "ms": cuda_ms(lambda: fp_kernel.fused_encode(pts, tables, res, dense)),
+        "plain_ms": cuda_ms(lambda: fp_ref.fused_encode(pts, tables, res, dense), iters=10),
+        "bound": bound(n_bytes, n_flops),
+    }
+
+
+def fused_encode_backward_identity(device, field_cfg: FieldConfig = FieldConfig(),
+                                   n: int = PARITY_BUDGET, seed: int = 0) -> dict:
+    """For one fixed upstream gradient, the fused encode's table gradients
+    (its recompute backward, presorted through bum_scatter) against the
+    hash encode's backward: bit for bit, for every grid of the field."""
+    gen = torch.Generator().manual_seed(seed + 2)
+    field = Field(field_cfg)
+    pts = _morton_points(gen, n, device)
+    encs = [field.density_enc] + ([field.color_enc] if field_cfg.decomposed else [])
+    tables = [_uniform(gen, (e.cfg.n_levels, e.cfg.table_size, e.cfg.n_features), -1.0, 1.0,
+                       device).requires_grad_(True) for e in encs]
+    g_outs = [_uniform(gen, (n, e.cfg.out_dim), -1.0, 1.0, device) for e in encs]
+
+    def grads(outs):
+        loss = sum((o * g).sum() for o, g in zip(outs, g_outs))
+        return torch.autograd.grad(loss, tables)
+
+    fused_outs = field._fused_encode(pts, *tables)
+    he_outs = [he_ops.hash_encode(pts, t, e.resolutions, e.dense_flags)
+               for t, e in zip(tables, encs)]
+    got, want = grads(fused_outs), grads(he_outs)
+    return {
+        "grids": ["density", "color"][:len(encs)], "n": n,
+        "bit_identical": [bool(torch.equal(a, b)) for a, b in zip(got, want)],
+        "nonzero_rows": [int(b.reshape(-1, b.shape[-1]).ne(0).any(dim=-1).sum())
+                         for b in want],
+        "forward_max_abs_err": _max_err(fused_outs, he_outs),
+    }
+
+
 def kernel_parity(device, field_cfg: FieldConfig = FieldConfig(),
                   render_cfg: RenderConfig = RenderConfig(), seed: int = 0) -> list[dict]:
     """Every kernel against its plain version at the main path's shapes:
@@ -430,6 +551,9 @@ def kernel_parity(device, field_cfg: FieldConfig = FieldConfig(),
                            f"density head, N={n_red}"))
     cases.append(_mlp_case(gen, device, n_red, (enc_dim + field.sh_dim, h, h, 3),
                            f"color head, N={n_red}"))
+    cases.append(_mlp_case(gen, device, PARITY_BUDGET,
+                           (field_cfg.geo_features + field.sh_dim, h, h, 3),
+                           f"NGP color head, N={PARITY_BUDGET}"))
     cases.append(_composite_case(gen, device, EVAL_CHUNK, s_red,
                                  f"redistributed, S={s_red}"))
     cases.append(_composite_case(gen, device, EVAL_CHUNK, s, f"dense, S={s}"))
@@ -440,12 +564,19 @@ def kernel_parity(device, field_cfg: FieldConfig = FieldConfig(),
 def train_kernel_parity(device, field_cfg: FieldConfig = FieldConfig(),
                         budget: int = PARITY_BUDGET, dense_points: int = DENSE_POINTS,
                         seed: int = 0) -> list[dict]:
-    """The training slice's kernels at the training path's shapes: the fused
-    step forward and backward at a compacted step's budget, and bum_scatter
-    on a dense step's stream of each grid."""
+    """The training slices' kernels at the training paths' shapes: the fused
+    encode at a compacted step's budget on each grid and at a padded size,
+    the fused step forward and backward at that budget, and bum_scatter on
+    a dense step's stream of each grid."""
     gen = torch.Generator().manual_seed(seed + 1)
     field = Field(field_cfg)
     return [
+        _fused_encode_case(gen, device, budget, field.density_enc,
+                           f"density grid, N={budget}"),
+        _fused_encode_case(gen, device, budget, field.color_enc, f"color grid, N={budget}"),
+        _fused_encode_case(gen, device, PADDED_POINTS, field.density_enc,
+                           f"density, N={PADDED_POINTS} ({SENTINEL_ROWS} sentinel)",
+                           n_sentinel=SENTINEL_ROWS),
         _fused_step_fwd_case(gen, device, budget, field, f"budget {budget}"),
         _fused_step_bwd_case(gen, device, budget, field, f"budget {budget}"),
         _bum_scatter_case(gen, device, dense_points, field.density_enc,
@@ -565,9 +696,12 @@ def train_main_path(device, field_cfg: FieldConfig = FieldConfig(),
             "dense_ms": dense, "compact_ms": compact}
 
 
-def check_training(run: dict) -> list[str]:
+def check_training(run: dict, kernels_of_path=TRAIN_KERNELS,
+                   min_psnr: float = MIN_PSNR_DB) -> list[str]:
     """What the training gate refuses: no step of a route, a non-finite
-    loss, held-out PSNR under MIN_PSNR_DB, a training kernel never launched."""
+    loss, held-out PSNR under `min_psnr`, a kernel of the path never
+    launched, or a kernel that is not on the path launched.
+    kernels_of_path = (must launch, must not launch)."""
     hist, problems = run["hist"], []
     if not run["dense_ms"]:
         problems.append("no dense steps")
@@ -575,43 +709,92 @@ def check_training(run: dict) -> list[str]:
         problems.append("no compacted steps")
     if not all(np.isfinite(hist["loss"])):
         problems.append("non-finite loss")
-    if not run["eval"]["psnr_rgb"] >= MIN_PSNR_DB:
-        problems.append(f"held-out PSNR {run['eval']['psnr_rgb']:.2f} dB < {MIN_PSNR_DB}")
-    missing = [k for k in TRAIN_KERNELS if run["launches"].get(k, 0) == 0]
+    if not run["eval"]["psnr_rgb"] >= min_psnr:
+        problems.append(f"held-out PSNR {run['eval']['psnr_rgb']:.2f} dB < {min_psnr}")
+    must, must_not = kernels_of_path
+    missing = [k for k in must if run["launches"].get(k, 0) == 0]
     if missing:
         problems.append(f"training never launched {missing}")
+    stray = [k for k in must_not if run["launches"].get(k, 0) != 0]
+    if stray:
+        problems.append(f"training launched {stray}, which are not on its path")
     return problems
 
 
 def _bits(tree) -> list[bytes]:
     """Every leaf's raw bytes, in key order."""
-    from .optim.adamw import tree_paths
     return [t.detach().cpu().contiguous().view(torch.int32).numpy().tobytes()
             for _, t in tree_paths(tree)]
 
 
 def determinism(device, field_cfg: FieldConfig = FieldConfig(),
-                cfg: TrainerConfig = TrainerConfig(), steps: int = DETERMINISM_STEPS,
+                cfg: TrainerConfig = TrainerConfig(), steps=DETERMINISM_STEPS,
                 dataset: dict | None = None, held_out: int = HELD_OUT) -> dict:
-    """Two runs of `steps` steps from one seed: params and Adam moments must
-    be byte-identical."""
+    """Two runs from one seed, compared after each step count in `steps`
+    (ascending; each run trains on from one count to the next): params,
+    Adam moments and occupancy EMA must be byte-identical at every one."""
     _, ds = build_dataset(0, device=device, **(dataset or {}))
     sampler = RaySampler(ds, views=range(held_out, ds.images.shape[0]), device=device)
-    ends = []
-    for _ in range(2):
-        trainer = Instant3DTrainer(Field(field_cfg), cfg, device=device)
-        state, hist = trainer.train(trainer.init(), sampler, iters=steps, log_every=1)
-        ends.append((state, hist))
-    (a, ha), (b, _) = ends
-    return {
-        "steps": steps,
-        "params_equal": _bits(a.params) == _bits(b.params),
-        "moments_equal": _bits(a.opt_state.m) == _bits(b.opt_state.m)
-        and _bits(a.opt_state.v) == _bits(b.opt_state.v),
-        "occupancy_equal": _bits({"e": a.occ_state.density_ema}) == _bits(
-            {"e": b.occ_state.density_ema}),
-        "compacted_steps": sum(b is not None for b in ha["budget"]),
-    }
+    trainers = [Instant3DTrainer(Field(field_cfg), cfg, device=device) for _ in range(2)]
+    states = [t.init() for t in trainers]
+    out = {"steps": list(steps), "params_equal": True, "moments_equal": True,
+           "occupancy_equal": True, "compacted_steps": 0}
+    for n in steps:
+        for k, trainer in enumerate(trainers):
+            states[k], hist = trainer.train(states[k], sampler, iters=n - states[k].step,
+                                            log_every=1)
+        out["compacted_steps"] += sum(b is not None for b in hist["budget"])
+        a, b = states
+        out["params_equal"] &= _bits(a.params) == _bits(b.params)
+        out["moments_equal"] &= (_bits(a.opt_state.m) == _bits(b.opt_state.m)
+                                 and _bits(a.opt_state.v) == _bits(b.opt_state.v))
+        out["occupancy_equal"] &= _bits({"e": a.occ_state.density_ema}) == _bits(
+            {"e": b.occ_state.density_ema})
+    return out
+
+
+def split_route_parity(device, run: dict, held_out: int = HELD_OUT) -> dict:
+    """One compacted step on the trained Instant-3D state: the split route
+    (`fused_step=False`: the fused encode, then the MLP heads) against the
+    one-op fused step, same params, batch, bitfield and budget.  Returns the
+    relative errors (max abs error over the one-op step's largest |value|)
+    and whether the same table rows carry a nonzero gradient."""
+    one_op = run["trainer"]
+    cfg, state = one_op.cfg, run["state"]
+    split = Instant3DTrainer(Field(one_op.field.cfg),
+                             dataclasses.replace(cfg, fused_step=False), device=device)
+    sampler = RaySampler(run["ds"], views=range(held_out, run["ds"].images.shape[0]),
+                         device=device)
+    ray_idx, u_ts, _ = default_draws(cfg, sampler.n)(state.step)
+    batch = sampler.gather(ray_idx)
+    ts = sample_ts(None, cfg.n_rays, cfg.render, device, u=u_ts)
+    budget = one_op._current_budget(use_bits=True)
+    if budget is None:
+        raise RuntimeError("the trained state's budget is the dense route")
+    kw = dict(freeze_color=False, freeze_density=False, budget=budget, use_bits=True)
+    ema = state.occ_state.density_ema
+    kernels.reset_launches()
+    _, want, _ = one_op.loss_and_grads(state.params, batch, ts, ema, **kw)
+    one_op_launches = dict(kernels.LAUNCHES)
+    kernels.reset_launches()
+    _, got, _ = split.loss_and_grads(state.params, batch, ts, ema, **kw)
+    split_launches = dict(kernels.LAUNCHES)
+    out = {"budget": budget, "table_rel_err": 0.0, "mlp_rel_err": 0.0,
+           "nonzero_rows_equal": True,
+           "fused_encode_launches": split_launches["fused_encode"],
+           "fused_step_launches": [one_op_launches["fused_step_fwd"],
+                                   split_launches["fused_step_fwd"]]}
+    want = dict(tree_paths(want))
+    for path, g in tree_paths(got):
+        w = want[path]
+        if path[0].endswith("grid"):
+            out["table_rel_err"] = max(out["table_rel_err"], _rel_err(g, w))
+            out["nonzero_rows_equal"] &= _same_nonzero_rows(g, w)
+        else:
+            out["mlp_rel_err"] = max(out["mlp_rel_err"], _rel_err(g, w))
+    out["ok"] = (out["table_rel_err"] <= SPLIT_TABLE_TOL and out["mlp_rel_err"] <= SPLIT_MLP_TOL
+                 and out["nonzero_rows_equal"])
+    return out
 
 
 def snapshot_store(params, occ_state) -> SnapshotStore:
@@ -645,6 +828,13 @@ def _print_case(c: dict, card: str) -> bool:
                   f"nonzero_rows_equal {c['nonzero_rows_equal']}")
     if "exact" in c:
         extra += f" exact {c['exact']} nonzero_rows_equal {c['nonzero_rows_equal']}"
+    if "dedup" in c:
+        d = c["dedup"]
+        extra += (f" distinct reads {d['reads_kernel']} (plain {d['reads_plain']}, per block "
+                  f"equal {d['per_block_equal']}) unique_ratio_block "
+                  f"{d['unique_ratio_block_kernel']:.6f} (plain "
+                  f"{d['unique_ratio_block_plain']:.6f}, tol {DEDUP_RATIO_TOL:.0e}) "
+                  f"sentinel rows zero {c['sentinel_rows_zero']}")
     if c.get("library_ms") is not None:
         extra += f"  library {c['library_ms']:.4f} ms"
     print(f"parity {c['kernel']:<14} {c['case']:<28} err {err:.3e} (tol {tol:.0e}) "
@@ -654,25 +844,52 @@ def _print_case(c: dict, card: str) -> bool:
     return ok
 
 
-def _print_training(run: dict, card: str) -> None:
+def _print_training(run: dict, card: str, name: str) -> None:
     hist = run["hist"]
     for k in range(49, len(hist["step"]), 50):
-        print(f"train step {hist['step'][k]:>4} loss {hist['loss'][k]:.6f} "
+        print(f"{name} step {hist['step'][k]:>4} loss {hist['loss'][k]:.6f} "
               f"live_fraction {hist['live_fraction'][k]:.4f} "
               f"budget {hist['budget'][k]}")
     budgets = sorted({b for b in hist["budget"] if b is not None})
-    for name in ("dense", "compact"):
-        ms = np.asarray(run[f"{name}_ms"])
+    for route in ("dense", "compact"):
+        ms = np.asarray(run[f"{route}_ms"])
         if ms.size:
-            warm = ms[2:] if ms.size > 2 else ms
-            print(f"train {name} steps {ms.size}: median {np.median(warm):.3f} ms, "
-                  f"mean {warm.mean():.3f} ms (after the first 2), first {ms[0]:.1f} ms "
+            print(f"{name} {route} steps {ms.size}: median {_warm_median(ms):.3f} ms, "
+                  f"mean {_warm(ms).mean():.3f} ms (after the first 2), first {ms[0]:.1f} ms "
                   f"[{card}]")
-    print(f"train budgets {budgets} first compacted step "
+    print(f"{name} budgets {budgets} first compacted step "
           f"{next((s - 1 for s, b in zip(hist['step'], hist['budget']) if b), None)} "
-          f"occupancy folds {hist['occ_folds']} overflow_total {hist['overflow_total']}")
-    print(f"train held-out PSNR [{card}]: {json.dumps(run['eval'])}")
-    print(f"train-path launches: {json.dumps(run['launches'])}", flush=True)
+          f"occupancy folds {len(hist['occ_folds'])} overflow_total {hist['overflow_total']}")
+    print(f"{name} held-out PSNR [{card}]: {json.dumps(run['eval'])}")
+    print(f"{name}-path launches: {json.dumps(run['launches'])}", flush=True)
+
+
+def _warm(ms: np.ndarray) -> np.ndarray:
+    return ms[2:] if ms.size > 2 else ms
+
+
+def _warm_median(ms) -> float:
+    ms = np.asarray(ms)
+    return float(np.median(_warm(ms))) if ms.size else float("nan")
+
+
+def _train_phase(device, field_cfg: FieldConfig, name: str, kernels_of_path, card: str,
+                 determinism_steps=DETERMINISM_STEPS):
+    """One training main path with its gates, then its determinism check."""
+    t0 = time.perf_counter()
+    run = train_main_path(device, field_cfg)
+    print(f"{name}: {TrainerConfig().iters} steps + held-out eval in "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
+    _print_training(run, card, name)
+    problems = check_training(run, kernels_of_path)
+    if problems:
+        raise RuntimeError(f"{name} gate failed: {problems}")
+    det = determinism(device, field_cfg, steps=determinism_steps)
+    print(f"{name} determinism: {json.dumps(det)}", flush=True)
+    if not (det["params_equal"] and det["moments_equal"] and det["occupancy_equal"]
+            and det["compacted_steps"] > 0):
+        raise RuntimeError(f"{name}: two runs from one seed differ: {det}")
+    return run
 
 
 def main() -> int:
@@ -696,21 +913,26 @@ def main() -> int:
     failed = [f"{c['kernel']} {c['case']}" for c in cases if not _print_case(c, card)]
     if failed:
         raise RuntimeError(f"kernel parity failed: {failed}")
+    ident = fused_encode_backward_identity(device)
+    print(f"fused_encode backward vs hash_encode backward: {json.dumps(ident)}", flush=True)
+    if not all(ident["bit_identical"]) or \
+            ident["forward_max_abs_err"] > TOLERANCE["fused_encode"]:
+        raise RuntimeError(f"fused encode gradients differ from hash encode's: {ident}")
 
-    # this slice's main path: training
-    t0 = time.perf_counter()
-    run = train_main_path(device)
-    print(f"train: {TrainerConfig().iters} steps + held-out eval in "
-          f"{time.perf_counter() - t0:.2f} s [{card}]")
-    _print_training(run, card)
-    problems = check_training(run)
-    if problems:
-        raise RuntimeError(f"training gate failed: {problems}")
-    det = determinism(device)
-    print(f"determinism: {json.dumps(det)}", flush=True)
-    if not (det["params_equal"] and det["moments_equal"] and det["occupancy_equal"]
-            and det["compacted_steps"] > 0):
-        raise RuntimeError(f"two runs from one seed differ: {det}")
+    # slice 2's main path: training Instant-3D, then its split route
+    run = _train_phase(device, FieldConfig(), "train", TRAIN_KERNELS, card)
+    split = split_route_parity(device, run)
+    print(f"split route vs one-op step (compacted, trained state): {json.dumps(split)} "
+          f"(tol tables {SPLIT_TABLE_TOL:.0e}, MLP {SPLIT_MLP_TOL:.0e} relative)", flush=True)
+    if not split["ok"] or split["fused_encode_launches"] == 0:
+        raise RuntimeError(f"the split route disagrees with the one-op step: {split}")
+    # this slice's main path: training the Instant-NGP baseline
+    ngp = _train_phase(device, FieldConfig(decomposed=False), "train_ngp",
+                       NGP_TRAIN_KERNELS, card, NGP_DETERMINISM_STEPS)
+    ratios = {route: _warm_median(run[f"{route}_ms"]) / _warm_median(ngp[f"{route}_ms"])
+              for route in ("dense", "compact")}
+    print(f"step time Instant-3D / Instant-NGP (median ms ratio): {json.dumps(ratios)} "
+          f"[{card}]", flush=True)
 
     # slice 1's main path: serving, from the trained snapshot
     field_cfg, render_cfg = FieldConfig(), RenderConfig()
@@ -740,14 +962,16 @@ def main() -> int:
         if e["rgb_max_abs_err"] > PATH_RGB_TOL or e["depth_max_abs_err"] > PATH_DEPTH_TOL:
             raise RuntimeError(f"served path disagrees with the plain versions on {sid}: {e}")
 
+    paths = {"train": run["launches"], "train_ngp": ngp["launches"], "serve": serve_launches}
     report = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == name]
         head = mine[0]   # the main path's default shape (first case of each kernel)
+        by_path = {p: counts[name] for p, counts in paths.items()}
         report.append({
             "name": name, **meta,
-            "launches": run["launches"][name],
-            "launches_serve": serve_launches[name],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "err": max(c.get("err", c["max_abs_err"]) for c in mine),
             "tolerance": TOLERANCE[name],
@@ -757,7 +981,8 @@ def main() -> int:
             "cases": [{"case": c["case"], "shape": c["shape"],
                        "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                        "plain_ms": c["plain_ms"], "library_ms": c.get("library_ms"),
-                       "bound_ms": c["bound"][0], "bound_by": c["bound"][1]} for c in mine],
+                       "bound_ms": c["bound"][0], "bound_by": c["bound"][1],
+                       **({"dedup": c["dedup"]} if "dedup" in c else {})} for c in mine],
         })
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

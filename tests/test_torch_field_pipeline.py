@@ -81,7 +81,7 @@ def snapshot():
 
 def test_bridge_round_trip_is_bit_exact():
     params = jax.tree.map(np.asarray, j_field.Field(J_FCFG).init(jax.random.PRNGKey(3)))
-    back = bridge.params_to_numpy(bridge.params_to_torch(params))
+    back = bridge.params_to_numpy(bridge.params_to_torch(params, "cpu"))
     leaves_a, tree_a = jax.tree_util.tree_flatten(params)
     leaves_b, tree_b = jax.tree_util.tree_flatten(back)
     assert tree_a == tree_b
@@ -89,7 +89,7 @@ def test_bridge_round_trip_is_bit_exact():
         assert a.dtype == b.dtype and a.shape == b.shape
         assert a.tobytes() == b.tobytes()
     ema = np.random.default_rng(0).uniform(0, 3, size=16 ** 3).astype(np.float32)
-    ema_b, step_b = bridge.occ_to_numpy(bridge.occ_to_torch((ema, np.int32(7))))
+    ema_b, step_b = bridge.occ_to_numpy(bridge.occ_to_torch((ema, np.int32(7)), "cpu"))
     assert ema_b.tobytes() == ema.tobytes() and step_b == 7
 
 
@@ -130,7 +130,7 @@ def test_field_query_and_density_match_jax(decomposed, rng):
     dirs = rng.normal(size=(400, 3)).astype(np.float32)
     dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
     jf, tf = j_field.Field(jcfg), t_field.Field(tcfg)
-    jp, tp = jax.tree.map(jnp.asarray, params), bridge.params_to_torch(params)
+    jp, tp = jax.tree.map(jnp.asarray, params), bridge.params_to_torch(params, "cpu")
     sig_j, rgb_j = jf.query(jp, jnp.asarray(pts), jnp.asarray(dirs))
     sig_t, rgb_t = tf.query(tp, _t(pts), _t(dirs))
     np.testing.assert_allclose(sig_t.numpy(), np.asarray(sig_j), atol=1e-5, rtol=1e-5)
@@ -150,7 +150,7 @@ def test_occupancy_update_and_bitfield_match_jax(snapshot):
     # the reference's jitter, handed to the port
     r3 = T_OCFG.resolution ** 3
     jitter = (jax.random.uniform(jax.random.PRNGKey(1), (r3, 3)) - 0.5) / T_OCFG.resolution
-    state = t_occ.update(t_field.Field(T_FCFG), bridge.params_to_torch(params),
+    state = t_occ.update(t_field.Field(T_FCFG), bridge.params_to_torch(params, "cpu"),
                          t_occ.init_state(T_OCFG, "cpu"), T_OCFG,
                          jitter=_t(np.asarray(jitter)))
     assert state.step == 1
@@ -287,7 +287,7 @@ def test_pipeline_renders_match_jax(route, snapshot):
         kw_t = dict(bitfield=tbits, budget=budget)
     want = jax.jit(lambda p, o_, d_, t_: jpipe(p, o_, d_, t_, **kw_j))(
         jax.tree.map(jnp.asarray, params), *(jnp.asarray(v) for v in (o, d, ts)))
-    got = tpipe(bridge.params_to_torch(params), _t(o), _t(d), _t(ts), **kw_t)
+    got = tpipe(bridge.params_to_torch(params, "cpu"), _t(o), _t(d), _t(ts), **kw_t)
     np.testing.assert_allclose(got["rgb"].numpy(), np.asarray(want["rgb"]), atol=1e-4)
     np.testing.assert_allclose(got["depth"].numpy(), np.asarray(want["depth"]), atol=5e-4)
     np.testing.assert_allclose(got["opacity"].numpy(), np.asarray(want["opacity"]), atol=1e-4)

@@ -38,6 +38,7 @@ from repro_torch.core import field as t_field
 from repro_torch.core import losses as t_losses
 from repro_torch.core.pipeline import suggest_budget as t_suggest_budget
 from repro_torch.kernels.fused_mlp import ops as t_mlp_ops
+from repro_torch.kernels.fused_path import kernel as t_fp_kernel
 from repro_torch.kernels.fused_path import ref as t_fp_ref
 from repro_torch.kernels.fused_step import kernel as t_fs_kernel
 from repro_torch.kernels.fused_step import ops as t_fs_ops
@@ -360,7 +361,7 @@ def test_adamw_matches_jax_and_masks_freeze_params_and_moments(rng):
     params = _param_tree(rng)
     jp = jax.tree.map(jnp.asarray, params)
     js = j_opt.init(jp)
-    tp = bridge.params_to_torch(params)
+    tp = bridge.params_to_torch(params, "cpu")
     ts = t_opt.init(tp)
     for step in range(4):
         grads = jax.tree.map(lambda a: rng.normal(size=a.shape).astype(np.float32)
@@ -370,7 +371,7 @@ def test_adamw_matches_jax_and_masks_freeze_params_and_moments(rng):
         mask["color_grid"] = step % 2 == 0
         jp, js = j_opt.apply(jp, jax.tree.map(jnp.asarray, grads), js, mask=mask)
         before_c = (ts.m["color_grid"].clone(), tp["color_grid"].clone())
-        tp, ts = t_opt.apply(tp, bridge.params_to_torch(grads), ts, mask=mask)
+        tp, ts = t_opt.apply(tp, bridge.params_to_torch(grads, "cpu"), ts, mask=mask)
         if not mask["color_grid"]:
             assert torch.equal(ts.m["color_grid"], before_c[0])
             assert torch.equal(tp["color_grid"], before_c[1])
@@ -384,7 +385,7 @@ def test_adamw_matches_jax_and_masks_freeze_params_and_moments(rng):
         np.testing.assert_allclose(got, np.asarray(want), rtol=1e-6, atol=1e-12)
     # the optimizer state converts both ways
     back = bridge.opt_to_torch((np.asarray(js.step), jax.tree.map(np.asarray, js.m),
-                                jax.tree.map(np.asarray, js.v)))
+                                jax.tree.map(np.asarray, js.v)), "cpu")
     assert int(back.step) == 4 and back.step.dtype == torch.int32
     np.testing.assert_array_equal(back.v["density_mlp"]["w1"].numpy(),
                                   np.asarray(js.v["density_mlp"]["w1"]))
@@ -425,3 +426,25 @@ def test_training_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="expected"):
         t_fs_kernel.fused_step_bwd(args[0], args[1], torch.zeros((4, 1)), torch.zeros((4, 1)),
                                    *args[2:])
+
+
+def test_fused_encode_wrapper_refuses_what_the_kernel_does_not_take():
+    """The fused encode's wrapper takes (N, 3) points and (L, T, F) tables,
+    f32, on the card; anything else raises, before anything is built."""
+    pts, tables = torch.zeros((8, 3)), torch.zeros((2, 16, 2))
+    with pytest.raises(ValueError, match="expected"):
+        t_fp_kernel.fused_encode(pts, tables, [2, 4], [1, 1])          # CPU tensors
+    with pytest.raises(ValueError, match="float32"):
+        t_fp_kernel.fused_encode(pts.double(), tables, [2, 4], [1, 1])
+    with pytest.raises(ValueError, match="float32"):
+        t_fp_kernel.fused_encode(pts, tables.half(), [2, 4], [1, 1])
+    with pytest.raises(ValueError, match=r"\(N, 3\)"):
+        t_fp_kernel.fused_encode(torch.zeros((8, 2)), tables, [2, 4], [1, 1])
+    with pytest.raises(ValueError, match=r"\(L, T, F\)"):
+        t_fp_kernel.fused_encode(pts, torch.zeros((16, 2)), [2, 4], [1, 1])
+    with pytest.raises(ValueError, match="power of two"):
+        t_fp_kernel.fused_encode(pts, torch.zeros((2, 12, 2)), [2, 4], [1, 1])
+    with pytest.raises(ValueError, match="F=3"):
+        t_fp_kernel.fused_encode(pts, torch.zeros((2, 16, 3)), [2, 4], [1, 1])
+    with pytest.raises(ValueError, match="levels"):
+        t_fp_kernel.fused_encode(pts, tables, [2], [1])

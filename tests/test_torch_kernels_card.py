@@ -9,7 +9,9 @@ installed.  Run on the card with
 Tolerances (max abs error): hash encode 1e-5 (8-corner sums of table values
 in [-1, 1], FMA-contracted in the kernel), MLPs 1e-5 (O(1) outputs),
 composite 5e-5 (48-term depth sums with t up to 6), the fused step's
-forward 1e-5.  Gradients: within 1e-5 of the largest |value| for table
+forward and the fused encode 1e-5; the fused encode's distinct reads per
+(block, level) exactly the plain count, and its table gradients the hash
+encode's bit for bit (the same products committed in the same order).  Gradients: within 1e-5 of the largest |value| for table
 gradients (the fused backward merges per block, the plain one per stream)
 and 1e-4 for MLP gradients (summed over blocks in another order), with the
 same nonzero rows; bum_scatter bit for bit against the plain merge on CPU
@@ -25,6 +27,8 @@ from repro_torch.core.field import Field, FieldConfig
 from repro_torch.kernels.fused_mlp import kernel as mlp_kernel
 from repro_torch.kernels.fused_mlp import ops as mlp_ops
 from repro_torch.kernels.fused_mlp import ref as mlp_ref
+from repro_torch.kernels.fused_path import kernel as fp_kernel
+from repro_torch.kernels.fused_path import ref as fp_ref
 from repro_torch.kernels.fused_step import kernel as fs_kernel
 from repro_torch.kernels.fused_step import ops as fs_ops
 from repro_torch.kernels.fused_step import ref as fs_ref
@@ -243,3 +247,59 @@ def test_dense_route_ops_backward_on_the_card(card):
         (o.color.sum() + o.opacity.sum()).backward()
         res[str(dev)] = s.grad.cpu()
     assert _rel(res[str(card)], res["cpu"]) <= 1e-4
+
+
+def _morton(pts):
+    return pts[torch.sort(fp_ref.morton_key(pts), stable=True).indices].contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("branch", ["density", "color"])
+@pytest.mark.parametrize("n", [32768, 1000])
+def test_fused_encode_kernel_matches_plain(branch, n, card):
+    """Kernel #8 against the plain fused encode, with sentinel rows at the
+    end; its distinct reads per (block, level) against the plain count."""
+    field = Field(FieldConfig())
+    enc = field.density_enc if branch == "density" else field.color_enc
+    gen = torch.Generator().manual_seed(n + 1)
+    cfg = enc.cfg
+    pts = _morton(_u(gen, (n, 3), 0.0, 1.0 - 1e-6, card))
+    pts[n - 3:] = -1.0                                    # sentinel rows
+    tables = _u(gen, (cfg.n_levels, cfg.table_size, cfg.n_features), -1, 1, card)
+    before = kernels.LAUNCHES["fused_encode"]
+    got, reads = fp_kernel.fused_encode(pts, tables, enc.resolutions, enc.dense_flags)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_encode"] == before + 1
+    want = fp_ref.fused_encode(pts, tables, enc.resolutions, enc.dense_flags)
+    assert float((got - want).abs().max()) <= 1e-5
+    assert not got[n - 3:].any()
+    corners, _ = fp_ref.corner_geometry(pts[:n - 3], enc.resolutions)
+    plain = fp_ref.block_distinct_reads(
+        fp_ref.level_indices(corners, enc.resolutions, cfg.table_size, enc.dense_flags))
+    assert reads.shape == (-(-n // 256), cfg.n_levels)
+    assert torch.equal(reads.to(torch.int64), plain)
+    assert int(reads.sum()) < 8 * cfg.n_levels * (n - 3)      # the dedup happened
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decomposed", [True, False])
+def test_fused_encode_gradients_are_hash_encode_bit_for_bit(decomposed, card):
+    field = Field(FieldConfig(decomposed=decomposed))
+    encs = [field.density_enc] + ([field.color_enc] if decomposed else [])
+    gen = torch.Generator().manual_seed(5)
+    n = 8192
+    pts = _morton(_u(gen, (n, 3), 0.0, 1.0 - 1e-6, card))
+    tables = [_u(gen, (16, e.cfg.table_size, 2), -1, 1, card).requires_grad_(True)
+              for e in encs]
+    g = [_u(gen, (n, 32), -1, 1, card) for _ in encs]
+    before = kernels.LAUNCHES["fused_encode"]
+    outs = field._fused_encode(pts, *tables)
+    assert kernels.LAUNCHES["fused_encode"] == before + len(encs)
+    got = torch.autograd.grad(sum((o * w).sum() for o, w in zip(outs, g)), tables)
+    he = [he_ops.hash_encode(pts, t, e.resolutions, e.dense_flags)
+          for t, e in zip(tables, encs)]
+    want = torch.autograd.grad(sum((o * w).sum() for o, w in zip(he, g)), tables)
+    for o, h in zip(outs, he):
+        assert float((o - h).detach().abs().max()) <= 1e-5
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

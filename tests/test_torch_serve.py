@@ -6,8 +6,11 @@ redistributed route, at levels 0 and 1; whole images must agree within
 1e-4 on rgb and 5e-4 on depth (depth lies in [2, 6]).  The rest holds the
 port's serving ladder (waiting, deadlines, retry, shedding, staleness,
 levels, telemetry) to the reference's contract, and rehearses the served
-main path of chip_smoke.py at a tiny size.
+main path of chip_smoke.py at a tiny size, and its training phases
+(Instant-3D, the split route, the Instant-NGP baseline).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +26,7 @@ from repro_torch import bridge, smoke
 from repro_torch.core import field as t_field
 from repro_torch.core import occupancy as t_occ
 from repro_torch.core import rendering as t_rendering
+from repro_torch.core import trainer as t_trainer
 from repro_torch.obs import metrics as t_metrics
 from repro_torch.obs import trace as t_trace
 from repro_torch.serve3d import RenderError, RenderResult, RenderService, SnapshotStore
@@ -75,8 +79,8 @@ def _port_service(snapshot, **kw):
     params, occ = snapshot
     store = SnapshotStore()
     for sid in ("dense", "redist"):
-        store.publish(sid, bridge.params_to_torch(params), step=8,
-                      occ=bridge.occ_to_torch(occ))
+        store.publish(sid, bridge.params_to_torch(params, "cpu"), step=8,
+                      occ=bridge.occ_to_torch(occ, "cpu"))
     svc = RenderService(store, device="cpu", **kw)
     _register(svc, T_FCFG, T_RCFG, T_OCFG)
     return store, svc
@@ -180,8 +184,8 @@ def test_shedding_halves_the_redistributed_budget(snapshot):
     assert svc.shed_drains == 1
 
     store = SnapshotStore()
-    store.publish("half", bridge.params_to_torch(params), step=8,
-                  occ=bridge.occ_to_torch(occ))
+    store.publish("half", bridge.params_to_torch(params, "cpu"), step=8,
+                  occ=bridge.occ_to_torch(occ, "cpu"))
     ref = RenderService(store, device="cpu")
     ref.register_session("half", T_FCFG, T_RCFG, HW, HW, FOCAL, eval_chunk=CHUNK,
                          occ_cfg=T_OCFG, samples_per_ray=SPR // 2)
@@ -258,7 +262,7 @@ def test_preview_request_is_served_from_a_preview(snapshot):
     store = SnapshotStore()
     svc = RenderService(store, device="cpu")
     svc.register_session("s", T_FCFG, T_RCFG, HW, HW, FOCAL, eval_chunk=CHUNK)
-    store.publish("s", bridge.params_to_torch(params), step=2, level=1)
+    store.publish("s", bridge.params_to_torch(params, "cpu"), step=2, level=1)
     pose = t_rendering.sphere_poses(1)[0]
     svc.submit("s", pose)
     svc.submit("s", pose, level=1)
@@ -278,3 +282,32 @@ def test_chip_smoke_main_path_rehearsal():
     agree = smoke.path_parity(store, "cpu", T_FCFG, T_RCFG, T_OCFG, hw=HW, eval_chunk=CHUNK)
     assert all(v == {"rgb_max_abs_err": 0.0, "depth_max_abs_err": 0.0}
                for v in agree.values())
+
+
+def test_chip_smoke_training_phases_rehearsal():
+    """Phases 3 and 3b of chip_smoke.py at a tiny size on the CPU: the
+    Instant-3D and the Instant-NGP runs through their gates (the PSNR gate
+    is for the full size; the CPU launches no kernel, so none may be
+    counted), two NGP runs byte-identical, and the split route's step
+    against the one-op step.  19 steps: the bitfield is live from step 12,
+    the live fraction measured at the fold after step 15, so steps 16-18
+    are compacted (headroom 0.7 buckets the budget to 512 of 1024)."""
+    tcfg = t_trainer.TrainerConfig(
+        n_rays=64, iters=19, budget_headroom=0.7, min_budget=64, render=T_RCFG,
+        occ=t_occ.OccupancyConfig(resolution=16, warmup_steps=8, update_interval=4))
+    data = dict(n_views=4, h=16, w=16, gt_samples=48)
+    ngp_cfg = dataclasses.replace(T_FCFG, decomposed=False)
+    nothing = ((), tuple(smoke.KERNELS))
+    runs = {}
+    for name, fcfg in (("i3d", T_FCFG), ("ngp", ngp_cfg)):
+        run = smoke.train_main_path("cpu", fcfg, tcfg, dataset=data, held_out=1)
+        assert smoke.check_training(run, nothing, min_psnr=-np.inf) == [], name
+        assert len(run["compact_ms"]) == 3 and len(run["dense_ms"]) == 16, name
+        runs[name] = run
+    # the gate refuses a path whose kernels were not all launched
+    assert smoke.check_training(runs["ngp"], smoke.NGP_TRAIN_KERNELS, min_psnr=-np.inf)
+    det = smoke.determinism("cpu", ngp_cfg, tcfg, steps=(12, 19), dataset=data, held_out=1)
+    assert det["params_equal"] and det["moments_equal"] and det["occupancy_equal"]
+    assert det["steps"] == [12, 19] and det["compacted_steps"] == 3
+    split = smoke.split_route_parity("cpu", runs["i3d"], held_out=1)
+    assert split["ok"] and split["budget"] == 512, split

@@ -8,12 +8,15 @@ Tolerances:
 
 * the synthetic scene's draws and the poses exactly, ground-truth images
   within 1e-5;
-* one step's gradient of every leaf, on the dense and the compacted route,
-  within 1e-5 of that leaf's largest |gradient|, with the same set of table
-  rows carrying a nonzero gradient;
-* a 24-step run: the freeze schedule, the occupancy folds and every step's
-  budget exactly, every step's loss within 1e-2 relative (Adam's eps of
-  1e-15 turns rounding-level gradient differences into steps of ~lr).
+* one step's gradient of every leaf, on the dense and the compacted route
+  (one-op fused step, and the split route: fused encode, then the MLPs),
+  for the Instant-3D field and the Instant-NGP baseline, within 1e-5 of
+  that leaf's largest |gradient|, with the same set of table rows carrying
+  a nonzero gradient;
+* a 24-step run of either field: the freeze schedule, the occupancy folds
+  and every step's budget exactly, every step's loss within 1e-2 relative
+  (Adam's eps of 1e-15 turns rounding-level gradient differences into steps
+  of ~lr).
 """
 import dataclasses
 
@@ -60,6 +63,9 @@ def _configs(pkg_field, pkg_rendering, pkg_occ, pkg_trainer):
 
 J_FCFG, J_TCFG = _configs(j_field, j_rendering, j_occ, j_trainer)
 T_FCFG, T_TCFG = _configs(t_field, t_rendering, t_occ, t_trainer)
+# the Instant-NGP baseline: one grid feeds both heads
+J_NGP = dataclasses.replace(J_FCFG, decomposed=False)
+T_NGP = dataclasses.replace(T_FCFG, decomposed=False)
 
 
 @pytest.fixture(autouse=True)
@@ -139,32 +145,45 @@ def test_branch_update_schedule_matches_jax():
 
 # ---- one step's gradients ----
 
-def _snapshot():
+def _snapshot(j_fcfg=J_FCFG):
     """JAX init params with the grids widened and the density bias lowered,
     so the occupancy threshold splits the cells; one JAX occupancy fold."""
-    params = jax.tree.map(np.asarray, j_field.Field(J_FCFG).init(jax.random.PRNGKey(0)))
+    params = jax.tree.map(np.asarray, j_field.Field(j_fcfg).init(jax.random.PRNGKey(0)))
     rng = np.random.default_rng(0)
     for k in ("density_grid", "color_grid"):
-        params[k] = rng.uniform(-1, 1, size=params[k].shape).astype(np.float32)
+        if k in params:
+            params[k] = rng.uniform(-1, 1, size=params[k].shape).astype(np.float32)
     params["density_mlp"]["b2"] = params["density_mlp"]["b2"].copy()
     params["density_mlp"]["b2"][0] = -3.0
-    state = j_occ.update(j_field.Field(J_FCFG), jax.tree.map(jnp.asarray, params),
+    state = j_occ.update(j_field.Field(j_fcfg), jax.tree.map(jnp.asarray, params),
                          j_occ.init_state(J_TCFG.occ), J_TCFG.occ, jax.random.PRNGKey(1))
     return params, np.asarray(state.density_ema)
 
 
-@pytest.mark.parametrize("route", ["dense", "compacted", "compacted_color_frozen"])
+# route -> (Instant-NGP field?, budget, color grid frozen?, fused step on?)
+ROUTES = {
+    "dense": (False, None, False, True),
+    "compacted": (False, 512, False, True),
+    "compacted_color_frozen": (False, 512, True, True),
+    "dense_ngp": (True, None, False, True),
+    "compacted_ngp": (True, 512, False, True),
+    "compacted_split": (False, 512, False, False),
+}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
 def test_one_step_gradients_match_jax(route, scene):
     ds, j_sampler = scene
-    params, ema = _snapshot()
+    ngp, budget, freeze_color, fused_step = ROUTES[route]
+    j_fcfg, t_fcfg = (J_NGP, T_NGP) if ngp else (J_FCFG, T_FCFG)
+    t_tcfg = dataclasses.replace(T_TCFG, fused_step=fused_step)
+    params, ema = _snapshot(j_fcfg)
     idx, u_ts, _ = jax_draws(5, j_sampler.n)
     batch_j = j_sampler.sample(jax.random.split(jax.random.fold_in(
         jax.random.PRNGKey(J_TCFG.seed), 5), 3)[0], J_TCFG.n_rays)
     ts = np.asarray(j_rendering.sample_ts(jax.random.split(jax.random.fold_in(
         jax.random.PRNGKey(J_TCFG.seed), 5), 3)[1], J_TCFG.n_rays, J_TCFG.render))
-    budget = None if route == "dense" else 512
-    freeze_color = route == "compacted_color_frozen"
-    pipe = JPipeline(j_field.Field(J_FCFG), J_TCFG.render)
+    pipe = JPipeline(j_field.Field(j_fcfg), J_TCFG.render, fused_step=fused_step)
     bits = j_occ.bitfield(j_occ.OccupancyState(jnp.asarray(ema), jnp.int32(1)), J_TCFG.occ)
     assert 0.1 < float(jnp.mean(bits)) < 0.9
 
@@ -181,14 +200,14 @@ def test_one_step_gradients_match_jax(route, scene):
     if budget is not None:
         assert int(out_j["n_live"]) > 100 and int(out_j["points_queried"]) == budget
 
-    trainer = t_trainer.Instant3DTrainer(t_field.Field(T_FCFG), T_TCFG, device="cpu")
+    trainer = t_trainer.Instant3DTrainer(t_field.Field(t_fcfg), t_tcfg, device="cpu")
     sampler = _port_sampler(ds, j_sampler)
     batch_t = sampler.gather(idx)
     np.testing.assert_array_equal(batch_t.origins.numpy(), np.asarray(batch_j.origins))
     ts_t = t_rendering.sample_ts(None, T_TCFG.n_rays, T_TCFG.render, "cpu", u=u_ts)
     np.testing.assert_allclose(ts_t.numpy(), ts, atol=1e-6)
     loss_t, grads_t, aux = trainer.loss_and_grads(
-        bridge.params_to_torch(params), batch_t, _t(ts), _t(ema), freeze_color=freeze_color,
+        bridge.params_to_torch(params, "cpu"), batch_t, _t(ts), _t(ema), freeze_color=freeze_color,
         freeze_density=False, budget=budget, use_bits=True)
     np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-5)
     assert int(aux["points_queried"]) == int(out_j["points_queried"])
@@ -210,15 +229,17 @@ def test_one_step_gradients_match_jax(route, scene):
 
 # ---- a short training run ----
 
-def test_24_step_run_matches_jax(scene):
+@pytest.mark.parametrize("ngp", [False, True], ids=["instant3d", "ngp"])
+def test_24_step_run_matches_jax(ngp, scene):
     ds, j_sampler = scene
-    j_tr = j_trainer.Instant3DTrainer(j_field.Field(J_FCFG), J_TCFG)
+    j_fcfg, t_fcfg = (J_NGP, T_NGP) if ngp else (J_FCFG, T_FCFG)
+    j_tr = j_trainer.Instant3DTrainer(j_field.Field(j_fcfg), J_TCFG)
     j_state = j_tr.init(jax.random.PRNGKey(0))
     params = jax.tree.map(np.asarray, j_state.params)
     j_state, j_hist = j_tr.train(j_state, j_sampler, log_every=1)
 
-    t_tr = t_trainer.Instant3DTrainer(t_field.Field(T_FCFG), T_TCFG, device="cpu")
-    tp = bridge.params_to_torch(params)
+    t_tr = t_trainer.Instant3DTrainer(t_field.Field(t_fcfg), T_TCFG, device="cpu")
+    tp = bridge.params_to_torch(params, "cpu")
     t_state = t_trainer.TrainState(tp, t_tr.opt.init(tp), t_occ.init_state(T_TCFG.occ, "cpu"), 0)
     t_state, t_hist = t_tr.train(t_state, _port_sampler(ds, j_sampler), log_every=1,
                                  draws=lambda i: jax_draws(i, j_sampler.n))
@@ -232,8 +253,13 @@ def test_24_step_run_matches_jax(scene):
     # controller's pow2 buckets, widened after an overflow
     assert t_hist["points_queried"] == j_hist["points_queried"]
     routes = ["dense" if b is None else "compacted" for b in t_hist["budget"]]
-    assert routes == ["dense"] * 16 + ["compacted"] * 4 + ["dense"] * 4
-    assert sum(t_hist["overflow"][16:20]) > 0
+    n_total = T_TCFG.n_rays * T_TCFG.render.n_samples
+    assert routes == ["dense" if p == n_total else "compacted"
+                      for p in j_hist["points_queried"]]
+    if not ngp:
+        assert routes == ["dense"] * 16 + ["compacted"] * 4 + ["dense"] * 4
+        assert sum(t_hist["overflow"][16:20]) > 0
+    assert "compacted" in routes
     assert t_hist["overflow"] == j_hist["overflow"]
     np.testing.assert_allclose(t_hist["live_fraction"], j_hist["live_fraction"], rtol=1e-6)
     np.testing.assert_allclose(t_hist["loss"], j_hist["loss"], rtol=1e-2)
