@@ -2,8 +2,8 @@
 // own shared library with a plain C interface (loaded from Python with
 // ctypes), so each library exports its own copy of the error-string lookup
 // that the Python wrappers use to report a failed launch.  The in-block
-// bitonic sort serves the sources that merge or deduplicate a block's corner
-// addresses (fused_step.cu, fused_encode.cu).
+// bitonic sort serves the fused encode's dedup of a block's corner addresses
+// (fused_encode.cu).
 #pragma once
 
 #include <cuda_runtime.h>

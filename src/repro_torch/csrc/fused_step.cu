@@ -9,9 +9,11 @@
 // What bounds it on the H100.  Forward: the f32 FMA rate -- each point does
 // ~9,800 multiply-adds in the two MLP heads against ~2 KB of gathered table
 // rows, most of them served by the 50 MB L2 that holds both table sets
-// (40 MiB).  Backward: the same operations about three times over, plus the
-// block's update streams.  The arithmetic is plain f32 FMA on the CUDA cores
-// (no tensor cores), so that the results match the f32 plain version.
+// (40 MiB).  The forward's arithmetic is plain f32 FMA on the CUDA cores.
+// Backward: f32 operations too -- the two heads recomputed, their data
+// gradients and their weight gradients, about three times the forward's
+// multiply-adds -- plus the table-gradient streams it writes (16 bytes per
+// corner and grid).
 //
 // Forward design.  The TPU kernel ran a (block, level) grid with the level
 // axis innermost, holding one level table per step in VMEM and the block's
@@ -26,40 +28,47 @@
 // use the MXU; a straight gather computes the same function.  Sentinel rows
 // (x < 0) read row 0 at weight 0.
 //
-// Backward design: deterministic, two passes, no float atomics.
-//   Pass 1 (fused_step_bwd_kernel, kBwdPoints points per block): recompute
-//   both grids' features and every MLP activation from the (Morton-sorted)
-//   points, run both heads' backward per point, then
-//   * write the block's MLP weight-gradient partial sums, each summed over
-//     the block's points in order, to row blockIdx.x of partials (n_blocks, P);
-//   * write d_sh;
-//   * for each (level, grid), merge the block's B*8 corner updates in the
-//     block -- the in-block BUM: a bitonic sort in shared memory on
-//     (address, stream position), so equal addresses stay in stream order,
-//     then the thread at each run start sums its run and writes one
-//     (address + l*T, sum) entry at the run start's slot; every other slot
-//     gets the spill address L*T with value 0.
+// Backward design: deterministic, two passes, no float atomics.  The
+// reference writes its backward as block-level matrix products (hd @ w1d,
+// h1d.T @ g_d, ...); so does this kernel, on the tensor cores.
+//   Pass 1 (fused_step_bwd_kernel): one tile of kBwdPoints Morton-ordered
+//   points per block, every thread of the block on it.  Threads take
+//   (point, level) items to gather both grids' features into the tile; then
+//   every product of both heads runs through mlp_tile.cuh's split-TF32
+//   tensor-core routine on tiles in shared memory -- the recompute (z = x W
+//   + b), the data gradients (g W^T times relu'(z), down to the features
+//   and d_sh) and the weight gradients (x^T g, summed over the tile's
+//   points in a fixed order), the last written as the block's row of
+//   partials (n_blocks, P); bias gradients are column sums in point order.
+//   Weights and activation tiles (~100 KB at FieldConfig()) leave room for
+//   two blocks on an SM.  Then the block writes each corner's table update
+//   as it is: address l*T + a and the product w_c * g_feat rounded as the
+//   plain version rounds it (__fmul_rn), at stream position (l * n_pad + i)
+//   * 8 + c -- level-major, then point, then corner, the plain version's
+//   own stream order; points past N write the spill address L*T, value 0.
 //   Pass 2: fused_step_reduce sums the partials over blocks in block order;
-//   the wrapper then orders the per-block runs by address across blocks with
-//   a stable torch.sort (the glue jnp.argsort is in the reference) and
-//   commits them with the bum_scatter kernel, which drops the spill entries.
+//   the wrapper stable-sorts each grid's stream by address and commits it
+//   with the bum_scatter kernel, which sums each run in stream order and
+//   drops the spill entries -- each table row summed in exactly the plain
+//   version's order.
 // A grid whose table is frozen gets no stream at all (null pointers), as
-// the reference dead-code-eliminates its commit.  Products that feed the
-// table gradients are rounded as the plain version rounds them
-// (__fmul_rn / __fadd_rn), and corner weights are (w_x * w_y) * w_z with
-// the scaled coordinate rounded first, as in the plain version.
+// the reference dead-code-eliminates its commit.  Corner weights are (w_x *
+// w_y) * w_z with the scaled coordinate rounded first, as in the plain
+// version.
 #include "common.cuh"
+#include "mlp_tile.cuh"
 
 namespace {
 
 constexpr int kMaxLevels = 32;
 constexpr int kFwdPoints = 128;     // points (= threads) per forward block
-constexpr int kBwdPoints = 64;      // points (= threads) per backward block
-constexpr int kSort = kBwdPoints * 8;
+constexpr int kBwdPoints = 32;      // points per backward block (one tile)
+constexpr int kBwdThreads = 256;    // threads per backward block
+constexpr int kBwdGroup = 2;        // 8-column tiles per warp unit of a product
+constexpr int kGatherRows = 32;     // table-row floats a thread gathers at once, per grid
 constexpr int kMaxOutD = 16;        // density head outputs (1 + geo)
 constexpr int kMaxOutC = 4;         // color head outputs (3)
 constexpr int kMaxSmem = 232448;    // bytes of shared memory a block may use
-constexpr unsigned long long kInvalid = ~0ull;
 
 struct Geom {
     int res[kMaxLevels];
@@ -262,76 +271,103 @@ fused_step_fwd_kernel(const float* __restrict__ points, const float* __restrict_
 
 // ---- backward, pass 1 ----
 
-// Shared-memory carve-up of the backward block: the two sort key arrays
-// first (8-byte aligned), then the corner weights of the current level, the
-// staged weights, and one row per point of each per-point quantity.
+// Shared-memory carve-up of the backward block (floats): every MLP weight
+// with its rows padded for conflict-free B-fragment reads, the biases, then
+// the tile's activation buffers, each kBwdPoints rows.  h0 / h1 / h2 hold
+// the hidden layers' pre-activations and gradients, reused from the density
+// head to the color head.
 struct BwdLayout {
-    int ld_xd, ld_xc, ld_gd, ld_gc, ld_hd, ld_h1, ld_h2;
-    size_t weights, xd, xc, gd, gc, zd, ghd1, ghd, z1c, z2c, gh2c, gh1c, ghc, floats;
+    int ld_w1d, ld_w2d, ld_w1c, ld_w2c, ld_w3c, ld_f, ld_c, ld_gd, ld_gc, ld_h;
+    size_t w1d, b1d, w2d, b2d, w1c, b1c, w2c, b2c, w3c, b3c;
+    size_t xd, xc, gd, gc, ghd, ghc, h0, h1, h2, floats;
 
     __host__ __device__ explicit BwdLayout(const Dims& d) {
-        ld_xd = odd(d.feat());
-        ld_xc = odd(d.cin());
-        ld_gd = odd(d.out_d);
-        ld_gc = odd(d.out_c);
-        ld_hd = odd(d.hid_d);
-        ld_h1 = odd(d.hid_c1);
-        ld_h2 = odd(d.hid_c2);
-        size_t at = kSort;                       // corner weights of one level
-        weights = at; at += d.n_params();
-        xd = at;   at += kBwdPoints * ld_xd;     // density features
-        xc = at;   at += kBwdPoints * ld_xc;     // [color features, sh]
-        gd = at;   at += kBwdPoints * ld_gd;     // cotangent of the density head
-        gc = at;   at += kBwdPoints * ld_gc;     // cotangent of the color head
-        zd = at;   at += kBwdPoints * ld_hd;     // density hidden pre-activation
-        ghd1 = at; at += kBwdPoints * ld_hd;     // its gradient
-        ghd = at;  at += kBwdPoints * ld_xd;     // gradient of the density features
-        z1c = at;  at += kBwdPoints * ld_h1;     // color hidden 1 pre-activation
-        z2c = at;  at += kBwdPoints * ld_h2;     // color hidden 2 pre-activation
-        gh2c = at; at += kBwdPoints * ld_h2;
-        gh1c = at; at += kBwdPoints * ld_h1;
-        ghc = at;  at += kBwdPoints * ld_xd;     // gradient of the color features
+        using mlp_tile::act_ld;
+        using mlp_tile::weight_ld;
+        ld_w1d = weight_ld(d.hid_d);
+        ld_w2d = weight_ld(d.out_d);
+        ld_w1c = weight_ld(d.hid_c1);
+        ld_w2c = weight_ld(d.hid_c2);
+        ld_w3c = weight_ld(d.out_c);
+        ld_f = act_ld(d.feat());
+        ld_c = act_ld(d.cin());
+        ld_gd = act_ld(d.out_d);
+        ld_gc = act_ld(d.out_c);
+        const int hid = d.hid_d > d.hid_c1 ? d.hid_d : d.hid_c1;
+        ld_h = act_ld(hid > d.hid_c2 ? hid : d.hid_c2);
+        size_t at = 0;
+        w1d = at; at += static_cast<size_t>(d.feat()) * ld_w1d;
+        b1d = at; at += d.hid_d;
+        w2d = at; at += static_cast<size_t>(d.hid_d) * ld_w2d;
+        b2d = at; at += d.out_d;
+        w1c = at; at += static_cast<size_t>(d.cin()) * ld_w1c;
+        b1c = at; at += d.hid_c1;
+        w2c = at; at += static_cast<size_t>(d.hid_c1) * ld_w2c;
+        b2c = at; at += d.hid_c2;
+        w3c = at; at += static_cast<size_t>(d.hid_c2) * ld_w3c;
+        b3c = at; at += d.out_c;
+        xd = at;  at += kBwdPoints * ld_f;      // density features
+        xc = at;  at += kBwdPoints * ld_c;      // [color features, sh]
+        gd = at;  at += kBwdPoints * ld_gd;     // cotangent of the density head
+        gc = at;  at += kBwdPoints * ld_gc;     // cotangent of the color head
+        ghd = at; at += kBwdPoints * ld_f;      // gradient of the density features
+        ghc = at; at += kBwdPoints * ld_f;      // gradient of the color features
+        h0 = at;  at += kBwdPoints * ld_h;
+        h1 = at;  at += kBwdPoints * ld_h;
+        h2 = at;  at += kBwdPoints * ld_h;
         floats = at;
     }
-    __host__ __device__ size_t bytes() const {
-        return 2 * kSort * sizeof(unsigned long long) + floats * sizeof(float);
-    }
+    __host__ __device__ size_t bytes() const { return floats * sizeof(float); }
 };
 
-// One (level, grid) of the in-block BUM: the sorted keys (address << 32 |
-// stream position p*8 + c) become one (address + l*T, run sum) entry at each
-// run start's slot and a spill entry everywhere else.
+// W (k x n, device memory) into shared memory with row stride ld, by
+// asynchronous copies that run on while the block gathers its features.
+__device__ void stage_rows(float* dst, const float* __restrict__ w, int k, int n, int ld) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, n_warps = blockDim.x >> 5;
+    for (int r = warp; r < k; r += n_warps)
+        for (int c = lane; c < n; c += 32)
+            mlp_tile::cp_async<4>(dst + r * ld + c, w + r * n + c, true);
+}
+
+__device__ void stage_flat(float* dst, const float* __restrict__ src, int count) {
+    for (int e = threadIdx.x; e < count; e += blockDim.x)
+        mlp_tile::cp_async<4>(dst + e, src + e, true);
+}
+
+// One table row of F floats through the read-only cache, in as few loads as
+// its width allows.
 template <int F>
-__device__ void commit_runs(const unsigned long long* keys, const float* cw,
-                            const float* gfeat, int ld, int level, int table_size,
-                            long long spill, long long* addr_out, float* val_out) {
-    for (int i = threadIdx.x; i < kSort; i += blockDim.x) {
-        const unsigned long long key = keys[i];
-        const unsigned long long a = key >> 32;
-        const bool start = key != kInvalid && (i == 0 || (keys[i - 1] >> 32) != a);
-        if (!start) {
-            addr_out[i] = spill;
+__device__ __forceinline__ void load_row(const float* __restrict__ row, float (&v)[F]) {
+    if constexpr (F % 4 == 0) {
 #pragma unroll
-            for (int f = 0; f < F; ++f) val_out[static_cast<size_t>(i) * F + f] = 0.0f;
-            continue;
+        for (int f = 0; f < F; f += 4) {
+            const float4 x = __ldg(reinterpret_cast<const float4*>(row + f));
+            v[f] = x.x;
+            v[f + 1] = x.y;
+            v[f + 2] = x.z;
+            v[f + 3] = x.w;
         }
-        float sum[F];
+    } else if constexpr (F == 2) {
+        const float2 x = __ldg(reinterpret_cast<const float2*>(row));
+        v[0] = x.x;
+        v[1] = x.y;
+    } else {
 #pragma unroll
-        for (int f = 0; f < F; ++f) sum[f] = 0.0f;
-        for (int j = i; j < kSort && keys[j] != kInvalid && (keys[j] >> 32) == a; ++j) {
-            const int pos = static_cast<int>(keys[j] & 0xffffffffull);
-            const float* gr = gfeat + (pos >> 3) * ld + level * F;
-#pragma unroll
-            for (int f = 0; f < F; ++f) sum[f] = __fadd_rn(sum[f], __fmul_rn(cw[pos], gr[f]));
-        }
-        addr_out[i] = static_cast<long long>(level) * table_size + static_cast<long long>(a);
-#pragma unroll
-        for (int f = 0; f < F; ++f) val_out[static_cast<size_t>(i) * F + f] = sum[f];
+        for (int f = 0; f < F; ++f) v[f] = __ldg(row + f);
+    }
+}
+
+// Column sums of a kBwdPoints-row tile, each summed over the points in order.
+__device__ void column_sums(const float* tile, int ld, int n, float* __restrict__ out) {
+    for (int c = threadIdx.x; c < n; c += blockDim.x) {
+        float s = 0.0f;
+        for (int r = 0; r < kBwdPoints; ++r) s = __fadd_rn(s, tile[r * ld + c]);
+        out[c] = s;
     }
 }
 
 template <int F>
-__global__ void __launch_bounds__(kBwdPoints)
+__global__ void __launch_bounds__(kBwdThreads)
 fused_step_bwd_kernel(const float* __restrict__ points, const float* __restrict__ sh,
                       const float* __restrict__ g_d, const float* __restrict__ g_c,
                       const float* __restrict__ td, const float* __restrict__ tc,
@@ -339,194 +375,273 @@ fused_step_bwd_kernel(const float* __restrict__ points, const float* __restrict_
                       float* __restrict__ partials, float* __restrict__ d_sh,
                       long long* __restrict__ addr_d, float* __restrict__ val_d,
                       long long* __restrict__ addr_c, float* __restrict__ val_c) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    unsigned long long* keys_d = reinterpret_cast<unsigned long long*>(smem_raw);
-    unsigned long long* keys_c = keys_d + kSort;
-    float* fbase = reinterpret_cast<float*>(keys_c + kSort);
+    using mlp_tile::Strided;
+    extern __shared__ __align__(16) float smem[];
     const BwdLayout lay(d);
-    float* cw = fbase;                      // corner weights of the current level
-    const SmemWeights w = stage_weights(fbase + lay.weights, m, d);
+    const int feat = d.feat(), cin = d.cin(), levels = d.levels;
+    const int warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+    const int base = blockIdx.x * kBwdPoints;
+    constexpr int P = kBwdPoints;
 
-    const int p = threadIdx.x;
-    const int i = blockIdx.x * kBwdPoints + p;
-    const bool valid = i < d.n;
-    const int feat = d.feat(), cin = d.cin();
-    float* xd = fbase + lay.xd + p * lay.ld_xd;
-    float* xc = fbase + lay.xc + p * lay.ld_xc;
-    float* gd = fbase + lay.gd + p * lay.ld_gd;
-    float* gc = fbase + lay.gc + p * lay.ld_gc;
-    float* zd = fbase + lay.zd + p * lay.ld_hd;
-    float* ghd1 = fbase + lay.ghd1 + p * lay.ld_hd;
-    float* ghd = fbase + lay.ghd + p * lay.ld_xd;
-    float* z1c = fbase + lay.z1c + p * lay.ld_h1;
-    float* z2c = fbase + lay.z2c + p * lay.ld_h2;
-    float* gh2c = fbase + lay.gh2c + p * lay.ld_h2;
-    float* gh1c = fbase + lay.gh1c + p * lay.ld_h1;
-    float* ghc = fbase + lay.ghc + p * lay.ld_xd;
+    float* w1d = smem + lay.w1d; float* b1d = smem + lay.b1d;
+    float* w2d = smem + lay.w2d; float* b2d = smem + lay.b2d;
+    float* w1c = smem + lay.w1c; float* b1c = smem + lay.b1c;
+    float* w2c = smem + lay.w2c; float* b2c = smem + lay.b2c;
+    float* w3c = smem + lay.w3c; float* b3c = smem + lay.b3c;
+    float* xd = smem + lay.xd;   float* xc = smem + lay.xc;
+    float* gd = smem + lay.gd;   float* gc = smem + lay.gc;
+    float* ghd = smem + lay.ghd; float* ghc = smem + lay.ghc;
+    float* h0 = smem + lay.h0;   float* h1 = smem + lay.h1;   float* h2 = smem + lay.h2;
 
-    if (valid) {
-        // recompute: features, then every activation, then each head's backward
-        encode_point<F>(points, i, td, tc, g, d, xd, xc);
-        for (int k = 0; k < d.sh; ++k) xc[feat + k] = sh[static_cast<size_t>(i) * d.sh + k];
-        for (int o = 0; o < d.out_d; ++o) gd[o] = g_d[static_cast<size_t>(i) * d.out_d + o];
-        for (int o = 0; o < d.out_c; ++o) gc[o] = g_c[static_cast<size_t>(i) * d.out_c + o];
-    } else {
-        // a point past the end: all-zero rows add nothing to the partials
-        for (int k = 0; k < feat; ++k) xd[k] = 0.0f;
-        for (int k = 0; k < cin; ++k) xc[k] = 0.0f;
-        for (int o = 0; o < d.out_d; ++o) gd[o] = 0.0f;
-        for (int o = 0; o < d.out_c; ++o) gc[o] = 0.0f;
-        for (int j = 0; j < d.hid_d; ++j) zd[j] = ghd1[j] = 0.0f;
-        for (int j = 0; j < d.hid_c1; ++j) z1c[j] = gh1c[j] = 0.0f;
-        for (int j = 0; j < d.hid_c2; ++j) z2c[j] = gh2c[j] = 0.0f;
-        for (int k = 0; k < feat; ++k) ghd[k] = ghc[k] = 0.0f;
-    }
-    __syncthreads();    // staged weights visible to every thread
+    stage_rows(w1d, m.w1d, feat, d.hid_d, lay.ld_w1d);
+    stage_rows(w2d, m.w2d, d.hid_d, d.out_d, lay.ld_w2d);
+    stage_rows(w1c, m.w1c, cin, d.hid_c1, lay.ld_w1c);
+    stage_rows(w2c, m.w2c, d.hid_c1, d.hid_c2, lay.ld_w2c);
+    stage_rows(w3c, m.w3c, d.hid_c2, d.out_c, lay.ld_w3c);
+    stage_flat(b1d, m.b1d, d.hid_d);
+    stage_flat(b2d, m.b2d, d.out_d);
+    stage_flat(b1c, m.b1c, d.hid_c1);
+    stage_flat(b2c, m.b2c, d.hid_c2);
+    stage_flat(b3c, m.b3c, d.out_c);
+    mlp_tile::commit();
 
-    if (valid) {
-        // density head
-        for (int j = 0; j < d.hid_d; ++j) {
-            float s = 0.0f;
-            for (int k = 0; k < feat; ++k) s += xd[k] * w.w1d[k * d.hid_d + j];
-            zd[j] = s + w.b1d[j];
-        }
-        for (int j = 0; j < d.hid_d; ++j) {
-            float s = 0.0f;
-            for (int o = 0; o < d.out_d; ++o) s += gd[o] * w.w2d[j * d.out_d + o];
-            ghd1[j] = s * relu_grad(zd[j]);
-        }
-        for (int k = 0; k < feat; ++k) {
-            float s = 0.0f;
-            for (int j = 0; j < d.hid_d; ++j) s += ghd1[j] * w.w1d[k * d.hid_d + j];
-            ghd[k] = s;
-        }
-        // color head
-        for (int j = 0; j < d.hid_c1; ++j) {
-            float s = 0.0f;
-            for (int k = 0; k < cin; ++k) s += xc[k] * w.w1c[k * d.hid_c1 + j];
-            z1c[j] = s + w.b1c[j];
-        }
-        for (int j = 0; j < d.hid_c2; ++j) {
-            float s = 0.0f;
-            for (int k = 0; k < d.hid_c1; ++k) s += fmaxf(z1c[k], 0.0f) * w.w2c[k * d.hid_c2 + j];
-            z2c[j] = s + w.b2c[j];
-        }
-        for (int j = 0; j < d.hid_c2; ++j) {
-            float s = 0.0f;
-            for (int o = 0; o < d.out_c; ++o) s += gc[o] * w.w3c[j * d.out_c + o];
-            gh2c[j] = s * relu_grad(z2c[j]);
-        }
-        for (int k = 0; k < d.hid_c1; ++k) {
-            float s = 0.0f;
-            for (int j = 0; j < d.hid_c2; ++j) s += gh2c[j] * w.w2c[k * d.hid_c2 + j];
-            gh1c[k] = s * relu_grad(z1c[k]);
-        }
-        for (int k = 0; k < cin; ++k) {
-            float s = 0.0f;
-            for (int j = 0; j < d.hid_c1; ++j) s += gh1c[j] * w.w1c[k * d.hid_c1 + j];
-            if (k < feat) ghc[k] = s;
-            else d_sh[static_cast<size_t>(i) * d.sh + (k - feat)] = s;
-        }
-    }
-    __syncthreads();    // every point's rows complete
-
-    // the block's weight-gradient partials, each summed over its points in order
-    const float* XD = fbase + lay.xd;
-    const float* XC = fbase + lay.xc;
-    const float* GD = fbase + lay.gd;
-    const float* GC = fbase + lay.gc;
-    const float* ZD = fbase + lay.zd;
-    const float* GHD1 = fbase + lay.ghd1;
-    const float* Z1C = fbase + lay.z1c;
-    const float* Z2C = fbase + lay.z2c;
-    const float* GH2C = fbase + lay.gh2c;
-    const float* GH1C = fbase + lay.gh1c;
-    float* row = partials + static_cast<size_t>(blockIdx.x) * d.n_params();
-    const int sizes[10] = {feat * d.hid_d, d.hid_d, d.hid_d * d.out_d, d.out_d,
-                           cin * d.hid_c1, d.hid_c1, d.hid_c1 * d.hid_c2, d.hid_c2,
-                           d.hid_c2 * d.out_c, d.out_c};
-    int base = 0;
-    for (int a = 0; a < 10; ++a) {
-        for (int e = threadIdx.x; e < sizes[a]; e += blockDim.x) {
-            float s = 0.0f;
-            for (int q = 0; q < kBwdPoints; ++q) {
-                float u = 1.0f, v = 0.0f;
-                switch (a) {
-                    case 0: { const int k = e / d.hid_d, j = e % d.hid_d;
-                              u = XD[q * lay.ld_xd + k]; v = GHD1[q * lay.ld_hd + j]; break; }
-                    case 1: v = GHD1[q * lay.ld_hd + e]; break;
-                    case 2: { const int j = e / d.out_d, o = e % d.out_d;
-                              u = fmaxf(ZD[q * lay.ld_hd + j], 0.0f); v = GD[q * lay.ld_gd + o];
-                              break; }
-                    case 3: v = GD[q * lay.ld_gd + e]; break;
-                    case 4: { const int k = e / d.hid_c1, j = e % d.hid_c1;
-                              u = XC[q * lay.ld_xc + k]; v = GH1C[q * lay.ld_h1 + j]; break; }
-                    case 5: v = GH1C[q * lay.ld_h1 + e]; break;
-                    case 6: { const int k = e / d.hid_c2, j = e % d.hid_c2;
-                              u = fmaxf(Z1C[q * lay.ld_h1 + k], 0.0f);
-                              v = GH2C[q * lay.ld_h2 + j]; break; }
-                    case 7: v = GH2C[q * lay.ld_h2 + e]; break;
-                    case 8: { const int j = e / d.out_c, o = e % d.out_c;
-                              u = fmaxf(Z2C[q * lay.ld_h2 + j], 0.0f); v = GC[q * lay.ld_gc + o];
-                              break; }
-                    default: v = GC[q * lay.ld_gc + e]; break;
-                }
-                s += u * v;
-            }
-            row[base + e] = s;
-        }
-        base += sizes[a];
-    }
-
-    // table gradients: the in-block BUM per (level, grid)
-    if (addr_d == nullptr && addr_c == nullptr) return;
-    const float px = valid ? points[3 * i] : 0.0f;
-    const float py = valid ? points[3 * i + 1] : 0.0f;
-    const float pz = valid ? points[3 * i + 2] : 0.0f;
-    const float* GHD = fbase + lay.ghd;
-    const float* GHC = fbase + lay.ghc;
-    for (int l = 0; l < d.levels; ++l) {
-        const LevelPoint q = level_point(px, py, pz, g.res[l]);
+    // recompute both grids' features, `items` (point, level) items per
+    // thread at a time so that all their table reads are in flight together
+    // (the reads, mostly from device memory, bound this phase); points past
+    // the end get all-zero rows, which add nothing anywhere
+    constexpr int kGatherItems = kGatherRows / (8 * F) > 0 ? kGatherRows / (8 * F) : 1;
+    for (int item0 = threadIdx.x; item0 < P * levels; item0 += kGatherItems * blockDim.x) {
+        float rows_d[kGatherItems][8][F], rows_c[kGatherItems][8][F], wts[kGatherItems][8];
 #pragma unroll
-        for (int c = 0; c < 8; ++c) {
-            const int pos = p * 8 + c;
-            cw[pos] = corner_weight(q, c);
-            const unsigned long long low = static_cast<unsigned long long>(pos);
-            keys_d[pos] = valid ? (static_cast<unsigned long long>(
-                                       corner_index(q, c, g.dense_d[l] != 0, d.table_d)) << 32) | low
-                                : kInvalid;
-            keys_c[pos] = valid ? (static_cast<unsigned long long>(
-                                       corner_index(q, c, g.dense_c[l] != 0, d.table_c)) << 32) | low
-                                : kInvalid;
+        for (int u = 0; u < kGatherItems; ++u) {
+            const int item = item0 + u * blockDim.x;
+            const int p = item % P, l = item / P, i = base + p;
+            const bool live = item < P * levels && i < d.n;
+            const LevelPoint q = live ? level_point(points[3 * i], points[3 * i + 1],
+                                                    points[3 * i + 2], g.res[l])
+                                      : level_point(-1.0f, 0.0f, 0.0f, 1);
+            const float* tbl_d = td + static_cast<size_t>(live ? l : 0) * d.table_d * F;
+            const float* tbl_c = tc + static_cast<size_t>(live ? l : 0) * d.table_c * F;
+#pragma unroll
+            for (int c = 0; c < 8; ++c) {
+                wts[u][c] = corner_weight(q, c);
+                const long long id = corner_index(q, c, live && g.dense_d[l] != 0, d.table_d);
+                const long long ic = corner_index(q, c, live && g.dense_c[l] != 0, d.table_c);
+                load_row<F>(tbl_d + id * F, rows_d[u][c]);
+                load_row<F>(tbl_c + ic * F, rows_c[u][c]);
+            }
         }
-        __syncthreads();
-        const size_t slot = (static_cast<size_t>(blockIdx.x) * d.levels + l) * kSort;
-        if (addr_d != nullptr) {
-            bitonic_sort<kSort>(keys_d);
-            commit_runs<F>(keys_d, cw, GHD, lay.ld_xd, l, d.table_d,
-                           static_cast<long long>(d.levels) * d.table_d,
-                           addr_d + slot, val_d + slot * F);
+#pragma unroll
+        for (int u = 0; u < kGatherItems; ++u) {
+            const int item = item0 + u * blockDim.x;
+            if (item >= P * levels) continue;
+            const int p = item % P, l = item / P;
+            float ad[F], ac[F];
+#pragma unroll
+            for (int f = 0; f < F; ++f) ad[f] = ac[f] = 0.0f;
+#pragma unroll
+            for (int c = 0; c < 8; ++c)
+#pragma unroll
+                for (int f = 0; f < F; ++f) {
+                    ad[f] += wts[u][c] * rows_d[u][c][f];
+                    ac[f] += wts[u][c] * rows_c[u][c][f];
+                }
+#pragma unroll
+            for (int f = 0; f < F; ++f) {
+                xd[p * lay.ld_f + l * F + f] = ad[f];
+                xc[p * lay.ld_c + l * F + f] = ac[f];
+            }
         }
-        if (addr_c != nullptr) {
-            bitonic_sort<kSort>(keys_c);
-            commit_runs<F>(keys_c, cw, GHC, lay.ld_xd, l, d.table_c,
-                           static_cast<long long>(d.levels) * d.table_c,
-                           addr_c + slot, val_c + slot * F);
+    }
+    for (int e = threadIdx.x; e < P * d.sh; e += blockDim.x) {
+        const int p = e / d.sh, k = e - p * d.sh, i = base + p;
+        xc[p * lay.ld_c + feat + k] = i < d.n ? sh[static_cast<size_t>(i) * d.sh + k] : 0.0f;
+    }
+    for (int e = threadIdx.x; e < P * d.out_d; e += blockDim.x) {
+        const int p = e / d.out_d, o = e - p * d.out_d, i = base + p;
+        gd[p * lay.ld_gd + o] = i < d.n ? g_d[static_cast<size_t>(i) * d.out_d + o] : 0.0f;
+    }
+    for (int e = threadIdx.x; e < P * d.out_c; e += blockDim.x) {
+        const int p = e / d.out_c, o = e - p * d.out_c, i = base + p;
+        gc[p * lay.ld_gc + o] = i < d.n ? g_c[static_cast<size_t>(i) * d.out_c + o] : 0.0f;
+    }
+    mlp_tile::wait<0>();    // this thread's weight copies have landed
+    __syncthreads();
+
+    // operands: X (points x width, row-major tile), X^T, W (x W), W^T (g W^T)
+    auto X = [](const float* t, int ld, int cols) { return Strided<>{t, ld, 1, P, cols}; };
+    auto XR = [](const float* t, int ld, int cols) {      // relu of a pre-activation tile
+        return Strided<true>{t, ld, 1, P, cols}; };
+    auto XT = [](const float* t, int ld, int cols) { return Strided<>{t, 1, ld, cols, P}; };
+    auto XTR = [](const float* t, int ld, int cols) {
+        return Strided<true>{t, 1, ld, cols, P}; };
+    auto W = [](const float* w, int ld, int k, int n) { return Strided<>{w, ld, 1, k, n}; };
+    auto WT = [](const float* w, int ld, int k, int n) { return Strided<>{w, 1, ld, n, k}; };
+    float* row = partials + static_cast<size_t>(blockIdx.x) * d.n_params();
+    const int ldh = lay.ld_h;
+    // offsets of each parameter in the partials row
+    const int o_w1d = 0, o_b1d = o_w1d + feat * d.hid_d, o_w2d = o_b1d + d.hid_d;
+    const int o_b2d = o_w2d + d.hid_d * d.out_d, o_w1c = o_b2d + d.out_d;
+    const int o_b1c = o_w1c + cin * d.hid_c1, o_w2c = o_b1c + d.hid_c1;
+    const int o_b2c = o_w2c + d.hid_c1 * d.hid_c2, o_w3c = o_b2c + d.hid_c2;
+    const int o_b3c = o_w3c + d.hid_c2 * d.out_c;
+
+    // density head: z = x W1 + b1 (h0); g_h = (g_d W2^T) relu'(z) (h1)
+    mlp_tile::gemm<kBwdGroup>(X(xd, lay.ld_f, feat), W(w1d, lay.ld_w1d, feat, d.hid_d), P,
+                              d.hid_d, feat,
+                              [&](int r, int c, float v) { h0[r * ldh + c] = v + b1d[c]; },
+                              warp, n_warps);
+    __syncthreads();
+    mlp_tile::gemm<kBwdGroup>(X(gd, lay.ld_gd, d.out_d), WT(w2d, lay.ld_w2d, d.hid_d, d.out_d),
+                              P, d.hid_d, d.out_d,
+                              [&](int r, int c, float v) {
+                                  h1[r * ldh + c] = v * relu_grad(h0[r * ldh + c]); },
+                              warp, n_warps);
+    __syncthreads();
+    // g_x = g_h W1^T; dW1 = x^T g_h; dW2 = relu(z)^T g_d; biases
+    mlp_tile::gemm<kBwdGroup>(X(h1, ldh, d.hid_d), WT(w1d, lay.ld_w1d, feat, d.hid_d), P,
+                              feat, d.hid_d,
+                              [&](int r, int c, float v) { ghd[r * lay.ld_f + c] = v; },
+                              warp, n_warps);
+    mlp_tile::gemm<kBwdGroup>(XT(xd, lay.ld_f, feat), X(h1, ldh, d.hid_d), feat, d.hid_d, P,
+                              [&](int r, int c, float v) { row[o_w1d + r * d.hid_d + c] = v; },
+                              warp, n_warps);
+    mlp_tile::gemm<kBwdGroup>(XTR(h0, ldh, d.hid_d), X(gd, lay.ld_gd, d.out_d), d.hid_d,
+                              d.out_d, P,
+                              [&](int r, int c, float v) { row[o_w2d + r * d.out_d + c] = v; },
+                              warp, n_warps);
+    column_sums(h1, ldh, d.hid_d, row + o_b1d);
+    column_sums(gd, lay.ld_gd, d.out_d, row + o_b2d);
+    __syncthreads();
+
+    // color head on [color features, sh]: z1 (h0), z2 (h2)
+    mlp_tile::gemm<kBwdGroup>(X(xc, lay.ld_c, cin), W(w1c, lay.ld_w1c, cin, d.hid_c1), P,
+                              d.hid_c1, cin,
+                              [&](int r, int c, float v) { h0[r * ldh + c] = v + b1c[c]; },
+                              warp, n_warps);
+    __syncthreads();
+    mlp_tile::gemm<kBwdGroup>(XR(h0, ldh, d.hid_c1), W(w2c, lay.ld_w2c, d.hid_c1, d.hid_c2), P,
+                              d.hid_c2, d.hid_c1,
+                              [&](int r, int c, float v) { h2[r * ldh + c] = v + b2c[c]; },
+                              warp, n_warps);
+    __syncthreads();
+    // g_h2 = (g_c W3^T) relu'(z2) (h1); dW3 = relu(z2)^T g_c
+    mlp_tile::gemm<kBwdGroup>(X(gc, lay.ld_gc, d.out_c), WT(w3c, lay.ld_w3c, d.hid_c2, d.out_c),
+                              P, d.hid_c2, d.out_c,
+                              [&](int r, int c, float v) {
+                                  h1[r * ldh + c] = v * relu_grad(h2[r * ldh + c]); },
+                              warp, n_warps);
+    mlp_tile::gemm<kBwdGroup>(XTR(h2, ldh, d.hid_c2), X(gc, lay.ld_gc, d.out_c), d.hid_c2,
+                              d.out_c, P,
+                              [&](int r, int c, float v) { row[o_w3c + r * d.out_c + c] = v; },
+                              warp, n_warps);
+    column_sums(gc, lay.ld_gc, d.out_c, row + o_b3c);
+    __syncthreads();
+    // g_h1 = (g_h2 W2^T) relu'(z1) (h2); dW2 = relu(z1)^T g_h2
+    mlp_tile::gemm<kBwdGroup>(X(h1, ldh, d.hid_c2), WT(w2c, lay.ld_w2c, d.hid_c1, d.hid_c2), P,
+                              d.hid_c1, d.hid_c2,
+                              [&](int r, int c, float v) {
+                                  h2[r * ldh + c] = v * relu_grad(h0[r * ldh + c]); },
+                              warp, n_warps);
+    mlp_tile::gemm<kBwdGroup>(XTR(h0, ldh, d.hid_c1), X(h1, ldh, d.hid_c2), d.hid_c1,
+                              d.hid_c2, P,
+                              [&](int r, int c, float v) { row[o_w2c + r * d.hid_c2 + c] = v; },
+                              warp, n_warps);
+    column_sums(h1, ldh, d.hid_c2, row + o_b2c);
+    __syncthreads();
+    // g_cin = g_h1 W1^T -> the color features' gradient and d_sh; dW1 = cin^T g_h1
+    mlp_tile::gemm<kBwdGroup>(X(h2, ldh, d.hid_c1), WT(w1c, lay.ld_w1c, cin, d.hid_c1), P, cin,
+                              d.hid_c1,
+                              [&](int r, int c, float v) {
+                                  if (c < feat) {
+                                      ghc[r * lay.ld_f + c] = v;
+                                  } else if (base + r < d.n) {
+                                      d_sh[static_cast<size_t>(base + r) * d.sh + (c - feat)] = v;
+                                  }
+                              },
+                              warp, n_warps);
+    mlp_tile::gemm<kBwdGroup>(XT(xc, lay.ld_c, cin), X(h2, ldh, d.hid_c1), cin, d.hid_c1, P,
+                              [&](int r, int c, float v) { row[o_w1c + r * d.hid_c1 + c] = v; },
+                              warp, n_warps);
+    column_sums(h2, ldh, d.hid_c1, row + o_b1c);
+
+    // table gradients: each corner's update as it is, in the plain stream's
+    // order (level, point, corner); consecutive threads write consecutive
+    // entries
+    if (addr_d == nullptr && addr_c == nullptr) return;
+    __syncthreads();
+    const size_t n_pad = static_cast<size_t>(gridDim.x) * P;
+    for (int e = threadIdx.x; e < P * 8 * levels; e += blockDim.x) {
+        const int c = e & 7, p = (e >> 3) % P, l = (e >> 3) / P, i = base + p;
+        const size_t pos = (static_cast<size_t>(l) * n_pad + base + p) * 8 + c;
+        if (i < d.n) {
+            const LevelPoint q = level_point(points[3 * i], points[3 * i + 1], points[3 * i + 2],
+                                             g.res[l]);
+            const float w = corner_weight(q, c);
+            if (addr_d != nullptr) {
+                addr_d[pos] = static_cast<long long>(l) * d.table_d +
+                              corner_index(q, c, g.dense_d[l] != 0, d.table_d);
+#pragma unroll
+                for (int f = 0; f < F; ++f)
+                    val_d[pos * F + f] = __fmul_rn(w, ghd[p * lay.ld_f + l * F + f]);
+            }
+            if (addr_c != nullptr) {
+                addr_c[pos] = static_cast<long long>(l) * d.table_c +
+                              corner_index(q, c, g.dense_c[l] != 0, d.table_c);
+#pragma unroll
+                for (int f = 0; f < F; ++f)
+                    val_c[pos * F + f] = __fmul_rn(w, ghc[p * lay.ld_f + l * F + f]);
+            }
+        } else {
+            // past the end: the spill address L*T, dropped by the commit
+            if (addr_d != nullptr) {
+                addr_d[pos] = static_cast<long long>(levels) * d.table_d;
+#pragma unroll
+                for (int f = 0; f < F; ++f) val_d[pos * F + f] = 0.0f;
+            }
+            if (addr_c != nullptr) {
+                addr_c[pos] = static_cast<long long>(levels) * d.table_c;
+#pragma unroll
+                for (int f = 0; f < F; ++f) val_c[pos * F + f] = 0.0f;
+            }
         }
-        __syncthreads();    // keys and weights are rewritten for the next level
     }
 }
 
 // ---- backward, pass 2: the partials summed over blocks in block order ----
 
-__global__ void fused_step_reduce_kernel(const float* __restrict__ partials, int n_blocks,
-                                         int n_params, float* __restrict__ out) {
-    const int e = blockIdx.x * blockDim.x + threadIdx.x;
-    if (e >= n_params) return;
+// Each block sums kReduceCols parameters: its warps stage kReduceRows rows
+// of them at a time in shared memory (asynchronous copies, all in flight
+// together), then lane c of warp 0 adds its column's rows one after another.
+// Every parameter is summed over the blocks in block order, as a plain loop
+// would sum it, while the loads overlap.
+constexpr int kReduceCols = 32;
+constexpr int kReduceRows = 256;
+constexpr int kReduceThreads = 256;
+
+__global__ void __launch_bounds__(kReduceThreads)
+fused_step_reduce_kernel(const float* __restrict__ partials, int n_blocks, int n_params,
+                         float* __restrict__ out) {
+    __shared__ float tile[kReduceRows][kReduceCols + 1];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int e = blockIdx.x * kReduceCols + lane;
+    const bool in = e < n_params;
     float s = 0.0f;
-    for (int b = 0; b < n_blocks; ++b)
-        s = __fadd_rn(s, partials[static_cast<size_t>(b) * n_params + e]);
-    out[e] = s;
+    for (int r0 = 0; r0 < n_blocks; r0 += kReduceRows) {
+        const int rows = n_blocks - r0 < kReduceRows ? n_blocks - r0 : kReduceRows;
+        for (int r = warp; r < rows; r += kReduceThreads / 32)
+            mlp_tile::cp_async<4>(&tile[r][lane],
+                                  partials + static_cast<size_t>(r0 + r) * n_params +
+                                      (in ? e : 0),
+                                  in);
+        mlp_tile::commit();
+        mlp_tile::wait<0>();
+        __syncthreads();
+        if (warp == 0)
+            for (int r = 0; r < rows; ++r) s = __fadd_rn(s, tile[r][lane]);
+        __syncthreads();
+    }
+    if (warp == 0 && in) out[e] = s;
 }
 
 bool read_args(const int* dims, const int* res, const int* dense_d, const int* dense_c,
@@ -573,13 +688,13 @@ int launch_bwd(const float* points, const float* sh, const float* g_d, const flo
     cudaFuncSetAttribute(fused_step_bwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(bytes));
     const int blocks = (d.n + kBwdPoints - 1) / kBwdPoints;
-    fused_step_bwd_kernel<F><<<blocks, kBwdPoints, bytes, s>>>(
+    fused_step_bwd_kernel<F><<<blocks, kBwdThreads, bytes, s>>>(
         points, sh, g_d, g_c, td, tc, m, g, d, partials, d_sh, addr_d, val_d, addr_c, val_c);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int threads = 256;
-    fused_step_reduce_kernel<<<(d.n_params() + threads - 1) / threads, threads, 0, s>>>(
-        partials, blocks, d.n_params(), grad_mlp);
+    fused_step_reduce_kernel<<<(d.n_params() + kReduceCols - 1) / kReduceCols,
+                               kReduceThreads, 0, s>>>(partials, blocks, d.n_params(),
+                                                       grad_mlp);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -612,11 +727,12 @@ extern "C" int fused_step_forward(const float* points, const float* sh, const fl
 }
 
 // As the forward, plus: g_d (n, density outputs) and g_c (n, color outputs)
-// the cotangents; partials (n_blocks, P) scratch with n_blocks = ceil(n / 64)
+// the cotangents; partials (n_blocks, P) scratch with n_blocks = ceil(n / 32)
 // and P the MLP parameter count; d_sh (n, sh_dim); grad_mlp (P,), the MLP
-// gradients in the order of `mlp`; addr_* (n_blocks * levels * 512,) int64
-// and val_* (the same, n_features) the merged update stream of each grid, or
-// null pointers for a frozen grid.
+// gradients in the order of `mlp`; addr_* (levels * n_blocks * 32 * 8,)
+// int64 and val_* (the same, n_features) the update stream of each grid, in
+// (level, point, corner) order with points past n at the spill address
+// levels * T, or null pointers for a frozen grid.
 extern "C" int fused_step_backward(const float* points, const float* sh, const float* g_d,
                                    const float* g_c, const float* td, const float* tc,
                                    const void* const* mlp, const int* res, const int* dense_d,

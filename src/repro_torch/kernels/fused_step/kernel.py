@@ -4,9 +4,12 @@
 and `fused_step_bwd` replaces `fused_step_bwd_pallas`.  Each validates its
 inputs, allocates outputs and scratch, launches on the current stream and
 counts the launch; raises on anything the kernels do not take and on a
-failed launch.  The backward's second pass orders the per-block merged runs
-by address with a stable `torch.sort` and commits them with the
-`bum_scatter` kernel (which counts its own launches).
+failed launch.  The backward kernel writes each grid's table-gradient
+stream in the plain version's order (level, point, corner; `ref.bwd_table_stream`
+lays it out the same way); its second pass orders the stream by address
+with a stable `torch.sort` and commits it with the `bum_scatter` kernel
+(which counts its own launches), so each table row is summed in the plain
+version's order.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ MLP_D_KEYS = ("w1", "b1", "w2", "b2")
 MLP_C_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")
 MAX_LEVELS = 32
 FEATURE_COUNTS = (1, 2, 4, 8)
-BWD_POINTS = 64             # points per backward block (kBwdPoints)
+BWD_POINTS = 32             # points per backward block (kBwdPoints)
 MAX_SMEM = 232448           # bytes of shared memory a block may use
 MAX_OUT_D, MAX_OUT_C = 16, 4
 
@@ -123,20 +126,23 @@ def fused_step_fwd(points, sh, t_density, t_color, mlp_d: dict, mlp_c: dict,
 
 
 def _commit(addr, vals, levels: int, table_size: int, f: int):
-    """Pass 2 of one grid: order the per-block runs by address across blocks
-    (stable) and commit them into a fresh (L, T, F) gradient table."""
+    """Pass 2 of one grid: order its stream by address (stable, so equal
+    addresses keep stream order) and commit it into a fresh (L, T, F)
+    gradient table."""
     order = torch.sort(addr, stable=True).indices
     flat = torch.zeros((levels * table_size, f), dtype=torch.float32, device=addr.device)
     gu_kernel.bum_scatter(flat, addr[order], vals[order].contiguous())
     return flat.reshape(levels, table_size, f)
 
 
-def fused_step_bwd(points, sh, g_d, g_c, t_density, t_color, mlp_d: dict, mlp_c: dict,
-                   resolutions, dense_d, dense_c, *, need_density: bool = True,
-                   need_color: bool = True):
-    """The backward on CUDA f32 tensors; g_d (N, 1+geo) and g_c (N, 3) are
-    the cotangents.  Returns (d_t_density or None, d_t_color or None,
-    d_mlp_d, d_mlp_c, d_sh); a grid not needed gets no update stream."""
+def fused_step_bwd_launch(points, sh, g_d, g_c, t_density, t_color, mlp_d: dict,
+                          mlp_c: dict, resolutions, dense_d, dense_c, *,
+                          need_density: bool = True, need_color: bool = True):
+    """Pass 1 of the backward, the kernel launch alone, on CUDA f32 tensors.
+    Returns (streams, grad_mlp, d_sh): streams maps "density" / "color" to
+    that grid's (addr (M,) int64, vals (M, F)) update stream, or None for a
+    grid not needed; grad_mlp (P,) holds the MLP gradients in `_mlp_list`
+    order."""
     dims = _check("fused_step_bwd", points, sh, t_density, t_color, mlp_d, mlp_c,
                   resolutions, dense_d, dense_c)
     _k.require_cuda_f32("fused_step_bwd", points.device, g_d=g_d, g_c=g_c)
@@ -157,21 +163,34 @@ def fused_step_bwd(points, sh, g_d, g_c, t_density, t_color, mlp_d: dict, mlp_c:
                          if need and n else None)
     if n == 0:
         grad_mlp.zero_()
-    else:
-        c_dims, c_res, c_dd, c_dc, c_mlp = _c_args(dims, resolutions, dense_d, dense_c, mlps)
-        _check_smem("fused_step_bwd", c_dims, backward=True)
-        null = ctypes.c_void_p(None)
-        sd, sc = streams["density"], streams["color"]
-        with torch.cuda.device(device):
-            status = _entry("fused_step_backward")(
-                _k.ptr(points), _k.ptr(sh), _k.ptr(g_d), _k.ptr(g_c), _k.ptr(t_density),
-                _k.ptr(t_color), c_mlp, c_res, c_dd, c_dc, c_dims, _k.ptr(partials),
-                _k.ptr(d_sh),
-                _k.ptr(sd[0]) if sd else null, _k.ptr(sd[1]) if sd else null,
-                _k.ptr(sc[0]) if sc else null, _k.ptr(sc[1]) if sc else null,
-                _k.ptr(grad_mlp), _k.stream_handle(device))
-        _k.check_status("fused_step", status, "fused_step_bwd")
-        _k.LAUNCHES["fused_step_bwd"] += 1
+        return streams, grad_mlp, d_sh
+    c_dims, c_res, c_dd, c_dc, c_mlp = _c_args(dims, resolutions, dense_d, dense_c, mlps)
+    _check_smem("fused_step_bwd", c_dims, backward=True)
+    null = ctypes.c_void_p(None)
+    sd, sc = streams["density"], streams["color"]
+    with torch.cuda.device(device):
+        status = _entry("fused_step_backward")(
+            _k.ptr(points), _k.ptr(sh), _k.ptr(g_d), _k.ptr(g_c), _k.ptr(t_density),
+            _k.ptr(t_color), c_mlp, c_res, c_dd, c_dc, c_dims, _k.ptr(partials),
+            _k.ptr(d_sh),
+            _k.ptr(sd[0]) if sd else null, _k.ptr(sd[1]) if sd else null,
+            _k.ptr(sc[0]) if sc else null, _k.ptr(sc[1]) if sc else null,
+            _k.ptr(grad_mlp), _k.stream_handle(device))
+    _k.check_status("fused_step", status, "fused_step_bwd")
+    _k.LAUNCHES["fused_step_bwd"] += 1
+    return streams, grad_mlp, d_sh
+
+
+def fused_step_bwd(points, sh, g_d, g_c, t_density, t_color, mlp_d: dict, mlp_c: dict,
+                   resolutions, dense_d, dense_c, *, need_density: bool = True,
+                   need_color: bool = True):
+    """The backward on CUDA f32 tensors; g_d (N, 1+geo) and g_c (N, 3) are
+    the cotangents.  Returns (d_t_density or None, d_t_color or None,
+    d_mlp_d, d_mlp_c, d_sh); a grid not needed gets no update stream."""
+    streams, grad_mlp, d_sh = fused_step_bwd_launch(
+        points, sh, g_d, g_c, t_density, t_color, mlp_d, mlp_c, resolutions, dense_d,
+        dense_c, need_density=need_density, need_color=need_color)
+    levels, f = t_density.shape[0], t_density.shape[2]
     grads = []
     for (name, need), t in zip((("density", need_density), ("color", need_color)),
                                (t_density, t_color)):
@@ -181,6 +200,7 @@ def fused_step_bwd(points, sh, g_d, g_c, t_density, t_color, mlp_d: dict, mlp_c:
             grads.append(torch.zeros_like(t))
         else:
             grads.append(_commit(*streams[name], levels, t.shape[1], f))
+    mlps = _mlp_list(mlp_d, mlp_c)
     pieces = list(torch.split(grad_mlp, [t.numel() for t in mlps]))
     shaped = [piece.reshape(t.shape) for piece, t in zip(pieces, mlps)]
     g_mlp_d = dict(zip(MLP_D_KEYS, shaped[:4]))

@@ -14,8 +14,15 @@ card and fails on anything wrong -- there is no CPU fallback.
    (`bound_ms`, from the bytes and operations this run's inputs need) and,
    where one PyTorch call computes the same function, that call's time;
    for the fused encode also its distinct reads per (block, level) against
-   the plain count.  Then the fused encode's table gradients must equal the
-   hash encode's bit for bit for one fixed upstream gradient;
+   the plain count.  The two kernels redesigned for the tensor cores
+   (fused_mlp3, the fused backward) also run at their main paths' own
+   shapes (the dense serving chunk; a trained Instant-3D step's budget on
+   Morton-ordered points, with the color grid live and frozen), must give
+   the same bytes on two launches, and report `prev_ms`, PR 13's kernel at
+   the same shape; the fused backward's time is broken down (kernel launch
+   alone, the wrapper's commit alone, no streams).  Then the fused
+   encode's table gradients must equal the hash encode's bit for bit for
+   one fixed upstream gradient;
 3. training (slice 2's main path): `Instant3DTrainer(Field(FieldConfig()),
    TrainerConfig()).train(...)` for its 400 steps on the synthetic scene of
    `build_dataset(0)` with 4 views held out, launch counters zeroed just
@@ -76,8 +83,11 @@ from .optim.adamw import tree_paths
 from .serve3d import RenderResult, RenderService, SnapshotStore
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
-# HBM bandwidth, and the f32 rate outside the tensor cores (the kernels use
-# plain f32 FMA).
+# HBM bandwidth, and the f32 rate outside the tensor cores.  Every kernel
+# computes an f32 function, so its operations are counted at the f32 rate;
+# fused_mlp3 and the fused backward reach f32 accuracy on the tensor cores
+# in split TF32 (three TF32 products per multiply-add, 3 x 2 flops at 495
+# TFLOP/s, a bound 0.41 times the f32 one).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 
@@ -115,18 +125,21 @@ SERVE_KERNELS = ("hash_encode", "fused_mlp2", "fused_mlp3", "composite")
 
 # Error allowed between a kernel and its plain version on the card, in the
 # measure each case reports as `err`.  The two sum in different orders and
-# the kernels contract multiply-adds into FMAs.  Max abs error: an 8-corner
-# sum of values in [-1, 1] (hash encode) and the MLPs' O(1) outputs stay
-# within 1e-5, the fused step's outputs too; the composite's depth sums 48
-# terms of w * t with t up to 6, so its bound is 5e-5.  The fused backward
-# (relative: max abs error over max |value|) sums each table row's updates
-# block by block where the plain version sums them in one stream (1e-5 of
-# the largest table gradient) and its MLP gradients over blocks of 64
-# points (1e-4).  bum_scatter sums each run in stream order, as the plain
-# version does on the CPU, so it is exact; 1e-6 of the largest value is
-# what it is held to.  The fused encode sums the same 8 corners as the hash
-# encode (1e-5); its distinct-read counts must equal the plain count and
-# its block dedup ratio the plain `dedup_stats` within 1e-12.
+# the kernels contract multiply-adds into FMAs or, in fused_mlp3 and the
+# fused backward, take split-TF32 products on the tensor cores (within about
+# 2^-22 of each f32 product).  Max abs error: an 8-corner sum of values in
+# [-1, 1] (hash encode) and the MLPs' O(1) outputs stay within 1e-5, the
+# fused step's outputs too; the composite's depth sums 48 terms of w * t
+# with t up to 6, so its bound is 5e-5.  The fused backward (relative: max
+# abs error over max |value|) sums each table row's updates in the plain
+# version's stream order, from feature gradients that its products round
+# otherwise (1e-5 of the largest table gradient), and its MLP gradients
+# over blocks of 32 points, then over the blocks (1e-4).  bum_scatter sums
+# each run in stream order, as the plain version does on the CPU, so it is
+# exact; 1e-6 of the largest value is what it is held to.  The fused encode
+# sums the same 8 corners as the hash encode (1e-5); its distinct-read
+# counts must equal the plain count and its block dedup ratio the plain
+# `dedup_stats` within 1e-12.
 TOLERANCE = {"hash_encode": 1e-5, "fused_mlp2": 1e-5, "fused_mlp3": 1e-5,
              "composite": 5e-5, "fused_step_fwd": 1e-5, "fused_step_bwd": 1e-4,
              "bum_scatter": 1e-6, "fused_encode": 1e-5}
@@ -157,6 +170,23 @@ NGP_DETERMINISM_STEPS = (104, 136)
 # 256-point block, with sentinel rows at the end.
 PARITY_BUDGET = 32768
 DENSE_POINTS = 1024 * 48
+# The main paths' own shapes of the two kernels redesigned for Hopper: the
+# trained Instant-3D field's compacted budget (live fraction 0.075-0.10 of
+# 1024 x 48 points buckets to 8192) for the fused backward, and the dense
+# serving chunk (4096 rays x 48 samples) for fused_mlp3.
+TRAIN_BUDGET = 8192
+# PR 13's kernel times (ms) at each parity shape of the two redesigned
+# kernels, from the chip_smoke.py run on PR 13's kernels before the
+# redesign (NVIDIA H100 80GB HBM3, 700.00 W); each report carries its
+# shape's value as `prev_ms`.
+PREV_MS: dict[tuple[str, str], float] = {
+    ("fused_mlp3", "color head, N=49152"): 0.2744,
+    ("fused_mlp3", "NGP color head, N=32768"): 0.2287,
+    ("fused_mlp3", "color head, N=196608"): 1.0841,
+    ("fused_step_bwd", "budget 32768"): 12.7022,
+    ("fused_step_bwd", "budget 8192"): 3.2893,
+    ("fused_step_bwd", "budget 8192, color frozen"): 2.6005,
+}
 PADDED_POINTS, SENTINEL_ROWS = 30000, 4
 
 # The served image: NeRF-Synthetic size, 50 degree field of view
@@ -234,6 +264,19 @@ def _rel_err(a, b) -> float:
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
+def _same_bits(a, b) -> bool:
+    """Whether two tensors, or two equal-length sequences of tensors and
+    dicts of tensors, hold the same bytes."""
+    flat = lambda x: (list(x.values()) if isinstance(x, dict) else  # noqa: E731
+                      [x] if isinstance(x, torch.Tensor) else
+                      [t for y in x for t in flat(y)])
+    xs, ys = flat(a), flat(b)
+    return len(xs) == len(ys) and all(
+        x.shape == y.shape and torch.equal(x.contiguous().view(torch.int32),
+                                           y.contiguous().view(torch.int32))
+        for x, y in zip(xs, ys))
+
+
 def _same_nonzero_rows(a, b) -> bool:
     """Whether two gradient tables have nonzero entries in the same rows."""
     rows = lambda t: t.reshape(-1, t.shape[-1]).ne(0).any(dim=-1)  # noqa: E731
@@ -283,9 +326,11 @@ def _mlp_case(gen, device, n, dims, label):
     n_params = sum(p.numel() for p in params)
     n_bytes = 4 * (n * (dims[0] + dims[-1]) + n_params)
     n_flops = 2 * n * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    got = kern(x, *params)
     return {
         "kernel": name, "case": label, "shape": [n, *dims],
-        "max_abs_err": _max_err(kern(x, *params), plain(x, *params)),
+        "max_abs_err": _max_err(got, plain(x, *params)),
+        "deterministic": _same_bits(got, kern(x, *params)),
         "ms": cuda_ms(lambda: kern(x, *params)),
         "plain_ms": cuda_ms(lambda: plain(x, *params)),
         "bound": bound(n_bytes, n_flops),
@@ -377,41 +422,50 @@ def _fused_step_fwd_case(gen, device, n: int, field: Field, label: str):
     }
 
 
-def _fused_step_bwd_case(gen, device, n: int, field: Field, label: str):
+def _fused_step_bwd_case(gen, device, n: int, field: Field, label: str,
+                         need_color: bool = True):
     """The backward kernel against the plain backward run on CPU copies (the
     exact stream-order reference); the plain time is the plain backward on
-    the card, whose table commits go through bum_scatter."""
+    the card, whose table commits go through bum_scatter.  need_color=False
+    is a step with the color grid frozen: no color stream, no color table
+    gradient."""
     pts, sh, tables, mlp_d, mlp_c, geometry = _fused_step_inputs(gen, device, n, field)
     g_d = _uniform(gen, (n, mlp_d["w2"].shape[1]), -1.0, 1.0, device)
     g_c = _uniform(gen, (n, mlp_c["w3"].shape[1]), -1.0, 1.0, device)
+    needs = (True, need_color)
     run = lambda: fs_kernel.fused_step_bwd(pts, sh, g_d, g_c, *tables, mlp_d, mlp_c,  # noqa: E731
-                                           *geometry)
+                                           *geometry, need_color=need_color)
     got = run()
     cpu = lambda t: {k: v.cpu() for k, v in t.items()} if isinstance(t, dict) else t.cpu()  # noqa: E731
     want = fs_ops._plain_backward(geometry, *(cpu(t) for t in (pts, sh, *tables, mlp_d, mlp_c,
-                                                                g_d, g_c)), (True, True))
-    table_err = max(_rel_err(g.cpu(), w) for g, w in zip(got[:2], want[:2]))
-    rows_same = all(_same_nonzero_rows(g.cpu(), w) for g, w in zip(got[:2], want[:2]))
+                                                                g_d, g_c)), needs)
+    grids = [k for k in (0, 1) if needs[k]]
+    if not need_color and (got[1] is not None or want[1] is not None):
+        raise RuntimeError("fused_step_bwd: a frozen color grid got a gradient")
+    table_err = max(_rel_err(got[k].cpu(), want[k]) for k in grids)
+    rows_same = all(_same_nonzero_rows(got[k].cpu(), want[k]) for k in grids)
     mlp_err = max(_rel_err(got[k][name].cpu(), want[k][name])
                   for k in (2, 3) for name in got[k])
     sh_err = _rel_err(got[4].cpu(), want[4])
-    abs_err = max([_max_err(g.cpu(), w) for g, w in zip(got[:2], want[:2])] +
+    abs_err = max([_max_err(got[k].cpu(), want[k]) for k in grids] +
                   [_max_err(got[k][name].cpu(), want[k][name])
                    for k in (2, 3) for name in got[k]] + [_max_err(got[4].cpu(), want[4])])
+    deterministic = _same_bits([g for g in got if g is not None],
+                               [g for g in run() if g is not None])
     n_bytes, n_flops = _fused_counts(pts, tables, mlp_d, mlp_c, geometry)
     # plus the cotangents and SH read, the gradient tables, MLP gradients and
     # d_sh written once; the backward's multiply-adds are twice the forward's
     n_bytes += 4 * (g_d.numel() + g_c.numel() + 2 * sh.numel()
-                    + sum(t.numel() for t in tables)
+                    + sum(tables[k].numel() for k in grids)
                     + sum(t.numel() for t in list(mlp_d.values()) + list(mlp_c.values())))
     n_flops *= 3
     plain = lambda: fs_ops._plain_backward(geometry, pts, sh, *tables, mlp_d, mlp_c,  # noqa: E731
-                                           g_d, g_c, (True, True))
+                                           g_d, g_c, needs)
     return {
         "kernel": "fused_step_bwd", "case": label, "shape": [n, *tables[0].shape],
         "max_abs_err": abs_err, "err": max(mlp_err, sh_err), "table_rel_err": table_err,
-        "nonzero_rows_equal": rows_same,
-        "ok": rows_same and table_err <= BWD_TABLE_TOL
+        "nonzero_rows_equal": rows_same, "deterministic": deterministic,
+        "ok": rows_same and deterministic and table_err <= BWD_TABLE_TOL
         and max(mlp_err, sh_err) <= TOLERANCE["fused_step_bwd"],
         "ms": cuda_ms(run, iters=20),
         "plain_ms": cuda_ms(plain, iters=5, warmup=2),
@@ -558,7 +612,68 @@ def kernel_parity(device, field_cfg: FieldConfig = FieldConfig(),
                                  f"redistributed, S={s_red}"))
     cases.append(_composite_case(gen, device, EVAL_CHUNK, s, f"dense, S={s}"))
     cases.extend(train_kernel_parity(device, field_cfg, seed=seed))
+    cases.extend(main_shape_parity(device, field_cfg, render_cfg, seed=seed))
     return cases
+
+
+def main_shape_parity(device, field_cfg: FieldConfig = FieldConfig(),
+                      render_cfg: RenderConfig = RenderConfig(), seed: int = 0,
+                      budget: int = TRAIN_BUDGET) -> list[dict]:
+    """The two redesigned kernels at their main paths' own shapes:
+    fused_mlp3 at the dense serving chunk (chunk x S points), the fused
+    backward at a trained Instant-3D step's budget on Morton-ordered points,
+    with both grids and with the color grid frozen."""
+    gen = torch.Generator().manual_seed(seed + 3)
+    field = Field(field_cfg)
+    h = field_cfg.hidden
+    n_dense = EVAL_CHUNK * render_cfg.n_samples
+    cin = field.density_enc.cfg.out_dim + field.sh_dim
+    return [
+        _mlp_case(gen, device, n_dense, (cin, h, h, 3), f"color head, N={n_dense}"),
+        _fused_step_bwd_case(gen, device, budget, field, f"budget {budget}"),
+        _fused_step_bwd_case(gen, device, budget, field, f"budget {budget}, color frozen",
+                             need_color=False),
+    ]
+
+
+def fused_step_bwd_breakdown(device, n: int, field_cfg: FieldConfig = FieldConfig(),
+                             seed: int = 0) -> dict:
+    """Where the fused backward's time goes at N points (Morton-ordered):
+    the whole wrapper, the kernel launch alone (pass 1, through ctypes), the
+    wrapper's commit alone (stable sort, gathers, zero fill and bum_scatter
+    for both grids), of it the two stable sorts alone and the two
+    bum_scatter launches alone, and the wrapper with no table gradient at
+    all (no streams), each by CUDA events."""
+    gen = torch.Generator().manual_seed(seed + 4)
+    field = Field(field_cfg)
+    pts, sh, tables, mlp_d, mlp_c, geometry = _fused_step_inputs(gen, device, n, field)
+    g_d = _uniform(gen, (n, mlp_d["w2"].shape[1]), -1.0, 1.0, device)
+    g_c = _uniform(gen, (n, mlp_c["w3"].shape[1]), -1.0, 1.0, device)
+    args = (pts, sh, g_d, g_c, *tables, mlp_d, mlp_c, *geometry)
+    launch = lambda: fs_kernel.fused_step_bwd_launch(*args)  # noqa: E731
+    streams, _, _ = launch()
+    levels, _, f = tables[0].shape
+    commit = lambda: [fs_kernel._commit(*streams[name], levels, t.shape[1], f)  # noqa: E731
+                      for name, t in zip(("density", "color"), tables)]
+    sort = lambda: [torch.sort(streams[name][0], stable=True)  # noqa: E731
+                    for name in ("density", "color")]
+    ordered = []
+    for name, t in zip(("density", "color"), tables):
+        addr, vals = streams[name]
+        order = torch.sort(addr, stable=True).indices
+        ordered.append((torch.zeros((levels * t.shape[1], f), device=device), addr[order],
+                        vals[order].contiguous()))
+    scatter = lambda: [gu_kernel.bum_scatter(*o) for o in ordered]  # noqa: E731
+    return {
+        "n": n, "stream_entries": int(streams["density"][0].numel()),
+        "total_ms": cuda_ms(lambda: fs_kernel.fused_step_bwd(*args), iters=20),
+        "launch_ms": cuda_ms(launch, iters=20),
+        "commit_ms": cuda_ms(commit, iters=20),
+        "sort_ms": cuda_ms(sort, iters=20),
+        "scatter_ms": cuda_ms(scatter, iters=20),
+        "no_streams_ms": cuda_ms(lambda: fs_kernel.fused_step_bwd(
+            *args, need_density=False, need_color=False), iters=20),
+    }
 
 
 def train_kernel_parity(device, field_cfg: FieldConfig = FieldConfig(),
@@ -828,6 +943,11 @@ def _print_case(c: dict, card: str) -> bool:
                   f"nonzero_rows_equal {c['nonzero_rows_equal']}")
     if "exact" in c:
         extra += f" exact {c['exact']} nonzero_rows_equal {c['nonzero_rows_equal']}"
+    if c["kernel"] in ("fused_mlp3", "fused_step_bwd"):
+        ok = ok and c["deterministic"]
+        extra += f" two launches byte-identical {c['deterministic']}"
+    if PREV_MS.get((c["kernel"], c["case"])) is not None:
+        extra += f"  PR 13 kernel {PREV_MS[(c['kernel'], c['case'])]:.4f} ms"
     if "dedup" in c:
         d = c["dedup"]
         extra += (f" distinct reads {d['reads_kernel']} (plain {d['reads_plain']}, per block "
@@ -913,6 +1033,9 @@ def main() -> int:
     failed = [f"{c['kernel']} {c['case']}" for c in cases if not _print_case(c, card)]
     if failed:
         raise RuntimeError(f"kernel parity failed: {failed}")
+    breakdown = [fused_step_bwd_breakdown(device, n) for n in (TRAIN_BUDGET, PARITY_BUDGET)]
+    for b in breakdown:
+        print(f"fused_step_bwd breakdown [{card}]: {json.dumps(b)}", flush=True)
     ident = fused_encode_backward_identity(device)
     print(f"fused_encode backward vs hash_encode backward: {json.dumps(ident)}", flush=True)
     if not all(ident["bit_identical"]) or \
@@ -976,13 +1099,18 @@ def main() -> int:
             "err": max(c.get("err", c["max_abs_err"]) for c in mine),
             "tolerance": TOLERANCE[name],
             "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "prev_ms": PREV_MS.get((name, head["case"])),
             "bound_ms": head["bound"][0], "bound_by": head["bound"][1],
             "library_ms": head.get("library_ms"),
             "cases": [{"case": c["case"], "shape": c["shape"],
                        "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                       "prev_ms": PREV_MS.get((name, c["case"])),
                        "plain_ms": c["plain_ms"], "library_ms": c.get("library_ms"),
                        "bound_ms": c["bound"][0], "bound_by": c["bound"][1],
+                       **({"deterministic": c["deterministic"]}
+                          if "deterministic" in c else {}),
                        **({"dedup": c["dedup"]} if "dedup" in c else {})} for c in mine],
+            **({"breakdown": breakdown} if name == "fused_step_bwd" else {}),
         })
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@ installed.  Run on the card with
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_card.py``.
 
 Tolerances (max abs error): hash encode 1e-5 (8-corner sums of table values
-in [-1, 1], FMA-contracted in the kernel), MLPs 1e-5 (O(1) outputs),
+in [-1, 1], FMA-contracted in the kernel), MLPs 1e-5 (O(1) outputs; mlp3
+and the fused backward multiply in split TF32 on the tensor cores),
 composite 5e-5 (48-term depth sums with t up to 6), the fused step's
 forward and the fused encode 1e-5; the fused encode's distinct reads per
 (block, level) exactly the plain count, and its table gradients the hash
@@ -15,7 +16,9 @@ encode's bit for bit (the same products committed in the same order).  Gradients
 gradients (the fused backward merges per block, the plain one per stream)
 and 1e-4 for MLP gradients (summed over blocks in another order), with the
 same nonzero rows; bum_scatter bit for bit against the plain merge on CPU
-copies (both sum each run in stream order).
+copies (both sum each run in stream order).  The two kernels redesigned
+for the tensor cores (mlp3, the fused backward) give the same bytes on two
+launches.
 """
 import ctypes
 
@@ -303,3 +306,92 @@ def test_fused_encode_gradients_are_hash_encode_bit_for_bit(decomposed, card):
         assert float((o - h).detach().abs().max()) <= 1e-5
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _morton_step_inputs(gen, n, card, field):
+    pts, sh, tables, mlp_d, mlp_c, geometry = _step_inputs(gen, n, card, field)
+    return (_morton(pts), sh, tables, mlp_d, mlp_c, geometry)
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("need_density,need_color",
+                         [(True, True), (True, False), (False, True), (False, False)])
+@pytest.mark.parametrize("n", [1, 77, 8192, 32768])
+def test_fused_step_bwd_matches_plain_backward(n, need_density, need_color, card):
+    """The tensor-core backward against the plain backward's function on CPU
+    copies, on Morton-ordered points, for every combination of frozen grids:
+    tables within 1e-5 relative with the same nonzero rows, MLP gradients and
+    d_sh within 1e-4 relative.  The yardstick is that function in float64
+    (`ref.backward_f64`): at N=32,768 one color pre-activation of these
+    inputs is 1.9e-8, and the f32 plain version's rounding puts it on the
+    wrong side of the ReLU, 1.4e-2 off the exact gradient, where the kernel
+    is within 5e-7 of it."""
+    field = Field(FieldConfig())
+    gen = torch.Generator().manual_seed(n + 11)
+    pts, sh, tables, mlp_d, mlp_c, geometry = _morton_step_inputs(gen, n, card, field)
+    g_d = _u(gen, (n, mlp_d["w2"].shape[1]), -1, 1, card)
+    g_c = _u(gen, (n, mlp_c["w3"].shape[1]), -1, 1, card)
+    before = kernels.LAUNCHES["fused_step_bwd"]
+    got = fs_kernel.fused_step_bwd(pts, sh, g_d, g_c, *tables, mlp_d, mlp_c, *geometry,
+                                   need_density=need_density, need_color=need_color)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_step_bwd"] == before + 1
+    cpu = lambda x: {k: v.cpu() for k, v in x.items()} if isinstance(x, dict) else x.cpu()  # noqa: E731
+    want = fs_ref.backward_f64(geometry, *(cpu(x) for x in (pts, sh, *tables, mlp_d, mlp_c,
+                                                             g_d, g_c)),
+                               (need_density, need_color))
+    for k, need in enumerate((need_density, need_color)):
+        if need:
+            assert _rel(got[k].cpu().double(), want[k]) <= 1e-5
+            assert torch.equal(_rows(got[k].cpu()), _rows(want[k]))
+        else:
+            assert got[k] is None and want[k] is None
+    for k in (2, 3):
+        for name in got[k]:
+            assert _rel(got[k][name].cpu().double(), want[k][name]) <= 1e-4, name
+    assert _rel(got[4].cpu().double(), want[4]) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", [(48, 64, 64, 3), (31, 64, 64, 3)])
+@pytest.mark.parametrize("n", [1, 77, 49152, 196608])
+def test_fused_mlp3_matches_plain_at_serving_sizes(n, dims, card):
+    gen = torch.Generator().manual_seed(n + dims[0])
+    x = _u(gen, (n, dims[0]), -1, 1, card)
+    params = []
+    for d_in, d_out in zip(dims[:-1], dims[1:]):
+        b = (6.0 / d_in) ** 0.5
+        params += [_u(gen, (d_in, d_out), -b, b, card), _u(gen, (d_out,), -0.1, 0.1, card)]
+    before = kernels.LAUNCHES["fused_mlp3"]
+    got = mlp_kernel.fused_mlp3(x, *params)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_mlp3"] == before + 1
+    assert got.shape == (n, 3)
+    assert float((got - mlp_ref.mlp3(x, *params)).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_redesigned_kernels_give_the_same_bytes_twice(card):
+    """Two launches on the same inputs: byte-identical outputs, all five of
+    the fused backward's and mlp3's."""
+    field = Field(FieldConfig())
+    gen = torch.Generator().manual_seed(21)
+    n = 8192
+    pts, sh, tables, mlp_d, mlp_c, geometry = _morton_step_inputs(gen, n, card, field)
+    g_d = _u(gen, (n, mlp_d["w2"].shape[1]), -1, 1, card)
+    g_c = _u(gen, (n, mlp_c["w3"].shape[1]), -1, 1, card)
+    runs = [fs_kernel.fused_step_bwd(pts, sh, g_d, g_c, *tables, mlp_d, mlp_c, *geometry)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        pairs = zip(a.values(), b.values()) if isinstance(a, dict) else [(a, b)]
+        for x, y in pairs:
+            assert torch.equal(_bits(x), _bits(y))
+    x = _u(gen, (49152, 48), -1, 1, card)
+    params = [_u(gen, sh_, -0.3, 0.3, card)
+              for sh_ in [(48, 64), (64,), (64, 64), (64,), (64, 3), (3,)]]
+    assert torch.equal(_bits(mlp_kernel.fused_mlp3(x, *params)),
+                       _bits(mlp_kernel.fused_mlp3(x, *params)))
