@@ -10,10 +10,11 @@
 // ~9,800 multiply-adds in the two MLP heads against ~2 KB of gathered table
 // rows, most of them served by the 50 MB L2 that holds both table sets
 // (40 MiB).  The forward's arithmetic is plain f32 FMA on the CUDA cores.
-// Backward: f32 operations too -- the two heads recomputed, their data
-// gradients and their weight gradients, about three times the forward's
-// multiply-adds -- plus the table-gradient streams it writes (16 bytes per
-// corner and grid).
+// Backward: the two heads recomputed, their data gradients and their weight
+// gradients, about three times the forward's multiply-adds, on the tensor
+// cores in split TF32 (three TF32 products each, at 495 TFLOP/s); the
+// encode's f32 work on the CUDA cores; and the table-gradient streams it
+// writes (16 bytes per corner and grid).
 //
 // Forward design.  The TPU kernel ran a (block, level) grid with the level
 // axis innermost, holding one level table per step in VMEM and the block's

@@ -15,15 +15,14 @@ def _relu(z):
     return torch.maximum(z, z.new_zeros(()))
 
 
-def mlp2(x, w1, b1, w2, b2, dtype=torch.float32):
-    """x (N, Din) -> relu(x @ w1 + b1) @ w2 + b2, in `dtype` (f32; float64
-    only as a yardstick of exact arithmetic)."""
-    h = _relu(x.to(dtype) @ w1.to(dtype) + b1.to(dtype))
-    return h @ w2.to(dtype) + b2.to(dtype)
+def mlp2(x, w1, b1, w2, b2):
+    """x (N, Din) -> relu(x @ w1 + b1) @ w2 + b2, f32."""
+    h = _relu(x.to(torch.float32) @ w1.to(torch.float32) + b1)
+    return h @ w2.to(torch.float32) + b2
 
 
-def mlp3(x, w1, b1, w2, b2, w3, b3, dtype=torch.float32):
+def mlp3(x, w1, b1, w2, b2, w3, b3):
     """Two hidden ReLU layers, then a linear head."""
-    h1 = _relu(x.to(dtype) @ w1.to(dtype) + b1.to(dtype))
-    h2 = _relu(h1 @ w2.to(dtype) + b2.to(dtype))
-    return h2 @ w3.to(dtype) + b3.to(dtype)
+    h1 = _relu(x.to(torch.float32) @ w1.to(torch.float32) + b1)
+    h2 = _relu(h1 @ w2.to(torch.float32) + b2)
+    return h2 @ w3.to(torch.float32) + b3

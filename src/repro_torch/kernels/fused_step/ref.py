@@ -31,14 +31,13 @@ from ..hash_encode import ref as he_ref
 _INT32_MAX = 2 ** 31 - 1
 
 
-def mlp_heads(hd, hc, sh, mlp_d: dict, mlp_c: dict, dtype=torch.float32):
+def mlp_heads(hd, hc, sh, mlp_d: dict, mlp_c: dict):
     """(density feats, color feats, SH feats) -> (density out, raw rgb):
-    mlp2 on hd, mlp3 on concat([hc, sh]), in `dtype` (float64 only for the
-    yardstick `backward_f64`).  Activations stay outside."""
-    out_d = mlp_ref.mlp2(hd, mlp_d["w1"], mlp_d["b1"], mlp_d["w2"], mlp_d["b2"], dtype=dtype)
+    mlp2 on hd, mlp3 on concat([hc, sh]).  Activations stay outside."""
+    out_d = mlp_ref.mlp2(hd, mlp_d["w1"], mlp_d["b1"], mlp_d["w2"], mlp_d["b2"])
     cin = torch.cat([hc, sh], dim=-1)
     raw_c = mlp_ref.mlp3(cin, mlp_c["w1"], mlp_c["b1"], mlp_c["w2"], mlp_c["b2"],
-                         mlp_c["w3"], mlp_c["b3"], dtype=dtype)
+                         mlp_c["w3"], mlp_c["b3"])
     return out_d, raw_c
 
 
@@ -85,6 +84,16 @@ def bwd_table_stream(points, g_feat, resolutions, table_size: int, dense_flags,
     return torch.cat(addr), torch.cat(vals)
 
 
+def layers_f64(x, *params):
+    """The plain MLPs' function in float64: x @ w + b per (w, b) pair, the
+    reference's ReLU (maximum(z, 0)) between layers, none after the last."""
+    for k in range(0, len(params), 2):
+        x = x.to(torch.float64) @ params[k].to(torch.float64) + params[k + 1].to(torch.float64)
+        if k + 2 < len(params):
+            x = torch.maximum(x, x.new_zeros(()))
+    return x
+
+
 def backward_f64(geometry, points, sh, t_density, t_color, mlp_d: dict, mlp_c: dict,
                  g_d, g_c, needs=(True, True)):
     """The backward of `fused_step_ref` (the plain backward's function) in
@@ -106,8 +115,8 @@ def backward_f64(geometry, points, sh, t_density, t_color, mlp_d: dict, mlp_c: d
     leaves += [mlp_d[k].to(f64) for k in keys_d] + [mlp_c[k].to(f64) for k in keys_c]
     leaves = [t.detach().requires_grad_(True) for t in leaves]
     with torch.enable_grad():
-        outs = mlp_heads(leaves[0], leaves[1], leaves[2], dict(zip(keys_d, leaves[3:7])),
-                         dict(zip(keys_c, leaves[7:])), dtype=f64)
+        outs = (layers_f64(leaves[0], *leaves[3:7]),
+                layers_f64(torch.cat([leaves[1], leaves[2]], dim=-1), *leaves[7:]))
         grads = torch.autograd.grad(outs, leaves, (g_d.to(f64), g_c.to(f64)))
     table_grads = []
     for g_feat, table, idx_l, need in zip(grads[:2], tables, idx, needs):

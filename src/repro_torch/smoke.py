@@ -18,11 +18,10 @@ card and fails on anything wrong -- there is no CPU fallback.
    (fused_mlp3, the fused backward) also run at their main paths' own
    shapes (the dense serving chunk; a trained Instant-3D step's budget on
    Morton-ordered points, with the color grid live and frozen), must give
-   the same bytes on two launches, and report `prev_ms`, PR 13's kernel at
-   the same shape; the fused backward's time is broken down (kernel launch
-   alone, the wrapper's commit alone, no streams).  Then the fused
-   encode's table gradients must equal the hash encode's bit for bit for
-   one fixed upstream gradient;
+   the same bytes on two launches; the fused backward's time is broken
+   down (kernel launch alone, the wrapper's commit alone, no streams).
+   Then the fused encode's table gradients must equal the hash encode's
+   bit for bit for one fixed upstream gradient;
 3. training (slice 2's main path): `Instant3DTrainer(Field(FieldConfig()),
    TrainerConfig()).train(...)` for its 400 steps on the synthetic scene of
    `build_dataset(0)` with 4 views held out, launch counters zeroed just
@@ -83,13 +82,15 @@ from .optim.adamw import tree_paths
 from .serve3d import RenderResult, RenderService, SnapshotStore
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
-# HBM bandwidth, and the f32 rate outside the tensor cores.  Every kernel
-# computes an f32 function, so its operations are counted at the f32 rate;
-# fused_mlp3 and the fused backward reach f32 accuracy on the tensor cores
-# in split TF32 (three TF32 products per multiply-add, 3 x 2 flops at 495
-# TFLOP/s, a bound 0.41 times the f32 one).
+# HBM bandwidth, the f32 rate outside the tensor cores and the dense TF32
+# rate of the tensor cores.  Each operation counts at the rate of the unit
+# that runs it: fused_mlp3's and the fused backward's layer products run on
+# the tensor cores in split TF32 (three TF32 products per multiply-add), the
+# rest in f32 on the CUDA cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_TF32_FLOP_PER_S = 495e12
+SPLIT_TF32_PRODUCTS = 3
 
 KERNELS = {
     "hash_encode": {
@@ -175,18 +176,6 @@ DENSE_POINTS = 1024 * 48
 # 1024 x 48 points buckets to 8192) for the fused backward, and the dense
 # serving chunk (4096 rays x 48 samples) for fused_mlp3.
 TRAIN_BUDGET = 8192
-# PR 13's kernel times (ms) at each parity shape of the two redesigned
-# kernels, from the chip_smoke.py run on PR 13's kernels before the
-# redesign (NVIDIA H100 80GB HBM3, 700.00 W); each report carries its
-# shape's value as `prev_ms`.
-PREV_MS: dict[tuple[str, str], float] = {
-    ("fused_mlp3", "color head, N=49152"): 0.2744,
-    ("fused_mlp3", "NGP color head, N=32768"): 0.2287,
-    ("fused_mlp3", "color head, N=196608"): 1.0841,
-    ("fused_step_bwd", "budget 32768"): 12.7022,
-    ("fused_step_bwd", "budget 8192"): 3.2893,
-    ("fused_step_bwd", "budget 8192, color frozen"): 2.6005,
-}
 PADDED_POINTS, SENTINEL_ROWS = 30000, 4
 
 # The served image: NeRF-Synthetic size, 50 degree field of view
@@ -242,10 +231,15 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
-    """(least milliseconds the card could take, what bounds it)."""
+def bound(n_bytes: float, n_flops: float, split_tf32_macs: float = 0) -> tuple[float, str]:
+    """(least milliseconds the card could take, what bounds it): the larger
+    of the bytes over the memory rate and the operations over their unit's
+    rate -- `n_flops` f32 flops on the CUDA cores, `split_tf32_macs`
+    multiply-adds on the tensor cores (3 TF32 products of 2 flops each),
+    the two units running side by side."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = max(n_flops / PEAK_F32_FLOP_PER_S,
+                SPLIT_TF32_PRODUCTS * 2 * split_tf32_macs / PEAK_TF32_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -325,7 +319,11 @@ def _mlp_case(gen, device, n, dims, label):
     plain = mlp_ref.mlp2 if name == "fused_mlp2" else mlp_ref.mlp3
     n_params = sum(p.numel() for p in params)
     n_bytes = 4 * (n * (dims[0] + dims[-1]) + n_params)
-    n_flops = 2 * n * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    macs = n * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    if name == "fused_mlp3":    # products on the tensor cores, bias + ReLU in f32
+        least = bound(n_bytes, 2 * n * sum(dims[1:]), split_tf32_macs=macs)
+    else:                       # all f32 FMA
+        least = bound(n_bytes, 2 * macs)
     got = kern(x, *params)
     return {
         "kernel": name, "case": label, "shape": [n, *dims],
@@ -333,7 +331,7 @@ def _mlp_case(gen, device, n, dims, label):
         "deterministic": _same_bits(got, kern(x, *params)),
         "ms": cuda_ms(lambda: kern(x, *params)),
         "plain_ms": cuda_ms(lambda: plain(x, *params)),
-        "bound": bound(n_bytes, n_flops),
+        "bound": least,
     }
 
 
@@ -378,10 +376,10 @@ def _fused_step_inputs(gen, device, n: int, field: Field):
 
 
 def _fused_counts(pts, tables, mlp_d, mlp_c, geometry):
-    """(bytes, flops) of one fused forward on these inputs: points read once,
-    each table row the points touch read once, every MLP parameter read
-    once; encode flops as hash_encode's for both grids plus 2 per MLP
-    multiply-add."""
+    """(bytes, encode flops, MLP multiply-adds) of one fused forward on these
+    inputs: points read once, each table row the points touch read once,
+    every MLP parameter read once; encode flops as hash_encode's for both
+    grids."""
     n = pts.shape[0]
     res, dense_d, dense_c = geometry
     corners, _ = fp_ref.corner_geometry(pts, res)
@@ -394,8 +392,7 @@ def _fused_counts(pts, tables, mlp_d, mlp_c, geometry):
     macs = sum(mlp_d[k].numel() for k in ("w1", "w2")) + \
         sum(mlp_c[k].numel() for k in ("w1", "w2", "w3"))
     n_bytes = 4 * (n * 3 + rows * f + mlp_params)
-    n_flops = 2 * n * levels * (25 + 16 * f) + 2 * n * macs
-    return n_bytes, n_flops
+    return n_bytes, 2 * n * levels * (25 + 16 * f), n * macs
 
 
 def _fused_step_fwd_case(gen, device, n: int, field: Field, label: str):
@@ -408,8 +405,9 @@ def _fused_step_fwd_case(gen, device, n: int, field: Field, label: str):
     zeros = torch.zeros((4, feat), device=device)
     tail = fs_ref.mlp_heads(zeros, zeros, sh[-4:], mlp_d, mlp_c)
     want = [torch.cat([w, t]) for w, t in zip(want, tail)]
-    n_bytes, n_flops = _fused_counts(pts[:-4], tables, mlp_d, mlp_c, geometry)
+    n_bytes, enc_flops, macs = _fused_counts(pts[:-4], tables, mlp_d, mlp_c, geometry)
     n_bytes += 4 * n * (sh.shape[1] + got[0].shape[1] + got[1].shape[1])
+    n_flops = enc_flops + 2 * macs                      # all f32 FMA
     err = _max_err(got, want)
     return {
         "kernel": "fused_step_fwd", "case": label, "shape": [n, *tables[0].shape],
@@ -452,13 +450,13 @@ def _fused_step_bwd_case(gen, device, n: int, field: Field, label: str,
                    for k in (2, 3) for name in got[k]] + [_max_err(got[4].cpu(), want[4])])
     deterministic = _same_bits([g for g in got if g is not None],
                                [g for g in run() if g is not None])
-    n_bytes, n_flops = _fused_counts(pts, tables, mlp_d, mlp_c, geometry)
+    n_bytes, enc_flops, macs = _fused_counts(pts, tables, mlp_d, mlp_c, geometry)
     # plus the cotangents and SH read, the gradient tables, MLP gradients and
-    # d_sh written once; the backward's multiply-adds are twice the forward's
+    # d_sh written once; the backward's work is twice the forward's, on top of
+    # the recompute: encode in f32, layer products on the tensor cores
     n_bytes += 4 * (g_d.numel() + g_c.numel() + 2 * sh.numel()
                     + sum(tables[k].numel() for k in grids)
                     + sum(t.numel() for t in list(mlp_d.values()) + list(mlp_c.values())))
-    n_flops *= 3
     plain = lambda: fs_ops._plain_backward(geometry, pts, sh, *tables, mlp_d, mlp_c,  # noqa: E731
                                            g_d, g_c, needs)
     return {
@@ -469,7 +467,7 @@ def _fused_step_bwd_case(gen, device, n: int, field: Field, label: str,
         and max(mlp_err, sh_err) <= TOLERANCE["fused_step_bwd"],
         "ms": cuda_ms(run, iters=20),
         "plain_ms": cuda_ms(plain, iters=5, warmup=2),
-        "bound": bound(n_bytes, n_flops),
+        "bound": bound(n_bytes, 3 * enc_flops, split_tf32_macs=3 * macs),
     }
 
 
@@ -946,8 +944,6 @@ def _print_case(c: dict, card: str) -> bool:
     if c["kernel"] in ("fused_mlp3", "fused_step_bwd"):
         ok = ok and c["deterministic"]
         extra += f" two launches byte-identical {c['deterministic']}"
-    if PREV_MS.get((c["kernel"], c["case"])) is not None:
-        extra += f"  PR 13 kernel {PREV_MS[(c['kernel'], c['case'])]:.4f} ms"
     if "dedup" in c:
         d = c["dedup"]
         extra += (f" distinct reads {d['reads_kernel']} (plain {d['reads_plain']}, per block "
@@ -1099,12 +1095,10 @@ def main() -> int:
             "err": max(c.get("err", c["max_abs_err"]) for c in mine),
             "tolerance": TOLERANCE[name],
             "ms": head["ms"], "plain_ms": head["plain_ms"],
-            "prev_ms": PREV_MS.get((name, head["case"])),
             "bound_ms": head["bound"][0], "bound_by": head["bound"][1],
             "library_ms": head.get("library_ms"),
             "cases": [{"case": c["case"], "shape": c["shape"],
                        "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-                       "prev_ms": PREV_MS.get((name, c["case"])),
                        "plain_ms": c["plain_ms"], "library_ms": c.get("library_ms"),
                        "bound_ms": c["bound"][0], "bound_by": c["bound"][1],
                        **({"deterministic": c["deterministic"]}

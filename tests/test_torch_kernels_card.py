@@ -357,6 +357,42 @@ def test_fused_step_bwd_matches_plain_backward(n, need_density, need_color, card
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("need_density,need_color", [(True, True), (True, False), (False, True)])
+@pytest.mark.parametrize("n", [77, 8192])
+def test_fused_step_bwd_stream_is_the_plain_order(n, need_density, need_color, card):
+    """The kernel's own table-gradient streams, entry by entry, in the layout
+    of `ref.bwd_table_stream` (level, point, corner; padded to whole blocks
+    with spill entries of value 0), on Morton-ordered points with sentinel
+    rows at the end: the layout whose stable sort sums each table row in the
+    plain backward's order.  A frozen grid gets no stream."""
+    field = Field(FieldConfig())
+    gen = torch.Generator().manual_seed(n + 31)
+    pts, sh, tables, mlp_d, mlp_c, geometry = _morton_step_inputs(gen, n, card, field)
+    pts[n - 3:] = -1.0                                  # sentinel rows
+    g_d = _u(gen, (n, mlp_d["w2"].shape[1]), -1, 1, card)
+    g_c = _u(gen, (n, mlp_c["w3"].shape[1]), -1, 1, card)
+    streams, _, _ = fs_kernel.fused_step_bwd_launch(
+        pts, sh, g_d, g_c, *tables, mlp_d, mlp_c, *geometry,
+        need_density=need_density, need_color=need_color)
+    torch.cuda.synchronize()
+    n_pad = -(-n // fs_kernel.BWD_POINTS) * fs_kernel.BWD_POINTS
+    res = geometry[0]
+    for name, need, table, dense in zip(("density", "color"), (need_density, need_color),
+                                        tables, geometry[1:]):
+        if not need:
+            assert streams[name] is None
+            continue
+        levels, size, f = table.shape
+        addr, vals = streams[name]
+        want, _ = fs_ref.bwd_table_stream(pts.cpu(), torch.zeros((n, levels * f)), res, size,
+                                          dense, n_pad=n_pad)
+        assert torch.equal(addr.cpu(), want)
+        spill = want == levels * size
+        assert int(spill.sum()) == levels * (n_pad - n) * 8
+        assert not vals.cpu()[spill].any()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dims", [(48, 64, 64, 3), (31, 64, 64, 3)])
 @pytest.mark.parametrize("n", [1, 77, 49152, 196608])
 def test_fused_mlp3_matches_plain_at_serving_sizes(n, dims, card):

@@ -22,7 +22,6 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.fused_mlp import ref as mlp_ref
 from repro_torch.kernels.fused_step import kernel as fs_kernel
 from repro_torch.kernels.fused_step import ops as fs_ops
 from repro_torch.kernels.fused_step import ref as fs_ref
@@ -111,6 +110,32 @@ def test_kernel_stream_layout_merges_to_the_plain_table_gradients(n, needs):
         assert torch.equal(got.view(torch.int32), want[k].view(torch.int32))
 
 
+@pytest.mark.parametrize("n", [77, 300])
+def test_backward_f64_is_the_plain_backward_in_float64(n):
+    """The card test's yardstick: `ref.backward_f64` agrees with the f32
+    plain backward within the kernel's tolerances (tables 1e-5, MLP
+    gradients and d_sh 1e-4, relative to the largest value), with the same
+    nonzero table rows and a frozen grid left without a gradient."""
+    rng = np.random.default_rng(n + 5)
+    pts, sh, tables, mlp_d, mlp_c, g_d, g_c = _step_inputs(rng, n, 3)
+    for needs in ((True, True), (True, False)):
+        want = fs_ops._plain_backward((RES, *DENSE), pts, sh, *tables, mlp_d, mlp_c, g_d, g_c,
+                                      needs)
+        got = fs_ref.backward_f64((RES, *DENSE), pts, sh, *tables, mlp_d, mlp_c, g_d, g_c,
+                                  needs)
+        for k, need in enumerate(needs):
+            if not need:
+                assert got[k] is None and want[k] is None
+                continue
+            assert got[k].dtype == F64
+            assert _rel(want[k], got[k]) <= 1e-5
+            assert torch.equal(got[k].ne(0).any(dim=-1), want[k].ne(0).any(dim=-1))
+        for k in (2, 3):
+            for name in want[k]:
+                assert _rel(want[k][name], got[k][name]) <= 1e-4, name
+        assert _rel(want[4], got[4]) <= 1e-4
+
+
 def _tf32(x: torch.Tensor) -> torch.Tensor:
     """Round f32 to TF32 (10 mantissa bits), to nearest even."""
     bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
@@ -157,7 +182,7 @@ def test_split_tf32_mlp3_meets_the_kernel_tolerance(d_in):
     rng = np.random.default_rng(d_in)
     x = _t(rng.uniform(-1, 1, size=(4096, d_in)))
     params = [*_he(rng, d_in, 64), *_he(rng, 64, 64), *_he(rng, 64, 3)]
-    exact = mlp_ref.mlp3(x, *params, dtype=F64)
+    exact = fs_ref.layers_f64(x, *params)
     split_err = float((_mlp3_emulated(x, *params).to(F64) - exact).abs().max())
     single_err = float((_mlp3_emulated(x, *params, split=False).to(F64) - exact).abs().max())
     assert split_err <= 1e-5
@@ -189,8 +214,8 @@ def test_split_tf32_fused_backward_products_meet_the_kernel_tolerances():
 
     # float64 autograd of the two heads
     leaves = [t.to(F64).requires_grad_(True) for t in [xd, xc] + params]
-    out_d = mlp_ref.mlp2(leaves[0], *leaves[2:6], dtype=F64)
-    out_c = mlp_ref.mlp3(leaves[1], *leaves[6:], dtype=F64)
+    out_d = fs_ref.layers_f64(leaves[0], *leaves[2:6])
+    out_c = fs_ref.layers_f64(leaves[1], *leaves[6:])
     exact = torch.autograd.grad((out_d, out_c), leaves, (g_d.to(F64), g_c.to(F64)))
 
     def relu_grad(z):
