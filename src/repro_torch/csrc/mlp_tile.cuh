@@ -1,5 +1,5 @@
 // Small dense layers on Hopper's tensor cores, shared by the kernels whose
-// work is the field's MLPs (fused_mlp.cu: mlp3; fused_step.cu: the fused
+// work is the field's MLPs (fused_mlp.cu: both heads; fused_step.cu: the fused
 // backward's recompute, data gradients and weight gradients).
 //
 // What bounds it: f32 operations.  At the field's widths (K, N <= 64) a

@@ -1,9 +1,10 @@
 """Launch wrapper of the CUDA hash-grid encode (``csrc/hash_encode.cu``).
 
 Replaces the Pallas kernel `repro.kernels.hash_encode.kernel.hash_encode_pallas`.
-Validates its inputs, allocates the output, launches on the current stream
-and counts the launch; raises on anything the kernel does not take and on a
-failed launch.
+Validates its inputs (the kernel's row loads are vector loads, so the
+tables must be 16-byte aligned; its offsets are 32-bit), allocates the
+output, launches on the current stream and counts the launch; raises on
+anything the kernel does not take and on a failed launch.
 """
 from __future__ import annotations
 
@@ -44,6 +45,11 @@ def hash_encode(points: torch.Tensor, tables: torch.Tensor, resolutions,
         raise ValueError(f"hash_encode: table size {table_size} is not a power of two")
     if n_features not in FEATURE_COUNTS:
         raise ValueError(f"hash_encode: F={n_features} not in {FEATURE_COUNTS}")
+    if max(tables.numel(), n * n_levels * n_features) >= 1 << 31:
+        raise ValueError("hash_encode: tables and output must hold fewer than 2^31 "
+                         "floats (32-bit offsets)")
+    if tables.data_ptr() % 16:
+        raise ValueError("hash_encode: tables must be 16-byte aligned (vector row loads)")
     out = torch.empty((n, n_levels * n_features), device=device, dtype=torch.float32)
     if n == 0:
         return out

@@ -14,12 +14,15 @@ card and fails on anything wrong -- there is no CPU fallback.
    (`bound_ms`, from the bytes and operations this run's inputs need) and,
    where one PyTorch call computes the same function, that call's time;
    for the fused encode also its distinct reads per (block, level) against
-   the plain count.  The two kernels redesigned for the tensor cores
-   (fused_mlp3, the fused backward) also run at their main paths' own
-   shapes (the dense serving chunk; a trained Instant-3D step's budget on
-   Morton-ordered points, with the color grid live and frozen), must give
-   the same bytes on two launches; the fused backward's time is broken
-   down (kernel launch alone, the wrapper's commit alone, no streams).
+   the plain count.  The redesigned kernels also run at their main paths'
+   own shapes (hash_encode on a served chunk's ray-ordered points, dense
+   and redistributed; both MLPs at the dense serving chunk; the fused step
+   forward and backward at a trained Instant-3D step's budget on
+   Morton-ordered points, the backward with the color grid live and
+   frozen), and each must give the same bytes on two launches (the hash
+   encode also exactly zero on sentinel rows); the fused backward's time is
+   broken down (kernel launch alone, the wrapper's commit alone, no
+   streams).
    Then the fused encode's table gradients must equal the hash encode's
    bit for bit for one fixed upstream gradient;
 3. training (slice 2's main path): `Instant3DTrainer(Field(FieldConfig()),
@@ -51,6 +54,7 @@ import re
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -59,9 +63,10 @@ from . import kernels
 from .core import encoding as enc
 from .core import occupancy
 from .core.field import Field, FieldConfig
+from .core.pipeline import RenderPipeline
 from .core.rendering import RenderConfig, sample_ts, sphere_poses
 from .core.trainer import (Instant3DTrainer, TrainerConfig, default_draws,
-                           default_samples_per_ray)
+                           default_samples_per_ray, image_rays)
 from .data.rays_dataset import RaySampler
 from .data.synthetic_scene import build_dataset
 from .kernels.fused_mlp import kernel as mlp_kernel
@@ -84,7 +89,7 @@ from .serve3d import RenderResult, RenderService, SnapshotStore
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
 # HBM bandwidth, the f32 rate outside the tensor cores and the dense TF32
 # rate of the tensor cores.  Each operation counts at the rate of the unit
-# that runs it: fused_mlp3's and the fused backward's layer products run on
+# that runs it: both MLPs' and the fused backward's layer products run on
 # the tensor cores in split TF32 (three TF32 products per multiply-add), the
 # rest in f32 on the CUDA cores.
 PEAK_BYTES_PER_S = 3.35e12
@@ -126,7 +131,7 @@ SERVE_KERNELS = ("hash_encode", "fused_mlp2", "fused_mlp3", "composite")
 
 # Error allowed between a kernel and its plain version on the card, in the
 # measure each case reports as `err`.  The two sum in different orders and
-# the kernels contract multiply-adds into FMAs or, in fused_mlp3 and the
+# the kernels contract multiply-adds into FMAs or, in the MLPs and the
 # fused backward, take split-TF32 products on the tensor cores (within about
 # 2^-22 of each f32 product).  Max abs error: an 8-corner sum of values in
 # [-1, 1] (hash encode) and the MLPs' O(1) outputs stay within 1e-5, the
@@ -171,10 +176,11 @@ NGP_DETERMINISM_STEPS = (104, 136)
 # 256-point block, with sentinel rows at the end.
 PARITY_BUDGET = 32768
 DENSE_POINTS = 1024 * 48
-# The main paths' own shapes of the two kernels redesigned for Hopper: the
+# The main paths' own shapes of the kernels redesigned for Hopper: the
 # trained Instant-3D field's compacted budget (live fraction 0.075-0.10 of
-# 1024 x 48 points buckets to 8192) for the fused backward, and the dense
-# serving chunk (4096 rays x 48 samples) for fused_mlp3.
+# 1024 x 48 points buckets to 8192) for the fused step, and the serving
+# chunk (4096 rays x 48 samples dense, x 12 redistributed) for the hash
+# encode and the MLPs.
 TRAIN_BUDGET = 8192
 PADDED_POINTS, SENTINEL_ROWS = 30000, 4
 
@@ -279,14 +285,20 @@ def _same_nonzero_rows(a, b) -> bool:
 
 # ---- phase 2: kernel parity ---------------------------------------------------
 
-def _hash_encode_case(gen, device, n, enc, label):
+def _hash_encode_case(gen, device, n, enc, label, points=None):
+    """Kernel #1 against its plain version on `points` (uniform in the unit
+    cube when None), the first 4 rows made sentinels: error, sentinel rows
+    exactly zero, the same bytes on two launches."""
     cfg = enc.cfg
-    points = _uniform(gen, (n, 3), 0.0, 1.0 - 1e-6, device)
+    if points is None:
+        points = _uniform(gen, (n, 3), 0.0, 1.0 - 1e-6, device)
+    points = points.clone()
     points[:4, 0] = -1.0                                # sentinel rows
     tables = _uniform(gen, (cfg.n_levels, cfg.table_size, cfg.n_features),
                       -1.0, 1.0, device)
     res, dense = enc.resolutions, enc.dense_flags
-    got = he_kernel.hash_encode(points, tables, res, dense)
+    run = lambda: he_kernel.hash_encode(points, tables, res, dense)  # noqa: E731
+    got = run()
     want = he_ref.hash_encode(points, tables, res, dense)
     # table rows this run's points touch: what the gather must read
     rows = torch.cat([
@@ -296,15 +308,44 @@ def _hash_encode_case(gen, device, n, enc, label):
     f = cfg.n_features
     n_bytes = 4 * (n * 3 + n * cfg.n_levels * f + unique_rows * f)
     n_flops = n * cfg.n_levels * (25 + 16 * f)
+    err = _max_err(got, want)
+    sentinel_zero = not got[:4].any()
+    deterministic = _same_bits(got, run())
     return {
         "kernel": "hash_encode", "case": label,
         "shape": [n, cfg.n_levels, cfg.table_size, f],
-        "max_abs_err": _max_err(got, want),
-        "ms": cuda_ms(lambda: he_kernel.hash_encode(points, tables, res, dense)),
+        "max_abs_err": err, "sentinel_rows_zero": sentinel_zero,
+        "deterministic": deterministic,
+        "ok": err <= TOLERANCE["hash_encode"] and sentinel_zero,
+        "ms": cuda_ms(run),
         "plain_ms": cuda_ms(lambda: he_ref.hash_encode(points, tables, res, dense),
                             iters=10),
         "bound": bound(n_bytes, n_flops),
     }
+
+
+def serving_points(device, render_cfg: RenderConfig = RenderConfig(),
+                   samples_per_ray: int | None = None, hw: int = IMAGE_HW,
+                   chunk: int = EVAL_CHUNK) -> torch.Tensor:
+    """Unit-cube points of one served chunk in the order the shade stage gets
+    them (ray-major: ray i's k-th sample at i*S + k): the chunk of `chunk`
+    rays that holds the centre of an hw x hw view of the first served pose,
+    sampled by stage 1 at the stratum midpoints.  With `samples_per_ray`,
+    stage 2b then re-spends each ray's S samples as that many on its strata
+    inside the scene box (the served redistributed route, with the box in
+    place of a trained occupancy grid)."""
+    pose = sphere_poses(1, seed=0)[0]
+    origins, dirs, n, chunk = image_rays(pose, hw, hw, focal_for(hw), chunk, device=device)
+    first = (n // 2) // chunk * chunk
+    origins, dirs = origins[first:first + chunk], dirs[first:first + chunk]
+    pipe = RenderPipeline(Field(FieldConfig()), render_cfg)
+    ts = sample_ts(None, chunk, render_cfg, device)
+    flat_pts, _, unit = pipe.generate_samples(origins, dirs, ts)
+    if samples_per_ray is not None:
+        live = pipe.cull(flat_pts, unit).reshape(chunk, -1)
+        ts, _ = pipe.redistribute(ts, live, n_out=samples_per_ray)
+        _, _, unit = pipe.generate_samples(origins, dirs, ts)
+    return unit.contiguous()
 
 
 def _mlp_case(gen, device, n, dims, label):
@@ -320,10 +361,8 @@ def _mlp_case(gen, device, n, dims, label):
     n_params = sum(p.numel() for p in params)
     n_bytes = 4 * (n * (dims[0] + dims[-1]) + n_params)
     macs = n * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
-    if name == "fused_mlp3":    # products on the tensor cores, bias + ReLU in f32
-        least = bound(n_bytes, 2 * n * sum(dims[1:]), split_tf32_macs=macs)
-    else:                       # all f32 FMA
-        least = bound(n_bytes, 2 * macs)
+    # products on the tensor cores, bias + ReLU in f32
+    least = bound(n_bytes, 2 * n * sum(dims[1:]), split_tf32_macs=macs)
     got = kern(x, *params)
     return {
         "kernel": name, "case": label, "shape": [n, *dims],
@@ -617,17 +656,30 @@ def kernel_parity(device, field_cfg: FieldConfig = FieldConfig(),
 def main_shape_parity(device, field_cfg: FieldConfig = FieldConfig(),
                       render_cfg: RenderConfig = RenderConfig(), seed: int = 0,
                       budget: int = TRAIN_BUDGET) -> list[dict]:
-    """The two redesigned kernels at their main paths' own shapes:
-    fused_mlp3 at the dense serving chunk (chunk x S points), the fused
-    backward at a trained Instant-3D step's budget on Morton-ordered points,
-    with both grids and with the color grid frozen."""
+    """The redesigned kernels at their main paths' own shapes: hash_encode
+    on a served chunk's ray-ordered points (`serving_points`) on both grids,
+    dense (chunk x S) and redistributed (chunk x S'); fused_mlp2 and
+    fused_mlp3 at the dense serving chunk; the fused step forward and the
+    fused backward at a trained Instant-3D step's budget on Morton-ordered
+    points, the backward with both grids and with the color grid frozen."""
     gen = torch.Generator().manual_seed(seed + 3)
     field = Field(field_cfg)
     h = field_cfg.hidden
-    n_dense = EVAL_CHUNK * render_cfg.n_samples
-    cin = field.density_enc.cfg.out_dim + field.sh_dim
-    return [
-        _mlp_case(gen, device, n_dense, (cin, h, h, 3), f"color head, N={n_dense}"),
+    s, s_red = render_cfg.n_samples, default_samples_per_ray(render_cfg.n_samples)
+    n_dense = EVAL_CHUNK * s
+    enc_dim = field.density_enc.cfg.out_dim
+    cases = []
+    for s_chunk, spr in ((s, None), (s_red, s_red)):
+        pts = serving_points(device, render_cfg, samples_per_ray=spr)
+        for name, e in (("density", field.density_enc), ("color", field.color_enc)):
+            cases.append(_hash_encode_case(gen, device, pts.shape[0], e,
+                                           f"{name} grid, rays x {s_chunk}", points=pts))
+    return cases + [
+        _mlp_case(gen, device, n_dense, (enc_dim, h, 1 + field_cfg.geo_features),
+                  f"density head, N={n_dense}"),
+        _mlp_case(gen, device, n_dense, (enc_dim + field.sh_dim, h, h, 3),
+                  f"color head, N={n_dense}"),
+        _fused_step_fwd_case(gen, device, budget, field, f"budget {budget}"),
         _fused_step_bwd_case(gen, device, budget, field, f"budget {budget}"),
         _fused_step_bwd_case(gen, device, budget, field, f"budget {budget}, color frozen",
                              need_color=False),
@@ -941,9 +993,11 @@ def _print_case(c: dict, card: str) -> bool:
                   f"nonzero_rows_equal {c['nonzero_rows_equal']}")
     if "exact" in c:
         extra += f" exact {c['exact']} nonzero_rows_equal {c['nonzero_rows_equal']}"
-    if c["kernel"] in ("fused_mlp3", "fused_step_bwd"):
+    if "deterministic" in c:
         ok = ok and c["deterministic"]
         extra += f" two launches byte-identical {c['deterministic']}"
+    if c["kernel"] == "hash_encode":
+        extra += f" sentinel rows zero {c['sentinel_rows_zero']}"
     if "dedup" in c:
         d = c["dedup"]
         extra += (f" distinct reads {d['reads_kernel']} (plain {d['reads_plain']}, per block "
@@ -966,14 +1020,14 @@ def _print_training(run: dict, card: str, name: str) -> None:
         print(f"{name} step {hist['step'][k]:>4} loss {hist['loss'][k]:.6f} "
               f"live_fraction {hist['live_fraction'][k]:.4f} "
               f"budget {hist['budget'][k]}")
-    budgets = sorted({b for b in hist["budget"] if b is not None})
+    budgets = dict(sorted(Counter(b for b in hist["budget"] if b is not None).items()))
     for route in ("dense", "compact"):
         ms = np.asarray(run[f"{route}_ms"])
         if ms.size:
             print(f"{name} {route} steps {ms.size}: median {_warm_median(ms):.3f} ms, "
                   f"mean {_warm(ms).mean():.3f} ms (after the first 2), first {ms[0]:.1f} ms "
                   f"[{card}]")
-    print(f"{name} budgets {budgets} first compacted step "
+    print(f"{name} budgets (steps at each) {budgets} first compacted step "
           f"{next((s - 1 for s, b in zip(hist['step'], hist['budget']) if b), None)} "
           f"occupancy folds {len(hist['occ_folds'])} overflow_total {hist['overflow_total']}")
     print(f"{name} held-out PSNR [{card}]: {json.dumps(run['eval'])}")

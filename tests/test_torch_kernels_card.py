@@ -7,8 +7,8 @@ installed.  Run on the card with
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_card.py``.
 
 Tolerances (max abs error): hash encode 1e-5 (8-corner sums of table values
-in [-1, 1], FMA-contracted in the kernel), MLPs 1e-5 (O(1) outputs; mlp3
-and the fused backward multiply in split TF32 on the tensor cores),
+in [-1, 1], FMA-contracted in the kernel), MLPs 1e-5 (O(1) outputs; both
+MLPs and the fused backward multiply in split TF32 on the tensor cores),
 composite 5e-5 (48-term depth sums with t up to 6), the fused step's
 forward and the fused encode 1e-5; the fused encode's distinct reads per
 (block, level) exactly the plain count, and its table gradients the hash
@@ -16,8 +16,8 @@ encode's bit for bit (the same products committed in the same order).  Gradients
 gradients (the fused backward merges per block, the plain one per stream)
 and 1e-4 for MLP gradients (summed over blocks in another order), with the
 same nonzero rows; bum_scatter bit for bit against the plain merge on CPU
-copies (both sum each run in stream order).  The two kernels redesigned
-for the tensor cores (mlp3, the fused backward) give the same bytes on two
+copies (both sum each run in stream order).  The redesigned kernels (the
+hash encode, both MLPs, the fused backward) give the same bytes on two
 launches.
 """
 import ctypes
@@ -25,7 +25,7 @@ import ctypes
 import pytest
 import torch
 
-from repro_torch import kernels
+from repro_torch import kernels, smoke
 from repro_torch.core.field import Field, FieldConfig
 from repro_torch.kernels.fused_mlp import kernel as mlp_kernel
 from repro_torch.kernels.fused_mlp import ops as mlp_ops
@@ -411,9 +411,53 @@ def test_fused_mlp3_matches_plain_at_serving_sizes(n, dims, card):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("samples", [48, 12])
+@pytest.mark.parametrize("branch", ["density", "color"])
+def test_hash_encode_kernel_matches_plain_on_ray_ordered_points(branch, samples, card):
+    """Kernel #1 on a served chunk's ray-ordered points (4096 rays x 48
+    samples, the dense route, and x 12, the redistributed one), with
+    sentinel rows: within 1e-5 of the plain version, sentinel rows exactly
+    0."""
+    enc = getattr(Field(FieldConfig()), f"{branch}_enc")
+    cfg = enc.cfg
+    pts = smoke.serving_points(card, samples_per_ray=None if samples == 48 else samples)
+    assert pts.shape == (4096 * samples, 3)
+    pts[::997, 0] = -1.0                                  # sentinel rows
+    gen = torch.Generator().manual_seed(samples)
+    tables = _u(gen, (cfg.n_levels, cfg.table_size, cfg.n_features), -1, 1, card)
+    before = kernels.LAUNCHES["hash_encode"]
+    got = he_ops.hash_encode(pts, tables, enc.resolutions, enc.dense_flags)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["hash_encode"] == before + 1
+    want = he_ref.hash_encode(pts, tables, enc.resolutions, enc.dense_flags)
+    assert float((got - want).abs().max()) <= 1e-5
+    assert not got[::997].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [49152, 196608])
+def test_fused_mlp2_matches_plain_at_path_sizes(n, card):
+    """Kernel #2 at the density head's widths (32 -> 64 -> 16) at a dense
+    step's and a dense serving chunk's points."""
+    gen = torch.Generator().manual_seed(n + 2)
+    x = _u(gen, (n, 32), -1, 1, card)
+    params = []
+    for d_in, d_out in ((32, 64), (64, 16)):
+        b = (6.0 / d_in) ** 0.5
+        params += [_u(gen, (d_in, d_out), -b, b, card), _u(gen, (d_out,), -0.1, 0.1, card)]
+    before = kernels.LAUNCHES["fused_mlp2"]
+    got = mlp_kernel.fused_mlp2(x, *params)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_mlp2"] == before + 1
+    assert got.shape == (n, 16)
+    assert float((got - mlp_ref.mlp2(x, *params)).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
 def test_redesigned_kernels_give_the_same_bytes_twice(card):
     """Two launches on the same inputs: byte-identical outputs, all five of
-    the fused backward's and mlp3's."""
+    the fused backward's, mlp3's, mlp2's and the hash encode's (on a served
+    chunk's ray-ordered points)."""
     field = Field(FieldConfig())
     gen = torch.Generator().manual_seed(21)
     n = 8192
@@ -431,3 +475,11 @@ def test_redesigned_kernels_give_the_same_bytes_twice(card):
               for sh_ in [(48, 64), (64,), (64, 64), (64,), (64, 3), (3,)]]
     assert torch.equal(_bits(mlp_kernel.fused_mlp3(x, *params)),
                        _bits(mlp_kernel.fused_mlp3(x, *params)))
+    params = [_u(gen, sh_, -0.3, 0.3, card) for sh_ in [(32, 64), (64,), (64, 16), (16,)]]
+    assert torch.equal(_bits(mlp_kernel.fused_mlp2(x[:, :32].contiguous(), *params)),
+                       _bits(mlp_kernel.fused_mlp2(x[:, :32].contiguous(), *params)))
+    ray = smoke.serving_points(card)
+    enc = field.density_enc
+    grid = _u(gen, (enc.cfg.n_levels, enc.cfg.table_size, enc.cfg.n_features), -1, 1, card)
+    assert torch.equal(_bits(he_kernel.hash_encode(ray, grid, enc.resolutions, enc.dense_flags)),
+                       _bits(he_kernel.hash_encode(ray, grid, enc.resolutions, enc.dense_flags)))

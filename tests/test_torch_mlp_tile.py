@@ -13,7 +13,8 @@ tests/test_torch_kernels_card.py).
   tensor-core products (operands rounded to TF32 by masking the mantissa,
   round to nearest even; products of TF32 values exact; each 8-deep step
   summed into f32 accumulators, the small terms apart from the large) holds
-  mlp3 at 48-64-64-3 and 31-64-64-3 within 1e-5 of float64, and the fused
+  mlp3 at 48-64-64-3 and 31-64-64-3 and mlp2 at 32-64-16 and 8-16-16
+  within 1e-5 of float64, and the fused
   backward's MLP products within its tolerances (feature gradients 1e-5,
   weight gradients and d_sh 1e-4, relative to the largest value), at the
   input scales of chip_smoke.py; a single TF32 product misses 1e-5.
@@ -171,20 +172,27 @@ def _relu(z):
     return torch.clamp(z, min=0.0)
 
 
-def _mlp3_emulated(x, w1, b1, w2, b2, w3, b3, split=True):
-    h1 = _relu(_mm(x, w1, split) + b1)
-    h2 = _relu(_mm(h1, w2, split) + b2)
-    return _mm(h2, w3, split) + b3
+def _mlp_emulated(x, *params, split=True):
+    """The ReLU MLP of len(params) // 2 layers, each product emulated."""
+    h = x
+    for k in range(0, len(params), 2):
+        z = _mm(h, params[k], split) + params[k + 1]
+        h = _relu(z) if k + 2 < len(params) else z
+    return h
 
 
-@pytest.mark.parametrize("d_in", [48, 31])
-def test_split_tf32_mlp3_meets_the_kernel_tolerance(d_in):
-    rng = np.random.default_rng(d_in)
-    x = _t(rng.uniform(-1, 1, size=(4096, d_in)))
-    params = [*_he(rng, d_in, 64), *_he(rng, 64, 64), *_he(rng, 64, 3)]
+@pytest.mark.parametrize("dims", [(48, 64, 64, 3), (31, 64, 64, 3), (32, 64, 16), (8, 16, 16)],
+                         ids=["48", "31", "mlp2-32-64-16", "mlp2-8-16-16"])
+def test_split_tf32_mlp3_meets_the_kernel_tolerance(dims):
+    """Both MLP kernels' products (fused_mlp3: 48 and 31 inputs; fused_mlp2
+    at the density head's widths and the card test's small ones): split TF32
+    within 1e-5 of float64, a single TF32 product not."""
+    rng = np.random.default_rng(dims[0])
+    x = _t(rng.uniform(-1, 1, size=(4096, dims[0])))
+    params = [t for d_in, d_out in zip(dims[:-1], dims[1:]) for t in _he(rng, d_in, d_out)]
     exact = fs_ref.layers_f64(x, *params)
-    split_err = float((_mlp3_emulated(x, *params).to(F64) - exact).abs().max())
-    single_err = float((_mlp3_emulated(x, *params, split=False).to(F64) - exact).abs().max())
+    split_err = float((_mlp_emulated(x, *params).to(F64) - exact).abs().max())
+    single_err = float((_mlp_emulated(x, *params, split=False).to(F64) - exact).abs().max())
     assert split_err <= 1e-5
     assert single_err > 1e-5
     assert single_err > 50 * split_err

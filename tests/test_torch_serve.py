@@ -6,8 +6,9 @@ redistributed route, at levels 0 and 1; whole images must agree within
 1e-4 on rgb and 5e-4 on depth (depth lies in [2, 6]).  The rest holds the
 port's serving ladder (waiting, deadlines, retry, shedding, staleness,
 levels, telemetry) to the reference's contract, and rehearses the served
-main path of chip_smoke.py at a tiny size, and its training phases
-(Instant-3D, the split route, the Instant-NGP baseline).
+main path of chip_smoke.py at a tiny size, its ray-ordered parity points
+and its training phases (Instant-3D, the split route, the Instant-NGP
+baseline).
 """
 import dataclasses
 
@@ -311,3 +312,28 @@ def test_chip_smoke_training_phases_rehearsal():
     assert det["steps"] == [12, 19] and det["compacted_steps"] == 3
     split = smoke.split_route_parity("cpu", runs["i3d"], held_out=1)
     assert split["ok"] and split["budget"] == 512, split
+
+
+def test_serving_points_rehearsal():
+    """chip_smoke.py's ray-ordered parity points at a small size on the CPU:
+    the chunk of rays through the view's centre, sampled by stage 1 (S per
+    ray, ray-major) or re-spent by stage 2b (SPR per ray), in the unit
+    cube."""
+    hw, chunk = 32, 128
+    dense = smoke.serving_points("cpu", T_RCFG, hw=hw, chunk=chunk)
+    redist = smoke.serving_points("cpu", T_RCFG, samples_per_ray=SPR, hw=hw, chunk=chunk)
+    assert dense.shape == (chunk * T_RCFG.n_samples, 3)
+    assert redist.shape == (chunk * SPR, 3)
+    for pts in (dense, redist):
+        assert pts.dtype == torch.float32 and pts.is_contiguous()
+        assert float(pts.min()) >= 0.0 and float(pts.max()) < 1.0
+    # ray-major points of the rays through pixels [first, first + chunk),
+    # the chunk that holds the centre pixel, at the stratum midpoints
+    first = (hw * hw // 2) // chunk * chunk
+    pix = torch.arange(first, first + chunk)
+    pose = torch.as_tensor(t_rendering.sphere_poses(1, seed=0)[0], dtype=torch.float32)
+    o, d = t_rendering.pixel_rays(pose, pix % hw, pix // hw, hw, hw, smoke.focal_for(hw))
+    ts = t_rendering.sample_ts(None, chunk, T_RCFG, device="cpu")
+    world = (o[:, None, :] + ts[..., None] * d[:, None, :]).reshape(-1, 3)
+    torch.testing.assert_close(dense, t_rendering.normalize_points(world, T_RCFG),
+                               rtol=0, atol=1e-6)
