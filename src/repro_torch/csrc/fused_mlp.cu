@@ -29,7 +29,11 @@
 // d_in are masked in the product, not padded in device memory.  The grid is
 // as many blocks as fit on the card at once (the occupancy calculator,
 // given the block's shared memory: three blocks of 4 warps an SM for mlp2,
-// two for mlp3), or fewer when the tiles run out first.
+// two for mlp3; asked once per device and size), or fewer when the tiles
+// run out first.
+#include <mutex>
+#include <vector>
+
 #include "common.cuh"
 #include "mlp_tile.cuh"
 
@@ -109,6 +113,28 @@ __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ 
     }
 }
 
+// A packed weight (mlp_tile::Packed) read at p + k0 * k_stride + c0 * 16 +
+// lane * 4: the same address as Packed::b_frag for k0 and c0 multiples of 8,
+// without its shifts.  Through Packed::b_frag the layer loops spend a shift
+// and a multiply-add more on each fragment's address and hold more
+// registers, which costs mlp3 a few percent on an H100 (the same bytes out).
+struct Weights {
+    const float* p;
+    int k_stride;
+
+    Weights() = default;
+    __device__ explicit Weights(const mlp_tile::Packed& w) : p(w.p), k_stride(w.n_tiles * 16) {}
+    __device__ __forceinline__ void b_frag(int k0, int c0, int g, int t, uint32_t (&hi)[2],
+                                           uint32_t (&lo)[2]) const {
+        const float4 v = *reinterpret_cast<const float4*>(p + k0 * k_stride + c0 * 16 +
+                                                          (g * 4 + t) * 4);
+        hi[0] = __float_as_uint(v.x);
+        hi[1] = __float_as_uint(v.y);
+        lo[0] = __float_as_uint(v.z);
+        lo[1] = __float_as_uint(v.w);
+    }
+};
+
 template <int NL, bool VEC>
 __global__ void __launch_bounds__(kWarps * 32)
 mlp_kernel(const float* __restrict__ x, const Chain<NL> chain, float* __restrict__ out,
@@ -116,11 +142,12 @@ mlp_kernel(const float* __restrict__ x, const Chain<NL> chain, float* __restrict
     using mlp_tile::Strided;
     extern __shared__ __align__(16) float smem[];
     const Layout<NL> lay(chain.dims);
-    mlp_tile::Packed W[NL];
+    Weights W[NL];
     const float* sb[NL];
 #pragma unroll
     for (int k = 0; k < NL; ++k)
-        W[k] = mlp_tile::pack(smem + lay.w[k], chain.w[k], chain.dims[k], chain.dims[k + 1]);
+        W[k] = Weights(
+            mlp_tile::pack(smem + lay.w[k], chain.w[k], chain.dims[k], chain.dims[k + 1]));
 #pragma unroll
     for (int k = 0; k < NL; ++k) {
         stage(smem + lay.b[k], chain.b[k], chain.dims[k + 1]);
@@ -179,24 +206,55 @@ mlp_kernel(const float* __restrict__ x, const Chain<NL> chain, float* __restrict
     mlp_tile::wait<0>();
 }
 
-// Launch the persistent kernel: one block per free slot on the card (the
-// occupancy calculator, for this block's shared memory), or fewer when the
-// tiles run out first.
+// How many blocks of mlp_kernel<NL, VEC> with `smem` bytes of shared memory
+// `device` holds at once (the occupancy calculator), 0 if none fits.  The
+// first launch at a (device, size) asks the runtime and allows the kernel
+// that much shared memory; later ones read the answer back, so a launch in
+// steady state makes no runtime call but the launch itself.
+template <int NL, bool VEC>
+int resident_blocks(size_t smem, int device) {
+    struct Seen { int device; size_t smem; int blocks; };
+    static std::mutex mu;
+    static std::vector<Seen> seen;
+    const std::lock_guard<std::mutex> lock(mu);
+    size_t allowed = 0;    // the most this device was allowed so far
+    for (const Seen& s : seen) {
+        if (s.device != device) continue;
+        if (s.smem == smem) return s.blocks;
+        allowed = s.smem > allowed ? s.smem : allowed;
+    }
+    const auto kernel = mlp_kernel<NL, VEC>;
+    if (smem > allowed &&
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem)) != cudaSuccess)
+        return 0;
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWarps * 32, smem) !=
+            cudaSuccess)
+        return 0;
+    seen.push_back({device, smem, per_sm * sms});
+    return per_sm * sms;
+}
+
+// Launch the persistent kernel: one block per free slot on the card, or
+// fewer when the tiles run out first.
 template <int NL>
 int launch(const float* x, const Chain<NL>& chain, float* out, int n, void* stream) {
     const size_t smem = sizeof(float) * Layout<NL>(chain.dims).floats;
     const bool vec = chain.dims[0] % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-    const auto kernel = vec ? mlp_kernel<NL, true> : mlp_kernel<NL, false>;
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-    int device = 0, sms = 0, per_sm = 0;
+    int device = 0;
     cudaGetDevice(&device);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWarps * 32, smem);
-    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const int slots = vec ? resident_blocks<NL, true>(smem, device)
+                          : resident_blocks<NL, false>(smem, device);
+    if (slots < 1) {
+        const cudaError_t err = cudaGetLastError();
+        return static_cast<int>(err != cudaSuccess ? err : cudaErrorInvalidConfiguration);
+    }
     const int tiles = (n + kTile - 1) / kTile;
     const int wanted = (tiles + kWarps - 1) / kWarps;
-    const int grid = wanted < per_sm * sms ? wanted : per_sm * sms;
+    const int grid = wanted < slots ? wanted : slots;
+    const auto kernel = vec ? mlp_kernel<NL, true> : mlp_kernel<NL, false>;
     kernel<<<grid, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(x, chain, out, n);
     return static_cast<int>(cudaGetLastError());
 }

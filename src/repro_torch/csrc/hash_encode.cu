@@ -24,11 +24,8 @@
 // are staged in shared memory (row stride L*F + min(F, 4) floats, which
 // keeps a warp's stores free of bank conflicts) and, after one barrier,
 // written out as whole rows: 16-byte streaming stores (st.global.cs) of one
-// contiguous range, so the output does not evict the tables from L2.  The
-// table loads carry an L2 evict-last policy.  Each of these two cache hints
-// has a compile-time switch (REPRO_HE_STREAM_STORES, REPRO_HE_EVICT_LAST,
-// both 1 by default) so that `python -m repro_torch.kernels.hash_encode.variants`
-// can time the kernel without either.
+// contiguous range, and the table loads carry an L2 evict-last policy, so
+// that the output passing through L2 does not evict the tables.
 //
 // Geometry follows the reference exactly: corner id c = z<<2|y<<1|x, weight
 // (w_x * w_y) * w_z on the scaled coordinate's fraction, corners summed in
@@ -40,13 +37,6 @@
 // atomics: two launches write the same bytes.  The wrapper guarantees that
 // L*T*F and N*L*F are below 2^31, so every offset fits in 32 bits.
 #include "common.cuh"
-
-#ifndef REPRO_HE_STREAM_STORES
-#define REPRO_HE_STREAM_STORES 1
-#endif
-#ifndef REPRO_HE_EVICT_LAST
-#define REPRO_HE_EVICT_LAST 1
-#endif
 
 namespace {
 
@@ -65,10 +55,8 @@ __host__ __device__ inline int tile_ld(int row_floats, int f) {
 }
 
 __device__ __forceinline__ uint64_t table_policy() {
-    uint64_t policy = 0;
-#if REPRO_HE_EVICT_LAST
+    uint64_t policy;
     asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(policy));
-#endif
     return policy;
 }
 
@@ -76,41 +64,25 @@ __device__ __forceinline__ uint64_t table_policy() {
 template <int F>
 __device__ __forceinline__ void load_row(const float* p, uint64_t policy, float (&v)[F]);
 
-#if REPRO_HE_EVICT_LAST
-#define HE_LD "ld.global.nc.L2::cache_hint"
-#define HE_POLICY , "l"(policy)
-#define HE_POLICY_ARG(n) ", %" #n
-#else
-#define HE_LD "ld.global.nc"
-#define HE_POLICY
-#define HE_POLICY_ARG(n) ""
-#endif
-
 template <>
 __device__ __forceinline__ void load_row<1>(const float* p, uint64_t policy, float (&v)[1]) {
-    asm(HE_LD ".f32 %0, [%1]" HE_POLICY_ARG(2) ";" : "=f"(v[0]) : "l"(p) HE_POLICY);
+    asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;" : "=f"(v[0]) : "l"(p), "l"(policy));
 }
 template <>
 __device__ __forceinline__ void load_row<2>(const float* p, uint64_t policy, float (&v)[2]) {
-    asm(HE_LD ".v2.f32 {%0, %1}, [%2]" HE_POLICY_ARG(3) ";"
-        : "=f"(v[0]), "=f"(v[1]) : "l"(p) HE_POLICY);
+    asm("ld.global.nc.L2::cache_hint.v2.f32 {%0, %1}, [%2], %3;"
+        : "=f"(v[0]), "=f"(v[1]) : "l"(p), "l"(policy));
 }
 template <>
 __device__ __forceinline__ void load_row<4>(const float* p, uint64_t policy, float (&v)[4]) {
-    asm(HE_LD ".v4.f32 {%0, %1, %2, %3}, [%4]" HE_POLICY_ARG(5) ";"
-        : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3]) : "l"(p) HE_POLICY);
+    asm("ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+        : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3]) : "l"(p), "l"(policy));
 }
 template <>
 __device__ __forceinline__ void load_row<8>(const float* p, uint64_t policy, float (&v)[8]) {
-    asm(HE_LD ".v4.f32 {%0, %1, %2, %3}, [%4]" HE_POLICY_ARG(5) ";"
-        : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3]) : "l"(p) HE_POLICY);
-    asm(HE_LD ".v4.f32 {%0, %1, %2, %3}, [%4]" HE_POLICY_ARG(5) ";"
-        : "=f"(v[4]), "=f"(v[5]), "=f"(v[6]), "=f"(v[7]) : "l"(p + 4) HE_POLICY);
+    load_row<4>(p, policy, *reinterpret_cast<float(*)[4]>(&v[0]));
+    load_row<4>(p + 4, policy, *reinterpret_cast<float(*)[4]>(&v[4]));
 }
-
-#undef HE_LD
-#undef HE_POLICY
-#undef HE_POLICY_ARG
 
 // F floats into the staging tile at p (aligned to min(F, 4) floats).
 template <int F>
@@ -124,21 +96,6 @@ __device__ __forceinline__ void store_tile(float* p, const float (&v)[F]) {
         for (int q = 0; q < F; q += 4)
             *reinterpret_cast<float4*>(p + q) = make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
     }
-}
-
-__device__ __forceinline__ void store_out(float4* p, float4 v) {
-#if REPRO_HE_STREAM_STORES
-    __stcs(p, v);
-#else
-    *p = v;
-#endif
-}
-__device__ __forceinline__ void store_out(float* p, float v) {
-#if REPRO_HE_STREAM_STORES
-    __stcs(p, v);
-#else
-    *p = v;
-#endif
 }
 
 template <int F>
@@ -222,12 +179,12 @@ hash_encode_kernel(const float* __restrict__ points,
         for (int e = threadIdx.x; e < count * q; e += blockDim.x) {
             const int r = e / q, c = (e - r * q) * 4;
             const float* s = tile + r * ld + c;
-            store_out(reinterpret_cast<float4*>(dst) + e, make_float4(s[0], s[1], s[2], s[3]));
+            __stcs(reinterpret_cast<float4*>(dst) + e, make_float4(s[0], s[1], s[2], s[3]));
         }
     } else {
         for (int e = threadIdx.x; e < count * row_floats; e += blockDim.x) {
             const int r = e / row_floats;
-            store_out(dst + e, tile[r * ld + (e - r * row_floats)]);
+            __stcs(dst + e, tile[r * ld + (e - r * row_floats)]);
         }
     }
 }

@@ -454,6 +454,31 @@ def test_fused_mlp2_matches_plain_at_path_sizes(n, card):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("chain", [
+    [(20, 24, 40, 5), (64, 64, 64, 16)],                  # mlp3, 16-byte input rows
+    [(21, 24, 40, 5), (63, 64, 64, 16)],                  # mlp3, 4-byte input rows
+    [(12, 20, 6), (64, 64, 16)],                          # mlp2
+])
+def test_fused_mlps_match_plain_across_alternating_widths(chain, card):
+    """The MLP kernels' launches remember the shared memory each width was
+    allowed and its block count: narrow, wide, narrow, wide launches of one
+    kernel (widths no other test uses, so each is that kernel's first launch
+    at them) each run and match the plain version."""
+    gen = torch.Generator().manual_seed(len(chain[0]) + chain[0][0])
+    for dims in chain + chain:
+        x = _u(gen, (3000, dims[0]), -1, 1, card)
+        params = []
+        for d_in, d_out in zip(dims[:-1], dims[1:]):
+            b = (6.0 / d_in) ** 0.5
+            params += [_u(gen, (d_in, d_out), -b, b, card), _u(gen, (d_out,), -0.1, 0.1, card)]
+        if len(dims) == 3:
+            got, want = mlp_kernel.fused_mlp2(x, *params), mlp_ref.mlp2(x, *params)
+        else:
+            got, want = mlp_kernel.fused_mlp3(x, *params), mlp_ref.mlp3(x, *params)
+        assert float((got - want).abs().max()) <= 1e-5, dims
+
+
+@pytest.mark.gpu
 def test_redesigned_kernels_give_the_same_bytes_twice(card):
     """Two launches on the same inputs: byte-identical outputs, all five of
     the fused backward's, mlp3's, mlp2's and the hash encode's (on a served
