@@ -1,9 +1,8 @@
 // Shared by every kernel source of repro_torch.  Each source builds into its
 // own shared library with a plain C interface (loaded from Python with
 // ctypes), so each library exports its own copy of the error-string lookup
-// that the Python wrappers use to report a failed launch.  The in-block
-// bitonic sort serves the fused encode's dedup of a block's corner addresses
-// (fused_encode.cu).
+// that the Python wrappers use to report a failed launch.  The table-row
+// loads serve the two encodes' gathers (hash_encode.cu, fused_encode.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,26 +12,34 @@ extern "C" const char* repro_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Ascending bitonic sort of N (a power of two) 64-bit keys in shared memory
-// by the whole block.  Call it after a __syncthreads() that publishes the
-// keys; it ends with one, so the sorted keys are visible to every thread.
-template <int N>
-__device__ void bitonic_sort(unsigned long long* keys) {
-    static_assert((N & (N - 1)) == 0, "bitonic_sort needs a power of two");
-    for (int k = 2; k <= N; k <<= 1) {
-        for (int j = k >> 1; j > 0; j >>= 1) {
-            for (int t = threadIdx.x; t < N; t += blockDim.x) {
-                const int u = t ^ j;
-                if (u > t) {
-                    const unsigned long long a = keys[t], b = keys[u];
-                    const bool ascending = (t & k) == 0;
-                    if ((a > b) == ascending) {
-                        keys[t] = b;
-                        keys[u] = a;
-                    }
-                }
-            }
-            __syncthreads();
-        }
-    }
+// L2 policy for table rows that many blocks gather: keep them (evict-last)
+// while streamed data passes through.
+__device__ __forceinline__ uint64_t table_policy() {
+    uint64_t policy;
+    asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(policy));
+    return policy;
+}
+
+// One table row of F floats at p (aligned to its vector width) into v.
+template <int F>
+__device__ __forceinline__ void load_row(const float* p, uint64_t policy, float (&v)[F]);
+
+template <>
+__device__ __forceinline__ void load_row<1>(const float* p, uint64_t policy, float (&v)[1]) {
+    asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;" : "=f"(v[0]) : "l"(p), "l"(policy));
+}
+template <>
+__device__ __forceinline__ void load_row<2>(const float* p, uint64_t policy, float (&v)[2]) {
+    asm("ld.global.nc.L2::cache_hint.v2.f32 {%0, %1}, [%2], %3;"
+        : "=f"(v[0]), "=f"(v[1]) : "l"(p), "l"(policy));
+}
+template <>
+__device__ __forceinline__ void load_row<4>(const float* p, uint64_t policy, float (&v)[4]) {
+    asm("ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+        : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3]) : "l"(p), "l"(policy));
+}
+template <>
+__device__ __forceinline__ void load_row<8>(const float* p, uint64_t policy, float (&v)[8]) {
+    load_row<4>(p, policy, *reinterpret_cast<float(*)[4]>(&v[0]));
+    load_row<4>(p + 4, policy, *reinterpret_cast<float(*)[4]>(&v[4]));
 }

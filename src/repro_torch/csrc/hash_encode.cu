@@ -54,36 +54,6 @@ __host__ __device__ inline int tile_ld(int row_floats, int f) {
     return row_floats + (f < 4 ? f : 4);
 }
 
-__device__ __forceinline__ uint64_t table_policy() {
-    uint64_t policy;
-    asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(policy));
-    return policy;
-}
-
-// One table row of F floats at p (aligned to its vector width) into v.
-template <int F>
-__device__ __forceinline__ void load_row(const float* p, uint64_t policy, float (&v)[F]);
-
-template <>
-__device__ __forceinline__ void load_row<1>(const float* p, uint64_t policy, float (&v)[1]) {
-    asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;" : "=f"(v[0]) : "l"(p), "l"(policy));
-}
-template <>
-__device__ __forceinline__ void load_row<2>(const float* p, uint64_t policy, float (&v)[2]) {
-    asm("ld.global.nc.L2::cache_hint.v2.f32 {%0, %1}, [%2], %3;"
-        : "=f"(v[0]), "=f"(v[1]) : "l"(p), "l"(policy));
-}
-template <>
-__device__ __forceinline__ void load_row<4>(const float* p, uint64_t policy, float (&v)[4]) {
-    asm("ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
-        : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3]) : "l"(p), "l"(policy));
-}
-template <>
-__device__ __forceinline__ void load_row<8>(const float* p, uint64_t policy, float (&v)[8]) {
-    load_row<4>(p, policy, *reinterpret_cast<float(*)[4]>(&v[0]));
-    load_row<4>(p + 4, policy, *reinterpret_cast<float(*)[4]>(&v[4]));
-}
-
 // F floats into the staging tile at p (aligned to min(F, 4) floats).
 template <int F>
 __device__ __forceinline__ void store_tile(float* p, const float (&v)[F]) {

@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("hash_encode", "fused_mlp", "composite", "fused_step", "bum_scatter",
-           "fused_encode")
+           "bum_sort", "fused_encode")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,7 +40,8 @@ NVCC_FLAGS = (
 
 LAUNCHES: dict[str, int] = {
     "hash_encode": 0, "fused_mlp2": 0, "fused_mlp3": 0, "composite": 0,
-    "fused_step_fwd": 0, "fused_step_bwd": 0, "bum_scatter": 0, "fused_encode": 0,
+    "fused_step_fwd": 0, "fused_step_bwd": 0, "bum_scatter": 0, "bum_sort": 0,
+    "fused_encode": 0,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -12,11 +12,13 @@ reads) once per grid; a CPU tensor runs the plain `ref.fused_encode`.
 
 The backward follows the reference's default residual policy,
 "recompute": only the points cross to the backward, which re-derives the
-shared corner geometry, each grid's canonical address stream (level-major,
-then point, then corner) and its stable `torch.sort` -- the reference's
-`_plan` -- then builds the update values in canonical order and commits the
-sorted stream through `grid_update.ops.merged_scatter_add(presorted=True)`,
-the `bum_scatter` kernel (#7) on a CUDA tensor.  The same products in the
+shared corner geometry and each grid's canonical address stream (level-major,
+then point, then corner), builds the update values in canonical order, sorts
+the stream stably by address -- the reference's `_plan` --
+(`grid_update.ops.sort_stream`: the `bum_sort` kernel on a CUDA tensor,
+`torch.sort` on a CPU one) and commits it through
+`grid_update.ops.merged_scatter_add(presorted=True)`, the `bum_scatter`
+kernel (#7) on a CUDA tensor.  The same products in the
 same stable order as the hash-encode backward, so the table gradients are
 `hash_encode`'s bit for bit.  A frozen table (`needs_input_grad`) gets no
 commit; the points get a zero gradient.  The "stash" policy is not ported.
@@ -50,12 +52,13 @@ def _table_gradient(points, g_out, resolutions, dense_flags, table_shape, corner
     n_levels, table_size, n_features = table_shape
     idx_l = ref.level_indices(corners, resolutions, table_size, dense_flags)
     addr = ref.address_stream(idx_l, table_size)
-    order = torch.sort(addr, stable=True).indices
     gg = g_out.reshape(points.shape[0], n_levels, n_features).to(torch.float32)
     vals = (w_stack[:, :, :, None] * gg.permute(1, 0, 2)[:, :, None, :]).reshape(-1, n_features)
+    # no spill row: every address lies in [0, L*T)
+    addr_s, vals_s = gu_ops.sort_stream(addr, vals, (n_levels * table_size - 1).bit_length())
     flat = torch.zeros((n_levels * table_size, n_features), dtype=torch.float32,
                        device=points.device)
-    flat = gu_ops.merged_scatter_add(flat, addr[order], vals[order], presorted=True)
+    flat = gu_ops.merged_scatter_add(flat, addr_s, vals_s, presorted=True)
     return flat.reshape(table_shape)
 
 

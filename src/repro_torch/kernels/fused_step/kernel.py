@@ -6,10 +6,10 @@ inputs, allocates outputs and scratch, launches on the current stream and
 counts the launch; raises on anything the kernels do not take and on a
 failed launch.  The backward kernel writes each grid's table-gradient
 stream in the plain version's order (level, point, corner; `ref.bwd_table_stream`
-lays it out the same way); its second pass orders the stream by address
-with a stable `torch.sort` and commits it with the `bum_scatter` kernel
-(which counts its own launches), so each table row is summed in the plain
-version's order.
+lays it out the same way); its second pass orders the stream stably by
+address with the `bum_sort` kernel and commits it with the `bum_scatter`
+kernel (each counts its own launches), so each table row is summed in the
+plain version's order.
 """
 from __future__ import annotations
 
@@ -127,11 +127,11 @@ def fused_step_fwd(points, sh, t_density, t_color, mlp_d: dict, mlp_c: dict,
 
 def _commit(addr, vals, levels: int, table_size: int, f: int):
     """Pass 2 of one grid: order its stream by address (stable, so equal
-    addresses keep stream order) and commit it into a fresh (L, T, F)
-    gradient table."""
-    order = torch.sort(addr, stable=True).indices
+    addresses keep stream order; the keys span [0, L*T], the spill row L*T
+    included) and commit it into a fresh (L, T, F) gradient table."""
+    addr_s, vals_s = gu_kernel.bum_sort(addr, vals, (levels * table_size).bit_length())
     flat = torch.zeros((levels * table_size, f), dtype=torch.float32, device=addr.device)
-    gu_kernel.bum_scatter(flat, addr[order], vals[order].contiguous())
+    gu_kernel.bum_scatter(flat, addr_s, vals_s)
     return flat.reshape(levels, table_size, f)
 
 

@@ -1,10 +1,20 @@
-"""Launch wrapper of the CUDA merged scatter-add (``csrc/bum_scatter.cu``).
+"""Launch wrappers of the BUM commit's two CUDA kernels.
 
-Replaces the Pallas kernel `repro.kernels.grid_update.kernel.bum_scatter_pallas`.
-Validates its inputs, launches on the current stream and counts the launch;
-raises on anything the kernel does not take and on a failed launch.  The
-table is updated IN PLACE (the port's callers commit into a fresh gradient
-table, so a copy would be wasted) and returned.
+`bum_scatter` (``csrc/bum_scatter.cu``) replaces the Pallas kernel
+`repro.kernels.grid_update.kernel.bum_scatter_pallas`: the merged
+scatter-add of an address-sorted stream.  The table is updated IN PLACE (the
+port's callers commit into a fresh gradient table, so a copy would be
+wasted) and returned.
+
+`bum_sort` (``csrc/bum_sort.cu``) replaces the in-block argsort of the
+commit inside `repro.kernels.fused_step.kernel.fused_step_bwd_pallas`: the
+stable sort of a table-gradient stream by address, its values carried, as
+a radix sort over the key's low `key_bits` bits in the digits of
+`ref.radix_passes` (the plain version is `ref.stable_key_sort`).
+
+Each wrapper validates its inputs, launches on the current stream and counts
+the launch; raises on anything its kernel does not take and on a failed
+launch.
 """
 from __future__ import annotations
 
@@ -14,14 +24,24 @@ import functools
 import torch
 
 from ... import kernels as _k
+from . import ref
 
 FEATURE_COUNTS = (1, 2, 4, 8)
+# stream entries per block of the sort, by F (256 threads x items_per_thread)
+SORT_TILE = {f: 256 * min(16, 32 // f) for f in FEATURE_COUNTS}
+SORT_MAX_ENTRIES = 1 << 30
 
 
 @functools.cache
 def _entry():
     p, i64, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     return _k.function("bum_scatter", "bum_scatter_commit", [p, p, p, i64, i64, i, p])
+
+
+@functools.cache
+def _sort_entry():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _k.function("bum_sort", "bum_sort_stream", [p] * 9 + [i, i, p, i, p])
 
 
 def bum_scatter(table: torch.Tensor, idx_sorted: torch.Tensor,
@@ -47,3 +67,48 @@ def bum_scatter(table: torch.Tensor, idx_sorted: torch.Tensor,
     _k.check_status("bum_scatter", status, "bum_scatter")
     _k.LAUNCHES["bum_scatter"] += 1
     return table
+
+
+def bum_sort(addr: torch.Tensor, vals: torch.Tensor,
+             key_bits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The stream addr (M,) int64, every key in [0, 2**key_bits), and vals
+    (M, F) f32, on one CUDA device, stably sorted by address: new tensors
+    (addr[o], vals[o]) for o = torch.sort(addr, stable=True).indices.
+    key_bits comes from the table geometry and is never read from the keys
+    (no host sync); a key outside the range is not detected."""
+    device = addr.device
+    _k.require_cuda("bum_sort", device, torch.int64, addr=addr)
+    _k.require_cuda_f32("bum_sort", device, vals=vals)
+    if not 0 <= key_bits <= 32:
+        raise ValueError(f"bum_sort: key_bits must lie in [0, 32], got {key_bits}")
+    m = addr.shape[0]
+    if addr.ndim != 1 or vals.ndim != 2 or vals.shape[0] != m \
+            or vals.shape[1] not in FEATURE_COUNTS:
+        raise ValueError(f"bum_sort: addr {tuple(addr.shape)} and vals {tuple(vals.shape)} "
+                         f"must be (M,) and (M, F) with F in {FEATURE_COUNTS}")
+    if m > SORT_MAX_ENTRIES:
+        raise ValueError(f"bum_sort: {m} entries, more than {SORT_MAX_ENTRIES}")
+    passes = ref.radix_passes(key_bits)
+    if m == 0 or not passes:            # key_bits 0: every key is 0, the order stays
+        return addr.clone(), vals.clone()
+    f = vals.shape[1]
+    n_digits = 1 << max(width for _, width in passes)
+    new = lambda shape, dtype: torch.empty(shape, device=device, dtype=dtype)  # noqa: E731
+    addr_s, vals_s = new((m,), torch.int64), new((m, f), torch.float32)
+    # 32-bit keys between passes, one scratch copy of the values (the C
+    # side leaves a buffer unused when there are too few passes to need it)
+    n_passes = len(passes)
+    key_tmp0 = new((m,), torch.int32) if n_passes > 1 else addr_s
+    key_tmp1 = new((m,), torch.int32) if n_passes > 2 else key_tmp0
+    vals_tmp = new((m, f), torch.float32) if n_passes > 1 else vals_s
+    spine = new((n_digits * -(-m // SORT_TILE[f]),), torch.int32)
+    totals = new((n_digits,), torch.int32)
+    widths = (ctypes.c_int * len(passes))(*(width for _, width in passes))
+    with torch.cuda.device(device):
+        status = _sort_entry()(
+            _k.ptr(addr), _k.ptr(vals), _k.ptr(addr_s), _k.ptr(vals_s), _k.ptr(key_tmp0),
+            _k.ptr(key_tmp1), _k.ptr(vals_tmp), _k.ptr(spine), _k.ptr(totals), m, f,
+            widths, n_passes, _k.stream_handle(device))
+    _k.check_status("bum_sort", status, "bum_sort")
+    _k.LAUNCHES["bum_sort"] += 1
+    return addr_s, vals_s

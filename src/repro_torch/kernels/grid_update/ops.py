@@ -2,10 +2,12 @@
 
 The port of `repro.kernels.grid_update.ops`.  `merged_scatter_add` is
 mathematically the naive duplicate scatter-add (`ref.scatter_add`) with the
-write collisions removed: the stream is stably sorted by address (a
-`torch.sort`, the glue that `jnp.argsort` is in the reference) and the
-commit merges each run of equal addresses into one write.  The commit goes
-by device: a CPU tensor to the plain `ref.segment_commit`, a CUDA tensor to
+write collisions removed: the stream is stably sorted by address (the glue
+that `jnp.argsort` is in the reference) and the commit merges each run of
+equal addresses into one write.  Both halves go by device.  `sort_stream`
+sends a CUDA tensor to the radix-sort kernel (`kernel.bum_sort`, over the
+address bits the table needs) and a CPU tensor to `torch.sort`; the commit
+sends a CPU tensor to the plain `ref.segment_commit` and a CUDA tensor to
 the kernel (`kernel.bum_scatter`), which sums each run in stream order on
 one thread -- no float atomics, so the result is the same bits on every run.
 
@@ -31,17 +33,31 @@ def _commit(table, idx_s, vals_s):
     return ref.segment_commit(table, idx_s, vals_s)
 
 
+def sort_stream(idx: torch.Tensor, vals: torch.Tensor, key_bits: int):
+    """The update stream (idx (M,) int64, every address in [0, 2**key_bits);
+    vals (M, F)) stably sorted by address: (idx[o], vals[o]) for the stable
+    order o.  A CUDA tensor goes to `kernel.bum_sort` (values in f32), a CPU
+    tensor to `torch.sort`."""
+    if idx.device.type == "cuda":
+        return kernel.bum_sort(idx.contiguous(), vals.to(torch.float32).contiguous(),
+                               key_bits)
+    if idx.device.type != "cpu":
+        raise ValueError(f"sort_stream: no route for device {idx.device}")
+    order = torch.sort(idx, stable=True).indices
+    return idx[order], vals[order]
+
+
 def _sort_updates(idx, vals, table_size: int, pad_to: int | None = None,
                   presorted: bool = False):
-    """Sort the update stream by address (stable), and pad it to a multiple
-    of `pad_to` with spill-row (T) entries of value zero.  presorted=True
-    promises idx is already non-decreasing and skips the sort: a stable sort
-    of a sorted stream is the identity, so both give the same bits."""
+    """Sort the update stream by address (stable; the addresses lie in
+    [0, T], the spill row T included), and pad it to a multiple of `pad_to`
+    with spill-row (T) entries of value zero.  presorted=True promises idx
+    is already non-decreasing and skips the sort: a stable sort of a sorted
+    stream is the identity, so both give the same bits."""
     if presorted:
         idx_s, vals_s = idx, vals
     else:
-        order = torch.sort(idx, stable=True).indices
-        idx_s, vals_s = idx[order], vals[order]
+        idx_s, vals_s = sort_stream(idx, vals, table_size.bit_length())
     if pad_to is not None and idx.shape[0] % pad_to != 0:
         pad = pad_to - idx.shape[0] % pad_to
         idx_s = torch.cat([idx_s, torch.full((pad,), table_size, dtype=idx_s.dtype,

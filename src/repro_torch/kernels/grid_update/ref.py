@@ -13,10 +13,22 @@ index order, so the run sums are the reference's `segment_sum` sums bit for
 bit, and the commit writes each row at most once.  Like the reference,
 `segment_commit` keeps M segment slots and routes the empty ones (and
 out-of-range runs) to a spill row, so it never waits on the device.
+
+`stable_key_sort` is the plain version of the CUDA kernel `kernel.bum_sort`:
+the stable sort of an update stream by address, values carried, as a
+least-significant-digit radix sort over the key's low `key_bits` bits in
+the kernel's digits (`radix_passes`).  Each pass counts the digits
+(`bincount`), turns the counts into each digit's first output position (an
+exclusive `cumsum`) and moves every entry to that position plus its rank
+among the entries of its digit that precede it in the stream.  Its output is
+`addr[o], vals[o]` for the stable order `o` of `addr`: a stable sort's
+permutation is unique.
 """
 from __future__ import annotations
 
 import torch
+
+RADIX_MAX_BITS = 8          # the widest digit of one pass (256 buckets)
 
 
 def scatter_add(table: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
@@ -48,3 +60,44 @@ def segment_commit(table: torch.Tensor, idx_s: torch.Tensor,
     addr = torch.where((addr >= 0) & (addr < t), addr, torch.full_like(addr, t))
     spill = torch.zeros((1,) + tuple(table.shape[1:]), dtype=table.dtype, device=table.device)
     return torch.cat([table, spill]).index_add(0, addr, summed.to(table.dtype))[:t]
+
+
+def radix_passes(key_bits: int) -> list[tuple[int, int]]:
+    """(shift, width) of each least-significant-digit pass over `key_bits`
+    bits: the fewest passes of at most RADIX_MAX_BITS bits, the widths as
+    even as they can be (23 bits: 8, 8, 7; 21 bits: 7, 7, 7)."""
+    if not 0 <= key_bits <= 32:
+        raise ValueError(f"key_bits must lie in [0, 32], got {key_bits}")
+    n = -(-key_bits // RADIX_MAX_BITS)
+    widths = [key_bits // n + (k < key_bits % n) for k in range(n)]
+    shifts = [sum(widths[:k]) for k in range(n)]
+    return list(zip(shifts, widths))
+
+
+def _rank_in_digit(digit: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """(M,) int64: how many earlier entries of the stream share each entry's
+    digit, one running count per digit that occurs (`counts` > 0)."""
+    rank = torch.zeros_like(digit)
+    for v in torch.nonzero(counts).flatten().tolist():
+        hit = digit == v
+        rank += torch.where(hit, torch.cumsum(hit, 0) - 1, 0)
+    return rank
+
+
+def stable_key_sort(addr: torch.Tensor, vals: torch.Tensor,
+                    key_bits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The stream (addr (M,) int64 in [0, 2**key_bits), vals (M, ...))
+    stably sorted by address: (addr[o], vals[o]) for o the stable order."""
+    passes = radix_passes(key_bits)
+    if not passes:                      # key_bits 0: every key is 0, the order stays
+        return addr.clone(), vals.clone()
+    keys, carried = addr, vals
+    for shift, width in passes:
+        n_digits = 1 << width
+        digit = (keys >> shift) & (n_digits - 1)
+        counts = torch.bincount(digit, minlength=n_digits)
+        first = torch.cumsum(counts, 0) - counts            # exclusive
+        dest = first[digit] + _rank_in_digit(digit, counts)
+        keys = torch.empty_like(keys).index_copy_(0, dest, keys)
+        carried = torch.empty_like(carried).index_copy_(0, dest, carried)
+    return keys, carried

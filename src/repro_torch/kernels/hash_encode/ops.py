@@ -5,9 +5,10 @@ a CUDA tensor to the CUDA kernel (`kernel.hash_encode`), a CPU tensor to the
 plain PyTorch version (`ref.hash_encode`).  Its backward mirrors the
 reference's `make_hash_encode` VJP (`repro.kernels.hash_encode.ops`): the
 update stream of every corner of every level, level l's addresses offset by
-l*T into the flat (L*T, F) table (`corner_updates`), is committed through
-`grid_update.ops.merged_scatter_add` -- a stable sort, then one write per
-run, which on a CUDA tensor is the `bum_scatter` kernel.  The backward does
+l*T into the flat (L*T, F) table (`corner_updates`), is sorted stably by
+address (`grid_update.ops.sort_stream`) and committed through
+`grid_update.ops.merged_scatter_add` with one write per run -- on a CUDA
+tensor the `bum_sort` and `bum_scatter` kernels.  The backward does
 nothing when the tables are frozen (`needs_input_grad`), and the points get
 a zero gradient, as in the reference.
 """
@@ -63,7 +64,9 @@ class _HashEncode(torch.autograd.Function):
         idx, vals = corner_updates(points, resolutions, dense_flags, table_size, grad)
         flat = torch.zeros((n_levels * table_size, n_features), dtype=torch.float32,
                            device=points.device)
-        flat = gu_ops.merged_scatter_add(flat, idx, vals)
+        # no spill row: every address lies in [0, L*T)
+        idx, vals = gu_ops.sort_stream(idx, vals, (n_levels * table_size - 1).bit_length())
+        flat = gu_ops.merged_scatter_add(flat, idx, vals, presorted=True)
         return g_points, flat.reshape(n_levels, table_size, n_features).to(dtype), None, None
 
 

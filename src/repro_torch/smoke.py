@@ -21,8 +21,11 @@ card and fails on anything wrong -- there is no CPU fallback.
    Morton-ordered points, the backward with the color grid live and
    frozen), and each must give the same bytes on two launches (the hash
    encode also exactly zero on sentinel rows); the fused backward's time is
-   broken down (kernel launch alone, the wrapper's commit alone, no
-   streams).
+   broken down (kernel launch alone, the wrapper's commit alone and its
+   sorts beside torch.sort's, no streams).  The table-gradient sort runs on
+   the three streams the training paths sort (the fused backward's of a
+   trained step, a dense step's, the fused encode backward's of an NGP
+   step) and must give torch.sort's stable permutation exactly.
    Then the fused encode's table gradients must equal the hash encode's
    bit for bit for one fixed upstream gradient;
 3. training (slice 2's main path): `Instant3DTrainer(Field(FieldConfig()),
@@ -119,13 +122,17 @@ KERNELS = {
     "bum_scatter": {
         "route": "cuda", "source": "src/repro_torch/csrc/bum_scatter.cu",
         "replaces": "src/repro/kernels/grid_update/kernel.py:69"},
+    "bum_sort": {
+        "route": "cuda", "source": "src/repro_torch/csrc/bum_sort.cu",
+        "replaces": "src/repro/kernels/fused_step/kernel.py:266"},
     "fused_encode": {
         "route": "cuda", "source": "src/repro_torch/csrc/fused_encode.cu",
         "replaces": "src/repro/kernels/fused_path/kernel.py:66"},
 }
 # (kernels a path must launch, kernels it must not) per main path
-TRAIN_KERNELS = (("fused_step_fwd", "fused_step_bwd", "bum_scatter"), ("fused_encode",))
-NGP_TRAIN_KERNELS = (("fused_encode", "bum_scatter", "hash_encode", "fused_mlp2",
+TRAIN_KERNELS = (("fused_step_fwd", "fused_step_bwd", "bum_scatter", "bum_sort"),
+                 ("fused_encode",))
+NGP_TRAIN_KERNELS = (("fused_encode", "bum_scatter", "bum_sort", "hash_encode", "fused_mlp2",
                       "fused_mlp3", "composite"), ("fused_step_fwd", "fused_step_bwd"))
 SERVE_KERNELS = ("hash_encode", "fused_mlp2", "fused_mlp3", "composite")
 
@@ -142,13 +149,15 @@ SERVE_KERNELS = ("hash_encode", "fused_mlp2", "fused_mlp3", "composite")
 # otherwise (1e-5 of the largest table gradient), and its MLP gradients
 # over blocks of 32 points, then over the blocks (1e-4).  bum_scatter sums
 # each run in stream order, as the plain version does on the CPU, so it is
-# exact; 1e-6 of the largest value is what it is held to.  The fused encode
+# exact; 1e-6 of the largest value is what it is held to.  bum_sort moves
+# keys and values without arithmetic: it must give torch.sort's stable
+# permutation exactly (tolerance 0, every entry equal).  The fused encode
 # sums the same 8 corners as the hash encode (1e-5); its distinct-read
 # counts must equal the plain count and its block dedup ratio the plain
 # `dedup_stats` within 1e-12.
 TOLERANCE = {"hash_encode": 1e-5, "fused_mlp2": 1e-5, "fused_mlp3": 1e-5,
              "composite": 5e-5, "fused_step_fwd": 1e-5, "fused_step_bwd": 1e-4,
-             "bum_scatter": 1e-6, "fused_encode": 1e-5}
+             "bum_scatter": 1e-6, "bum_sort": 0.0, "fused_encode": 1e-5}
 BWD_TABLE_TOL = 1e-5        # relative, the fused backward's table gradients
 DEDUP_RATIO_TOL = 1e-12
 # The split route (fused encode, then the MLPs) against the one-op step on
@@ -538,6 +547,72 @@ def _bum_scatter_case(gen, device, n: int, enc, label: str):
     }
 
 
+def _bum_sort_case(addr, vals, key_bits: int, label: str):
+    """The table-gradient sort on one stream against torch.sort's stable
+    permutation (exact); the plain radix passes and torch.sort (the library
+    call, keys only) timed beside it."""
+    got = gu_kernel.bum_sort(addr, vals, key_bits)
+    order = torch.sort(addr, stable=True).indices
+    want = (addr[order], vals[order])
+    exact = all(torch.equal(g, w) for g, w in zip(got, want))
+    m, f = vals.shape
+    return {
+        "kernel": "bum_sort", "case": label, "shape": [m, f, key_bits],
+        "max_abs_err": max(float((got[0] - want[0]).abs().max()), _max_err(got[1], want[1])),
+        "exact": exact, "ok": exact,
+        "ms": cuda_ms(lambda: gu_kernel.bum_sort(addr, vals, key_bits), iters=20),
+        "plain_ms": cuda_ms(lambda: gu_ref.stable_key_sort(addr, vals, key_bits),
+                            iters=2, warmup=1),
+        "library_ms": cuda_ms(lambda: torch.sort(addr, stable=True), iters=20),
+        # the stream read once and written once, sorted
+        "bound": bound(2 * m * (8 + 4 * f), 0),
+    }
+
+
+def table_gradient_streams(device, field_cfg: FieldConfig = FieldConfig(),
+                           budget: int = TRAIN_BUDGET, dense_points: int = DENSE_POINTS,
+                           ngp_points: int = PARITY_BUDGET, seed: int = 0) -> list[tuple]:
+    """The three table-gradient streams the training paths sort, as those
+    paths make them, each as (label, addr, vals, key_bits): the fused
+    backward's streams of a trained Instant-3D step (budget `budget`,
+    Morton-ordered points, both grids; keys up to the spill row L*T), a
+    dense step's hash-encode backward streams (`dense_points`, both grids)
+    and the fused encode's backward stream of an Instant-NGP compacted step
+    (`ngp_points`, Morton-ordered)."""
+    gen = torch.Generator().manual_seed(seed + 5)
+    field = Field(field_cfg)
+    levels = field_cfg.n_levels
+    pts, sh, tables, mlp_d, mlp_c, geometry = _fused_step_inputs(gen, device, budget, field)
+    g_d = _uniform(gen, (budget, mlp_d["w2"].shape[1]), -1.0, 1.0, device)
+    g_c = _uniform(gen, (budget, mlp_c["w3"].shape[1]), -1.0, 1.0, device)
+    streams, _, _ = fs_kernel.fused_step_bwd_launch(pts, sh, g_d, g_c, *tables, mlp_d, mlp_c,
+                                                    *geometry)
+    out = [(f"fused_step_bwd {name}, budget {budget}", *streams[name],
+            (levels * t.shape[1]).bit_length())
+           for name, t in zip(("density", "color"), tables)]
+    for name, e in (("density", field.density_enc), ("color", field.color_enc)):
+        cfg = e.cfg
+        points = _uniform(gen, (dense_points, 3), 0.0, 1.0 - 1e-6, device)
+        grad = _uniform(gen, (dense_points, cfg.n_levels, cfg.n_features), -1.0, 1.0, device)
+        idx, vals = he_ops.corner_updates(points, e.resolutions, e.dense_flags,
+                                          cfg.table_size, grad)
+        out.append((f"dense step {name}, N={dense_points}", idx, vals,
+                    (cfg.n_levels * cfg.table_size - 1).bit_length()))
+    ngp = Field(dataclasses.replace(field_cfg, decomposed=False)).density_enc
+    cfg = ngp.cfg
+    points = _morton_points(gen, ngp_points, device)
+    corners, weights = fp_ref.corner_geometry(points, ngp.resolutions)
+    addr = fp_ref.address_stream(
+        fp_ref.level_indices(corners, ngp.resolutions, cfg.table_size, ngp.dense_flags),
+        cfg.table_size)
+    g = _uniform(gen, (ngp_points, cfg.n_levels, cfg.n_features), -1.0, 1.0, device)
+    vals = (torch.stack(weights)[:, :, :, None] * g.permute(1, 0, 2)[:, :, None, :]
+            ).reshape(-1, cfg.n_features)
+    out.append((f"fused_encode bwd NGP, N={ngp_points}", addr, vals,
+                (cfg.n_levels * cfg.table_size - 1).bit_length()))
+    return out
+
+
 def _morton_points(gen, n: int, device):
     pts = _uniform(gen, (n, 3), 0.0, 1.0 - 1e-6, device)
     return pts[torch.sort(fp_ref.morton_key(pts), stable=True).indices].contiguous()
@@ -649,6 +724,8 @@ def kernel_parity(device, field_cfg: FieldConfig = FieldConfig(),
                                  f"redistributed, S={s_red}"))
     cases.append(_composite_case(gen, device, EVAL_CHUNK, s, f"dense, S={s}"))
     cases.extend(train_kernel_parity(device, field_cfg, seed=seed))
+    cases.extend(_bum_sort_case(addr, vals, bits, label) for label, addr, vals, bits
+                 in table_gradient_streams(device, field_cfg, seed=seed))
     cases.extend(main_shape_parity(device, field_cfg, render_cfg, seed=seed))
     return cases
 
@@ -690,8 +767,9 @@ def fused_step_bwd_breakdown(device, n: int, field_cfg: FieldConfig = FieldConfi
                              seed: int = 0) -> dict:
     """Where the fused backward's time goes at N points (Morton-ordered):
     the whole wrapper, the kernel launch alone (pass 1, through ctypes), the
-    wrapper's commit alone (stable sort, gathers, zero fill and bum_scatter
-    for both grids), of it the two stable sorts alone and the two
+    wrapper's commit alone (bum_sort, zero fill and bum_scatter for both
+    grids), of it the two sorts alone (`sort_ms`; torch.sort's stable sort
+    of the same keys, the library call, as `library_sort_ms`) and the two
     bum_scatter launches alone, and the wrapper with no table gradient at
     all (no streams), each by CUDA events."""
     gen = torch.Generator().manual_seed(seed + 4)
@@ -703,16 +781,15 @@ def fused_step_bwd_breakdown(device, n: int, field_cfg: FieldConfig = FieldConfi
     launch = lambda: fs_kernel.fused_step_bwd_launch(*args)  # noqa: E731
     streams, _, _ = launch()
     levels, _, f = tables[0].shape
-    commit = lambda: [fs_kernel._commit(*streams[name], levels, t.shape[1], f)  # noqa: E731
-                      for name, t in zip(("density", "color"), tables)]
-    sort = lambda: [torch.sort(streams[name][0], stable=True)  # noqa: E731
-                    for name in ("density", "color")]
-    ordered = []
-    for name, t in zip(("density", "color"), tables):
-        addr, vals = streams[name]
-        order = torch.sort(addr, stable=True).indices
-        ordered.append((torch.zeros((levels * t.shape[1], f), device=device), addr[order],
-                        vals[order].contiguous()))
+    grids = [(streams[name], (levels * t.shape[1]).bit_length(), t)
+             for name, t in zip(("density", "color"), tables)]
+    commit = lambda: [fs_kernel._commit(*stream, levels, t.shape[1], f)  # noqa: E731
+                      for stream, _, t in grids]
+    sort = lambda: [gu_kernel.bum_sort(*stream, bits) for stream, bits, _ in grids]  # noqa: E731
+    library_sort = lambda: [torch.sort(stream[0], stable=True)  # noqa: E731
+                            for stream, _, _ in grids]
+    ordered = [(torch.zeros((levels * t.shape[1], f), device=device),
+                *gu_kernel.bum_sort(*stream, bits)) for stream, bits, t in grids]
     scatter = lambda: [gu_kernel.bum_scatter(*o) for o in ordered]  # noqa: E731
     return {
         "n": n, "stream_entries": int(streams["density"][0].numel()),
@@ -720,6 +797,7 @@ def fused_step_bwd_breakdown(device, n: int, field_cfg: FieldConfig = FieldConfi
         "launch_ms": cuda_ms(launch, iters=20),
         "commit_ms": cuda_ms(commit, iters=20),
         "sort_ms": cuda_ms(sort, iters=20),
+        "library_sort_ms": cuda_ms(library_sort, iters=20),
         "scatter_ms": cuda_ms(scatter, iters=20),
         "no_streams_ms": cuda_ms(lambda: fs_kernel.fused_step_bwd(
             *args, need_density=False, need_color=False), iters=20),
@@ -992,7 +1070,9 @@ def _print_case(c: dict, card: str) -> bool:
         extra += (f" table_rel_err {c['table_rel_err']:.3e} (tol {BWD_TABLE_TOL:.0e}) "
                   f"nonzero_rows_equal {c['nonzero_rows_equal']}")
     if "exact" in c:
-        extra += f" exact {c['exact']} nonzero_rows_equal {c['nonzero_rows_equal']}"
+        extra += f" exact {c['exact']}"
+        if "nonzero_rows_equal" in c:
+            extra += f" nonzero_rows_equal {c['nonzero_rows_equal']}"
     if "deterministic" in c:
         ok = ok and c["deterministic"]
         extra += f" two launches byte-identical {c['deterministic']}"

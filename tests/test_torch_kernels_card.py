@@ -508,3 +508,140 @@ def test_redesigned_kernels_give_the_same_bytes_twice(card):
     grid = _u(gen, (enc.cfg.n_levels, enc.cfg.table_size, enc.cfg.n_features), -1, 1, card)
     assert torch.equal(_bits(he_kernel.hash_encode(ray, grid, enc.resolutions, enc.dense_flags)),
                        _bits(he_kernel.hash_encode(ray, grid, enc.resolutions, enc.dense_flags)))
+
+
+def _stable(addr, vals):
+    order = torch.sort(addr, stable=True).indices
+    return addr[order], vals[order]
+
+
+@pytest.mark.gpu
+def test_bum_sort_is_torch_sorts_stable_permutation_on_the_training_streams(card):
+    """The three streams the training paths sort, at their main-path sizes
+    (`smoke.table_gradient_streams`): exactly torch.sort's stable order,
+    one launch each."""
+    for name, addr, vals, bits in smoke.table_gradient_streams(card):
+        before = kernels.LAUNCHES["bum_sort"]
+        got = gu_kernel.bum_sort(addr, vals, bits)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["bum_sort"] == before + 1, name
+        want = _stable(addr, vals)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("keys", ["equal", "descending", "random", "few"])
+@pytest.mark.parametrize("m,bits,f", [(1 << 20, 23, 2), (4097, 17, 1), (70001, 21, 4),
+                                      (2049, 9, 8), (1, 8, 2), (5000, 0, 2)])
+def test_bum_sort_is_torch_sorts_stable_permutation_on_adversarial_keys(m, bits, f, keys,
+                                                                        card):
+    """All keys equal, all distinct and descending (as far as the width
+    allows), uniform, and a few values in long runs; stream lengths that are
+    not a multiple of any tile, every value width."""
+    gen = torch.Generator().manual_seed(m + bits)
+    hi = 1 << bits
+    addr = {"equal": torch.full((m,), hi - 1, dtype=torch.int64),
+            "descending": torch.arange(m - 1, -1, -1) % hi,
+            "random": torch.randint(0, hi, (m,), generator=gen),
+            "few": torch.randint(0, 3, (m,), generator=gen) * ((hi - 1) // 2)}[keys]
+    vals = torch.rand((m, f), generator=gen)
+    got = gu_kernel.bum_sort(addr.to(card), vals.to(card), bits)
+    want = _stable(addr, vals)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.gpu
+def test_bum_sort_refuses_what_it_does_not_take(card):
+    addr = torch.zeros(16, dtype=torch.int64, device=card)
+    vals = torch.zeros((16, 2), device=card)
+    with pytest.raises(ValueError, match="key_bits"):
+        gu_kernel.bum_sort(addr, vals, 33)
+    with pytest.raises(ValueError, match="int64"):
+        gu_kernel.bum_sort(addr.to(torch.int32), vals, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        gu_kernel.bum_sort(torch.zeros((16, 2), dtype=torch.int64, device=card)[:, 0], vals, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        gu_kernel.bum_sort(addr, torch.zeros((2, 16), device=card).t(), 8)
+    with pytest.raises(ValueError, match="F in"):
+        gu_kernel.bum_sort(addr, torch.zeros((16, 3), device=card), 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [8192, 32768])
+def test_fused_step_table_gradients_are_the_torch_sort_route_byte_for_byte(n, card):
+    """#6's commit through bum_sort (two launches, one per grid) against the
+    route before it, torch.sort's stable order and two gathers, then the
+    same bum_scatter: the same bytes."""
+    field = Field(FieldConfig())
+    gen = torch.Generator().manual_seed(n + 41)
+    pts, sh, tables, mlp_d, mlp_c, geometry = _morton_step_inputs(gen, n, card, field)
+    g_d = _u(gen, (n, mlp_d["w2"].shape[1]), -1, 1, card)
+    g_c = _u(gen, (n, mlp_c["w3"].shape[1]), -1, 1, card)
+    args = (pts, sh, g_d, g_c, *tables, mlp_d, mlp_c, *geometry)
+    before = kernels.LAUNCHES["bum_sort"]
+    got = fs_kernel.fused_step_bwd(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bum_sort"] == before + 2
+    streams, _, _ = fs_kernel.fused_step_bwd_launch(*args)
+    levels, _, f = tables[0].shape
+    for k, (name, table) in enumerate(zip(("density", "color"), tables)):
+        addr, vals = _stable(*streams[name])
+        want = torch.zeros((levels * table.shape[1], f), device=card)
+        gu_kernel.bum_scatter(want, addr, vals.contiguous())
+        assert torch.equal(_bits(got[k]), _bits(want.reshape(table.shape))), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("branch", ["density", "color"])
+def test_dense_hash_encode_backward_is_the_torch_sort_route_byte_for_byte(branch, card):
+    """The dense step's table gradient (hash_encode's backward: bum_sort,
+    then bum_scatter) against torch.sort's stable order and two gathers,
+    then bum_scatter: the same bytes, at a dense step's 49,152 points."""
+    enc = getattr(Field(FieldConfig()), f"{branch}_enc")
+    cfg = enc.cfg
+    gen = torch.Generator().manual_seed(17)
+    n = 49152
+    pts = _u(gen, (n, 3), 0.0, 1.0 - 1e-6, card)
+    tables = _u(gen, (cfg.n_levels, cfg.table_size, cfg.n_features), -1, 1,
+                card).requires_grad_(True)
+    g = _u(gen, (n, cfg.out_dim), -1, 1, card)
+    before = kernels.LAUNCHES["bum_sort"]
+    (got,) = torch.autograd.grad((he_ops.hash_encode(pts, tables, enc.resolutions,
+                                                     enc.dense_flags) * g).sum(), tables)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bum_sort"] == before + 1
+    idx, vals = he_ops.corner_updates(pts, enc.resolutions, enc.dense_flags, cfg.table_size,
+                                      g.reshape(n, cfg.n_levels, cfg.n_features))
+    idx, vals = _stable(idx, vals)
+    want = torch.zeros((cfg.n_levels * cfg.table_size, cfg.n_features), device=card)
+    gu_kernel.bum_scatter(want, idx, vals.contiguous())
+    assert torch.equal(_bits(got), _bits(want.reshape(tables.shape)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [30000, 257])
+def test_fused_encode_kernel_matches_plain_at_every_feature_count(n, f, card):
+    """Kernel #8 (the hash-set dedup) at every F it takes, N not a multiple
+    of its 256-point block, sentinel rows at the end: within 1e-5 of the
+    plain version, sentinel rows exactly 0, distinct reads per (block,
+    level) the plain count, one launch."""
+    enc = Field(FieldConfig()).density_enc
+    cfg = enc.cfg
+    gen = torch.Generator().manual_seed(n + f)
+    pts = _morton(_u(gen, (n, 3), 0.0, 1.0 - 1e-6, card))
+    pts[n - 5:] = -1.0
+    tables = _u(gen, (cfg.n_levels, cfg.table_size, f), -1, 1, card)
+    before = kernels.LAUNCHES["fused_encode"]
+    got, reads = fp_kernel.fused_encode(pts, tables, enc.resolutions, enc.dense_flags)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_encode"] == before + 1
+    want = fp_ref.fused_encode(pts, tables, enc.resolutions, enc.dense_flags)
+    assert float((got - want).abs().max()) <= 1e-5
+    assert not got[n - 5:].any()
+    corners, _ = fp_ref.corner_geometry(pts[:n - 5], enc.resolutions)
+    plain = fp_ref.block_distinct_reads(
+        fp_ref.level_indices(corners, enc.resolutions, cfg.table_size, enc.dense_flags))
+    nb = plain.shape[0]                   # blocks holding valid rows
+    assert reads.shape == (-(-n // 256), cfg.n_levels)
+    assert torch.equal(reads[:nb].to(torch.int64), plain) and not reads[nb:].any()
