@@ -2,44 +2,64 @@
 // and both MLP heads, forward and backward.
 //
 // Replaces: src/repro/kernels/fused_step/kernel.py:122 fused_step_pallas
-// (body _fused_step_kernel :89, dedup encode _dedup_encode_block :55) and
-// src/repro/kernels/fused_step/kernel.py:266 fused_step_bwd_pallas (body
-// _fused_step_bwd_kernel :171, in-block BUM commit :245-257).
+// (body _fused_step_kernel :89, MLP epilogue :110, dedup encode
+// _dedup_encode_block :55) and src/repro/kernels/fused_step/kernel.py:266
+// fused_step_bwd_pallas (body _fused_step_bwd_kernel :171, in-block BUM
+// commit :245-257).
 //
-// What bounds it on the H100.  Forward: the f32 FMA rate -- each point does
-// ~9,800 multiply-adds in the two MLP heads against ~2 KB of gathered table
-// rows, most of them served by the 50 MB L2 that holds both table sets
-// (40 MiB).  The forward's arithmetic is plain f32 FMA on the CUDA cores.
+// What bounds it on the H100.  Forward: the two MLP heads' ~10,400
+// multiply-adds per point, on the tensor cores in split TF32 (three TF32
+// products each, at 495 TFLOP/s), against ~2 KB of gathered table rows per
+// point, most of them served by the 50 MB L2 that holds both table sets
+// (40 MiB).  At the training budgets (8192-32,768 points) neither is near
+// its peak: a step is a few microseconds of work, and latency -- the
+// weights' trip into shared memory, the gathers' round trips -- bounds it.
 // Backward: the two heads recomputed, their data gradients and their weight
-// gradients, about three times the forward's multiply-adds, on the tensor
-// cores in split TF32 (three TF32 products each, at 495 TFLOP/s); the
-// encode's f32 work on the CUDA cores; and the table-gradient streams it
-// writes (16 bytes per corner and grid).
+// gradients, about three times the forward's multiply-adds, also on the
+// tensor cores; the encode's f32 work on the CUDA cores; and the
+// table-gradient streams it writes (16 bytes per corner and grid).
+//
+// Both passes share one tile design.  A block owns tiles of kTilePoints
+// Morton-ordered points with kTileThreads threads.  It stages every MLP
+// weight into shared memory once (`stage_weights`: asynchronous copies into
+// rows padded by mlp_tile::weight_ld, so that B-fragment reads hit distinct
+// banks), and while those copies land its threads gather the tile's
+// features (`gather_inputs`: (point, level) items, kGatherItems per thread
+// at a time so that all their table reads are in flight together; each
+// corner row one vector load; sentinel rows (x < 0) read row 0 at weight 0,
+// points past N give all-zero rows).  Every layer product then runs
+// through mlp_tile.cuh's split-TF32 routine on tiles in shared memory; the
+// pre-activations z = x W + b come from one helper (`affine`), so the
+// backward's recompute gives the forward's own z bit for bit and its ReLU
+// masks are the forward's.
 //
 // Forward design.  The TPU kernel ran a (block, level) grid with the level
 // axis innermost, holding one level table per step in VMEM and the block's
 // (B, L*F) feature tiles in revisited output blocks, with an MLP epilogue at
 // the last level.  A level table (2 MiB) does not fit in shared memory, so
-// here one block of kFwdPoints points loops over the L levels itself: each
-// thread owns one point, gathers its 8 corners per level from both grids
-// through __ldg, and writes its features into the block's shared-memory
-// tiles; then the MLP epilogue runs from shared memory with every weight
-// resident there too, so the features never reach device memory.  The TPU's
-// dedup-as-matmul (sorted in-block addresses, W (B, B*8) @ rows) was a way to
-// use the MXU; a straight gather computes the same function.  Sentinel rows
-// (x < 0) read row 0 at weight 0.
+// here the block gathers all L levels of its tile itself, and the epilogue
+// runs from shared memory: the features never reach device memory.  Three
+// phases, one barrier each: (1) the density head's z and the color head's
+// z1, (2) the density output relu(z) W2 + b2, written to out_d by the
+// product's epilogue, and z2 = relu(z1) W2 + b2, (3) the color output
+// relu(z2) W3 + b3, written to out_c.  At FieldConfig() a block holds ~50
+// KB of padded weights and ~37 KB of tiles: two blocks (16 warps) an SM.
+// The grid is persistent: as many blocks as fit on the card (the occupancy
+// calculator, asked once per device and size), each looping over tiles
+// with its weights staged once, or one block per tile when there are fewer
+// (one block per tile was as fast at 8192 points and slower at 32,768,
+// PERF.md).  The TPU's dedup-as-matmul (sorted in-block addresses,
+// W (B, B*8) @ rows) was a way to use the MXU; a straight gather computes
+// the same function.
 //
 // Backward design: deterministic, two passes, no float atomics.  The
 // reference writes its backward as block-level matrix products (hd @ w1d,
 // h1d.T @ g_d, ...); so does this kernel, on the tensor cores.
-//   Pass 1 (fused_step_bwd_kernel): one tile of kBwdPoints Morton-ordered
-//   points per block, every thread of the block on it.  Threads take
-//   (point, level) items to gather both grids' features into the tile; then
-//   every product of both heads runs through mlp_tile.cuh's split-TF32
-//   tensor-core routine on tiles in shared memory -- the recompute (z = x W
-//   + b), the data gradients (g W^T times relu'(z), down to the features
-//   and d_sh) and the weight gradients (x^T g, summed over the tile's
-//   points in a fixed order), the last written as the block's row of
+//   Pass 1 (fused_step_bwd_kernel): one tile per block.  After the shared
+//   staging and gather, it recomputes z (density), z1 and z2 (color) with
+//   `affine`, then the data gradients (g W^T times relu'(z), down to the
+//   features and d_sh) and the weight gradients (x^T g, summed over the
+//   tile's points in a fixed order), the last written as the block's row of
 //   partials (n_blocks, P); bias gradients are column sums in point order.
 //   Weights and activation tiles (~100 KB at FieldConfig()) leave room for
 //   two blocks on an SM.  Then the block writes each corner's table update
@@ -56,16 +76,18 @@
 // the reference dead-code-eliminates its commit.  Corner weights are (w_x *
 // w_y) * w_z with the scaled coordinate rounded first, as in the plain
 // version.
+#include <mutex>
+#include <vector>
+
 #include "common.cuh"
 #include "mlp_tile.cuh"
 
 namespace {
 
 constexpr int kMaxLevels = 32;
-constexpr int kFwdPoints = 128;     // points (= threads) per forward block
-constexpr int kBwdPoints = 32;      // points per backward block (one tile)
-constexpr int kBwdThreads = 256;    // threads per backward block
-constexpr int kBwdGroup = 2;        // 8-column tiles per warp unit of a product
+constexpr int kTilePoints = 32;     // points per tile (forward and backward)
+constexpr int kTileThreads = 256;   // threads per block
+constexpr int kGroup = 2;           // 8-column tiles per warp unit of a product
 constexpr int kGatherRows = 32;     // table-row floats a thread gathers at once, per grid
 constexpr int kMaxOutD = 16;        // density head outputs (1 + geo)
 constexpr int kMaxOutC = 4;         // color head outputs (3)
@@ -91,34 +113,6 @@ struct Dims {
 struct Mlps {
     const float *w1d, *b1d, *w2d, *b2d, *w1c, *b1c, *w2c, *b2c, *w3c, *b3c;
 };
-
-// Row stride of a per-point shared-memory row: odd, so that the threads of a
-// warp, each reading element k of its own row, hit 32 different banks.
-__host__ __device__ inline int odd(int w) { return w | 1; }
-
-// Every MLP weight and bias staged into shared memory, in the order of the
-// partials row: density w1 b1 w2 b2, color w1 b1 w2 b2 w3 b3.
-struct SmemWeights {
-    float *w1d, *b1d, *w2d, *b2d, *w1c, *b1c, *w2c, *b2c, *w3c, *b3c;
-};
-
-__device__ SmemWeights stage_weights(float* base, const Mlps& m, const Dims& d) {
-    SmemWeights s;
-    const int sizes[10] = {d.feat() * d.hid_d, d.hid_d, d.hid_d * d.out_d, d.out_d,
-                           d.cin() * d.hid_c1, d.hid_c1, d.hid_c1 * d.hid_c2, d.hid_c2,
-                           d.hid_c2 * d.out_c, d.out_c};
-    const float* src[10] = {m.w1d, m.b1d, m.w2d, m.b2d, m.w1c, m.b1c, m.w2c, m.b2c,
-                            m.w3c, m.b3c};
-    float** dst[10] = {&s.w1d, &s.b1d, &s.w2d, &s.b2d, &s.w1c, &s.b1c, &s.w2c, &s.b2c,
-                       &s.w3c, &s.b3c};
-    float* p = base;
-    for (int a = 0; a < 10; ++a) {
-        *dst[a] = p;
-        for (int k = threadIdx.x; k < sizes[a]; k += blockDim.x) p[k] = src[a][k];
-        p += sizes[a];
-    }
-    return s;
-}
 
 // ---- corner geometry (the plain version's, exactly) ----
 
@@ -167,124 +161,28 @@ __device__ __forceinline__ float corner_weight(const LevelPoint& q, int c) {
     return __fmul_rn(__fmul_rn(wx, wy), wz);
 }
 
-// Both grids' features of point i into its shared-memory rows.
-template <int F>
-__device__ void encode_point(const float* __restrict__ points, int i,
-                             const float* __restrict__ td, const float* __restrict__ tc,
-                             const Geom& g, const Dims& d, float* row_d, float* row_c) {
-    const float px = points[3 * i], py = points[3 * i + 1], pz = points[3 * i + 2];
-    for (int l = 0; l < d.levels; ++l) {
-        const LevelPoint q = level_point(px, py, pz, g.res[l]);
-        const float* tbl_d = td + static_cast<size_t>(l) * d.table_d * F;
-        const float* tbl_c = tc + static_cast<size_t>(l) * d.table_c * F;
-        float ad[F], ac[F];
-#pragma unroll
-        for (int f = 0; f < F; ++f) ad[f] = ac[f] = 0.0f;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-            const float w = corner_weight(q, c);
-            const long long id = corner_index(q, c, g.dense_d[l] != 0, d.table_d);
-            const long long ic = corner_index(q, c, g.dense_c[l] != 0, d.table_c);
-#pragma unroll
-            for (int f = 0; f < F; ++f) {
-                ad[f] += w * __ldg(tbl_d + id * F + f);
-                ac[f] += w * __ldg(tbl_c + ic * F + f);
-            }
-        }
-#pragma unroll
-        for (int f = 0; f < F; ++f) {
-            row_d[l * F + f] = ad[f];
-            row_c[l * F + f] = ac[f];
-        }
-    }
-}
-
 // d relu(z) / dz with the reference's maximum(z, 0): 1/2 at the tie.
 __device__ __forceinline__ float relu_grad(float z) {
     return z > 0.0f ? 1.0f : (z == 0.0f ? 0.5f : 0.0f);
 }
 
-// ---- forward ----
+// ---- the tile block's shared memory and the helpers both passes call ----
 
-__host__ __device__ inline size_t fwd_smem_floats(const Dims& d) {
-    return static_cast<size_t>(d.n_params()) +
-           static_cast<size_t>(kFwdPoints) * (odd(d.feat()) + odd(d.cin()) + odd(d.hid_c1));
-}
-
-template <int F>
-__global__ void __launch_bounds__(kFwdPoints)
-fused_step_fwd_kernel(const float* __restrict__ points, const float* __restrict__ sh,
-                      const float* __restrict__ td, const float* __restrict__ tc,
-                      const Mlps m, const Geom g, const Dims d,
-                      float* __restrict__ out_d, float* __restrict__ out_c) {
-    extern __shared__ __align__(16) float smem[];
-    const SmemWeights w = stage_weights(smem, m, d);
-    const int ld_d = odd(d.feat()), ld_c = odd(d.cin()), ld_h = odd(d.hid_c1);
-    const int p = threadIdx.x;
-    float* xd = smem + d.n_params() + p * ld_d;
-    float* xc = smem + d.n_params() + kFwdPoints * ld_d + p * ld_c;
-    float* h1 = smem + d.n_params() + kFwdPoints * (ld_d + ld_c) + p * ld_h;
-    __syncthreads();
-
-    const int i = blockIdx.x * kFwdPoints + p;
-    if (i >= d.n) return;
-    const int feat = d.feat(), cin = d.cin();
-    encode_point<F>(points, i, td, tc, g, d, xd, xc);
-    for (int k = 0; k < d.sh; ++k) xc[feat + k] = sh[static_cast<size_t>(i) * d.sh + k];
-
-    // density head: relu(x W1 + b1) W2 + b2
-    float acc[kMaxOutD];
-#pragma unroll
-    for (int o = 0; o < kMaxOutD; ++o) acc[o] = 0.0f;
-    for (int j = 0; j < d.hid_d; ++j) {
-        float s = 0.0f;
-        for (int k = 0; k < feat; ++k) s += xd[k] * w.w1d[k * d.hid_d + j];
-        const float h = fmaxf(s + w.b1d[j], 0.0f);
-#pragma unroll
-        for (int o = 0; o < kMaxOutD; ++o)
-            if (o < d.out_d) acc[o] += h * w.w2d[j * d.out_d + o];
-    }
-#pragma unroll
-    for (int o = 0; o < kMaxOutD; ++o)
-        if (o < d.out_d) out_d[static_cast<size_t>(i) * d.out_d + o] = acc[o] + w.b2d[o];
-
-    // color head on [color features, sh]: two hidden ReLU layers, linear head
-    for (int j = 0; j < d.hid_c1; ++j) {
-        float s = 0.0f;
-        for (int k = 0; k < cin; ++k) s += xc[k] * w.w1c[k * d.hid_c1 + j];
-        h1[j] = fmaxf(s + w.b1c[j], 0.0f);
-    }
-    float accc[kMaxOutC];
-#pragma unroll
-    for (int o = 0; o < kMaxOutC; ++o) accc[o] = 0.0f;
-    for (int j = 0; j < d.hid_c2; ++j) {
-        float s = 0.0f;
-        for (int k = 0; k < d.hid_c1; ++k) s += h1[k] * w.w2c[k * d.hid_c2 + j];
-        const float a2 = fmaxf(s + w.b2c[j], 0.0f);
-#pragma unroll
-        for (int o = 0; o < kMaxOutC; ++o)
-            if (o < d.out_c) accc[o] += a2 * w.w3c[j * d.out_c + o];
-    }
-#pragma unroll
-    for (int o = 0; o < kMaxOutC; ++o)
-        if (o < d.out_c) out_c[static_cast<size_t>(i) * d.out_c + o] = accc[o] + w.b3c[o];
-}
-
-// ---- backward, pass 1 ----
-
-// Shared-memory carve-up of the backward block (floats): every MLP weight
-// with its rows padded for conflict-free B-fragment reads, the biases, then
-// the tile's activation buffers, each kBwdPoints rows.  h0 / h1 / h2 hold
-// the hidden layers' pre-activations and gradients, reused from the density
-// head to the color head.
-struct BwdLayout {
+// Shared-memory carve-up of a tile block (floats): every MLP weight with its
+// rows padded for conflict-free B-fragment reads, the biases, then the
+// tile's activation buffers, each kTilePoints rows: the features (xd, xc =
+// [color features, sh]) and three hidden tiles h0 / h1 / h2 (pre-
+// activations, and in the backward their gradients); the backward adds the
+// cotangents (gd, gc) and the features' gradients (ghd, ghc).
+struct TileLayout {
     int ld_w1d, ld_w2d, ld_w1c, ld_w2c, ld_w3c, ld_f, ld_c, ld_gd, ld_gc, ld_h;
     size_t w1d, b1d, w2d, b2d, w1c, b1c, w2c, b2c, w3c, b3c;
-    size_t xd, xc, gd, gc, ghd, ghc, h0, h1, h2, floats;
+    size_t xd, xc, h0, h1, h2, gd, gc, ghd, ghc, floats;
 
-    __host__ __device__ explicit BwdLayout(const Dims& d) {
+    __host__ __device__ TileLayout(const Dims& d, bool backward) {
         using mlp_tile::act_ld;
         using mlp_tile::weight_ld;
+        constexpr int P = kTilePoints;
         ld_w1d = weight_ld(d.hid_d);
         ld_w2d = weight_ld(d.out_d);
         ld_w1c = weight_ld(d.hid_c1);
@@ -307,15 +205,18 @@ struct BwdLayout {
         b2c = at; at += d.hid_c2;
         w3c = at; at += static_cast<size_t>(d.hid_c2) * ld_w3c;
         b3c = at; at += d.out_c;
-        xd = at;  at += kBwdPoints * ld_f;      // density features
-        xc = at;  at += kBwdPoints * ld_c;      // [color features, sh]
-        gd = at;  at += kBwdPoints * ld_gd;     // cotangent of the density head
-        gc = at;  at += kBwdPoints * ld_gc;     // cotangent of the color head
-        ghd = at; at += kBwdPoints * ld_f;      // gradient of the density features
-        ghc = at; at += kBwdPoints * ld_f;      // gradient of the color features
-        h0 = at;  at += kBwdPoints * ld_h;
-        h1 = at;  at += kBwdPoints * ld_h;
-        h2 = at;  at += kBwdPoints * ld_h;
+        xd = at;  at += P * ld_f;
+        xc = at;  at += P * ld_c;
+        h0 = at;  at += P * ld_h;
+        h1 = at;  at += P * ld_h;
+        h2 = at;  at += P * ld_h;
+        gd = gc = ghd = ghc = at;
+        if (backward) {
+            gd = at;  at += P * ld_gd;
+            gc = at;  at += P * ld_gc;
+            ghd = at; at += P * ld_f;
+            ghc = at; at += P * ld_f;
+        }
         floats = at;
     }
     __host__ __device__ size_t bytes() const { return floats * sizeof(float); }
@@ -333,6 +234,23 @@ __device__ void stage_rows(float* dst, const float* __restrict__ w, int k, int n
 __device__ void stage_flat(float* dst, const float* __restrict__ src, int count) {
     for (int e = threadIdx.x; e < count; e += blockDim.x)
         mlp_tile::cp_async<4>(dst + e, src + e, true);
+}
+
+// Every MLP weight and bias into the block's layout, as one committed group
+// of asynchronous copies (wait with mlp_tile::wait<0>, then a barrier).
+__device__ void stage_weights(float* smem, const TileLayout& lay, const Mlps& m,
+                              const Dims& d) {
+    stage_rows(smem + lay.w1d, m.w1d, d.feat(), d.hid_d, lay.ld_w1d);
+    stage_rows(smem + lay.w2d, m.w2d, d.hid_d, d.out_d, lay.ld_w2d);
+    stage_rows(smem + lay.w1c, m.w1c, d.cin(), d.hid_c1, lay.ld_w1c);
+    stage_rows(smem + lay.w2c, m.w2c, d.hid_c1, d.hid_c2, lay.ld_w2c);
+    stage_rows(smem + lay.w3c, m.w3c, d.hid_c2, d.out_c, lay.ld_w3c);
+    stage_flat(smem + lay.b1d, m.b1d, d.hid_d);
+    stage_flat(smem + lay.b2d, m.b2d, d.out_d);
+    stage_flat(smem + lay.b1c, m.b1c, d.hid_c1);
+    stage_flat(smem + lay.b2c, m.b2c, d.hid_c2);
+    stage_flat(smem + lay.b3c, m.b3c, d.out_c);
+    mlp_tile::commit();
 }
 
 // One table row of F floats through the read-only cache, in as few loads as
@@ -358,59 +276,20 @@ __device__ __forceinline__ void load_row(const float* __restrict__ row, float (&
     }
 }
 
-// Column sums of a kBwdPoints-row tile, each summed over the points in order.
-__device__ void column_sums(const float* tile, int ld, int n, float* __restrict__ out) {
-    for (int c = threadIdx.x; c < n; c += blockDim.x) {
-        float s = 0.0f;
-        for (int r = 0; r < kBwdPoints; ++r) s = __fadd_rn(s, tile[r * ld + c]);
-        out[c] = s;
-    }
-}
-
+// Both grids' features of the tile's points base .. base + kTilePoints - 1
+// into xd and xc (row stride lay.ld_f / lay.ld_c), and their SH after the
+// color features; `items` (point, level) items per thread at a time so that
+// all their table reads are in flight together (the reads, mostly from L2,
+// bound this phase).  Points past the end get all-zero rows, which add
+// nothing anywhere.
 template <int F>
-__global__ void __launch_bounds__(kBwdThreads)
-fused_step_bwd_kernel(const float* __restrict__ points, const float* __restrict__ sh,
-                      const float* __restrict__ g_d, const float* __restrict__ g_c,
-                      const float* __restrict__ td, const float* __restrict__ tc,
-                      const Mlps m, const Geom g, const Dims d,
-                      float* __restrict__ partials, float* __restrict__ d_sh,
-                      long long* __restrict__ addr_d, float* __restrict__ val_d,
-                      long long* __restrict__ addr_c, float* __restrict__ val_c) {
-    using mlp_tile::Strided;
-    extern __shared__ __align__(16) float smem[];
-    const BwdLayout lay(d);
-    const int feat = d.feat(), cin = d.cin(), levels = d.levels;
-    const int warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
-    const int base = blockIdx.x * kBwdPoints;
-    constexpr int P = kBwdPoints;
-
-    float* w1d = smem + lay.w1d; float* b1d = smem + lay.b1d;
-    float* w2d = smem + lay.w2d; float* b2d = smem + lay.b2d;
-    float* w1c = smem + lay.w1c; float* b1c = smem + lay.b1c;
-    float* w2c = smem + lay.w2c; float* b2c = smem + lay.b2c;
-    float* w3c = smem + lay.w3c; float* b3c = smem + lay.b3c;
-    float* xd = smem + lay.xd;   float* xc = smem + lay.xc;
-    float* gd = smem + lay.gd;   float* gc = smem + lay.gc;
-    float* ghd = smem + lay.ghd; float* ghc = smem + lay.ghc;
-    float* h0 = smem + lay.h0;   float* h1 = smem + lay.h1;   float* h2 = smem + lay.h2;
-
-    stage_rows(w1d, m.w1d, feat, d.hid_d, lay.ld_w1d);
-    stage_rows(w2d, m.w2d, d.hid_d, d.out_d, lay.ld_w2d);
-    stage_rows(w1c, m.w1c, cin, d.hid_c1, lay.ld_w1c);
-    stage_rows(w2c, m.w2c, d.hid_c1, d.hid_c2, lay.ld_w2c);
-    stage_rows(w3c, m.w3c, d.hid_c2, d.out_c, lay.ld_w3c);
-    stage_flat(b1d, m.b1d, d.hid_d);
-    stage_flat(b2d, m.b2d, d.out_d);
-    stage_flat(b1c, m.b1c, d.hid_c1);
-    stage_flat(b2c, m.b2c, d.hid_c2);
-    stage_flat(b3c, m.b3c, d.out_c);
-    mlp_tile::commit();
-
-    // recompute both grids' features, `items` (point, level) items per
-    // thread at a time so that all their table reads are in flight together
-    // (the reads, mostly from device memory, bound this phase); points past
-    // the end get all-zero rows, which add nothing anywhere
+__device__ void gather_inputs(const float* __restrict__ points, const float* __restrict__ sh,
+                              const float* __restrict__ td, const float* __restrict__ tc,
+                              const Geom& g, const Dims& d, const TileLayout& lay, int base,
+                              float* xd, float* xc) {
+    constexpr int P = kTilePoints;
     constexpr int kGatherItems = kGatherRows / (8 * F) > 0 ? kGatherRows / (8 * F) : 1;
+    const int levels = d.levels;
     for (int item0 = threadIdx.x; item0 < P * levels; item0 += kGatherItems * blockDim.x) {
         float rows_d[kGatherItems][8][F], rows_c[kGatherItems][8][F], wts[kGatherItems][8];
 #pragma unroll
@@ -454,10 +333,134 @@ fused_step_bwd_kernel(const float* __restrict__ points, const float* __restrict_
             }
         }
     }
+    const int feat = d.feat();
     for (int e = threadIdx.x; e < P * d.sh; e += blockDim.x) {
         const int p = e / d.sh, k = e - p * d.sh, i = base + p;
         xc[p * lay.ld_c + feat + k] = i < d.n ? sh[static_cast<size_t>(i) * d.sh + k] : 0.0f;
     }
+}
+
+// Operands of the tile products: X (points x width, a row-major tile), its
+// ReLU (a pre-activation tile read as its activation), and W (k x n, a
+// staged weight).
+using mlp_tile::Strided;
+__device__ __forceinline__ Strided<> tile_x(const float* t, int ld, int cols) {
+    return Strided<>{t, ld, 1, kTilePoints, cols};
+}
+__device__ __forceinline__ Strided<true> tile_relu(const float* t, int ld, int cols) {
+    return Strided<true>{t, ld, 1, kTilePoints, cols};
+}
+__device__ __forceinline__ Strided<> weight(const float* w, int ld, int k, int n) {
+    return Strided<>{w, ld, 1, k, n};
+}
+
+// z = x W + b for the tile (kTilePoints x n, row stride ldz), every warp of
+// the block sharing the units: the pre-activation both passes compute.
+template <class X>
+__device__ __forceinline__ void affine(const X& x, const float* w, int ld_w, const float* b,
+                                       int k, int n, float* z, int ldz) {
+    mlp_tile::gemm<kGroup>(x, weight(w, ld_w, k, n), kTilePoints, n, k,
+                           [&](int r, int c, float v) { z[r * ldz + c] = v + b[c]; },
+                           threadIdx.x >> 5, blockDim.x >> 5);
+}
+
+// ---- forward ----
+
+template <int F>
+__global__ void __launch_bounds__(kTileThreads, 2)
+fused_step_fwd_kernel(const float* __restrict__ points, const float* __restrict__ sh,
+                      const float* __restrict__ td, const float* __restrict__ tc,
+                      const Mlps m, const Geom g, const Dims d,
+                      float* __restrict__ out_d, float* __restrict__ out_c) {
+    extern __shared__ __align__(16) float smem[];
+    const TileLayout lay(d, false);
+    const int feat = d.feat(), cin = d.cin(), ldh = lay.ld_h;
+    const int warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+    const float* b2d = smem + lay.b2d;
+    const float* b3c = smem + lay.b3c;
+    float* xd = smem + lay.xd;   float* xc = smem + lay.xc;
+    float* h0 = smem + lay.h0;   float* h1 = smem + lay.h1;   float* h2 = smem + lay.h2;
+    stage_weights(smem, lay, m, d);
+
+    const int n_tiles = (d.n + kTilePoints - 1) / kTilePoints;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int base = tile * kTilePoints;
+        gather_inputs<F>(points, sh, td, tc, g, d, lay, base, xd, xc);
+        mlp_tile::wait<0>();    // this thread's weight copies have landed
+        __syncthreads();
+        // (1) density z (h0), color z1 (h1)
+        affine(tile_x(xd, lay.ld_f, feat), smem + lay.w1d, lay.ld_w1d, smem + lay.b1d, feat,
+               d.hid_d, h0, ldh);
+        affine(tile_x(xc, lay.ld_c, cin), smem + lay.w1c, lay.ld_w1c, smem + lay.b1c, cin,
+               d.hid_c1, h1, ldh);
+        __syncthreads();
+        // (2) the density output relu(z) W2 + b2; color z2 = relu(z1) W2 + b2 (h2)
+        mlp_tile::gemm<kGroup>(tile_relu(h0, ldh, d.hid_d),
+                               weight(smem + lay.w2d, lay.ld_w2d, d.hid_d, d.out_d),
+                               kTilePoints, d.out_d, d.hid_d,
+                               [&](int r, int c, float v) {
+                                   if (base + r < d.n)
+                                       out_d[static_cast<size_t>(base + r) * d.out_d + c] =
+                                           v + b2d[c];
+                               },
+                               warp, n_warps);
+        affine(tile_relu(h1, ldh, d.hid_c1), smem + lay.w2c, lay.ld_w2c, smem + lay.b2c,
+               d.hid_c1, d.hid_c2, h2, ldh);
+        __syncthreads();
+        // (3) the color output relu(z2) W3 + b3.  No barrier after it: the
+        // next tile's gather writes xd / xc, last read in (1), and its (2)
+        // rewrites h2 only after the next tile's barriers.
+        mlp_tile::gemm<kGroup>(tile_relu(h2, ldh, d.hid_c2),
+                               weight(smem + lay.w3c, lay.ld_w3c, d.hid_c2, d.out_c),
+                               kTilePoints, d.out_c, d.hid_c2,
+                               [&](int r, int c, float v) {
+                                   if (base + r < d.n)
+                                       out_c[static_cast<size_t>(base + r) * d.out_c + c] =
+                                           v + b3c[c];
+                               },
+                               warp, n_warps);
+    }
+}
+
+// ---- backward, pass 1 ----
+
+// Column sums of a kTilePoints-row tile, each summed over the points in order.
+__device__ void column_sums(const float* tile, int ld, int n, float* __restrict__ out) {
+    for (int c = threadIdx.x; c < n; c += blockDim.x) {
+        float s = 0.0f;
+        for (int r = 0; r < kTilePoints; ++r) s = __fadd_rn(s, tile[r * ld + c]);
+        out[c] = s;
+    }
+}
+
+template <int F>
+__global__ void __launch_bounds__(kTileThreads)
+fused_step_bwd_kernel(const float* __restrict__ points, const float* __restrict__ sh,
+                      const float* __restrict__ g_d, const float* __restrict__ g_c,
+                      const float* __restrict__ td, const float* __restrict__ tc,
+                      const Mlps m, const Geom g, const Dims d,
+                      float* __restrict__ partials, float* __restrict__ d_sh,
+                      long long* __restrict__ addr_d, float* __restrict__ val_d,
+                      long long* __restrict__ addr_c, float* __restrict__ val_c) {
+    extern __shared__ __align__(16) float smem[];
+    const TileLayout lay(d, true);
+    const int feat = d.feat(), cin = d.cin(), levels = d.levels;
+    const int warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+    const int base = blockIdx.x * kTilePoints;
+    constexpr int P = kTilePoints;
+
+    float* w1d = smem + lay.w1d;
+    float* w2d = smem + lay.w2d;
+    float* w1c = smem + lay.w1c;
+    float* w2c = smem + lay.w2c;
+    float* w3c = smem + lay.w3c;
+    float* xd = smem + lay.xd;   float* xc = smem + lay.xc;
+    float* gd = smem + lay.gd;   float* gc = smem + lay.gc;
+    float* ghd = smem + lay.ghd; float* ghc = smem + lay.ghc;
+    float* h0 = smem + lay.h0;   float* h1 = smem + lay.h1;   float* h2 = smem + lay.h2;
+
+    stage_weights(smem, lay, m, d);
+    gather_inputs<F>(points, sh, td, tc, g, d, lay, base, xd, xc);
     for (int e = threadIdx.x; e < P * d.out_d; e += blockDim.x) {
         const int p = e / d.out_d, o = e - p * d.out_d, i = base + p;
         gd[p * lay.ld_gd + o] = i < d.n ? g_d[static_cast<size_t>(i) * d.out_d + o] : 0.0f;
@@ -469,14 +472,10 @@ fused_step_bwd_kernel(const float* __restrict__ points, const float* __restrict_
     mlp_tile::wait<0>();    // this thread's weight copies have landed
     __syncthreads();
 
-    // operands: X (points x width, row-major tile), X^T, W (x W), W^T (g W^T)
-    auto X = [](const float* t, int ld, int cols) { return Strided<>{t, ld, 1, P, cols}; };
-    auto XR = [](const float* t, int ld, int cols) {      // relu of a pre-activation tile
-        return Strided<true>{t, ld, 1, P, cols}; };
+    // operands: X^T (x^T g) and W^T (g W^T), beside tile_x / tile_relu / weight
     auto XT = [](const float* t, int ld, int cols) { return Strided<>{t, 1, ld, cols, P}; };
     auto XTR = [](const float* t, int ld, int cols) {
         return Strided<true>{t, 1, ld, cols, P}; };
-    auto W = [](const float* w, int ld, int k, int n) { return Strided<>{w, ld, 1, k, n}; };
     auto WT = [](const float* w, int ld, int k, int n) { return Strided<>{w, 1, ld, n, k}; };
     float* row = partials + static_cast<size_t>(blockIdx.x) * d.n_params();
     const int ldh = lay.ld_h;
@@ -488,82 +487,74 @@ fused_step_bwd_kernel(const float* __restrict__ points, const float* __restrict_
     const int o_b3c = o_w3c + d.hid_c2 * d.out_c;
 
     // density head: z = x W1 + b1 (h0); g_h = (g_d W2^T) relu'(z) (h1)
-    mlp_tile::gemm<kBwdGroup>(X(xd, lay.ld_f, feat), W(w1d, lay.ld_w1d, feat, d.hid_d), P,
-                              d.hid_d, feat,
-                              [&](int r, int c, float v) { h0[r * ldh + c] = v + b1d[c]; },
-                              warp, n_warps);
+    affine(tile_x(xd, lay.ld_f, feat), w1d, lay.ld_w1d, smem + lay.b1d, feat, d.hid_d, h0, ldh);
     __syncthreads();
-    mlp_tile::gemm<kBwdGroup>(X(gd, lay.ld_gd, d.out_d), WT(w2d, lay.ld_w2d, d.hid_d, d.out_d),
-                              P, d.hid_d, d.out_d,
-                              [&](int r, int c, float v) {
-                                  h1[r * ldh + c] = v * relu_grad(h0[r * ldh + c]); },
-                              warp, n_warps);
+    mlp_tile::gemm<kGroup>(tile_x(gd, lay.ld_gd, d.out_d), WT(w2d, lay.ld_w2d, d.hid_d, d.out_d),
+                           P, d.hid_d, d.out_d,
+                           [&](int r, int c, float v) {
+                               h1[r * ldh + c] = v * relu_grad(h0[r * ldh + c]); },
+                           warp, n_warps);
     __syncthreads();
     // g_x = g_h W1^T; dW1 = x^T g_h; dW2 = relu(z)^T g_d; biases
-    mlp_tile::gemm<kBwdGroup>(X(h1, ldh, d.hid_d), WT(w1d, lay.ld_w1d, feat, d.hid_d), P,
-                              feat, d.hid_d,
-                              [&](int r, int c, float v) { ghd[r * lay.ld_f + c] = v; },
-                              warp, n_warps);
-    mlp_tile::gemm<kBwdGroup>(XT(xd, lay.ld_f, feat), X(h1, ldh, d.hid_d), feat, d.hid_d, P,
-                              [&](int r, int c, float v) { row[o_w1d + r * d.hid_d + c] = v; },
-                              warp, n_warps);
-    mlp_tile::gemm<kBwdGroup>(XTR(h0, ldh, d.hid_d), X(gd, lay.ld_gd, d.out_d), d.hid_d,
-                              d.out_d, P,
-                              [&](int r, int c, float v) { row[o_w2d + r * d.out_d + c] = v; },
-                              warp, n_warps);
+    mlp_tile::gemm<kGroup>(tile_x(h1, ldh, d.hid_d), WT(w1d, lay.ld_w1d, feat, d.hid_d), P,
+                           feat, d.hid_d,
+                           [&](int r, int c, float v) { ghd[r * lay.ld_f + c] = v; },
+                           warp, n_warps);
+    mlp_tile::gemm<kGroup>(XT(xd, lay.ld_f, feat), tile_x(h1, ldh, d.hid_d), feat, d.hid_d, P,
+                           [&](int r, int c, float v) { row[o_w1d + r * d.hid_d + c] = v; },
+                           warp, n_warps);
+    mlp_tile::gemm<kGroup>(XTR(h0, ldh, d.hid_d), tile_x(gd, lay.ld_gd, d.out_d), d.hid_d,
+                           d.out_d, P,
+                           [&](int r, int c, float v) { row[o_w2d + r * d.out_d + c] = v; },
+                           warp, n_warps);
     column_sums(h1, ldh, d.hid_d, row + o_b1d);
     column_sums(gd, lay.ld_gd, d.out_d, row + o_b2d);
     __syncthreads();
 
     // color head on [color features, sh]: z1 (h0), z2 (h2)
-    mlp_tile::gemm<kBwdGroup>(X(xc, lay.ld_c, cin), W(w1c, lay.ld_w1c, cin, d.hid_c1), P,
-                              d.hid_c1, cin,
-                              [&](int r, int c, float v) { h0[r * ldh + c] = v + b1c[c]; },
-                              warp, n_warps);
+    affine(tile_x(xc, lay.ld_c, cin), w1c, lay.ld_w1c, smem + lay.b1c, cin, d.hid_c1, h0, ldh);
     __syncthreads();
-    mlp_tile::gemm<kBwdGroup>(XR(h0, ldh, d.hid_c1), W(w2c, lay.ld_w2c, d.hid_c1, d.hid_c2), P,
-                              d.hid_c2, d.hid_c1,
-                              [&](int r, int c, float v) { h2[r * ldh + c] = v + b2c[c]; },
-                              warp, n_warps);
+    affine(tile_relu(h0, ldh, d.hid_c1), w2c, lay.ld_w2c, smem + lay.b2c, d.hid_c1, d.hid_c2,
+           h2, ldh);
     __syncthreads();
     // g_h2 = (g_c W3^T) relu'(z2) (h1); dW3 = relu(z2)^T g_c
-    mlp_tile::gemm<kBwdGroup>(X(gc, lay.ld_gc, d.out_c), WT(w3c, lay.ld_w3c, d.hid_c2, d.out_c),
-                              P, d.hid_c2, d.out_c,
-                              [&](int r, int c, float v) {
-                                  h1[r * ldh + c] = v * relu_grad(h2[r * ldh + c]); },
-                              warp, n_warps);
-    mlp_tile::gemm<kBwdGroup>(XTR(h2, ldh, d.hid_c2), X(gc, lay.ld_gc, d.out_c), d.hid_c2,
-                              d.out_c, P,
-                              [&](int r, int c, float v) { row[o_w3c + r * d.out_c + c] = v; },
-                              warp, n_warps);
+    mlp_tile::gemm<kGroup>(tile_x(gc, lay.ld_gc, d.out_c), WT(w3c, lay.ld_w3c, d.hid_c2, d.out_c),
+                           P, d.hid_c2, d.out_c,
+                           [&](int r, int c, float v) {
+                               h1[r * ldh + c] = v * relu_grad(h2[r * ldh + c]); },
+                           warp, n_warps);
+    mlp_tile::gemm<kGroup>(XTR(h2, ldh, d.hid_c2), tile_x(gc, lay.ld_gc, d.out_c), d.hid_c2,
+                           d.out_c, P,
+                           [&](int r, int c, float v) { row[o_w3c + r * d.out_c + c] = v; },
+                           warp, n_warps);
     column_sums(gc, lay.ld_gc, d.out_c, row + o_b3c);
     __syncthreads();
     // g_h1 = (g_h2 W2^T) relu'(z1) (h2); dW2 = relu(z1)^T g_h2
-    mlp_tile::gemm<kBwdGroup>(X(h1, ldh, d.hid_c2), WT(w2c, lay.ld_w2c, d.hid_c1, d.hid_c2), P,
-                              d.hid_c1, d.hid_c2,
-                              [&](int r, int c, float v) {
-                                  h2[r * ldh + c] = v * relu_grad(h0[r * ldh + c]); },
-                              warp, n_warps);
-    mlp_tile::gemm<kBwdGroup>(XTR(h0, ldh, d.hid_c1), X(h1, ldh, d.hid_c2), d.hid_c1,
-                              d.hid_c2, P,
-                              [&](int r, int c, float v) { row[o_w2c + r * d.hid_c2 + c] = v; },
-                              warp, n_warps);
+    mlp_tile::gemm<kGroup>(tile_x(h1, ldh, d.hid_c2), WT(w2c, lay.ld_w2c, d.hid_c1, d.hid_c2), P,
+                           d.hid_c1, d.hid_c2,
+                           [&](int r, int c, float v) {
+                               h2[r * ldh + c] = v * relu_grad(h0[r * ldh + c]); },
+                           warp, n_warps);
+    mlp_tile::gemm<kGroup>(XTR(h0, ldh, d.hid_c1), tile_x(h1, ldh, d.hid_c2), d.hid_c1,
+                           d.hid_c2, P,
+                           [&](int r, int c, float v) { row[o_w2c + r * d.hid_c2 + c] = v; },
+                           warp, n_warps);
     column_sums(h1, ldh, d.hid_c2, row + o_b2c);
     __syncthreads();
     // g_cin = g_h1 W1^T -> the color features' gradient and d_sh; dW1 = cin^T g_h1
-    mlp_tile::gemm<kBwdGroup>(X(h2, ldh, d.hid_c1), WT(w1c, lay.ld_w1c, cin, d.hid_c1), P, cin,
-                              d.hid_c1,
-                              [&](int r, int c, float v) {
-                                  if (c < feat) {
-                                      ghc[r * lay.ld_f + c] = v;
-                                  } else if (base + r < d.n) {
-                                      d_sh[static_cast<size_t>(base + r) * d.sh + (c - feat)] = v;
-                                  }
-                              },
-                              warp, n_warps);
-    mlp_tile::gemm<kBwdGroup>(XT(xc, lay.ld_c, cin), X(h2, ldh, d.hid_c1), cin, d.hid_c1, P,
-                              [&](int r, int c, float v) { row[o_w1c + r * d.hid_c1 + c] = v; },
-                              warp, n_warps);
+    mlp_tile::gemm<kGroup>(tile_x(h2, ldh, d.hid_c1), WT(w1c, lay.ld_w1c, cin, d.hid_c1), P, cin,
+                           d.hid_c1,
+                           [&](int r, int c, float v) {
+                               if (c < feat) {
+                                   ghc[r * lay.ld_f + c] = v;
+                               } else if (base + r < d.n) {
+                                   d_sh[static_cast<size_t>(base + r) * d.sh + (c - feat)] = v;
+                               }
+                           },
+                           warp, n_warps);
+    mlp_tile::gemm<kGroup>(XT(xc, lay.ld_c, cin), tile_x(h2, ldh, d.hid_c1), cin, d.hid_c1, P,
+                           [&](int r, int c, float v) { row[o_w1c + r * d.hid_c1 + c] = v; },
+                           warp, n_warps);
     column_sums(h2, ldh, d.hid_c1, row + o_b1c);
 
     // table gradients: each corner's update as it is, in the plain stream's
@@ -664,17 +655,54 @@ bool read_args(const int* dims, const int* res, const int* dense_d, const int* d
     return true;
 }
 
+// How many blocks of fused_step_fwd_kernel<F> with `bytes` of shared memory
+// `device` holds at once (the occupancy calculator), 0 if none fits.  The
+// first launch at a (device, size) asks the runtime and allows the kernel
+// that much shared memory; later ones read the answer back.
+template <int F>
+int resident_fwd_blocks(size_t bytes, int device) {
+    struct Seen { int device; size_t bytes; int blocks; };
+    static std::mutex mu;
+    static std::vector<Seen> seen;
+    const std::lock_guard<std::mutex> lock(mu);
+    size_t allowed = 0;    // the most this device was allowed so far
+    for (const Seen& s : seen) {
+        if (s.device != device) continue;
+        if (s.bytes == bytes) return s.blocks;
+        allowed = s.bytes > allowed ? s.bytes : allowed;
+    }
+    int sms = 0, per_sm = 0;
+    if ((bytes > allowed &&
+         cudaFuncSetAttribute(fused_step_fwd_kernel<F>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes)) != cudaSuccess) ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_step_fwd_kernel<F>,
+                                                      kTileThreads, bytes) != cudaSuccess)
+        return 0;
+    seen.push_back({device, bytes, per_sm * sms});
+    return per_sm * sms;
+}
+
+// The forward's grid: one block per free slot on the card, each looping
+// over tiles (its weights staged once), or one per tile when the tiles run
+// out first.
 template <int F>
 int launch_fwd(const float* points, const float* sh, const float* td, const float* tc,
                const Mlps& m, const Geom& g, const Dims& d, float* out_d, float* out_c,
                cudaStream_t s) {
-    const size_t bytes = fwd_smem_floats(d) * sizeof(float);
+    const size_t bytes = TileLayout(d, false).bytes();
     if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-    cudaFuncSetAttribute(fused_step_fwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(bytes));
-    const int blocks = (d.n + kFwdPoints - 1) / kFwdPoints;
-    fused_step_fwd_kernel<F><<<blocks, kFwdPoints, bytes, s>>>(points, sh, td, tc, m, g, d,
-                                                              out_d, out_c);
+    int device = 0;
+    cudaGetDevice(&device);
+    const int slots = resident_fwd_blocks<F>(bytes, device);
+    if (slots < 1) {
+        const cudaError_t err = cudaGetLastError();
+        return static_cast<int>(err != cudaSuccess ? err : cudaErrorInvalidConfiguration);
+    }
+    const int tiles = (d.n + kTilePoints - 1) / kTilePoints;
+    fused_step_fwd_kernel<F><<<tiles < slots ? tiles : slots, kTileThreads, bytes, s>>>(
+        points, sh, td, tc, m, g, d, out_d, out_c);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -683,13 +711,13 @@ int launch_bwd(const float* points, const float* sh, const float* g_d, const flo
                const float* td, const float* tc, const Mlps& m, const Geom& g, const Dims& d,
                float* partials, float* d_sh, long long* addr_d, float* val_d,
                long long* addr_c, float* val_c, float* grad_mlp, cudaStream_t s) {
-    const BwdLayout lay(d);
+    const TileLayout lay(d, true);
     const size_t bytes = lay.bytes();
     if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
     cudaFuncSetAttribute(fused_step_bwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(bytes));
-    const int blocks = (d.n + kBwdPoints - 1) / kBwdPoints;
-    fused_step_bwd_kernel<F><<<blocks, kBwdThreads, bytes, s>>>(
+    const int blocks = (d.n + kTilePoints - 1) / kTilePoints;
+    fused_step_bwd_kernel<F><<<blocks, kTileThreads, bytes, s>>>(
         points, sh, g_d, g_c, td, tc, m, g, d, partials, d_sh, addr_d, val_d, addr_c, val_c);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -766,6 +794,5 @@ extern "C" int fused_step_backward(const float* points, const float* sh, const f
 extern "C" long long fused_step_smem_bytes(const int* dims, int backward) {
     const Dims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5],
                  dims[6], dims[7], dims[8], dims[9], dims[10]};
-    if (backward) return static_cast<long long>(BwdLayout(d).bytes());
-    return static_cast<long long>(fwd_smem_floats(d) * sizeof(float));
+    return static_cast<long long>(TileLayout(d, backward != 0).bytes());
 }

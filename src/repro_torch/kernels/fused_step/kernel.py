@@ -25,7 +25,7 @@ MLP_D_KEYS = ("w1", "b1", "w2", "b2")
 MLP_C_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")
 MAX_LEVELS = 32
 FEATURE_COUNTS = (1, 2, 4, 8)
-BWD_POINTS = 32             # points per backward block (kBwdPoints)
+BWD_POINTS = 32             # points per backward block (kTilePoints)
 MAX_SMEM = 232448           # bytes of shared memory a block may use
 MAX_OUT_D, MAX_OUT_C = 16, 4
 

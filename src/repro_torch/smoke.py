@@ -148,8 +148,9 @@ SERVE_KERNELS = ("hash_encode", "fused_mlp2", "fused_mlp3", "composite")
 # version's stream order, from feature gradients that its products round
 # otherwise (1e-5 of the largest table gradient), and its MLP gradients
 # over blocks of 32 points, then over the blocks (1e-4).  bum_scatter sums
-# each run in stream order, as the plain version does on the CPU, so it is
-# exact; 1e-6 of the largest value is what it is held to.  bum_sort moves
+# each run in stream order, as the plain version does on the CPU, so each
+# case must equal the plain merge bit for bit (`exact`; its relative error
+# is printed against 1e-6).  bum_sort moves
 # keys and values without arithmetic: it must give torch.sort's stable
 # permutation exactly (tolerance 0, every entry equal).  The fused encode
 # sums the same 8 corners as the hash encode (1e-5); its distinct-read
@@ -444,9 +445,16 @@ def _fused_counts(pts, tables, mlp_d, mlp_c, geometry):
 
 
 def _fused_step_fwd_case(gen, device, n: int, field: Field, label: str):
+    """Kernel #5 against the plain step on Morton-sorted points, the last 4
+    rows sentinels; the same bytes on two launches.  Its bound counts the
+    heads' layer products at the tensor cores' split-TF32 rate, the encode
+    in f32."""
     pts, sh, tables, mlp_d, mlp_c, geometry = _fused_step_inputs(gen, device, n, field)
     pts[-4:] = -1.0                                     # sentinel rows
-    got = fs_kernel.fused_step_fwd(pts, sh, *tables, mlp_d, mlp_c, *geometry)
+    run = lambda: fs_kernel.fused_step_fwd(pts, sh, *tables, mlp_d, mlp_c,  # noqa: E731
+                                           *geometry)
+    got = run()
+    deterministic = _same_bits(got, run())
     want = list(fs_ref.fused_step_ref(pts[:-4], sh[:-4], *tables, mlp_d, mlp_c, *geometry))
     # a sentinel row reads row 0 at weight 0: its features are exactly zero
     feat = tables[0].shape[0] * tables[0].shape[2]
@@ -455,16 +463,14 @@ def _fused_step_fwd_case(gen, device, n: int, field: Field, label: str):
     want = [torch.cat([w, t]) for w, t in zip(want, tail)]
     n_bytes, enc_flops, macs = _fused_counts(pts[:-4], tables, mlp_d, mlp_c, geometry)
     n_bytes += 4 * n * (sh.shape[1] + got[0].shape[1] + got[1].shape[1])
-    n_flops = enc_flops + 2 * macs                      # all f32 FMA
     err = _max_err(got, want)
     return {
         "kernel": "fused_step_fwd", "case": label, "shape": [n, *tables[0].shape],
-        "max_abs_err": err, "err": err,
-        "ms": cuda_ms(lambda: fs_kernel.fused_step_fwd(pts, sh, *tables, mlp_d, mlp_c,
-                                                       *geometry)),
+        "max_abs_err": err, "err": err, "deterministic": deterministic,
+        "ms": cuda_ms(run),
         "plain_ms": cuda_ms(lambda: fs_ref.fused_step_ref(pts, sh, *tables, mlp_d, mlp_c,
                                                           *geometry), iters=10),
-        "bound": bound(n_bytes, n_flops),
+        "bound": bound(n_bytes, enc_flops, split_tf32_macs=macs),
     }
 
 
@@ -521,29 +527,41 @@ def _fused_step_bwd_case(gen, device, n: int, field: Field, label: str,
 
 def _bum_scatter_case(gen, device, n: int, enc, label: str):
     """A dense step's table-gradient stream of one grid: N points x 8 corners
-    x L levels, sorted; the kernel against the plain merge on CPU copies."""
+    x L levels, sorted."""
     cfg = enc.cfg
     pts = _uniform(gen, (n, 3), 0.0, 1.0 - 1e-6, device)
     grad = _uniform(gen, (n, cfg.n_levels, cfg.n_features), -1.0, 1.0, device)
     idx, vals = he_ops.corner_updates(pts, enc.resolutions, enc.dense_flags,
                                       cfg.table_size, grad)
     order = torch.sort(idx, stable=True).indices
-    idx_s, vals_s = idx[order].contiguous(), vals[order].contiguous()
-    table = torch.zeros((cfg.n_levels * cfg.table_size, cfg.n_features), device=device)
+    return _bum_scatter_stream_case(idx[order].contiguous(), vals[order].contiguous(),
+                                    cfg.n_levels * cfg.table_size, label)
+
+
+def _bum_scatter_stream_case(idx_s, vals_s, rows: int, label: str):
+    """Kernel #7 committing a sorted stream into a zero (rows, F) table,
+    against the plain merge on CPU copies (exact); `index_add_` of the same
+    stream timed beside it (the spill row, if any, clamped into the table)."""
+    f = vals_s.shape[1]
+    table = torch.zeros((rows, f), device=idx_s.device)
     got = gu_kernel.bum_scatter(table.clone(), idx_s, vals_s)
     want = gu_ref.segment_commit(table.cpu(), idx_s.cpu(), vals_s.cpu())
     exact = bool(torch.equal(got.cpu(), want))
-    rows = int(torch.unique(idx_s).numel())
-    m, f = idx_s.shape[0], cfg.n_features
+    kept = idx_s < rows
+    touched = int(torch.unique(idx_s[kept]).numel())
+    m = idx_s.shape[0]
     scratch = table.clone()
+    lib_idx = idx_s.clamp(max=rows - 1)
     return {
         "kernel": "bum_scatter", "case": label, "shape": [m, *table.shape],
         "max_abs_err": _max_err(got.cpu(), want), "err": _rel_err(got.cpu(), want),
         "exact": exact, "nonzero_rows_equal": _same_nonzero_rows(got.cpu(), want),
+        "ok": exact,
         "ms": cuda_ms(lambda: gu_kernel.bum_scatter(scratch, idx_s, vals_s)),
         "plain_ms": cuda_ms(lambda: gu_ref.segment_commit(table, idx_s, vals_s), iters=10),
-        "library_ms": cuda_ms(lambda: scratch.index_add_(0, idx_s, vals_s)),
-        "bound": bound(m * (8 + 4 * f) + 2 * 4 * f * rows, m * f),
+        "library_ms": cuda_ms(lambda: scratch.index_add_(0, lib_idx, vals_s)),
+        # the stream read once, each touched row read and written once
+        "bound": bound(m * (8 + 4 * f) + 2 * 4 * f * touched, int(kept.sum()) * f),
     }
 
 
@@ -724,9 +742,31 @@ def kernel_parity(device, field_cfg: FieldConfig = FieldConfig(),
                                  f"redistributed, S={s_red}"))
     cases.append(_composite_case(gen, device, EVAL_CHUNK, s, f"dense, S={s}"))
     cases.extend(train_kernel_parity(device, field_cfg, seed=seed))
-    cases.extend(_bum_sort_case(addr, vals, bits, label) for label, addr, vals, bits
-                 in table_gradient_streams(device, field_cfg, seed=seed))
+    streams = table_gradient_streams(device, field_cfg, seed=seed)
+    cases.extend(_bum_sort_case(addr, vals, bits, label) for label, addr, vals, bits in streams)
+    cases.extend(commit_stream_parity(streams, field_cfg))
     cases.extend(main_shape_parity(device, field_cfg, render_cfg, seed=seed))
+    return cases
+
+
+def commit_stream_parity(streams, field_cfg: FieldConfig = FieldConfig()) -> list[dict]:
+    """Kernel #7 on the commit streams of the training paths' backward
+    kernels (`table_gradient_streams`), each sorted as those paths sort it
+    (`bum_sort`): #6's two grids' streams of a trained Instant-3D step (into
+    L*T_D and L*T_C rows, the spill row L*T dropped) and #8's backward
+    stream of an Instant-NGP compacted step (into L*T_D rows).  The dense
+    steps' streams are `train_kernel_parity`'s cases."""
+    levels = field_cfg.n_levels
+    rows = {"density": levels << field_cfg.log2_table_density,
+            "color": levels << field_cfg.log2_table_color,
+            "NGP": levels << field_cfg.log2_table_density}
+    cases = []
+    for label, addr, vals, bits in streams:
+        if label.startswith("dense step"):
+            continue
+        grid = next(k for k in rows if k in label)
+        idx_s, vals_s = gu_kernel.bum_sort(addr, vals, bits)
+        cases.append(_bum_scatter_stream_case(idx_s, vals_s, rows[grid], f"{label}, commit"))
     return cases
 
 

@@ -137,6 +137,94 @@ def test_windowed_scatter_add_stacked_matches_jax(w, rng):
         t_gu_ops.windowed_scatter_add(_t(table), _t(idx[0]).long(), _t(vals[0]))
 
 
+def _tile_walk_commit(table, idx, vals, tile: int):
+    """A model of the bum_scatter kernel's walk (float32 numpy): the stream
+    in tiles of `tile` entries; in each tile the run starts (the first entry
+    compared with the entry before the tile), every run folded from 0 in
+    stream order by its start, the tile's last run finished past the tile
+    end; entries before a tile's first run start skipped (an earlier tile's
+    run); addresses outside [0, T) dropped; each sum added to its row once."""
+    out = table.numpy().copy()
+    a, v = idx.numpy(), vals.numpy()
+    m, t = a.shape[0], out.shape[0]
+    for base in range(0, m, tile):
+        n = min(tile, m - base)
+        starts = [e for e in range(n)
+                  if (a[base + e] != a[base + e - 1] if e > 0
+                      else base == 0 or a[base] != a[base - 1])] + [n]
+        for s, end in zip(starts[:-1], starts[1:]):
+            addr = a[base + s]
+            if not 0 <= addr < t:
+                continue
+            acc = np.zeros(v.shape[1], np.float32)
+            j = base + s
+            while j < base + end or (end == n and j < m and a[j] == addr):
+                acc = acc + v[j]
+                j += 1
+            out[addr] = out[addr] + acc
+    return torch.from_numpy(out)
+
+
+_T_ROWS = 64
+
+
+def _adversarial_stream(kind: str, tile: int) -> np.ndarray:
+    """Sorted address streams that stress a tile walk of `tile` entries."""
+    t = _T_ROWS
+    if kind == "one address across tiles":
+        return np.full(5 * tile + 3, 9)
+    if kind == "runs end at tile ends":
+        lengths = [tile, tile, 1, tile - 1, 2 * tile, 3, 5, tile - 8]
+        return np.repeat(np.arange(len(lengths)) * 3, lengths)
+    if kind == "every entry a run start":
+        return np.arange(t)
+    if kind == "spill only":
+        return np.full(3 * tile, t)
+    if kind == "m = 1":
+        return np.array([t - 1])
+    # m not a multiple of the tile, spill entries at the end
+    rng = np.random.default_rng(tile)
+    return np.sort(rng.integers(0, t + 1, size=4 * tile + 7))
+
+
+@pytest.mark.parametrize("tile", [16, 2048])
+@pytest.mark.parametrize("kind", ["one address across tiles", "runs end at tile ends",
+                                  "every entry a run start", "spill only", "m = 1",
+                                  "ragged"])
+def test_bum_scatter_tile_walk_is_segment_commit_bit_for_bit(kind, tile):
+    """The kernel's tile walk (at its own 2048-entry tile and at 16, where
+    these streams cross many tiles) sums every run as `segment_commit` does:
+    the same bits, on values whose magnitudes span six decades so that any
+    other summation order would show."""
+    rng = np.random.default_rng(len(kind) + tile)
+    idx = torch.from_numpy(_adversarial_stream(kind, tile).astype(np.int64))
+    for f in (1, 2):
+        vals = torch.from_numpy((rng.normal(size=(idx.shape[0], f))
+                                 * 10.0 ** rng.uniform(-3, 3, size=(idx.shape[0], 1))
+                                 ).astype(np.float32))
+        table = torch.from_numpy(rng.normal(size=(_T_ROWS, f)).astype(np.float32))
+        got = _tile_walk_commit(table, idx, vals, tile)
+        want = t_gu_ref.segment_commit(table, idx, vals)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("m", [6000, 20011])
+def test_segment_commit_matches_jax_on_runs_across_its_blocks(m, rng):
+    """The plain commit against the reference's merge on long runs (hundreds
+    to thousands of entries each) that cross the TPU kernel's 512-entry
+    blocks, spill entries at the end: the same bits."""
+    lengths = rng.integers(300, 2000, size=m // 300)
+    idx = np.repeat(np.arange(lengths.shape[0]) * 2, lengths)[:m]
+    idx = np.concatenate([idx, np.full(m - idx.shape[0], 128)]).astype(np.int32)
+    vals = (rng.normal(size=(m, 2)) * 10.0 ** rng.uniform(-3, 3, size=(m, 1))).astype(np.float32)
+    table = rng.normal(size=(128, 2)).astype(np.float32)
+    assert np.diff(idx).min() >= 0 and any(n > 512 for n in lengths)
+    want = np.asarray(j_gu_ops.merged_scatter_add(jnp.asarray(table), jnp.asarray(idx),
+                                                  jnp.asarray(vals), presorted=True))
+    got = t_gu_ref.segment_commit(_t(table), _t(idx).long(), _t(vals)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 # ---- hash_encode's merged backward ----
 
 def test_hash_encode_table_gradient_matches_jax(rng):

@@ -16,9 +16,9 @@ encode's bit for bit (the same products committed in the same order).  Gradients
 gradients (the fused backward merges per block, the plain one per stream)
 and 1e-4 for MLP gradients (summed over blocks in another order), with the
 same nonzero rows; bum_scatter bit for bit against the plain merge on CPU
-copies (both sum each run in stream order).  The redesigned kernels (the
-hash encode, both MLPs, the fused backward) give the same bytes on two
-launches.
+copies (both sum each run in stream order), also on streams built to break
+its tile walk.  The redesigned kernels (the hash encode, both MLPs, the
+fused step's forward and backward) give the same bytes on two launches.
 """
 import ctypes
 
@@ -168,6 +168,67 @@ def test_bum_scatter_kernel_is_the_plain_merge_bit_for_bit(m, t, card):
     assert torch.equal(got.cpu(), gu_ref.segment_commit(table, idx, vals))
 
 
+def _adversarial_stream(kind, tile, rows, gen):
+    """Sorted address streams that stress the kernel's tile walk (`tile`
+    entries a block); `rows` is the spill row."""
+    if kind == "one address across tiles":
+        return torch.full((5 * tile + 3,), 9, dtype=torch.int64)
+    if kind == "runs end at tile ends":
+        lengths = torch.tensor([tile, tile, 1, tile - 1, 2 * tile, 3, 5, tile - 8])
+        return torch.repeat_interleave(torch.arange(lengths.numel()) * 3, lengths)
+    if kind == "every entry a run start":
+        return torch.arange(rows)
+    if kind == "spill only":
+        return torch.full((3 * tile,), rows, dtype=torch.int64)
+    if kind == "m = 1":
+        return torch.tensor([rows - 1])
+    # m not a multiple of the tile, spill entries at the end
+    return torch.sort(torch.randint(0, rows + 1, (4 * tile + 7,), generator=gen)).values
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [1, 2, 4, 8])
+@pytest.mark.parametrize("kind", ["one address across tiles", "runs end at tile ends",
+                                  "every entry a run start", "spill only", "m = 1", "ragged"])
+def test_bum_scatter_kernel_is_the_plain_merge_on_adversarial_streams(kind, f, card):
+    """The tile walk's edge cases at its own tile (2048 entries): a run that
+    crosses many tiles, runs that end exactly at a tile's end, a run start
+    at every entry, spill entries only, one entry, a ragged last tile; values
+    spanning six decades, so that any other summation order would show."""
+    gen = torch.Generator().manual_seed(len(kind) + f)
+    rows = 4096
+    idx = _adversarial_stream(kind, 2048, rows, gen)
+    vals = (torch.randn((idx.shape[0], f), generator=gen)
+            * 10.0 ** (torch.rand((idx.shape[0], 1), generator=gen) * 6 - 3))
+    table = torch.randn((rows, f), generator=gen)
+    before = kernels.LAUNCHES["bum_scatter"]
+    got = gu_kernel.bum_scatter(table.to(card), idx.to(card), vals.to(card))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bum_scatter"] == before + 1
+    assert torch.equal(_bits(got.cpu()), _bits(gu_ref.segment_commit(table, idx, vals)))
+
+
+@pytest.mark.gpu
+def test_bum_scatter_kernel_is_the_plain_merge_on_the_training_streams(card):
+    """The three table-gradient streams the training paths commit
+    (`smoke.table_gradient_streams`: #6's two grids at budget 8192, a dense
+    step's two grids, #8's backward), each sorted by `bum_sort`: the plain
+    merge's bits, one launch each."""
+    cfg = FieldConfig()
+    rows = {"density": cfg.n_levels << cfg.log2_table_density,
+            "color": cfg.n_levels << cfg.log2_table_color,
+            "NGP": cfg.n_levels << cfg.log2_table_density}
+    for name, addr, vals, bits in smoke.table_gradient_streams(card):
+        idx_s, vals_s = gu_kernel.bum_sort(addr, vals, bits)
+        table = torch.zeros((rows[next(k for k in rows if k in name)], vals.shape[1]))
+        before = kernels.LAUNCHES["bum_scatter"]
+        got = gu_kernel.bum_scatter(table.to(card), idx_s, vals_s)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["bum_scatter"] == before + 1, name
+        want = gu_ref.segment_commit(table, idx_s.cpu(), vals_s.cpu())
+        assert torch.equal(_bits(got.cpu()), _bits(want)), name
+
+
 def _step_inputs(gen, n, card, field):
     pts = _u(gen, (n, 3), 0.0, 1.0 - 1e-6, card)
     sh = _u(gen, (n, 16), -0.5, 0.5, card)
@@ -210,6 +271,34 @@ def test_fused_step_kernels_match_plain(n, card):
         for k in d_mc:
             assert _rel(d_mc[k].cpu(), w_mc[k]) <= 1e-4
         assert _rel(d_sh.cpu(), w_sh) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", list(fs_kernel.FEATURE_COUNTS))
+@pytest.mark.parametrize("n,n_sentinel", [(8192, 0), (32768, 0), (77, 0), (30000, 4)])
+def test_fused_step_fwd_kernel_matches_plain_at_every_feature_count(n, n_sentinel, f, card):
+    """Kernel #5 (tiles of 32 points, both heads on the tensor cores) on
+    Morton-ordered points at the training budgets, a size below one tile
+    and a padded size whose last rows are sentinels: within 1e-5 of the
+    plain step (a sentinel row's outputs are the heads of all-zero
+    features), the same bytes on two launches, one launch each."""
+    field = Field(FieldConfig(n_features=f))
+    gen = torch.Generator().manual_seed(n + f)
+    pts, sh, tables, mlp_d, mlp_c, geometry = _morton_step_inputs(gen, n, card, field)
+    valid = n - n_sentinel
+    pts[valid:] = -1.0
+    args = (pts, sh, *tables, mlp_d, mlp_c, *geometry)
+    before = kernels.LAUNCHES["fused_step_fwd"]
+    got = fs_kernel.fused_step_fwd(*args)
+    again = fs_kernel.fused_step_fwd(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_step_fwd"] == before + 2
+    want = fs_ref.fused_step_ref(pts[:valid], sh[:valid], *tables, mlp_d, mlp_c, *geometry)
+    zeros = torch.zeros((n_sentinel, tables[0].shape[0] * f), device=card)
+    tail = fs_ref.mlp_heads(zeros, zeros, sh[valid:], mlp_d, mlp_c)
+    for g, a, w, t in zip(got, again, want, tail):
+        assert torch.equal(_bits(g), _bits(a))
+        assert float((g - torch.cat([w, t])).abs().max()) <= 1e-5
 
 
 @pytest.mark.gpu

@@ -18,11 +18,17 @@ tests/test_torch_kernels_card.py).
   backward's MLP products within its tolerances (feature gradients 1e-5,
   weight gradients and d_sh 1e-4, relative to the largest value), at the
   input scales of chip_smoke.py; a single TF32 product misses 1e-5.
+* The fused step's forward (kernel #5) as its tile kernel computes it: both
+  grids' features in f32, then both heads' products in split TF32 in the
+  kernel's order, at FieldConfig()'s widths and chip_smoke.py's input
+  scales, sentinel rows included: within 1e-5 of the forward in float64.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import encoding as enc
+from repro_torch.kernels.fused_path import ref as fp_ref
 from repro_torch.kernels.fused_step import kernel as fs_kernel
 from repro_torch.kernels.fused_step import ops as fs_ops
 from repro_torch.kernels.fused_step import ref as fs_ref
@@ -264,3 +270,62 @@ def test_split_tf32_fused_backward_products_meet_the_kernel_tolerances():
     assert _rel(emulated[2], want[2]) <= 1e-4          # d_sh
     for got, w in zip(emulated[3:], want[3:]):         # MLP weight and bias gradients
         assert _rel(got, w) <= 1e-4
+
+
+def _encode_f64(pts, table, res, dense):
+    """One grid's features with the plain version's corners and f32 corner
+    weights, each weighted sum taken in float64."""
+    corners, weights = fp_ref.corner_geometry(pts, res)
+    idx = fp_ref.level_indices(corners, res, table.shape[1], dense)
+    return torch.cat([(w.to(F64)[..., None] * table[level][i].to(F64)).sum(dim=1)
+                      for level, (i, w) in enumerate(zip(idx, weights))], dim=-1)
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["split", "single"])
+def test_split_tf32_fused_forward_meets_the_kernel_tolerance(split):
+    """Kernel #5's forward at FieldConfig()'s widths (16 levels x 2 features
+    per grid, 16 SH inputs, hidden 64, heads 16 and 3) on chip_smoke.py's
+    inputs (Morton-ordered unit points, the last 4 rows sentinels whose
+    features are exactly 0; SH of random unit directions; tables U(-1, 1),
+    He-uniform weights, biases U(-0.1, 0.1)): the f32 features, then z =
+    x W1 + b1 and relu(z) W2 + b2 for the density head and z1, z2 =
+    relu(z1) W2 + b2, relu(z2) W3 + b3 for the color head, every product in
+    split TF32, stay within 1e-5 of the whole forward in float64; a single
+    TF32 product misses it."""
+    rng = np.random.default_rng(23)
+    n, n_sent, levels, hid = 4096, 4, 16, 64
+    res = he_ref.level_resolutions(levels, 16, 1024)
+    sizes = (1 << 12, 1 << 10)
+    dense = [tuple(bool(x) for x in he_ref.level_is_dense(res, t)) for t in sizes]
+    pts = _t(rng.uniform(0.0, 1.0 - 1e-6, size=(n, 3)))
+    pts = pts[torch.sort(fp_ref.morton_key(pts), stable=True).indices]
+    dirs = _t(rng.uniform(-1, 1, size=(n, 3)))
+    sh = enc.sh_encoding(dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True), 4)
+    tables = [_t(rng.uniform(-1, 1, size=(levels, t, F))) for t in sizes]
+    layers_d = [(levels * F, hid), (hid, 16)]
+    layers_c = [(levels * F + sh.shape[1], hid), (hid, hid), (hid, 3)]
+    mlp_d = [t for d_in, d_out in layers_d for t in _he(rng, d_in, d_out)]
+    mlp_c = [t for d_in, d_out in layers_c for t in _he(rng, d_in, d_out)]
+    for params in (mlp_d, mlp_c):
+        for k in range(1, len(params), 2):
+            params[k] = _t(rng.uniform(-0.1, 0.1, size=params[k].shape))
+    valid = n - n_sent
+    feats, feats64 = [], []
+    for table, flags in zip(tables, dense):
+        x = torch.zeros((n, levels * F))
+        x[:valid] = fs_ref.encode_both(pts[:valid], table, table, res, flags, flags)[0]
+        x64 = torch.zeros((n, levels * F), dtype=F64)
+        x64[:valid] = _encode_f64(pts[:valid], table, res, flags)
+        feats.append(x)
+        feats64.append(x64)
+    assert float((feats[0] - feats64[0]).abs().max()) <= 1e-6
+    got = (_mlp_emulated(feats[0], *mlp_d, split=split),
+           _mlp_emulated(torch.cat([feats[1], sh], dim=-1), *mlp_c, split=split))
+    want = (fs_ref.layers_f64(feats64[0], *mlp_d),
+            fs_ref.layers_f64(torch.cat([feats64[1], sh.to(F64)], dim=-1), *mlp_c))
+    err = max(float((g.to(F64) - w).abs().max()) for g, w in zip(got, want))
+    assert (err <= 1e-5) == split, err
+    # the sentinel rows' outputs are the heads of all-zero features
+    tail = _mlp_emulated(torch.cat([torch.zeros((n_sent, levels * F)), sh[valid:]], dim=-1),
+                         *mlp_c, split=split)
+    assert torch.equal(got[1][valid:], tail)
