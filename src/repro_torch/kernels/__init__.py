@@ -39,7 +39,7 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES: dict[str, int] = {
-    "hash_encode": 0, "fused_mlp2": 0, "fused_mlp3": 0, "composite": 0,
+    "hash_encode": 0, "fused_mlp2": 0, "fused_mlp3": 0, "composite": 0, "composite_bwd": 0,
     "fused_step_fwd": 0, "fused_step_bwd": 0, "bum_scatter": 0, "bum_sort": 0,
     "fused_encode": 0,
 }

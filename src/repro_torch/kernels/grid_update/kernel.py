@@ -10,7 +10,9 @@ wasted) and returned.
 commit inside `repro.kernels.fused_step.kernel.fused_step_bwd_pallas`: the
 stable sort of a table-gradient stream by address, its values carried, as
 a radix sort over the key's low `key_bits` bits in the digits of
-`ref.radix_passes` (the plain version is `ref.stable_key_sort`).
+`ref.radix_passes` (the plain version is `ref.stable_key_sort`): one memset
+of its scratch, one histogram launch and one launch a pass, the offsets
+found by decoupled look-back.
 
 Each wrapper validates its inputs, launches on the current stream and counts
 the launch; raises on anything its kernel does not take and on a failed
@@ -27,9 +29,14 @@ from ... import kernels as _k
 from . import ref
 
 FEATURE_COUNTS = (1, 2, 4, 8)
-# stream entries per block of the sort, by F (256 threads x items_per_thread)
-SORT_TILE = {f: 256 * min(16, 32 // f) for f in FEATURE_COUNTS}
-SORT_MAX_ENTRIES = 1 << 30
+# stream entries per block of the sort, by F (512 threads x items_per_thread)
+SORT_TILE = {f: 512 * min(8, 16 // f) for f in FEATURE_COUNTS}
+# the sort's look-back status words hold counts in 30 bits
+SORT_MAX_ENTRIES = (1 << 30) - 1
+# its int32 scratch: 4 x 256 digit counts, 4 tile counters, then a status
+# word per (pass, tile, digit)
+SORT_HEADER_WORDS = 4 * 256 + 4
+SORT_DIGITS = 256
 
 
 @functools.cache
@@ -41,7 +48,7 @@ def _entry():
 @functools.cache
 def _sort_entry():
     p, i = ctypes.c_void_p, ctypes.c_int
-    return _k.function("bum_sort", "bum_sort_stream", [p] * 9 + [i, i, p, i, p])
+    return _k.function("bum_sort", "bum_sort_stream", [p] * 8 + [i, i, p, i, p])
 
 
 def bum_scatter(table: torch.Tensor, idx_sorted: torch.Tensor,
@@ -92,7 +99,6 @@ def bum_sort(addr: torch.Tensor, vals: torch.Tensor,
     if m == 0 or not passes:            # key_bits 0: every key is 0, the order stays
         return addr.clone(), vals.clone()
     f = vals.shape[1]
-    n_digits = 1 << max(width for _, width in passes)
     new = lambda shape, dtype: torch.empty(shape, device=device, dtype=dtype)  # noqa: E731
     addr_s, vals_s = new((m,), torch.int64), new((m, f), torch.float32)
     # 32-bit keys between passes, one scratch copy of the values (the C
@@ -101,14 +107,14 @@ def bum_sort(addr: torch.Tensor, vals: torch.Tensor,
     key_tmp0 = new((m,), torch.int32) if n_passes > 1 else addr_s
     key_tmp1 = new((m,), torch.int32) if n_passes > 2 else key_tmp0
     vals_tmp = new((m, f), torch.float32) if n_passes > 1 else vals_s
-    spine = new((n_digits * -(-m // SORT_TILE[f]),), torch.int32)
-    totals = new((n_digits,), torch.int32)
+    scratch = new((SORT_HEADER_WORDS + n_passes * -(-m // SORT_TILE[f]) * SORT_DIGITS,),
+                  torch.int32)
     widths = (ctypes.c_int * len(passes))(*(width for _, width in passes))
     with torch.cuda.device(device):
         status = _sort_entry()(
             _k.ptr(addr), _k.ptr(vals), _k.ptr(addr_s), _k.ptr(vals_s), _k.ptr(key_tmp0),
-            _k.ptr(key_tmp1), _k.ptr(vals_tmp), _k.ptr(spine), _k.ptr(totals), m, f,
-            widths, n_passes, _k.stream_handle(device))
+            _k.ptr(key_tmp1), _k.ptr(vals_tmp), _k.ptr(scratch), m, f, widths, n_passes,
+            _k.stream_handle(device))
     _k.check_status("bum_sort", status, "bum_sort")
     _k.LAUNCHES["bum_sort"] += 1
     return addr_s, vals_s

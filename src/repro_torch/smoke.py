@@ -14,7 +14,10 @@ card and fails on anything wrong -- there is no CPU fallback.
    (`bound_ms`, from the bytes and operations this run's inputs need) and,
    where one PyTorch call computes the same function, that call's time;
    for the fused encode also its distinct reads per (block, level) against
-   the plain count.  The redesigned kernels also run at their main paths'
+   the plain count.  The composite runs at the training shape (1024 x 48)
+   and both serving chunks, forward and backward (the gradients training
+   asks, against the plain autograd and the plain closed form), each the
+   same bytes on two launches.  The redesigned kernels also run at their main paths'
    own shapes (hash_encode on a served chunk's ray-ordered points, dense
    and redistributed; both MLPs at the dense serving chunk; the fused step
    forward and backward at a trained Instant-3D step's budget on
@@ -113,6 +116,9 @@ KERNELS = {
     "composite": {
         "route": "cuda", "source": "src/repro_torch/csrc/composite.cu",
         "replaces": "src/repro/kernels/volume_render/kernel.py:35"},
+    "composite_bwd": {
+        "route": "cuda", "source": "src/repro_torch/csrc/composite.cu",
+        "replaces": "src/repro/kernels/volume_render/ops.py:49"},
     "fused_step_fwd": {
         "route": "cuda", "source": "src/repro_torch/csrc/fused_step.cu",
         "replaces": "src/repro/kernels/fused_step/kernel.py:122"},
@@ -130,10 +136,11 @@ KERNELS = {
         "replaces": "src/repro/kernels/fused_path/kernel.py:66"},
 }
 # (kernels a path must launch, kernels it must not) per main path
-TRAIN_KERNELS = (("fused_step_fwd", "fused_step_bwd", "bum_scatter", "bum_sort"),
-                 ("fused_encode",))
+TRAIN_KERNELS = (("fused_step_fwd", "fused_step_bwd", "bum_scatter", "bum_sort", "composite",
+                  "composite_bwd"), ("fused_encode",))
 NGP_TRAIN_KERNELS = (("fused_encode", "bum_scatter", "bum_sort", "hash_encode", "fused_mlp2",
-                      "fused_mlp3", "composite"), ("fused_step_fwd", "fused_step_bwd"))
+                      "fused_mlp3", "composite", "composite_bwd"),
+                     ("fused_step_fwd", "fused_step_bwd"))
 SERVE_KERNELS = ("hash_encode", "fused_mlp2", "fused_mlp3", "composite")
 
 # Error allowed between a kernel and its plain version on the card, in the
@@ -143,7 +150,9 @@ SERVE_KERNELS = ("hash_encode", "fused_mlp2", "fused_mlp3", "composite")
 # 2^-22 of each f32 product).  Max abs error: an 8-corner sum of values in
 # [-1, 1] (hash encode) and the MLPs' O(1) outputs stay within 1e-5, the
 # fused step's outputs too; the composite's depth sums 48 terms of w * t
-# with t up to 6, so its bound is 5e-5.  The fused backward (relative: max
+# with t up to 6, so its bound is 5e-5.  Its backward (relative, against
+# the plain autograd and the plain closed form) sums the suffixes
+# S_{>k} of up to 48 terms in another order (1e-4).  The fused backward (relative: max
 # abs error over max |value|) sums each table row's updates in the plain
 # version's stream order, from feature gradients that its products round
 # otherwise (1e-5 of the largest table gradient), and its MLP gradients
@@ -157,7 +166,8 @@ SERVE_KERNELS = ("hash_encode", "fused_mlp2", "fused_mlp3", "composite")
 # counts must equal the plain count and its block dedup ratio the plain
 # `dedup_stats` within 1e-12.
 TOLERANCE = {"hash_encode": 1e-5, "fused_mlp2": 1e-5, "fused_mlp3": 1e-5,
-             "composite": 5e-5, "fused_step_fwd": 1e-5, "fused_step_bwd": 1e-4,
+             "composite": 5e-5, "composite_bwd": 1e-4, "fused_step_fwd": 1e-5,
+             "fused_step_bwd": 1e-4,
              "bum_scatter": 1e-6, "bum_sort": 0.0, "fused_encode": 1e-5}
 BWD_TABLE_TOL = 1e-5        # relative, the fused backward's table gradients
 DEDUP_RATIO_TOL = 1e-12
@@ -180,6 +190,10 @@ MIN_PSNR_DB = 20.0
 # to 136.
 DETERMINISM_STEPS = (104,)
 NGP_DETERMINISM_STEPS = (104, 136)
+# The composite's training shape (TrainerConfig(): 1024 rays x 48 samples)
+# and the inputs whose gradients training asks of it (sigma and rgb).
+TRAIN_RAYS = 1024
+TRAIN_COMPOSITE_NEEDS = (True, True, False, False)
 # The compacted shade's budget at the parity cases (2^15, the bucket of a
 # ~0.5 live fraction at 1024 rays x 48 samples) and the dense step's points;
 # the fused encode's padded case: a size that is not a multiple of its
@@ -384,21 +398,63 @@ def _mlp_case(gen, device, n, dims, label):
     }
 
 
-def _composite_case(gen, device, r, s, label):
+def composite_inputs(gen, r, s, device):
+    """sigma U(0, 20), rgb U(0, 1), sorted ts in [2, 6] and their widths
+    (non-uniform; the last padded by 4 / S)."""
     sigma = _uniform(gen, (r, s), 0.0, 20.0, device)
     rgb = _uniform(gen, (r, s, 3), 0.0, 1.0, device)
     ts = torch.sort(_uniform(gen, (r, s), 2.0, 6.0, device), dim=-1).values
-    deltas = torch.diff(ts, dim=-1, append=ts[:, -1:] + 4.0 / s)  # non-uniform
-    got = vr_kernel.composite(sigma, rgb, deltas, ts)
-    want = vr_ref.composite(sigma, rgb, deltas, ts)
+    deltas = torch.diff(ts, dim=-1, append=ts[:, -1:] + 4.0 / s)
+    return sigma, rgb, deltas, ts
+
+
+def _composite_case(gen, device, r, s, label):
+    """Kernel #4 against the plain composite; the same bytes on two
+    launches."""
+    inputs = composite_inputs(gen, r, s, device)
+    run = lambda: vr_kernel.composite(*inputs)  # noqa: E731
+    got = run()
+    want = vr_ref.composite(*inputs)
     n_bytes = 4 * (r * s * 6 + r * 5)
     n_flops = 16 * r * s
     return {
         "kernel": "composite", "case": label, "shape": [r, s],
-        "max_abs_err": _max_err(got, want[:3]),
-        "ms": cuda_ms(lambda: vr_kernel.composite(sigma, rgb, deltas, ts)),
-        "plain_ms": cuda_ms(lambda: vr_ref.composite(sigma, rgb, deltas, ts)),
+        "max_abs_err": _max_err(got, want[:3]), "deterministic": _same_bits(got, run()),
+        "ms": cuda_ms(run),
+        "plain_ms": cuda_ms(lambda: vr_ref.composite(*inputs)),
         "bound": bound(n_bytes, n_flops),
+    }
+
+
+def _composite_bwd_case(gen, device, r, s, label, needs=TRAIN_COMPOSITE_NEEDS):
+    """The composite's backward kernel for the gradients `needs` asks (the
+    training path's by default) against the plain autograd of the
+    composite and against the plain closed form (`ref.composite_backward`),
+    relative; the same bytes on two launches.  The plain time is the
+    autograd's backward alone, its graph kept."""
+    inputs = composite_inputs(gen, r, s, device)
+    grads = (_uniform(gen, (r, 3), -1.0, 1.0, device), _uniform(gen, (r,), -1.0, 1.0, device),
+             _uniform(gen, (r,), -1.0, 1.0, device))
+    run = lambda: vr_kernel.composite_backward(*inputs, *grads, needs=needs)  # noqa: E731
+    got = run()
+    leaves = [t.detach().requires_grad_(need) for t, need in zip(inputs, needs)]
+    out = vr_ref.composite(*leaves)[:3]
+    wanted = [t for t in leaves if t.requires_grad]
+    plain = lambda: torch.autograd.grad(out, wanted, grads, retain_graph=True)  # noqa: E731
+    want = plain()
+    closed = [c for c, need in zip(vr_ref.composite_backward(*inputs, *grads), needs) if need]
+    mine = [g for g in got if g is not None]
+    err = max(max(_rel_err(g, w), _rel_err(g, c)) for g, w, c in zip(mine, want, closed))
+    # inputs and upstream gradients read once, the asked gradients written once
+    n_out = sum(k for k, need in zip((1, 3, 1, 1), needs) if need)
+    n_bytes = 4 * (r * s * (6 + n_out) + r * 5)
+    return {
+        "kernel": "composite_bwd", "case": label, "shape": [r, s],
+        "needs": list(needs), "max_abs_err": _max_err(mine, want), "err": err,
+        "deterministic": _same_bits(mine, [g for g in run() if g is not None]),
+        "ms": cuda_ms(run),
+        "plain_ms": cuda_ms(plain),
+        "bound": bound(n_bytes, 40 * r * s),
     }
 
 
@@ -738,9 +794,10 @@ def kernel_parity(device, field_cfg: FieldConfig = FieldConfig(),
     cases.append(_mlp_case(gen, device, PARITY_BUDGET,
                            (field_cfg.geo_features + field.sh_dim, h, h, 3),
                            f"NGP color head, N={PARITY_BUDGET}"))
-    cases.append(_composite_case(gen, device, EVAL_CHUNK, s_red,
-                                 f"redistributed, S={s_red}"))
-    cases.append(_composite_case(gen, device, EVAL_CHUNK, s, f"dense, S={s}"))
+    for r, spr, label in ((TRAIN_RAYS, s, "training"), (EVAL_CHUNK, s_red, "redistributed"),
+                          (EVAL_CHUNK, s, "dense")):
+        cases.append(_composite_case(gen, device, r, spr, f"{label}, {r} x {spr}"))
+        cases.append(_composite_bwd_case(gen, device, r, spr, f"{label}, {r} x {spr}"))
     cases.extend(train_kernel_parity(device, field_cfg, seed=seed))
     streams = table_gradient_streams(device, field_cfg, seed=seed)
     cases.extend(_bum_sort_case(addr, vals, bits, label) for label, addr, vals, bits in streams)

@@ -100,14 +100,16 @@ def test_mlp_kernels_match_plain(dims, card):
     assert float((got - plain(x, *params)).abs().max()) <= 1e-5
 
 
+COMPOSITE_SHAPES = [(1024, 48), (4096, 48), (4096, 12), (77, 5), (33, 1), (5, 200)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("r,s", [(4096, 48), (4096, 12), (77, 5)])
+@pytest.mark.parametrize("r,s", COMPOSITE_SHAPES)
 def test_composite_kernel_matches_plain(r, s, card):
+    """Every group width (S = 1 to S > 32, S not a multiple of the group);
+    the same bytes on two launches."""
     gen = torch.Generator().manual_seed(r + s)
-    sigma = _u(gen, (r, s), 0, 20, card)
-    rgb = _u(gen, (r, s, 3), 0, 1, card)
-    ts = torch.sort(_u(gen, (r, s), 2, 6, card), dim=-1).values
-    deltas = torch.diff(ts, dim=-1, append=ts[:, -1:] + 4.0 / s)
+    sigma, rgb, deltas, ts = smoke.composite_inputs(gen, r, s, card)
     before = kernels.LAUNCHES["composite"]
     got = vr_ops.composite(sigma, rgb, deltas, ts)
     torch.cuda.synchronize()
@@ -115,6 +117,46 @@ def test_composite_kernel_matches_plain(r, s, card):
     want = vr_ref.composite(sigma, rgb, deltas, ts)
     for g, w in zip(got[:3], want[:3]):
         assert float((g - w).abs().max()) <= 5e-5
+    again = vr_kernel.composite(sigma, rgb, deltas, ts)
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got[:3], again))
+
+
+NEEDS = [tuple(bool(k >> i & 1) for i in range(4)) for k in range(1, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("needs", NEEDS, ids=lambda n: "".join("x" if b else "-" for b in n))
+@pytest.mark.parametrize("r,s", COMPOSITE_SHAPES)
+def test_composite_bwd_matches_plain(r, s, needs, card):
+    """The backward through the op, for every subset of the inputs asking a
+    gradient: one composite_bwd launch, within 1e-4 relative of the plain
+    closed form (`ref.composite_backward`) on the card and of the autograd
+    of the plain composite in f64 (the f32 autograd forms dL/dtau as a
+    difference of terms that can be far larger than it, so where every
+    gradient is small it is far off its own f64 value), the same bytes on
+    two launches."""
+    gen = torch.Generator().manual_seed(7 * r + s)
+    inputs = smoke.composite_inputs(gen, r, s, card)
+    grads = (_u(gen, (r, 3), -1, 1, card), _u(gen, (r,), -1, 1, card),
+             _u(gen, (r,), -1, 1, card))
+    leaves = [t.clone().requires_grad_(need) for t, need in zip(inputs, needs)]
+    before = kernels.LAUNCHES["composite_bwd"]
+    out = vr_ops.composite(*leaves)
+    sum((o * g).sum() for o, g in zip(out[:3], grads)).backward()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["composite_bwd"] == before + 1
+    closed = vr_ref.composite_backward(*inputs, *grads)
+    exact_leaves = [t.double().requires_grad_(True) for t in inputs]
+    exact = torch.autograd.grad(vr_ref.composite(*exact_leaves)[:3], exact_leaves,
+                                tuple(g.double() for g in grads))
+    again = vr_kernel.composite_backward(*inputs, *grads, needs=needs)
+    for k, (leaf, need) in enumerate(zip(leaves, needs)):
+        if not need:
+            assert leaf.grad is None and again[k] is None, k
+            continue
+        assert _rel(leaf.grad, closed[k]) <= 1e-4, k
+        assert _rel(leaf.grad.double(), exact[k]) <= 1e-4, k
+        assert torch.equal(_bits(leaf.grad), _bits(again[k])), k
 
 
 @pytest.mark.gpu
@@ -637,6 +679,40 @@ def test_bum_sort_is_torch_sorts_stable_permutation_on_adversarial_keys(m, bits,
     got = gu_kernel.bum_sort(addr.to(card), vals.to(card), bits)
     want = _stable(addr, vals)
     assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.gpu
+def test_bum_sort_clears_its_look_back_state_between_sorts(card):
+    """Sorts of different lengths, key widths and value widths, enqueued back
+    to back on one stream with no synchronisation between them, then each
+    held to torch.sort's stable permutation: each sort starts from cleared
+    histograms, tile counters and status words."""
+    gen = torch.Generator().manual_seed(11)
+    cases = [(1 << 20, 23, 2), (4097, 9, 1), (3 * 4096, 17, 8), (1 << 20, 21, 2),
+             (70001, 12, 4), (1, 8, 2), (1 << 18, 23, 2), (4095, 23, 1)]
+    inputs, results = [], []
+    for m, bits, f in cases:
+        addr = torch.randint(0, 1 << bits, (m,), generator=gen).to(card)
+        vals = torch.rand((m, f), generator=gen).to(card)
+        inputs.append((addr, vals))
+    for (addr, vals), (_, bits, _) in zip(inputs, cases):
+        results.append(gu_kernel.bum_sort(addr, vals, bits))
+    torch.cuda.synchronize()
+    for (addr, vals), got, case in zip(inputs, results, cases):
+        want = _stable(addr, vals)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), case
+
+
+@pytest.mark.gpu
+def test_bum_sort_is_exact_on_a_long_stream(card):
+    """2^24 + 3 entries (4097 tiles, the last holding 3), 23-bit keys."""
+    gen = torch.Generator().manual_seed(24)
+    m = (1 << 24) + 3
+    addr = torch.randint(0, 1 << 23, (m,), generator=gen).to(card)
+    vals = torch.rand((m, 2), generator=gen).to(card)
+    got = gu_kernel.bum_sort(addr, vals, 23)
+    want = _stable(addr, vals)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.gpu
