@@ -8,8 +8,10 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 against its plain PyTorch version at the main paths' shapes, trains
 ``TrainerConfig()`` for 400 steps on the paper's Instant-3D field and on
 its Instant-NGP baseline, serves 800x800 novel-view requests through
-``repro_torch.serve3d.RenderService`` from the trained snapshot, and prints
-one JSON line with every kernel's report and, last, the device line.  It
+``repro_torch.serve3d.RenderService`` from the trained snapshot, runs the
+multi-scene ``repro_torch.serve3d.ReconstructionService`` on four scenes
+and holds its bit-identity contracts, and prints one JSON line with every
+kernel's report and, last, the device line.  It
 exits non-zero, with no result, on any failure, and when no CUDA card is
 present.  The phases live in ``src/repro_torch/smoke.py``.
 """

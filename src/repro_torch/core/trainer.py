@@ -9,17 +9,28 @@ first-class, as in the reference:
   grid is detached, so its table-gradient commit never runs, and the
   optimizer's mask skips its params and moments.
 
-`Instant3DTrainer.train` is the reference's `train_cohort` at one member:
-the step-keyed freeze schedule, the occupancy cadence (a fold every
-`update_interval` steps after `warmup_steps`), the overflow window that
-widens the budget, the live fraction re-measured at each fold, and the
-history.  PyTorch runs eagerly, so there is no step cache: each step builds
-its autograd graph.  The reference draws with
+`train_cohort` advances M sessions of one (field config, trainer config)
+in lockstep, and `Instant3DTrainer.train` is its call at M = 1, as in the
+reference, so a session trained in a cohort and one trained alone run the
+same code: the step-keyed freeze schedule, the occupancy cadence (a fold
+every `update_interval` steps after `warmup_steps`), the overflow window
+that widens the budget, the live fraction re-measured at each fold, and the
+history.  Where the reference stacks the members and runs one compiled
+step over them (`jax.lax.map`), the port loops over the members each step;
+each keeps its own bookkeeping in its trainer (live fraction, overflow
+window, so its own budget).  PyTorch runs eagerly, so there is no step
+cache: each step builds its autograd graph.  The reference draws with
 ``split(fold_in(PRNGKey(seed), i), 3)``, bits the port cannot reproduce, so
-`train` takes a draw stream `draws(i) -> (ray_idx (B,), u_ts (B, S), u_occ
-(R^3, 3))`; by default a `torch.Generator` seeded from (cfg.seed, i) per
-step, so the stream is keyed by the absolute step as in the reference.
-Cohorts, suspend/resume and checkpoints are not ported yet.
+training takes a draw stream per member, `draws(i) -> (ray_idx (B,), u_ts
+(B, S), u_occ (R^3, 3))`; by default `default_draws(cfg, sampler.n)`, a
+`torch.Generator` seeded from (cfg.seed, i) per step, so the stream is
+keyed by the absolute step, and members with equal ray pools draw alike,
+as the reference's members share one key.
+
+`suspend` / `resume` move a session's whole state to host numpy and back,
+with the reference's tree keys, so `repro_torch.checkpoint` writes it in
+the reference's layout.  `tree_all_finite` is the serve3d guard's deep
+check.
 
 The chunk renderers (`make_render_chunk`, ...) serve `RenderService` and
 `evaluate`.  A group of sessions renders as a loop over its members where
@@ -37,8 +48,10 @@ import torch
 from . import field as field_lib
 from . import losses, occupancy, rendering
 from .pipeline import RenderPipeline, suggest_budget
+from .. import bridge
+from ..obs import metrics as _metrics
 from ..obs import trace as _trace
-from ..optim import AdamW
+from ..optim import AdamW, AdamWState
 from ..optim.adamw import tree_from_paths, tree_paths
 
 
@@ -165,6 +178,39 @@ class TrainerConfig:
     redistribute_v3: bool = False
     # hard per-step point ceiling
     max_budget: int | None = None
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _on_device(tree, device):
+    """A nested dict of tensors or numpy arrays -> the same dict of tensors
+    on `device` (a tensor already there is returned as it is)."""
+    if isinstance(tree, dict):
+        return {k: _on_device(v, device) for k, v in tree.items()}
+    return torch.as_tensor(tree).to(device)
+
+
+def tree_all_finite(*trees) -> bool:
+    """True iff every floating leaf of every tree (dicts, tuples, tensors or
+    numpy arrays) is finite.  Integer leaves (the optimizer's step, fold
+    counts) are skipped.  One host sync per device the leaves live on; it
+    runs outside the training step, so the guard never changes a step."""
+    acc: dict = {}
+    for leaf in _leaves(trees):
+        x = torch.as_tensor(leaf)
+        if x.is_floating_point():
+            ok = torch.isfinite(x).all()
+            acc[x.device] = ok if x.device not in acc else acc[x.device] & ok
+    return all(bool(v) for v in acc.values())
 
 
 def _branch_update(i: int, freq: float) -> bool:
@@ -301,7 +347,8 @@ class Instant3DTrainer:
 
     def train(self, state: TrainState, sampler, iters: int | None = None,
               log_every: int = 50, callback=None, draws: Callable | None = None):
-        """Advance training by `iters` steps -> (new state, history).
+        """Advance training by `iters` steps -> (new state, history): the
+        cohort of one (`train_cohort`).
 
         history holds, per logged step (every `log_every` steps and the
         last): step, loss, live_fraction, points_queried, overflow, budget
@@ -309,74 +356,48 @@ class Instant3DTrainer:
         read after the step's loss reached the host); plus occ_folds (the
         steps that folded the occupancy grid), overflow_total and
         overflow_steps."""
-        cfg, field_cfg = self.cfg, self.field.cfg
-        iters = iters if iters is not None else cfg.iters
-        draws = draws if draws is not None else default_draws(cfg, sampler.n)
-        interval = cfg.occ.update_interval
-        step0 = state.step
-        params, opt_state, occ_state = state.params, state.opt_state, state.occ_state
-        occ_updates = int(occ_state.step) if cfg.use_occupancy else 0
-        if occ_updates == 0:
-            self._live_frac = 1.0       # fresh state: forget any previous run
-            self._overflow_window = []
-        hist = {"step": [], "loss": [], "live_fraction": [], "points_queried": [],
-                "overflow": [], "budget": [], "wall_s": [], "occ_folds": []}
-        overflow_all = []
-        t0 = _trace.clock()
-        for local_i in range(iters):
-            i = step0 + local_i
-            ray_idx, u_ts, u_occ = draws(i)
-            ts = rendering.sample_ts(None, cfg.n_rays, cfg.render, self.device, u=u_ts)
-            freeze_color = (not _branch_update(i, cfg.f_color)) and field_cfg.decomposed
-            freeze_density = not _branch_update(i, cfg.f_density)
-            use_bits = cfg.use_occupancy and occ_updates > 0
-            budget = self._current_budget(use_bits)
-            batch = sampler.gather(ray_idx)
-            with _trace.span("trainer/step", cat="trainer",
-                             args={"step": int(i), "budget": budget, "use_bits": use_bits}):
-                params, opt_state, loss, aux = self.step(
-                    params, opt_state, batch, ts, occ_state.density_ema,
-                    freeze_color=freeze_color, freeze_density=freeze_density,
-                    budget=budget, use_bits=use_bits)
-            overflow_all.append(aux["overflow"])
-            self._overflow_window.append(aux["overflow"])
-            del self._overflow_window[:-interval]
+        states, hists = train_cohort([self], [state], [sampler], iters=iters,
+                                     log_every=log_every, callback=callback,
+                                     draws=None if draws is None else [draws])
+        return states[0], hists[0]
 
-            if cfg.use_occupancy and i >= cfg.occ.warmup_steps and (i + 1) % interval == 0:
-                jitter = (u_occ.to(self.device) - 0.5) / cfg.occ.resolution
-                with _trace.span("trainer/occ_update", cat="trainer", args={"step": int(i)}), \
-                        torch.no_grad():
-                    occ_state = occupancy.update(self.field, params, occ_state, cfg.occ,
-                                                 jitter=jitter)
-                hist["occ_folds"].append(i)
-                if use_bits:
-                    # re-measure the live fraction at the fold (one host sync);
-                    # overflow since the last fold means the live set outgrew
-                    # the bucket: widen beyond the measurement
-                    measured = float(aux["live_fraction"])
-                    recent = self._overflow_window[-interval:]
-                    if int(sum(int(v) for v in recent)) > 0:
-                        measured = min(1.0, measured * 2.0)
-                    self._live_frac = measured
-                occ_updates += 1
+    # ---- suspend / resume ----
 
-            if (local_i + 1) % log_every == 0 or local_i == iters - 1:
-                hist["step"].append(i + 1)
-                hist["loss"].append(float(loss))
-                hist["wall_s"].append(_trace.clock() - t0)
-                hist["live_fraction"].append(float(aux["live_fraction"]))
-                hist["points_queried"].append(int(aux["points_queried"]))
-                hist["overflow"].append(int(aux["overflow"]))
-                hist["budget"].append(budget)
-                if callback is not None:
-                    callback(i + 1, params, hist)
+    def suspend(self, state: TrainState) -> dict:
+        """Device -> host copy of everything needed to go on bit for bit:
+        params, Adam state, occupancy EMA and fold count, the step, and the
+        trainer's own bookkeeping (live fraction, overflow window padded to
+        `update_interval` as int32).  numpy leaves that share no storage
+        with the state, under the reference's keys, so the flat keys of a
+        checkpoint are the reference's."""
+        win = np.zeros((self.cfg.occ.update_interval,), np.int32)
+        recent = [int(x) for x in self._overflow_window[-len(win):]]
+        if recent:
+            win[-len(recent):] = recent
+        occ = state.occ_state
+        return {
+            "params": bridge.params_to_numpy(state.params),
+            "opt": AdamWState(*bridge.opt_to_numpy(state.opt_state)),
+            "occ_ema": occ.density_ema.detach().cpu().numpy().copy(),
+            "occ_step": np.asarray(int(occ.step), np.int32),
+            "step": np.asarray(int(state.step), np.int32),
+            "live_frac": np.asarray(self._live_frac, np.float32),
+            "overflow_window": win,
+        }
 
-        ov = torch.stack([torch.as_tensor(v, device=self.device) for v in overflow_all]) \
-            if overflow_all else torch.zeros((0,), dtype=torch.int64)
-        hist["overflow_total"] = int(ov.sum())
-        hist["overflow_steps"] = int((ov > 0).sum())
-        self._overflow_window = [int(v) for v in self._overflow_window]
-        return TrainState(params, opt_state, occ_state, step0 + iters), hist
+    def resume(self, tree: dict) -> TrainState:
+        """Inverse of `suspend`: the host tree onto this trainer's device,
+        and the trainer's bookkeeping re-seeded from it."""
+        self._live_frac = float(tree["live_frac"])
+        self._overflow_window = [int(v) for v in np.asarray(tree["overflow_window"])]
+        dev = self.device
+        return TrainState(
+            bridge.params_to_torch(tree["params"], dev),
+            bridge.opt_to_torch(tree["opt"], dev),
+            occupancy.OccupancyState(
+                torch.from_numpy(np.array(tree["occ_ema"], dtype=np.float32)).to(dev),
+                int(tree["occ_step"])),
+            int(tree["step"]))
 
     # ---- evaluation ----
 
@@ -385,9 +406,14 @@ class Instant3DTrainer:
                      samples_per_ray: int | None = None):
         """Render one full view -> (rgb (H, W, 3), depth (H, W)) numpy.  Dense
         by default; with `occ` (the (density EMA, fold count) pair a snapshot
-        carries) through the redistributed renderer, as served."""
+        carries) through the redistributed renderer, as served.  `params`
+        and the EMA may be host copies (a snapshot's, a suspended tree's):
+        they are moved to the trainer's device."""
         cfg = self.cfg
         h, w = ds.h, ds.w
+        params = _on_device(params, self.device)
+        if occ is not None:
+            occ = (_on_device(occ[0], self.device), int(occ[1]))
         o, d, n, chunk = image_rays(pose, h, w, ds.focal, cfg.eval_chunk, self.device)
         ts = rendering.sample_ts(None, chunk, cfg.render, self.device)
         if occ is not None and cfg.use_occupancy:
@@ -423,3 +449,148 @@ class Instant3DTrainer:
             dep_ps.append(float(losses.psnr(torch.from_numpy(dep / far),
                                             torch.from_numpy(ds.depths[v] / far))))
         return {"psnr_rgb": float(np.mean(rgb_ps)), "psnr_depth": float(np.mean(dep_ps))}
+
+
+# ---- cohorts: lockstep training of M same-config sessions ----
+
+def _partition_members(trainers, use_occupancy, occ_updates):
+    """Each member's (use_bits, budget) step variant -> the ordered
+    partition [((use_bits, budget), [member indices])]."""
+    part: list[tuple[tuple, list[int]]] = []
+    for k, tr in enumerate(trainers):
+        use_bits = use_occupancy and occ_updates[k] > 0
+        key = (use_bits, tr._current_budget(use_bits))
+        grouped = next((g for g in part if g[0] == key), None)
+        if grouped is None:
+            part.append((key, [k]))
+        else:
+            grouped[1].append(k)
+    return part
+
+
+def train_cohort(trainers: list, states: list, samplers: list, iters: int | None = None,
+                 log_every: int = 50, callback=None, draws: list | None = None):
+    """Advance M same-config training sessions in lockstep -> (new states,
+    histories), parallel to the inputs.
+
+    All members share (field config, trainer config) and sit at the same
+    absolute step.  Each step, the members are partitioned by their step
+    variant (use_bits, budget) and every group runs its members one after
+    another; the partition shifts only at a fold, when members' measured
+    budgets drift apart, and it changes where the work happens, never the
+    numbers.  Each member keeps its own bookkeeping in its trainer (live
+    fraction, overflow window), exactly as M sequential `train` calls, and
+    `train` is this function at M = 1, so a cohort equals sequential
+    training bit for bit.  `draws` is one stream per member (default each
+    member's `default_draws(cfg, sampler.n)`); a member of a fold draws its
+    occupancy jitter from its own stream."""
+    m = len(trainers)
+    if not m == len(states) == len(samplers):
+        raise ValueError("trainers, states and samplers must align")
+    lead = trainers[0]
+    cfg, field_cfg = lead.cfg, lead.field.cfg
+    for t in trainers[1:]:
+        if t.cfg != cfg or t.field.cfg != field_cfg:
+            raise ValueError("cohort members must share field and trainer configs")
+    step0 = states[0].step
+    if any(s.step != step0 for s in states):
+        raise ValueError("cohort members must be at the same training step")
+    iters = iters if iters is not None else cfg.iters
+    draws = list(draws) if draws is not None else [default_draws(cfg, s.n) for s in samplers]
+    if len(draws) != m:
+        raise ValueError("one draw stream per member")
+    interval = cfg.occ.update_interval
+    params = [s.params for s in states]
+    opts = [s.opt_state for s in states]
+    occs = [s.occ_state for s in states]
+    occ_updates = [int(s.occ_state.step) if cfg.use_occupancy else 0 for s in states]
+    for k, tr in enumerate(trainers):
+        if occ_updates[k] == 0:
+            tr._live_frac = 1.0         # fresh state: forget any previous run
+            tr._overflow_window = []
+    hists = [{"step": [], "loss": [], "live_fraction": [], "points_queried": [],
+              "overflow": [], "budget": [], "wall_s": [], "occ_folds": []}
+             for _ in range(m)]
+    overflow_all: list[list] = [[] for _ in range(m)]
+    last: list = [None] * m             # member -> (loss, aux, budget) of the step
+    t0 = _trace.clock()
+    for local_i in range(iters):
+        i = step0 + local_i
+        freeze_color = (not _branch_update(i, cfg.f_color)) and field_cfg.decomposed
+        freeze_density = not _branch_update(i, cfg.f_density)
+        groups = _partition_members(trainers, cfg.use_occupancy, occ_updates)
+        u_occ: list = [None] * m
+        for (use_bits, budget), members in groups:
+            with _trace.span("trainer/step", cat="trainer",
+                             args={"step": int(i), "cohort": len(members),
+                                   "budget": budget, "use_bits": use_bits}):
+                for k in members:
+                    tr = trainers[k]
+                    ray_idx, u_ts, u_occ[k] = draws[k](i)
+                    ts = rendering.sample_ts(None, cfg.n_rays, cfg.render, tr.device, u=u_ts)
+                    batch = samplers[k].gather(ray_idx)
+                    params[k], opts[k], loss, aux = tr.step(
+                        params[k], opts[k], batch, ts, occs[k].density_ema,
+                        freeze_color=freeze_color, freeze_density=freeze_density,
+                        budget=budget, use_bits=use_bits)
+                    last[k] = (loss, aux, budget)
+                    overflow_all[k].append(aux["overflow"])
+                    tr._overflow_window.append(aux["overflow"])
+                    del tr._overflow_window[:-interval]
+        obs_on = _trace.enabled()
+        if obs_on:
+            _metrics.counter("trainer.steps").inc(m)
+            _metrics.gauge("trainer.cohort_size").set(m)
+            _metrics.gauge("trainer.cohort_groups").set(len(groups))
+
+        if cfg.use_occupancy and i >= cfg.occ.warmup_steps and (i + 1) % interval == 0:
+            for (use_bits, _budget), members in groups:
+                with _trace.span("trainer/occ_update", cat="trainer",
+                                 args={"step": int(i), "cohort": len(members)}), \
+                        torch.no_grad():
+                    for k in members:
+                        tr = trainers[k]
+                        jitter = (u_occ[k].to(tr.device) - 0.5) / cfg.occ.resolution
+                        occs[k] = occupancy.update(tr.field, params[k], occs[k], cfg.occ,
+                                                   jitter=jitter)
+                        hists[k]["occ_folds"].append(i)
+                        if use_bits:
+                            # re-measure the live fraction at the fold (one
+                            # host sync); overflow since the last fold means
+                            # the live set outgrew the bucket: widen beyond
+                            # the measurement
+                            measured = float(last[k][1]["live_fraction"])
+                            recent = tr._overflow_window[-interval:]
+                            if int(sum(int(v) for v in recent)) > 0:
+                                measured = min(1.0, measured * 2.0)
+                            tr._live_frac = measured
+                        occ_updates[k] += 1
+
+        if (local_i + 1) % log_every == 0 or local_i == iters - 1:
+            losses_h = [float(last[k][0]) for k in range(m)]
+            wall = _trace.clock() - t0
+            for k in range(m):
+                loss, aux, budget = last[k]
+                h = hists[k]
+                h["step"].append(i + 1)
+                h["loss"].append(losses_h[k])
+                h["wall_s"].append(wall)
+                h["live_fraction"].append(float(aux["live_fraction"]))
+                h["points_queried"].append(int(aux["points_queried"]))
+                h["overflow"].append(int(aux["overflow"]))
+                h["budget"].append(budget)
+                if callback is not None:
+                    callback(i + 1, params[k], h)
+            if obs_on:
+                _metrics.gauge("trainer.loss").set(losses_h[-1])
+                _metrics.gauge("trainer.live_fraction").set(hists[-1]["live_fraction"][-1])
+
+    new_states = []
+    for k, tr in enumerate(trainers):
+        ov = torch.stack([torch.as_tensor(v, device=tr.device) for v in overflow_all[k]]) \
+            if overflow_all[k] else torch.zeros((0,), dtype=torch.int64)
+        hists[k]["overflow_total"] = int(ov.sum())
+        hists[k]["overflow_steps"] = int((ov > 0).sum())
+        tr._overflow_window = [int(v) for v in tr._overflow_window]
+        new_states.append(TrainState(params[k], opts[k], occs[k], step0 + iters))
+    return new_states, hists

@@ -36,8 +36,11 @@ Degradation ladder:
 * staleness -- results for sessions marked with `mark_stale` carry
   ``stale=True``.
 
-Device placement across cards, the async serving thread and the fault
-injection hook come with later slices.
+Fault site ``serve3d.render_group`` (kind ``render_fail``,
+`repro_torch.testing.faults`) raises inside a group's render, which the
+retry rung then handles.  Device placement across cards, the async
+serving thread and stage 2b v3 serving (``redistribute_v3``) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ from ..core.trainer import (
 )
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
+from ..testing import faults
 from .snapshot import Snapshot, SnapshotStore
 
 
@@ -145,10 +149,14 @@ class RenderService:
 
     def register_session(self, session_id: str, field_cfg, render_cfg,
                          h: int, w: int, focal: float, eval_chunk: int = 4096,
-                         occ_cfg=None, samples_per_ray: int | None = None):
+                         occ_cfg=None, samples_per_ray: int | None = None,
+                         redistribute_v3: bool = False):
         """samples_per_ray: serve through the redistributed path at that
         per-ray budget (needs occ_cfg to threshold the snapshot's EMA);
-        None serves dense."""
+        None serves dense.  redistribute_v3 (stage 2b v3) is not ported
+        yet and raises."""
+        if redistribute_v3:
+            raise NotImplementedError("redistribute_v3 (stage 2b v3) is not ported yet")
         if samples_per_ray is not None and occ_cfg is None:
             raise ValueError("samples_per_ray needs occ_cfg for the bitfield")
         self._geom[session_id] = _SessionGeom(
@@ -295,6 +303,9 @@ class RenderService:
     def _render_group_inner(self, field_cfg, render_cfg, h, w, focal, eval_chunk,
                             occ_cfg, samples_per_ray, level,
                             items) -> list[RenderResult]:
+        inj = faults.check("serve3d.render_group", session=items[0][0].session_id)
+        if inj is not None and inj.kind == "render_fail":
+            raise faults.InjectedFault("injected render-group failure")
         if level > 0:
             h = max(1, h >> level)
             w = max(1, w >> level)

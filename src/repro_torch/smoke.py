@@ -1,5 +1,5 @@
 """The phases of ``chip_smoke.py``: build, kernel parity, train (Instant-3D
-and the Instant-NGP baseline), serve.
+and the Instant-NGP baseline), serve, the reconstruction service.
 
 Each phase takes an explicit device, so the CPU tests can rehearse the
 paths at a tiny size with ``device="cpu"``; `main` runs them all on the
@@ -48,8 +48,20 @@ card and fails on anything wrong -- there is no CPU fallback.
    and the dense route plus one level-1 preview, counters zeroed just
    before and read just after; then the same service on a small image
    agrees with the plain versions on the CPU;
-5. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
-   summed over the three main paths, and per path) and, last, the device
+5. the reconstruction service (slice 9's main path):
+   `ReconstructionService(slice_iters=16, guard=True, persist_dir=...)`
+   trains four scenes of `build_dataset(k)` (the NGP baseline on 0,
+   alone; the Instant-3D field on 1-3, one cohort of 3) on `TrainerConfig()`,
+   answering two renders a scene asked from the run hook mid-training and
+   one after, counters zeroed just before and read just after; every
+   session DONE, every render a `RenderResult`, cohorts of 3 and 1, every
+   kernel launched, held-out PSNR >= 20 dB a scene.  Then the four
+   bit-identity contracts over 112 steps, `torch.equal` on params, both
+   Adam moments and the occupancy EMA: cohort == sequential, suspend /
+   resume through disk, guard rollback of a NaN-params fault, eval ==
+   served;
+6. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
+   summed over the four main paths, and per path) and, last, the device
    line.
 """
 from __future__ import annotations
@@ -59,6 +71,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 
@@ -72,7 +85,7 @@ from .core.field import Field, FieldConfig
 from .core.pipeline import RenderPipeline
 from .core.rendering import RenderConfig, sample_ts, sphere_poses
 from .core.trainer import (Instant3DTrainer, TrainerConfig, default_draws,
-                           default_samples_per_ray, image_rays)
+                           default_samples_per_ray, image_rays, train_cohort)
 from .data.rays_dataset import RaySampler
 from .data.synthetic_scene import build_dataset
 from .kernels.fused_mlp import kernel as mlp_kernel
@@ -89,8 +102,11 @@ from .kernels.hash_encode import ops as he_ops
 from .kernels.hash_encode import ref as he_ref
 from .kernels.volume_render import kernel as vr_kernel
 from .kernels.volume_render import ref as vr_ref
+from .obs import trace as obs_trace
 from .optim.adamw import tree_paths
-from .serve3d import RenderResult, RenderService, SnapshotStore
+from .serve3d import (DONE, ReconstructionService, RenderResult, RenderService,
+                      SceneSession, SnapshotStore)
+from .testing import faults
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
 # HBM bandwidth, the f32 rate outside the tensor cores and the dense TF32
@@ -213,6 +229,34 @@ PADDED_POINTS, SENTINEL_ROWS = 30000, 4
 IMAGE_HW = 800
 FOV_DEG = 50.0
 EVAL_CHUNK = 4096
+
+# The reconstruction service (slice 9's main path): four scenes of
+# build_dataset(k)'s defaults, all on TrainerConfig(), sliced 16 steps a
+# quantum: the Instant-NGP baseline on scene 0 (a cohort of 1) and the
+# Instant-3D field on scenes 1-3 (one cohort of 3).  128 steps cross the
+# warmup (64) into the Instant-3D field's compacted steps (from step 96).
+# The NGP field's live fraction stays near 0.5, so its first compacted step
+# is 128 at the earliest, and only where the measured fraction is at most
+# ~0.51 (scene 0's: 0.497 at the fold after step 127; scene 3's stays at
+# 0.53-0.56 through 160 steps, measured on one H100): the NGP session trains
+# scene 0 for 160 steps, 32 of them compacted through the fused encode
+# (#8).  Two renders a scene are asked mid-training (after the quanta
+# ending at these steps) and one after the run.
+SERVICE_SCENES = 4
+SERVICE_SLICE = 16
+SERVICE_ITERS = 128
+NGP_SERVICE_ITERS = 160
+SERVICE_RENDER_STEPS = (48, 96)
+SERVICE_COHORTS = {3, 1}
+# The bit-identity contracts on the card: FieldConfig(), TrainerConfig(),
+# 112 steps -- folds at 79, 95 and 111, compacted steps from 96.  The
+# suspend/resume run goes to disk and back at steps 48 and 96 (the second
+# time with a measured live fraction and a full overflow window); the guard
+# run's NaN-params fault fires on the slice starting at step 80 and is
+# rolled back to the last-good tree of step 64.
+IDENTITY_ITERS = 112
+SUSPEND_AT = (48, 96)
+FAULT_AT = 80
 
 # whole-image agreement of the card's path with the plain versions on the
 # CPU (the CPU tests' slice-level tolerance against JAX): rgb in [0, 1],
@@ -1146,6 +1190,220 @@ def snapshot_store(params, occ_state) -> SnapshotStore:
     return store
 
 
+# ---- phase 5: the reconstruction service ---------------------------------------
+
+def service_datasets(device, dataset: dict | None = None, n: int = SERVICE_SCENES) -> list:
+    return [build_dataset(k, device=device, **(dataset or {}))[1] for k in range(n)]
+
+
+def service_main_path(device, datasets: list, persist_dir: str,
+                      cfg: TrainerConfig = TrainerConfig(),
+                      plan=((FieldConfig(decomposed=False), NGP_SERVICE_ITERS),)
+                      + ((FieldConfig(), SERVICE_ITERS),) * 3,
+                      slice_iters: int = SERVICE_SLICE,
+                      render_steps=SERVICE_RENDER_STEPS, held_out: int = HELD_OUT) -> dict:
+    """`ReconstructionService(guard=True, persist_dir=...)` trains one
+    session per (field config, steps) of `plan` on `datasets` (all but the
+    first `held_out` views), answers renders asked from the run hook after
+    the quanta ending at `render_steps` and one a scene after the run, then
+    evaluates each scene on its held-out views.  Launch counters are zeroed
+    just before the run and read just after the last render.  The run is
+    traced (`repro_torch.obs`): `spans` sums each span name's wall time."""
+    svc = ReconstructionService(slice_iters=slice_iters, guard=True,
+                                persist_dir=persist_dir, device=device)
+    for k, (ds, (field_cfg, iters)) in enumerate(zip(datasets, plan)):
+        svc.submit_scene(ds, field_cfg, cfg, target_iters=iters, seed=k,
+                         train_views=range(held_out, ds.images.shape[0]))
+    poses = sphere_poses(8, seed=123)
+    cohorts, answers = [], []
+
+    def hook(s, event):
+        if event["cohort"]:
+            cohorts.append(len(event["cohort"]))
+        for sid in event["cohort"]:
+            if s.sessions[sid].step in render_steps:
+                s.request_render(sid, poses[len(answers) % len(poses)])
+        answers.extend(event["results"])
+
+    traced = obs_trace.enabled()
+    obs_trace.set_enabled(True)
+    obs_trace.clear()
+    kernels.reset_launches()
+    try:
+        telemetry = svc.run(hook=hook)
+        spans: dict = {}
+        for e in obs_trace.events():
+            if e.dur_us is not None:
+                tot = spans.setdefault(e.name, {"ms": 0.0, "count": 0})
+                tot["ms"] += e.dur_us / 1e3
+                tot["count"] += 1
+    finally:
+        obs_trace.set_enabled(traced)
+        obs_trace.clear()
+    for k, sid in enumerate(svc.sessions):
+        svc.request_render(sid, poses[-1 - k])
+    answers.extend(svc.renderer.drain())
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    evals = {sid: s.evaluate(views=range(held_out)) for sid, s in svc.sessions.items()}
+    return {"service": svc, "telemetry": telemetry, "spans": spans,
+            "render": svc.renderer.latency_stats(), "cohorts": cohorts,
+            "answers": answers, "launches": launches, "evals": evals,
+            "expected_renders": len(svc.sessions) * (len(render_steps) + 1)}
+
+
+def check_service(run: dict, must_launch=tuple(KERNELS), cohorts=SERVICE_COHORTS,
+                  min_psnr: float = MIN_PSNR_DB) -> list[str]:
+    """What the service gate refuses: a session not DONE, a render not
+    answered with a `RenderResult`, other cohort sizes than `cohorts`, a
+    kernel of `must_launch` never launched, held-out PSNR under
+    `min_psnr` or a non-finite one."""
+    svc, problems = run["service"], []
+    not_done = {sid: s.status for sid, s in svc.sessions.items() if s.status != DONE}
+    if not_done:
+        problems.append(f"sessions not done: {not_done}")
+    bad = [r for r in run["answers"] if not isinstance(r, RenderResult)]
+    if bad or len(run["answers"]) != run["expected_renders"] or svc.renderer.pending:
+        problems.append(f"renders: {len(run['answers'])} answered of "
+                        f"{run['expected_renders']}, errors {bad}, "
+                        f"{svc.renderer.pending} pending")
+    if set(run["cohorts"]) != set(cohorts):
+        problems.append(f"cohort sizes {sorted(set(run['cohorts']))}, expected {sorted(cohorts)}")
+    missing = [k for k in must_launch if run["launches"].get(k, 0) == 0]
+    if missing:
+        problems.append(f"the service never launched {missing}")
+    low = {sid: e["psnr_rgb"] for sid, e in run["evals"].items()
+           if not e["psnr_rgb"] >= min_psnr}
+    if low:
+        problems.append(f"held-out PSNR under {min_psnr} dB: {low}")
+    return problems
+
+
+def _state_equal(a, b) -> dict:
+    """torch.equal on every leaf of params, both Adam moments and the
+    occupancy EMA; the steps and fold counts equal too."""
+    def same(x, y):
+        return all(torch.equal(u, v) for (_, u), (_, v) in zip(tree_paths(x), tree_paths(y)))
+    return {"params": same(a.params, b.params),
+            "adam_m": same(a.opt_state.m, b.opt_state.m),
+            "adam_v": same(a.opt_state.v, b.opt_state.v),
+            "occupancy_ema": torch.equal(a.occ_state.density_ema, b.occ_state.density_ema),
+            "steps": (a.step, a.occ_state.step, int(a.opt_state.step))
+            == (b.step, b.occ_state.step, int(b.opt_state.step))}
+
+
+def service_identity(device, datasets: list, ckpt_dir: str,
+                     field_cfg: FieldConfig = FieldConfig(),
+                     cfg: TrainerConfig = TrainerConfig(), iters: int = IDENTITY_ITERS,
+                     suspend_at=SUSPEND_AT, fault_at: int = FAULT_AT,
+                     slice_iters: int = SERVICE_SLICE, held_out: int = HELD_OUT) -> dict:
+    """The four bit-identity contracts on `device`, each against plain
+    `train` runs of scenes 0 and 1 (seeds 0 and 1, all but the first
+    `held_out` views):
+
+    * cohort == sequential: `train_cohort` of both scenes;
+    * suspend / resume: a `SceneSession` of scene 0 suspended to disk at
+      each step of `suspend_at` and resumed by a fresh session;
+    * guard rollback: a service whose scene-0 session gets NaN params on
+      the slice starting at `fault_at` ends equal, with one ``rolled_back``;
+    * eval == served: that session's `render_image` on the served
+      quadrature equals the service's answer for the same pose."""
+    views = range(held_out, datasets[0].images.shape[0])
+
+    def fresh(k):
+        tr = Instant3DTrainer(Field(field_cfg), cfg, device=device)
+        return (tr, tr.init(torch.Generator().manual_seed(k)),
+                RaySampler(datasets[k], views=views, device=device))
+
+    seq = []
+    for k in (0, 1):
+        tr, st, sampler = fresh(k)
+        seq.append(tr.train(st, sampler, iters=iters, log_every=iters))
+    trs, sts, samplers = zip(*(fresh(k) for k in (0, 1)))
+    cohort, hists = train_cohort(list(trs), list(sts), list(samplers), iters=iters,
+                                 log_every=1)
+    out = {"iters": iters,
+           "compacted_steps": sum(b is not None for b in hists[0]["budget"]),
+           "folds": hists[0]["occ_folds"],
+           "cohort_vs_sequential": [_state_equal(seq[k][0], cohort[k]) for k in (0, 1)]}
+
+    def session():
+        return SceneSession("scene-000", datasets[0], field_cfg, cfg, iters, seed=0,
+                            ckpt_dir=ckpt_dir, train_views=views, device=device)
+
+    sess = session()
+    sess.start()
+    for at in suspend_at:
+        sess.run_slice(at - sess.step)
+        sess.suspend(block=True)
+        sess = session()
+        sess.resume()
+    sess.run_slice(iters - sess.step)
+    out["suspend_resume"] = {"at": list(suspend_at), **_state_equal(seq[0][0], sess.state)}
+
+    faults.configure(enabled=True)
+    faults.inject("serve3d.slice", "nan_params", session="scene-000", at_step=fault_at)
+    try:
+        svc = ReconstructionService(slice_iters=slice_iters, guard=True, device=device)
+        svc.submit_scene(datasets[0], field_cfg, cfg, target_iters=iters, seed=0,
+                         train_views=views)
+        verdicts = []
+        svc.run(hook=lambda _s, ev: verdicts.extend(ev["guard"].values()))
+        fired = faults.fired_count("nan_params")
+    finally:
+        faults.reset()
+        faults.configure(enabled=False)
+    guarded = svc.sessions["scene-000"]
+    out["guard_rollback"] = {"fired": fired, "rolled_back": verdicts.count("rolled_back"),
+                             "events": svc.guard.session_events("scene-000"),
+                             **_state_equal(seq[0][0], guarded.state)}
+
+    pose = sphere_poses(1, seed=7)[0]
+    rid = svc.request_render("scene-000", pose)
+    served = {r.request_id: r for r in svc.renderer.drain()}[rid]
+    rgb, depth = guarded.trainer.render_image(guarded.state.params, pose, datasets[0],
+                                              occ=guarded._current_occ(),
+                                              samples_per_ray=guarded.render_spr)
+    out["eval_vs_served"] = {"samples_per_ray": guarded.render_spr,
+                             "rgb": bool(np.array_equal(rgb, served.rgb)),
+                             "depth": bool(np.array_equal(depth, served.depth))}
+    return out
+
+
+def identity_holds(ident: dict) -> bool:
+    def ok(d):
+        return all(v for k, v in d.items() if k in ("params", "adam_m", "adam_v",
+                                                     "occupancy_ema", "steps"))
+    return (all(ok(d) for d in ident["cohort_vs_sequential"])
+            and ok(ident["suspend_resume"])
+            and ok(ident["guard_rollback"]) and ident["guard_rollback"]["fired"] == 1
+            and ident["guard_rollback"]["rolled_back"] == 1
+            and ident["eval_vs_served"]["rgb"] and ident["eval_vs_served"]["depth"]
+            and ident["compacted_steps"] > 0 and len(ident["folds"]) >= 2)
+
+
+def _print_service(run: dict, card: str) -> None:
+    tel = run["telemetry"]
+    print(f"service: {len(tel['sessions'])} scenes in {tel['wall_s']:.3f} s, "
+          f"scenes/s {tel['scenes_per_sec']:.4f}, quanta {len(run['cohorts'])}, "
+          f"cohort sizes {dict(sorted(Counter(run['cohorts']).items()))} [{card}]")
+    for p in tel["sessions"]:
+        slices = len(run["service"].sessions[p["session_id"]].telemetry["step"])
+        print(f"  {p['session_id']}: {p['status']} step {p['step']}/{p['target_iters']} "
+              f"loss {p['loss']:.6f} train wall {p['train_wall_s']:.3f} s over {slices} "
+              f"slices ({p['train_wall_s'] / max(slices, 1) * 1e3:.1f} ms a slice) "
+              f"held-out {json.dumps(run['evals'][p['session_id']])} [{card}]")
+    print(f"service telemetry [{card}]: " + json.dumps(
+        {k: v for k, v in tel.items() if k not in ("sessions", "render")}))
+    print(f"service spans (wall ms, count) [{card}]: " + json.dumps(
+        {k: {"ms": round(v["ms"], 3), "count": v["count"]}
+         for k, v in sorted(run["spans"].items())}))
+    print(f"service render latency_stats, the final renders included [{card}]: "
+          f"{json.dumps(run['render'])}")
+    print(f"service-path launches: {json.dumps(run['launches'])}", flush=True)
+
+
 # ---- the script ---------------------------------------------------------------
 
 def _ptxas_summary(logs: dict[str, str]) -> list[str]:
@@ -1312,7 +1570,23 @@ def main() -> int:
         if e["rgb_max_abs_err"] > PATH_RGB_TOL or e["depth_max_abs_err"] > PATH_DEPTH_TOL:
             raise RuntimeError(f"served path disagrees with the plain versions on {sid}: {e}")
 
-    paths = {"train": run["launches"], "train_ngp": ngp["launches"], "serve": serve_launches}
+    # slice 9's main path: the reconstruction service, then its contracts
+    datasets = service_datasets(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        service = service_main_path(device, datasets, f"{tmp}/snapshots")
+        _print_service(service, card)
+        problems = check_service(service)
+        if problems:
+            raise RuntimeError(f"service gate failed: {problems}")
+        t0 = time.perf_counter()
+        ident = service_identity(device, datasets, f"{tmp}/ckpt")
+        print(f"service bit identity ({time.perf_counter() - t0:.2f} s) [{card}]: "
+              f"{json.dumps(ident)}", flush=True)
+        if not identity_holds(ident):
+            raise RuntimeError(f"a bit-identity contract failed: {ident}")
+
+    paths = {"train": run["launches"], "train_ngp": ngp["launches"], "serve": serve_launches,
+             "service": service["launches"]}
     report = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == name]

@@ -6,9 +6,9 @@ redistributed route, at levels 0 and 1; whole images must agree within
 1e-4 on rgb and 5e-4 on depth (depth lies in [2, 6]).  The rest holds the
 port's serving ladder (waiting, deadlines, retry, shedding, staleness,
 levels, telemetry) to the reference's contract, and rehearses the served
-main path of chip_smoke.py at a tiny size, its ray-ordered parity points
-and its training phases (Instant-3D, the split route, the Instant-NGP
-baseline).
+main path of chip_smoke.py at a tiny size, its ray-ordered parity points,
+its training phases (Instant-3D, the split route, the Instant-NGP
+baseline) and its reconstruction-service phase.
 """
 import dataclasses
 
@@ -240,7 +240,7 @@ def test_obs_spans_and_metrics_record_a_drain(snapshot):
     t_metrics.REGISTRY.reset()
 
 
-def test_snapshot_levels_previews_and_copies():
+def test_snapshot_levels_previews_and_copies(tmp_path):
     store = SnapshotStore()
     params = {"w": torch.ones(3), "mlp": {"b": torch.zeros(2)}}
     s1 = store.publish("s", params, step=4, level=2)
@@ -252,8 +252,12 @@ def test_snapshot_levels_previews_and_copies():
     assert store.latest("s") is s2 and store.levels("s") == [0, 2]
     assert store.gc_previews("s") == 1 and store.levels("s") == [0]
     assert store.sessions() == ["s"] and store.latest("nobody") is None
-    with pytest.raises(NotImplementedError):
-        SnapshotStore(persist_dir="snapshots")
+    # persisted: full snapshots only, one checkpoint step each
+    store = SnapshotStore(persist_dir=str(tmp_path))
+    store.publish("s", params, step=4, level=2)
+    store.publish("s", params, step=8, level=0)
+    store.wait()
+    assert sorted(p.name for p in (tmp_path / "s").iterdir()) == ["step_00000008"]
 
 
 def test_preview_request_is_served_from_a_preview(snapshot):
@@ -337,3 +341,35 @@ def test_serving_points_rehearsal():
     world = (o[:, None, :] + ts[..., None] * d[:, None, :]).reshape(-1, 3)
     torch.testing.assert_close(dense, t_rendering.normalize_points(world, T_RCFG),
                                rtol=0, atol=1e-6)
+
+
+def test_chip_smoke_service_phase_rehearsal(tmp_path):
+    """Phase 5 of chip_smoke.py at a tiny size on the CPU: the service with
+    an Instant-NGP scene (alone) and three Instant-3D scenes (one cohort of
+    3) through its gate (no launches counted on the CPU, no PSNR
+    floor at this size), then the four bit-identity contracts over 24
+    steps: folds at 11, 15, 19 and 23, compacted steps 16-19, suspended to
+    disk at 8 and 16, NaN params on the slice starting at 16 rolled back to
+    the last-good tree of step 16."""
+    tcfg = t_trainer.TrainerConfig(
+        n_rays=64, budget_headroom=0.7, min_budget=64, render=T_RCFG,
+        occ=t_occ.OccupancyConfig(resolution=16, warmup_steps=8, update_interval=4))
+    data = dict(n_views=4, h=16, w=16, gt_samples=48)
+    ngp_cfg = dataclasses.replace(T_FCFG, decomposed=False)
+    datasets = smoke.service_datasets("cpu", data)
+    run = smoke.service_main_path("cpu", datasets, str(tmp_path / "snapshots"), tcfg,
+                                  plan=((ngp_cfg, 20),) + ((T_FCFG, 16),) * 3,
+                                  slice_iters=4, render_steps=(8, 12), held_out=1)
+    assert smoke.check_service(run, must_launch=(), min_psnr=-np.inf) == []
+    assert run["expected_renders"] == 12 and sorted(set(run["cohorts"])) == [1, 3]
+    assert run["service"].store.wait() is None
+    assert sorted(p.name for p in (tmp_path / "snapshots").iterdir()) == \
+        [f"scene-{k:03d}" for k in range(4)]
+    # the gate refuses kernels that never launched and a PSNR floor not met
+    assert smoke.check_service(run, min_psnr=np.inf)
+    ident = smoke.service_identity("cpu", datasets, str(tmp_path / "ckpt"), T_FCFG, tcfg,
+                                   iters=24, suspend_at=(8, 16), fault_at=16,
+                                   slice_iters=4, held_out=1)
+    assert ident["folds"] == [11, 15, 19, 23] and ident["compacted_steps"] == 4
+    assert ident["guard_rollback"]["events"][0]["to_step"] == 16
+    assert smoke.identity_holds(ident), ident
