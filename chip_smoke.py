@@ -10,8 +10,10 @@ against its plain PyTorch version at the main paths' shapes, trains
 its Instant-NGP baseline, serves 800x800 novel-view requests through
 ``repro_torch.serve3d.RenderService`` from the trained snapshot, runs the
 multi-scene ``repro_torch.serve3d.ReconstructionService`` on four scenes
-and holds its bit-identity contracts, and prints one JSON line with every
-kernel's report and, last, the device line.  It
+and holds its bit-identity contracts, trains the uniform sampler, stage 2b
+v2 and v3 under a ceiling of 4096 points a step and serves v3 at 800x800,
+and prints one JSON line with every kernel's report and, last, the device
+line.  It
 exits non-zero, with no result, on any failure, and when no CUDA card is
 present.  The phases live in ``src/repro_torch/smoke.py``.
 """

@@ -1,9 +1,10 @@
 """Occupancy grid: empty-space skipping for ray marching (Instant-NGP section 3).
 
-The port of the serving part of `repro.core.occupancy`.  A coarse grid over
-the unit cube whose cell densities are re-queried at jittered cell centers,
-folded into an EMA and thresholded into the bitfield the pipeline's cull
-stage reads.  A published snapshot carries the EMA and its fold count.
+The port of `repro.core.occupancy`.  A coarse grid over the unit cube whose
+cell densities are re-queried at jittered cell centers, folded into an EMA
+and thresholded into the bitfield the pipeline's cull stage reads.  A
+published snapshot carries the EMA and its fold count.  Stage 2b v3 reads
+the EMA itself per point (`point_density`) to weight its strata.
 """
 from __future__ import annotations
 
@@ -74,11 +75,51 @@ def bitfield(state: OccupancyState, cfg: OccupancyConfig) -> torch.Tensor:
     return state.density_ema > cfg.density_threshold
 
 
+def _cell_flat(points_unit: torch.Tensor, resolution: int) -> torch.Tensor:
+    """Each point's cell in the x-major flattening (x*R*R + y*R + z)."""
+    r = resolution
+    cell = torch.clamp((points_unit * r).to(torch.int64), 0, r - 1)
+    return cell[..., 0] * r * r + cell[..., 1] * r + cell[..., 2]
+
+
 def point_liveness(bits: torch.Tensor, points_unit: torch.Tensor,
                    resolution: int) -> torch.Tensor:
     """Per-point occupancy lookup: bits (R^3,) bool, points (..., 3) in
     [0, 1) -> bool with the leading shape (x-major flattening)."""
-    r = resolution
-    cell = torch.clamp((points_unit * r).to(torch.int64), 0, r - 1)
-    flat = cell[..., 0] * r * r + cell[..., 1] * r + cell[..., 2]
-    return bits[flat]
+    return bits[_cell_flat(points_unit, resolution)]
+
+
+def ray_segment_mask(bits: torch.Tensor, unit_midpoints: torch.Tensor,
+                     resolution: int) -> torch.Tensor:
+    """Per-ray live-bin mask (B, M) bool for probe midpoints (B, M, 3): the
+    binary placement density stage 2b v2 inverts."""
+    return point_liveness(bits, unit_midpoints, resolution)
+
+
+def point_density(ema: torch.Tensor, points_unit: torch.Tensor,
+                  resolution: int) -> torch.Tensor:
+    """Per-point occupancy-EMA gather, the float twin of `point_liveness`:
+    ema (R^3,) f32, points (..., 3) -> f32 with the leading shape."""
+    return ema[_cell_flat(points_unit, resolution)]
+
+
+def ray_segment_mass(ema: torch.Tensor, unit_midpoints: torch.Tensor,
+                     resolution: int, threshold: float) -> torch.Tensor:
+    """EMA-weighted live mass per probe bin: the cell's EMA where it exceeds
+    `threshold`, else 0.  `> 0` of it is `ray_segment_mask` of the bitfield
+    `ema > threshold`."""
+    d = point_density(ema, unit_midpoints, resolution)
+    return torch.where(d > threshold, d, torch.zeros_like(d))
+
+
+def occupied_mask_fn(state: OccupancyState, cfg: OccupancyConfig):
+    """The cull stage as a closure over the state's bitfield, for
+    `rendering.render_rays`."""
+    bits = bitfield(state, cfg)
+    return lambda points_unit: point_liveness(bits, points_unit, cfg.resolution)
+
+
+def occupancy_fraction(state: OccupancyState, cfg: OccupancyConfig) -> torch.Tensor:
+    """Fraction of cells above threshold (the cell-level sparsity, not the
+    pipeline's per-sample live fraction)."""
+    return torch.mean((state.density_ema > cfg.density_threshold).to(torch.float32))

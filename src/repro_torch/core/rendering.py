@@ -116,3 +116,15 @@ def normalize_points(points: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
 
 def inside_aabb(points: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
     return torch.all((points >= cfg.aabb_min) & (points <= cfg.aabb_max), dim=-1)
+
+
+def render_rays(field, params: dict, origins: torch.Tensor, dirs: torch.Tensor,
+                ts: torch.Tensor, cfg: RenderConfig, occupancy_mask_fn=None) -> dict:
+    """Differentiable dense render, origins / dirs (B, 3), ts (B, S) -> the
+    pipeline's output dict: every point queried, culled sigmas zeroed.
+    occupancy_mask_fn: optional (points_unit (N, 3) -> bool (N,)) cull hook,
+    e.g. `occupancy.occupied_mask_fn`.  A wrapper over `RenderPipeline`,
+    which with a point budget skips the culled queries instead."""
+    from .pipeline import RenderPipeline  # the pipeline imports this module
+
+    return RenderPipeline(field, cfg)(params, origins, dirs, ts, mask_fn=occupancy_mask_fn)

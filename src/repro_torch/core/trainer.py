@@ -68,21 +68,27 @@ def make_render_chunk(field_cfg, render_cfg: rendering.RenderConfig):
 
 
 def make_redistributed_render_chunk(field_cfg, render_cfg: rendering.RenderConfig,
-                                    occ_cfg: occupancy.OccupancyConfig, budget: int):
+                                    occ_cfg: occupancy.OccupancyConfig, budget: int,
+                                    redistribute_v3: bool = False):
     """Occupancy-redistributed chunk renderer (pipeline stage 2b) built from
     configs: (params, origins (N, 3), dirs (N, 3), ts (N, S), occ_ema (R^3,),
     occ_step) -> (rgb, depth).  The snapshot's EMA rebuilds the bitfield;
     the dense candidates' liveness is each ray's probe, and S' = budget // N
     samples per ray are shaded.  While occ_step == 0 the bitfield reads
-    all-occupied and this is a uniform S'-sample render."""
+    all-occupied and this is a uniform S'-sample render.  With
+    redistribute_v3 the budget is spent unevenly across the chunk's rays
+    (stage 2b v3), the EMA weighting each ray's placement, as a v3 trainer
+    trains."""
     # the fused path stays off for renders, as in the reference: its point
     # is the backward
     pipeline = RenderPipeline(field_lib.Field(field_cfg), render_cfg,
-                              fused_path=False, redistribute=True)
+                              fused_path=False, redistribute=True,
+                              redistribute_v3=bool(redistribute_v3))
 
     def render_chunk(params, origins, dirs, ts, occ_ema, occ_step):
         bits = occupancy.bitfield(occupancy.OccupancyState(occ_ema, occ_step), occ_cfg)
-        out = pipeline(params, origins, dirs, ts, bitfield=bits, budget=int(budget))
+        out = pipeline(params, origins, dirs, ts, bitfield=bits, budget=int(budget),
+                       occ_ema=occ_ema)
         return out["rgb"], out["depth"]
 
     return render_chunk
@@ -110,12 +116,15 @@ def batched_render_fn(field_cfg, render_cfg: rendering.RenderConfig):
 
 
 def batched_redistributed_render_fn(field_cfg, render_cfg: rendering.RenderConfig,
-                                    occ_cfg, chunk: int, samples_per_ray: int):
+                                    occ_cfg, chunk: int, samples_per_ray: int,
+                                    redistribute_v3: bool = False):
     """Redistributed flavor of `batched_render_fn`, shading chunk *
     samples_per_ray points per member: adds per-member occupancy inputs
-    (occ_ema list of G (R^3,) tensors, occ_step list of G ints)."""
+    (occ_ema list of G (R^3,) tensors, occ_step list of G ints).
+    redistribute_v3: stage 2b v3 (`make_redistributed_render_chunk`)."""
     render = make_redistributed_render_chunk(
-        field_cfg, render_cfg, occ_cfg, int(chunk) * int(samples_per_ray))
+        field_cfg, render_cfg, occ_cfg, int(chunk) * int(samples_per_ray),
+        redistribute_v3=redistribute_v3)
 
     def fn(params, origins, dirs, ts, occ_ema, occ_step):
         outs = [render(p, origins[g], dirs[g], ts, occ_ema[g], occ_step[g])
@@ -173,11 +182,42 @@ class TrainerConfig:
     # baseline answers it with query_fused)
     fused_path: bool = True
     fused_step: bool = True
-    # stage 2b v2 (uniform S' per ray); v3 is not ported
+    # stage 2b: v2 (uniform S' = budget // B per ray) or v3 (per-ray S'_i
+    # from the batch's EMA-weighted live masses, sum(S'_i) <= budget, zero
+    # overflow); v3 takes over when both are set
     redistribute: bool = False
     redistribute_v3: bool = False
     # hard per-step point ceiling
     max_budget: int | None = None
+
+
+def autotune_max_budget(field_cfg, render_cfg: rendering.RenderConfig, *,
+                        memory_bytes: int | None = None, latency_ms: float | None = None,
+                        us_per_point: float | None = None, mlp_width: int = 64,
+                        min_budget: int = 512) -> int | None:
+    """A `TrainerConfig.max_budget` ceiling from device constraints: the
+    smaller of `memory_bytes` over a modelled per-point footprint (per grid
+    L*F*4 B of features and L*8*4 B of corner indices, point / dir / sigma /
+    rgb lanes, two MLP activation slabs) and `latency_ms` over a measured
+    `us_per_point`, floored at `min_budget` and rounded down to a power of
+    two; None when neither constraint is given."""
+    caps = []
+    if memory_bytes is not None:
+        n_grids = 2 if getattr(field_cfg, "decomposed", True) else 1
+        feat = field_cfg.n_levels * field_cfg.n_features * 4 * n_grids
+        corners = field_cfg.n_levels * 8 * 4 * n_grids
+        lanes = (3 + 3 + 1 + 3) * 4
+        acts = 2 * mlp_width * 4
+        caps.append(int(memory_bytes) // (feat + corners + lanes + acts))
+    if latency_ms is not None and us_per_point:
+        caps.append(int(float(latency_ms) * 1e3 / float(us_per_point)))
+    if not caps:
+        return None
+    cap = max(min(caps), int(min_budget))
+    b = 1
+    while b * 2 <= cap:
+        b *= 2
+    return b
 
 
 def _leaves(tree):
@@ -254,15 +294,14 @@ def default_draws(cfg: TrainerConfig, n_pool: int) -> Callable:
 
 class Instant3DTrainer:
     def __init__(self, field: field_lib.Field, cfg: TrainerConfig, device="cuda"):
-        if cfg.redistribute_v3:
-            raise NotImplementedError("redistribute_v3 (stage 2b v3) is not ported yet")
         self.field = field
         self.cfg = cfg
         self.device = torch.device(device)
         self.opt = _make_opt(cfg)
         self.pipeline = RenderPipeline(field, cfg.render, fused_path=cfg.fused_path,
                                        fused_step=cfg.fused_step,
-                                       redistribute=cfg.redistribute)
+                                       redistribute=cfg.redistribute,
+                                       redistribute_v3=cfg.redistribute_v3)
         # host-side live-fraction estimate driving the compaction budget;
         # 1.0 (dense) until the first fold measures it
         self._live_frac = 1.0
@@ -302,7 +341,9 @@ class Instant3DTrainer:
             # all-occupied until the first fold: the zero-init EMA is exactly
             # zero until then (trunc_exp densities are positive afterwards)
             bits = (occ_ema > self.cfg.occ.density_threshold) | (torch.amax(occ_ema) <= 0.0)
-        out = self.pipeline(p_in, batch.origins, batch.dirs, ts, bitfield=bits, budget=budget)
+        # the EMA only weighs stage 2b v3's strata
+        out = self.pipeline(p_in, batch.origins, batch.dirs, ts, bitfield=bits, budget=budget,
+                            occ_ema=occ_ema if use_bits else None)
         loss = losses.mse(out["rgb"], batch.rgb_gt)
         wanted = [(path, t) for path, t in leaves if t.requires_grad]
         got = torch.autograd.grad(loss, [t for _, t in wanted], allow_unused=True)
@@ -406,7 +447,8 @@ class Instant3DTrainer:
                      samples_per_ray: int | None = None):
         """Render one full view -> (rgb (H, W, 3), depth (H, W)) numpy.  Dense
         by default; with `occ` (the (density EMA, fold count) pair a snapshot
-        carries) through the redistributed renderer, as served.  `params`
+        carries) through the redistributed renderer (stage 2b v3 when
+        `cfg.redistribute_v3`), as served.  `params`
         and the EMA may be host copies (a snapshot's, a suspended tree's):
         they are moved to the trainer's device."""
         cfg = self.cfg
@@ -420,7 +462,7 @@ class Instant3DTrainer:
             spr = (int(samples_per_ray) if samples_per_ray is not None
                    else default_samples_per_ray(cfg.render.n_samples))
             render = make_redistributed_render_chunk(self.field.cfg, cfg.render, cfg.occ,
-                                                     chunk * spr)
+                                                     chunk * spr, cfg.redistribute_v3)
             fn = lambda oo, dd: render(params, oo, dd, ts, occ[0], occ[1])  # noqa: E731
         else:
             render = make_render_chunk(self.field.cfg, cfg.render)

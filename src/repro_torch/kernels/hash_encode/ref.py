@@ -65,17 +65,21 @@ def corner_index(coords: torch.Tensor, resolution: int, table_size: int,
     return spatial_hash(ix, iy, iz, table_size)
 
 
+def corner_offsets(device) -> torch.Tensor:
+    """The 8 corner offsets (8, 3) int64, ordered 000, 001, ..., 111: bit k
+    of the corner id c = z<<2 | y<<1 | x selects dimension k's +1 offset.
+    Made on `device`: a host-to-device copy would synchronise the stream."""
+    cid = torch.arange(8, device=device)
+    return torch.stack([cid & 1, (cid >> 1) & 1, (cid >> 2) & 1], dim=-1)
+
+
 def level_corners(points: torch.Tensor, resolution: int):
     """Corner int64 coords (N, 8, 3) and trilinear weights (N, 8) f32 for one
     level; the weight of a corner is (w_x * w_y) * w_z."""
     scaled = points.to(torch.float32) * resolution
     base = torch.floor(scaled)
     frac = scaled - base
-    # the 8 corner offsets, ordered 000, 001, ..., 111: bit k of the corner
-    # id c = z<<2 | y<<1 | x selects dimension k's +1 offset.  Made on the
-    # points' device: a host-to-device copy would synchronise the stream.
-    cid = torch.arange(8, device=points.device)
-    offs = torch.stack([cid & 1, (cid >> 1) & 1, (cid >> 2) & 1], dim=-1)
+    offs = corner_offsets(points.device)
     corners = base.to(torch.int64)[:, None, :] + offs[None, :, :]
     w = torch.where(offs[None, :, :] > 0, frac[:, None, :], 1.0 - frac[:, None, :])
     return corners, (w[..., 0] * w[..., 1]) * w[..., 2]

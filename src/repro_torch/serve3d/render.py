@@ -14,8 +14,10 @@ compiled batch shapes to bucket, so groups are not padded.
 
 Serving paths: a session registered with ``samples_per_ray`` renders
 through pipeline stage 2b (the snapshot's occupancy EMA rebuilds the
-bitfield, S' samples per ray are shaded); ``None`` serves dense, which is
-also the fallback for snapshots without occupancy.
+bitfield, S' samples per ray are shaded; with ``redistribute_v3`` the
+chunk's budget is spread over its rays by their EMA-weighted live masses);
+``None`` serves dense, which is also the fallback for snapshots without
+occupancy.
 
 Levels: level 0 renders full resolution from a full snapshot; level k > 0
 renders at h>>k and is answerable by a preview snapshot.
@@ -38,9 +40,8 @@ Degradation ladder:
 
 Fault site ``serve3d.render_group`` (kind ``render_fail``,
 `repro_torch.testing.faults`) raises inside a group's render, which the
-retry rung then handles.  Device placement across cards, the async
-serving thread and stage 2b v3 serving (``redistribute_v3``) are not
-ported yet.
+retry rung then handles.  Device placement across cards and the async
+serving thread are not ported yet.
 """
 from __future__ import annotations
 
@@ -71,6 +72,7 @@ class _SessionGeom:
     eval_chunk: int
     occ_cfg: Any = None                 # OccupancyConfig for the bitfield
     samples_per_ray: int | None = None  # None => dense serving
+    redistribute_v3: bool = False       # stage 2b v3 on the redistributed path
 
 
 @dataclass
@@ -153,16 +155,16 @@ class RenderService:
                          redistribute_v3: bool = False):
         """samples_per_ray: serve through the redistributed path at that
         per-ray budget (needs occ_cfg to threshold the snapshot's EMA);
-        None serves dense.  redistribute_v3 (stage 2b v3) is not ported
-        yet and raises."""
-        if redistribute_v3:
-            raise NotImplementedError("redistribute_v3 (stage 2b v3) is not ported yet")
+        None serves dense.  redistribute_v3: spend that budget
+        density-weighted and unevenly across each chunk's rays (stage 2b
+        v3), as a v3 trainer trains."""
         if samples_per_ray is not None and occ_cfg is None:
             raise ValueError("samples_per_ray needs occ_cfg for the bitfield")
         self._geom[session_id] = _SessionGeom(
             field_cfg, render_cfg, int(h), int(w), float(focal), int(eval_chunk),
             occ_cfg=occ_cfg,
             samples_per_ray=None if samples_per_ray is None else int(samples_per_ray),
+            redistribute_v3=bool(redistribute_v3),
         )
         self._registered_at.setdefault(session_id, obs_trace.clock())
 
@@ -254,7 +256,7 @@ class RenderService:
             if shed and spr is not None:
                 spr = max(2, spr // 2)
             key = (g.field_cfg, g.render_cfg, g.h, g.w, g.focal, g.eval_chunk,
-                   g.occ_cfg, spr, req.level)
+                   g.occ_cfg, spr, g.redistribute_v3, req.level)
             groups.setdefault(key, []).append((req, snap))
 
         for key, items in groups.items():
@@ -291,17 +293,19 @@ class RenderService:
         return cached[1], cached[2]
 
     def _render_group(self, field_cfg, render_cfg, h, w, focal, eval_chunk,
-                      occ_cfg, samples_per_ray, level, items) -> list[RenderResult]:
+                      occ_cfg, samples_per_ray, redistribute_v3, level,
+                      items) -> list[RenderResult]:
         with obs_trace.span("serve3d/render_group", cat="serve3d",
                             args={"group": len(items),
                                   "redistribute": samples_per_ray is not None,
+                                  "v3": bool(redistribute_v3),
                                   "level": int(level)}):
             return self._render_group_inner(field_cfg, render_cfg, h, w, focal,
                                             eval_chunk, occ_cfg, samples_per_ray,
-                                            level, items)
+                                            redistribute_v3, level, items)
 
     def _render_group_inner(self, field_cfg, render_cfg, h, w, focal, eval_chunk,
-                            occ_cfg, samples_per_ray, level,
+                            occ_cfg, samples_per_ray, redistribute_v3, level,
                             items) -> list[RenderResult]:
         inj = faults.check("serve3d.render_group", session=items[0][0].session_id)
         if inj is not None and inj.kind == "render_fail":
@@ -328,7 +332,8 @@ class RenderService:
             occ_ema = [occ for _p, occ in resident]
             occ_step = [int(snap.occ[1]) for _req, snap in items]
             fn_r = batched_redistributed_render_fn(field_cfg, render_cfg, occ_cfg,
-                                                   chunk, samples_per_ray)
+                                                   chunk, samples_per_ray,
+                                                   redistribute_v3=redistribute_v3)
 
             def fn(p, o, d, t):
                 return fn_r(p, o, d, t, occ_ema, occ_step)

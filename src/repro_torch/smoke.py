@@ -60,8 +60,23 @@ card and fails on anything wrong -- there is no CPU fallback.
    Adam moments and the occupancy EMA: cohort == sequential, suspend /
    resume through disk, guard rollback of a NaN-params fault, eval ==
    served;
-6. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
-   summed over the four main paths, and per path) and, last, the device
+6. stage 2b v3 (slice 10's main path): `TrainerConfig()` at
+   `FieldConfig()` under a ceiling of 4096 points a step (1/12 of 1024 x
+   48), trained 400 steps with the uniform sampler, v2 and v3, counters
+   zeroed around the v3 run (``train_v3``); v3 must not overflow, no step
+   with a budget may query more than the ceiling and its held-out PSNR
+   must reach 20 dB (the three runs' PSNR is reported, not gated); two
+   short v3 runs byte-identical; v3's plan of a step on the card against
+   the CPU (rays whose S'_i differ, the budget held, the same bytes twice);
+   #4 forward and backward on the ragged training lane grids (budget 4096
+   and 8192), #5 and #6 on the step's Morton-packed points at 4096, #4 on
+   the served chunk's 4096 x 48 lanes and #1 on its 49,152 compacted
+   points; a v3 session serving two 800x800 views (``serve_v3``), its
+   `render_image` the served bytes; 32 steps of its compacted points
+   through `EncodingReuseCache`, every cached encode the plain hash encode
+   bit for bit;
+7. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
+   summed over the six main paths, and per path) and, last, the device
    line.
 """
 from __future__ import annotations
@@ -84,7 +99,7 @@ from .core import occupancy
 from .core.field import Field, FieldConfig
 from .core.pipeline import RenderPipeline
 from .core.rendering import RenderConfig, sample_ts, sphere_poses
-from .core.trainer import (Instant3DTrainer, TrainerConfig, default_draws,
+from .core.trainer import (Instant3DTrainer, TrainerConfig, _branch_update, default_draws,
                            default_samples_per_ray, image_rays, train_cohort)
 from .data.rays_dataset import RaySampler
 from .data.synthetic_scene import build_dataset
@@ -92,6 +107,7 @@ from .kernels.fused_mlp import kernel as mlp_kernel
 from .kernels.fused_mlp import ref as mlp_ref
 from .kernels.fused_path import kernel as fp_kernel
 from .kernels.fused_path import ref as fp_ref
+from .kernels.fused_path.reuse import EncodingReuseCache
 from .kernels.fused_step import kernel as fs_kernel
 from .kernels.fused_step import ops as fs_ops
 from .kernels.fused_step import ref as fs_ref
@@ -257,6 +273,20 @@ SERVICE_COHORTS = {3, 1}
 IDENTITY_ITERS = 112
 SUSPEND_AT = (48, 96)
 FAULT_AT = 80
+
+# Stage 2b v3 (this slice's main path) under a hard point ceiling:
+# TrainerConfig() with max_budget=4096, 1/12 of 1024 rays x 48 candidates
+# (the ceiling of the reference's sampler benchmark, 1024 of 512 x 24),
+# trained with the uniform sampler, v2 and v3, 400 steps each on
+# build_dataset(0) with 4 views held out; v3 served at 800x800 (12 samples
+# a ray: a chunk's budget 4096 x 12 = 49,152 points over a 4096 x 48 lane
+# grid) and its encodings replayed through the reuse cache over 32 steps.
+# #4 also runs on the training lane grid at budget 8192 (s_cap 32).
+V3_MAX_BUDGET = 4096
+SAMPLERS = {"uniform": {}, "v2": {"redistribute": True}, "v3": {"redistribute_v3": True}}
+V3_LANE_BUDGETS = (V3_MAX_BUDGET, 2 * V3_MAX_BUDGET)
+V3_SERVE_REQUESTS = 2
+REUSE_STEPS = 32
 
 # whole-image agreement of the card's path with the plain versions on the
 # CPU (the CPU tests' slice-level tolerance against JAX): rgb in [0, 1],
@@ -452,10 +482,11 @@ def composite_inputs(gen, r, s, device):
     return sigma, rgb, deltas, ts
 
 
-def _composite_case(gen, device, r, s, label):
-    """Kernel #4 against the plain composite; the same bytes on two
-    launches."""
-    inputs = composite_inputs(gen, r, s, device)
+def _composite_case(gen, device, r, s, label, inputs=None):
+    """Kernel #4 against the plain composite on `inputs` (`composite_inputs`
+    when None); the same bytes on two launches."""
+    if inputs is None:
+        inputs = composite_inputs(gen, r, s, device)
     run = lambda: vr_kernel.composite(*inputs)  # noqa: E731
     got = run()
     want = vr_ref.composite(*inputs)
@@ -470,13 +501,15 @@ def _composite_case(gen, device, r, s, label):
     }
 
 
-def _composite_bwd_case(gen, device, r, s, label, needs=TRAIN_COMPOSITE_NEEDS):
+def _composite_bwd_case(gen, device, r, s, label, needs=TRAIN_COMPOSITE_NEEDS, inputs=None):
     """The composite's backward kernel for the gradients `needs` asks (the
     training path's by default) against the plain autograd of the
     composite and against the plain closed form (`ref.composite_backward`),
-    relative; the same bytes on two launches.  The plain time is the
-    autograd's backward alone, its graph kept."""
-    inputs = composite_inputs(gen, r, s, device)
+    relative, on `inputs` (`composite_inputs` when None); the same bytes on
+    two launches.  The plain time is the autograd's backward alone, its
+    graph kept."""
+    if inputs is None:
+        inputs = composite_inputs(gen, r, s, device)
     grads = (_uniform(gen, (r, 3), -1.0, 1.0, device), _uniform(gen, (r,), -1.0, 1.0, device),
              _uniform(gen, (r,), -1.0, 1.0, device))
     run = lambda: vr_kernel.composite_backward(*inputs, *grads, needs=needs)  # noqa: E731
@@ -502,12 +535,16 @@ def _composite_bwd_case(gen, device, r, s, label, needs=TRAIN_COMPOSITE_NEEDS):
     }
 
 
-def _fused_step_inputs(gen, device, n: int, field: Field):
-    """Morton-sorted points, SH of random unit dirs, tables U(-1, 1) and the
-    field's MLPs (He-uniform weights, biases U(-0.1, 0.1)) at its widths."""
+def _fused_step_inputs(gen, device, n: int, field: Field, points=None):
+    """Morton-sorted points (`points` as given, when given: a compacted
+    step's), SH of random unit dirs, tables U(-1, 1) and the field's MLPs
+    (He-uniform weights, biases U(-0.1, 0.1)) at its widths."""
     cfg = field.cfg
-    pts = _uniform(gen, (n, 3), 0.0, 1.0 - 1e-6, device)
-    pts = pts[torch.sort(fp_ref.morton_key(pts), stable=True).indices].contiguous()
+    if points is None:
+        pts = _uniform(gen, (n, 3), 0.0, 1.0 - 1e-6, device)
+        pts = pts[torch.sort(fp_ref.morton_key(pts), stable=True).indices].contiguous()
+    else:
+        pts = points.clone().contiguous()
     dirs = _uniform(gen, (n, 3), -1.0, 1.0, device)
     dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
     sh = enc.sh_encoding(dirs, cfg.sh_degree).contiguous()
@@ -544,12 +581,12 @@ def _fused_counts(pts, tables, mlp_d, mlp_c, geometry):
     return n_bytes, 2 * n * levels * (25 + 16 * f), n * macs
 
 
-def _fused_step_fwd_case(gen, device, n: int, field: Field, label: str):
+def _fused_step_fwd_case(gen, device, n: int, field: Field, label: str, points=None):
     """Kernel #5 against the plain step on Morton-sorted points, the last 4
     rows sentinels; the same bytes on two launches.  Its bound counts the
     heads' layer products at the tensor cores' split-TF32 rate, the encode
     in f32."""
-    pts, sh, tables, mlp_d, mlp_c, geometry = _fused_step_inputs(gen, device, n, field)
+    pts, sh, tables, mlp_d, mlp_c, geometry = _fused_step_inputs(gen, device, n, field, points)
     pts[-4:] = -1.0                                     # sentinel rows
     run = lambda: fs_kernel.fused_step_fwd(pts, sh, *tables, mlp_d, mlp_c,  # noqa: E731
                                            *geometry)
@@ -575,13 +612,13 @@ def _fused_step_fwd_case(gen, device, n: int, field: Field, label: str):
 
 
 def _fused_step_bwd_case(gen, device, n: int, field: Field, label: str,
-                         need_color: bool = True):
+                         need_color: bool = True, points=None):
     """The backward kernel against the plain backward run on CPU copies (the
     exact stream-order reference); the plain time is the plain backward on
     the card, whose table commits go through bum_scatter.  need_color=False
     is a step with the color grid frozen: no color stream, no color table
     gradient."""
-    pts, sh, tables, mlp_d, mlp_c, geometry = _fused_step_inputs(gen, device, n, field)
+    pts, sh, tables, mlp_d, mlp_c, geometry = _fused_step_inputs(gen, device, n, field, points)
     g_d = _uniform(gen, (n, mlp_d["w2"].shape[1]), -1.0, 1.0, device)
     g_c = _uniform(gen, (n, mlp_c["w3"].shape[1]), -1.0, 1.0, device)
     needs = (True, need_color)
@@ -1404,6 +1441,313 @@ def _print_service(run: dict, card: str) -> None:
     print(f"service-path launches: {json.dumps(run['launches'])}", flush=True)
 
 
+# ---- phase 6: stage 2b v3 under a hard point ceiling ---------------------------
+
+def sampler_cfg(name: str, max_budget: int = V3_MAX_BUDGET,
+                base: TrainerConfig = TrainerConfig()) -> TrainerConfig:
+    return dataclasses.replace(base, max_budget=max_budget, **SAMPLERS[name])
+
+
+def sampler_runs(device, field_cfg: FieldConfig = FieldConfig(),
+                 base: TrainerConfig = TrainerConfig(), max_budget: int = V3_MAX_BUDGET,
+                 dataset: dict | None = None, held_out: int = HELD_OUT,
+                 names=tuple(SAMPLERS)) -> dict:
+    """One `train_main_path` run per sampler of `names` under the ceiling."""
+    return {name: train_main_path(device, field_cfg, sampler_cfg(name, max_budget, base),
+                                  dataset, held_out) for name in names}
+
+
+def check_v3_run(run: dict, max_budget: int = V3_MAX_BUDGET, kernels_of_path=TRAIN_KERNELS,
+                 min_psnr: float = MIN_PSNR_DB) -> list[str]:
+    """`check_training`'s gate, and: no step overflowed, and no step with a
+    budget (every step once the bitfield is live) queried more than the
+    ceiling."""
+    problems = check_training(run, kernels_of_path, min_psnr)
+    hist = run["hist"]
+    if hist["overflow_total"] != 0 or any(hist["overflow"]):
+        problems.append(f"v3 overflowed: {hist['overflow_total']} points")
+    over = [(st, p) for st, p, b in zip(hist["step"], hist["points_queried"], hist["budget"])
+            if b is not None and p > max_budget]
+    if over:
+        problems.append(f"steps over the ceiling of {max_budget}: {over[:5]}")
+    return problems
+
+
+def v3_step(pipe: RenderPipeline, origins, dirs, ts, bits, ema, resolution: int,
+            budget: int) -> dict:
+    """Stages 1 -> 2 -> 2b v3 -> 3 of one ray batch: the candidates' ts,
+    liveness and EMA values, the ragged lane grid (ts, deltas, valid) and
+    the compacted points (budget, 3), Morton-packed, with their keep mask."""
+    b, s = ts.shape
+    flat_pts, _, unit = pipe.generate_samples(origins, dirs, ts)
+    live = pipe.cull(flat_pts, unit, bitfield=bits).reshape(b, s)
+    ema_vals = occupancy.point_density(ema, unit, resolution).reshape(b, s)
+    lanes, deltas, valid = pipe.redistribute_v3(ts, live, ema_vals, budget)
+    flat2, _, unit2 = pipe.generate_samples(origins, dirs, lanes)
+    live2 = valid.reshape(-1) & pipe.cull(flat2, unit2, bitfield=bits)
+    plan = pipe.compact(live2, min(budget, live2.numel()), unit2)
+    return {"ts": ts, "live": live, "ema_vals": ema_vals, "lanes": lanes.contiguous(),
+            "deltas": deltas.contiguous(), "valid": valid,
+            "points": unit2[plan.idx].contiguous(), "keep": plan.keep,
+            "n_live": int(plan.n_live), "overflow": int(plan.overflow)}
+
+
+def v3_train_step(device, run: dict, budget: int, held_out: int = HELD_OUT) -> dict:
+    """`v3_step` of the trained run's next batch (the draws of its next step)
+    on its occupancy, at `budget`."""
+    tr, state, ds = run["trainer"], run["state"], run["ds"]
+    cfg = tr.cfg
+    sampler = RaySampler(ds, views=range(held_out, ds.images.shape[0]), device=device)
+    ray_idx, u_ts, _ = default_draws(cfg, sampler.n)(state.step)
+    batch = sampler.gather(ray_idx)
+    ts = sample_ts(None, cfg.n_rays, cfg.render, device, u=u_ts)
+    return v3_step(tr.pipeline, batch.origins, batch.dirs, ts,
+                   occupancy.bitfield(state.occ_state, cfg.occ),
+                   state.occ_state.density_ema, cfg.occ.resolution, budget)
+
+
+def v3_serve_step(device, run: dict, hw: int = IMAGE_HW, chunk: int = EVAL_CHUNK) -> dict:
+    """`v3_step` of the served chunk holding the centre of the first served
+    view, on the trained occupancy, at the chunk's budget chunk x S'."""
+    tr, state = run["trainer"], run["state"]
+    cfg = tr.cfg
+    pose = sphere_poses(1, seed=0)[0]
+    origins, dirs, n, chunk = image_rays(pose, hw, hw, focal_for(hw), chunk, device=device)
+    first = (n // 2) // chunk * chunk
+    return v3_step(tr.pipeline, origins[first:first + chunk], dirs[first:first + chunk],
+                   sample_ts(None, chunk, cfg.render, device),
+                   occupancy.bitfield(state.occ_state, cfg.occ), state.occ_state.density_ema,
+                   cfg.occ.resolution, chunk * default_samples_per_ray(cfg.render.n_samples))
+
+
+def v3_random_step(device, seed: int, budget: int, n_rays: int = TRAIN_RAYS,
+                   render_cfg: RenderConfig = RenderConfig(),
+                   occ_cfg: occupancy.OccupancyConfig = occupancy.OccupancyConfig()) -> dict:
+    """`v3_step` without a trained state: the rays of a square view of
+    n_rays pixels (the first served pose), stratified candidates and an
+    occupancy EMA drawn from `seed` (about a third of the cells above the
+    threshold), at `budget`."""
+    gen = torch.Generator().manual_seed(seed)
+    side = int(round(n_rays ** 0.5))
+    origins, dirs, n, _ = image_rays(sphere_poses(1, seed=0)[0], side, side, focal_for(side),
+                                     n_rays, device=device)
+    u = torch.rand((n, render_cfg.n_samples), generator=gen).to(device)
+    ts = sample_ts(None, n, render_cfg, device, u=u)
+    ema = (torch.rand((occ_cfg.resolution ** 3,), generator=gen) ** 4 * 0.6).to(device)
+    bits = occupancy.bitfield(occupancy.OccupancyState(ema, 1), occ_cfg)
+    pipe = RenderPipeline(None, render_cfg, redistribute_v3=True)
+    return v3_step(pipe, origins, dirs, ts, bits, ema, occ_cfg.resolution, budget)
+
+
+def ragged_composite_inputs(gen, step: dict, device):
+    """sigma U(0, 20) and rgb U(0, 1) on a v3 lane grid's valid lanes, 0 on
+    the invalid ones (the scatter leaves them 0), with its deltas (0 on
+    invalid lanes) and ts (far there)."""
+    r, s = step["lanes"].shape
+    valid = step["valid"].to(torch.float32)
+    sigma = _uniform(gen, (r, s), 0.0, 20.0, device) * valid
+    rgb = _uniform(gen, (r, s, 3), 0.0, 1.0, device) * valid[..., None]
+    return sigma, rgb, step["deltas"], step["lanes"]
+
+
+def v3_parity(device, train_steps: dict, serve_step: dict,
+              field_cfg: FieldConfig = FieldConfig(), seed: int = 0) -> list[dict]:
+    """The kernels at the shapes stage 2b v3 gives them: #4 forward and
+    backward on each training lane grid (budget -> `v3_train_step`), #5 and
+    #6 (both grids, and the color grid frozen) on the compacted points of
+    the step at the ceiling, #4 on the served chunk's lane grid and #1 on
+    its compacted points."""
+    gen = torch.Generator().manual_seed(seed + 5)
+    field = Field(field_cfg)
+    cases = []
+    for budget, step in train_steps.items():
+        r, s_cap = step["lanes"].shape
+        label = f"v3 training lanes {r} x {s_cap}"
+        inputs = ragged_composite_inputs(gen, step, device)
+        cases.append(_composite_case(gen, device, r, s_cap, label, inputs=inputs))
+        cases.append(_composite_bwd_case(gen, device, r, s_cap, label, inputs=inputs))
+    pts = train_steps[V3_MAX_BUDGET]["points"]
+    n = pts.shape[0]
+    label = f"v3 budget {n}, ragged lanes"
+    cases += [_fused_step_fwd_case(gen, device, n, field, label, points=pts),
+              _fused_step_bwd_case(gen, device, n, field, label, points=pts),
+              _fused_step_bwd_case(gen, device, n, field, f"{label}, color frozen",
+                                   need_color=False, points=pts)]
+    r, s_cap = serve_step["lanes"].shape
+    cases.append(_composite_case(gen, device, r, s_cap, f"v3 serving lanes {r} x {s_cap}",
+                                 inputs=ragged_composite_inputs(gen, serve_step, device)))
+    pts = serve_step["points"]
+    for name, e in (("density", field.density_enc), ("color", field.color_enc)):
+        cases.append(_hash_encode_case(gen, device, pts.shape[0], e,
+                                       f"{name} grid, v3 served {pts.shape[0]}", points=pts))
+    return cases
+
+
+def v3_plan_against_cpu(step: dict, budget: int, render_cfg: RenderConfig = RenderConfig()
+                        ) -> dict:
+    """v3's plan of one step on its device, twice, against the plain run on
+    CPU copies: the rays whose S'_i differ, the budget held, the same bytes
+    on two runs."""
+    pipe = RenderPipeline(None, render_cfg, redistribute_v3=True)
+    args = (step["ts"], step["live"], step["ema_vals"])
+    a, b = (pipe.v3_plan(*args, budget) for _ in range(2))
+    cpu = pipe.v3_plan(*(t.cpu() for t in args), budget)
+    keys = ("pdf", "cdf", "s_ray", "mass", "dead")
+    return {"rays": int(a["s_ray"].numel()), "budget": budget, "s_cap": a["s_cap"],
+            "sum_s_ray": int(a["s_ray"].sum()),
+            "s_ray_differ_from_cpu": int((a["s_ray"].cpu() != cpu["s_ray"]).sum()),
+            "cdf_max_abs_err_vs_cpu": _max_err(a["cdf"].cpu(), cpu["cdf"]),
+            "two_runs_same_bytes": all(_same_bits(a[k], b[k]) if a[k].is_floating_point()
+                                       else torch.equal(a[k], b[k]) for k in keys)}
+
+
+def serve_v3(device, run: dict, n_requests: int = V3_SERVE_REQUESTS, hw: int = IMAGE_HW
+             ) -> dict:
+    """A `RenderService` session on the v3 run's snapshot serving
+    `n_requests` hw x hw views through stage 2b v3 (S' = 12 a ray), counters
+    zeroed just before and read just after; then `render_image` of the same
+    snapshot and pose must be the served bytes (eval == served)."""
+    tr, state = run["trainer"], run["state"]
+    cfg = tr.cfg
+    store = SnapshotStore()
+    store.publish("v3", state.params, step=state.step, occ=state.occ_state)
+    svc = RenderService(store, device=device)
+    spr = default_samples_per_ray(cfg.render.n_samples)
+    svc.register_session("v3", tr.field.cfg, cfg.render, hw, hw, focal_for(hw),
+                         eval_chunk=cfg.eval_chunk, occ_cfg=cfg.occ, samples_per_ray=spr,
+                         redistribute_v3=True)
+    poses = sphere_poses(max(n_requests, 1), seed=0)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for pose in poses[:n_requests]:
+        svc.submit("v3", pose)
+    results = svc.drain()
+    wall = time.perf_counter() - t0
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check_results(results, svc, hw, n_requests)
+    snap = store.latest("v3")
+    view = dataclasses.make_dataclass("View", ["h", "w", "focal"])(hw, hw, focal_for(hw))
+    rgb, depth = tr.render_image(snap.params, poses[0], view, occ=snap.occ,
+                                 samples_per_ray=spr)
+    return {"results": results, "wall_s": wall, "launches": launches,
+            "latency": svc.latency_stats(), "samples_per_ray": spr,
+            "eval_vs_served": {"rgb": bool(np.array_equal(rgb, results[0].rgb)),
+                               "depth": bool(np.array_equal(depth, results[0].depth))}}
+
+
+def reuse_replay(device, run: dict, steps: int = REUSE_STEPS, budget: int = V3_MAX_BUDGET,
+                 held_out: int = HELD_OUT) -> dict:
+    """The v3 run's next `steps` steps' compacted points (its draws, its
+    occupancy, `v3_step`) encoded through `EncodingReuseCache` on both grids
+    under the trainer's invalidation schedule: the density grid invalidated
+    every step, the color grid on its update steps, every entry at a fold.
+    Each cached encode must equal the plain `hash_encode` bit for bit."""
+    tr, state, ds = run["trainer"], run["state"], run["ds"]
+    cfg, field = tr.cfg, tr.field
+    encs = {"density": field.density_enc, "color": field.color_enc}
+    cache = EncodingReuseCache(field.density_enc.resolutions,
+                               {g: e.cfg.table_size for g, e in encs.items()})
+    sampler = RaySampler(ds, views=range(held_out, ds.images.shape[0]), device=device)
+    draws = default_draws(cfg, sampler.n)
+    bits = occupancy.bitfield(state.occ_state, cfg.occ)
+    identical, points = True, 0
+    for i in range(state.step, state.step + steps):
+        ray_idx, u_ts, _ = draws(i)
+        batch = sampler.gather(ray_idx)
+        ts = sample_ts(None, cfg.n_rays, cfg.render, device, u=u_ts)
+        step = v3_step(tr.pipeline, batch.origins, batch.dirs, ts, bits, state.occ_state.density_ema,
+                       cfg.occ.resolution, budget)
+        pts = step["points"][step["keep"]]
+        points += int(pts.shape[0])
+        for grid, e in encs.items():
+            tables = state.params[f"{grid}_grid"]
+            got = cache.encode(grid, pts, tables)
+            identical &= torch.equal(got, he_ref.hash_encode(pts, tables, e.resolutions,
+                                                             e.dense_flags))
+        # a step encodes against the tables its update then overwrites
+        cache.note_table_update("density")
+        if _branch_update(i, cfg.f_color):
+            cache.note_table_update("color")
+        if (i + 1) % cfg.occ.update_interval == 0:
+            cache.note_fold()
+    return {**cache.stats(), "steps": steps, "points": points, "bit_identical": identical}
+
+
+def _v3_phase(device, card: str) -> dict:
+    """Phase 6: the three runs under the ceiling and their gates, v3's
+    determinism, its parity cases, its plan on the card against the CPU,
+    serving and eval == served, the reuse replay."""
+    t0 = time.perf_counter()
+    runs = sampler_runs(device)
+    print(f"train_v3: {len(runs)} runs x {TrainerConfig().iters} steps + held-out eval in "
+          f"{time.perf_counter() - t0:.2f} s, max_budget {V3_MAX_BUDGET} [{card}]")
+    for name, run in runs.items():
+        hist = run["hist"]
+        print(f"sampler {name} [{card}]: " + json.dumps({
+            "psnr_rgb": run["eval"]["psnr_rgb"], "psnr_depth": run["eval"]["psnr_depth"],
+            "points_queried_last": hist["points_queried"][-1],
+            "budgets": dict(sorted(Counter(b for b in hist["budget"] if b).items())),
+            "overflow_steps": hist["overflow_steps"], "overflow_total": hist["overflow_total"],
+            "dense_steps": len(run["dense_ms"]), "compact_steps": len(run["compact_ms"]),
+            "median_dense_ms": _warm_median(run["dense_ms"]),
+            "median_compact_ms": _warm_median(run["compact_ms"])}), flush=True)
+    v3 = runs["v3"]
+    problems = check_v3_run(v3)
+    if problems:
+        raise RuntimeError(f"train_v3 gate failed: {problems}")
+    occ = (v3["state"].occ_state.density_ema, v3["state"].occ_state.step)
+    served_eval = v3["trainer"].evaluate(v3["state"].params, v3["ds"], views=range(HELD_OUT),
+                                         occ=occ)
+    print(f"train_v3 held-out PSNR on the served quadrature (12 samples a ray) [{card}]: "
+          f"{json.dumps(served_eval)}")
+    print(f"train_v3 PSNR rgb uniform / v2 / v3 (reported, not gated) [{card}]: " + json.dumps(
+        {name: run["eval"]["psnr_rgb"] for name, run in runs.items()}))
+    print(f"train_v3-path launches: {json.dumps(v3['launches'])}", flush=True)
+    det = determinism(device, FieldConfig(), cfg=sampler_cfg("v3"))
+    print(f"train_v3 determinism: {json.dumps(det)}", flush=True)
+    if not (det["params_equal"] and det["moments_equal"] and det["occupancy_equal"]
+            and det["compacted_steps"] > 0):
+        raise RuntimeError(f"train_v3: two runs from one seed differ: {det}")
+
+    steps = {b: v3_train_step(device, v3, b) for b in V3_LANE_BUDGETS}
+    serve_step = v3_serve_step(device, v3)
+    plans = [v3_plan_against_cpu(steps[V3_MAX_BUDGET], V3_MAX_BUDGET),
+             v3_plan_against_cpu(serve_step, serve_step["points"].shape[0])]
+    for plan in plans:
+        print(f"v3 plan on the card vs the CPU [{card}]: {json.dumps(plan)}", flush=True)
+        if plan["sum_s_ray"] > plan["budget"] or not plan["two_runs_same_bytes"]:
+            raise RuntimeError(f"v3 plan broke its budget or its bytes: {plan}")
+    cases = v3_parity(device, steps, serve_step)
+    failed = [f"{c['kernel']} {c['case']}" for c in cases if not _print_case(c, card)]
+    if failed:
+        raise RuntimeError(f"v3 kernel parity failed: {failed}")
+
+    served = serve_v3(device, v3)
+    print(f"serve_v3: drained {len(served['results'])} requests in {served['wall_s']:.3f} s, "
+          f"{served['samples_per_ray']} samples a ray [{card}]")
+    for r in served["results"]:
+        print(f"  request {r.request_id} v3 {r.rgb.shape[0]}x{r.rgb.shape[1]} latency "
+              f"{r.latency_s * 1e3:.1f} ms rgb [{r.rgb.min():.4f}, {r.rgb.max():.4f}] "
+              f"depth mean {r.depth.mean():.4f}")
+    print(f"serve_v3 latency_stats [{card}]: {json.dumps(served['latency'])}")
+    print(f"serve_v3-path launches: {json.dumps(served['launches'])}")
+    print(f"serve_v3 eval == served: {json.dumps(served['eval_vs_served'])}", flush=True)
+    missing = [k for k in SERVE_KERNELS if served["launches"].get(k, 0) == 0]
+    if missing or not all(served["eval_vs_served"].values()):
+        raise RuntimeError(f"serve_v3 failed: never launched {missing}, "
+                           f"eval vs served {served['eval_vs_served']}")
+    t0 = time.perf_counter()
+    reuse = reuse_replay(device, v3)
+    print(f"reuse cache over {reuse['steps']} v3 steps ({time.perf_counter() - t0:.2f} s) "
+          f"[{card}]: {json.dumps(reuse)}", flush=True)
+    if not reuse["bit_identical"]:
+        raise RuntimeError("a cached encode differs from the plain hash_encode")
+    return {"cases": cases, "train_launches": v3["launches"],
+            "serve_launches": served["launches"]}
+
+
 # ---- the script ---------------------------------------------------------------
 
 def _ptxas_summary(logs: dict[str, str]) -> list[str]:
@@ -1585,8 +1929,13 @@ def main() -> int:
         if not identity_holds(ident):
             raise RuntimeError(f"a bit-identity contract failed: {ident}")
 
+    # this slice's main path: stage 2b v3 under a hard point ceiling
+    v3 = _v3_phase(device, card)
+    cases.extend(v3["cases"])
+
     paths = {"train": run["launches"], "train_ngp": ngp["launches"], "serve": serve_launches,
-             "service": service["launches"]}
+             "service": service["launches"], "train_v3": v3["train_launches"],
+             "serve_v3": v3["serve_launches"]}
     report = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == name]

@@ -19,6 +19,9 @@ same nonzero rows; bum_scatter bit for bit against the plain merge on CPU
 copies (both sum each run in stream order), also on streams built to break
 its tile walk.  The redesigned kernels (the hash encode, both MLPs, the
 fused step's forward and backward) give the same bytes on two launches.
+Stage 2b v3's shapes: the composite on its ragged lane grids (invalid lanes
+with deltas 0 and ts at far) and the fused step on its Morton-packed points
+at the ceiling of 4096, with the same tolerances.
 """
 import ctypes
 
@@ -810,3 +813,73 @@ def test_fused_encode_kernel_matches_plain_at_every_feature_count(n, f, card):
     nb = plain.shape[0]                   # blocks holding valid rows
     assert reads.shape == (-(-n // 256), cfg.n_levels)
     assert torch.equal(reads[:nb].to(torch.int64), plain) and not reads[nb:].any()
+
+
+# stage 2b v3's shapes: (rays, budget) -> the lane grid's s_cap; the training
+# grids at the ceiling of 4096 and at 8192, the served chunk at 4096 x 12
+V3_LANES = {(1024, 4096): 16, (1024, 8192): 32, (4096, 49152): 48}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rays,budget", list(V3_LANES))
+def test_composite_matches_plain_on_v3_lane_grids(rays, budget, card):
+    """#4 forward and its backward (the training path's gradients) on a
+    ragged v3 lane grid: invalid lanes carry deltas 0, ts at far and zero
+    sigma / rgb; tolerances as on the uniform grids, the same bytes twice."""
+    step = smoke.v3_random_step(card, budget, budget, n_rays=rays)
+    assert step["lanes"].shape == (rays, V3_LANES[(rays, budget)])
+    assert not bool(step["valid"].all()) and step["overflow"] == 0
+    gen = torch.Generator().manual_seed(budget)
+    inputs = smoke.ragged_composite_inputs(gen, step, card)
+    got = vr_kernel.composite(*inputs)
+    want = vr_ref.composite(*inputs)
+    for g, w in zip(got, want[:3]):
+        assert float((g - w).abs().max()) <= 5e-5
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, vr_kernel.composite(*inputs)))
+    grads = (_u(gen, (rays, 3), -1, 1, card), _u(gen, (rays,), -1, 1, card),
+             _u(gen, (rays,), -1, 1, card))
+    needs = smoke.TRAIN_COMPOSITE_NEEDS
+    back = vr_kernel.composite_backward(*inputs, *grads, needs=needs)
+    closed = vr_ref.composite_backward(*inputs, *grads)
+    for k, need in enumerate(needs):
+        if need:
+            assert _rel(back[k], closed[k]) <= 1e-4, k
+    again = vr_kernel.composite_backward(*inputs, *grads, needs=needs)
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(back, again) if a is not None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("need_color", [True, False])
+def test_fused_step_kernels_match_plain_on_v3_packed_points(need_color, card):
+    """#5 and #6 (its commit through bum_sort and #7) at the v3 ceiling of
+    4096 points, on a step's Morton-packed ragged lanes (dead padding lanes
+    included): the forward within 1e-5, the backward against its function
+    in float64 as on uniform points."""
+    field = Field(FieldConfig())
+    step = smoke.v3_random_step(card, 7, 4096)
+    gen = torch.Generator().manual_seed(4096)
+    _, sh, tables, mlp_d, mlp_c, geometry = _step_inputs(gen, 4096, card, field)
+    pts = step["points"]
+    got = fs_kernel.fused_step_fwd(pts, sh, *tables, mlp_d, mlp_c, *geometry)
+    want = fs_ref.fused_step_ref(pts, sh, *tables, mlp_d, mlp_c, *geometry)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5
+    g_d, g_c = _u(gen, got[0].shape, -1, 1, card), _u(gen, got[1].shape, -1, 1, card)
+    before = kernels.LAUNCHES["fused_step_bwd"]
+    back = fs_kernel.fused_step_bwd(pts, sh, g_d, g_c, *tables, mlp_d, mlp_c, *geometry,
+                                    need_color=need_color)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_step_bwd"] == before + 1
+    cpu = lambda x: {k: v.cpu() for k, v in x.items()} if isinstance(x, dict) else x.cpu()  # noqa: E731
+    exact = fs_ref.backward_f64(geometry, *(cpu(x) for x in (pts, sh, *tables, mlp_d, mlp_c,
+                                                              g_d, g_c)), (True, need_color))
+    for k, need in enumerate((True, need_color)):
+        if need:
+            assert _rel(back[k].cpu().double(), exact[k]) <= 1e-5
+            assert torch.equal(_rows(back[k].cpu()), _rows(exact[k]))
+        else:
+            assert back[k] is None
+    for k in (2, 3):
+        for name in back[k]:
+            assert _rel(back[k][name].cpu().double(), exact[k][name]) <= 1e-4, name
+    assert _rel(back[4].cpu().double(), exact[4]) <= 1e-4

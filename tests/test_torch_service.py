@@ -297,9 +297,11 @@ def test_unported_options_raise(datasets):
             ReconstructionService(device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         SessionScheduler(placement=object())
+    # stage 2b v3 serving is ported: a v3 session registers
     rs = RenderService(SnapshotStore(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        rs.register_session("x", FIELD_CFG, RCFG, 16, 16, 20.0, redistribute_v3=True)
+    rs.register_session("x", FIELD_CFG, RCFG, 16, 16, 20.0, occ_cfg=TRAIN_CFG.occ,
+                        samples_per_ray=4, redistribute_v3=True)
+    assert rs._geom["x"].redistribute_v3 and rs._geom["x"].samples_per_ray == 4
     with pytest.raises(NotImplementedError, match="not ported yet"):
         _session("x", datasets[0], 4).place("cuda:1", 1)
 

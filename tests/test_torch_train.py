@@ -297,6 +297,7 @@ def test_training_is_deterministic_and_time_sliceable(scene):
     tr = t_trainer.Instant3DTrainer(t_field.Field(T_FCFG), T_TCFG, device="cpu")
     ev = tr.evaluate(ends[0].params, ds, views=[0])
     assert np.isfinite(ev["psnr_rgb"]) and np.isfinite(ev["psnr_depth"])
-    with pytest.raises(NotImplementedError):
-        t_trainer.Instant3DTrainer(t_field.Field(T_FCFG),
-                                   dataclasses.replace(T_TCFG, redistribute_v3=True), "cpu")
+    # stage 2b v3 is ported: a v3 trainer builds its v3 pipeline
+    v3 = t_trainer.Instant3DTrainer(t_field.Field(T_FCFG),
+                                    dataclasses.replace(T_TCFG, redistribute_v3=True), "cpu")
+    assert v3.pipeline.redistribute_v3_on and v3.pipeline.redistribute_on
