@@ -12,10 +12,12 @@ its Instant-NGP baseline, serves 800x800 novel-view requests through
 multi-scene ``repro_torch.serve3d.ReconstructionService`` on four scenes
 and holds its bit-identity contracts, trains the uniform sampler, stage 2b
 v2 and v3 under a ceiling of 4096 points a step and serves v3 at 800x800,
-and prints one JSON line with every kernel's report and, last, the device
-line.  It
-exits non-zero, with no result, on any failure, and when no CUDA card is
-present.  The phases live in ``src/repro_torch/smoke.py``.
+runs the service again with the async serving plane off and on and holds
+the two byte for byte, runs the training CLI (resumed against
+uninterrupted), the quickstart and the service demo, profiles one async
+quantum (``tools/torch_service_profile.py``), and prints one JSON line with
+every kernel's report and, last, the device line.  It exits non-zero,
+with no result, on any failure, and when no CUDA card is present.  The phases live in ``src/repro_torch/smoke.py``.
 """
 import sys
 from pathlib import Path

@@ -53,6 +53,12 @@ class HashEncoding:
         """points (N, 3) in [0, 1) -> (N, L*F) f32."""
         return he_ops.hash_encode(points, tables, self.resolutions, self.dense_flags)
 
+    @property
+    def param_bytes(self) -> int:
+        """Bytes of the f32 tables (L, T, F)."""
+        c = self.cfg
+        return c.n_levels * c.table_size * c.n_features * 4
+
 
 # --- spherical harmonics (degree 4 = 16 coeffs, Instant-NGP's dir encoding) ---
 

@@ -21,6 +21,7 @@ from . import encoding as enc
 from ..kernels.fused_mlp import ops as mlp_ops
 from ..kernels.fused_path import ops as fp_ops
 from ..kernels.fused_step import ops as fs_ops
+from ..optim.adamw import tree_paths
 
 
 class _TruncExp(torch.autograd.Function):
@@ -185,3 +186,9 @@ class Field:
                                     params["color_grid"], params["density_mlp"],
                                     params["color_mlp"])
         return trunc_exp(out[..., 0]), torch.sigmoid(raw)
+
+    # ---- bookkeeping ----
+
+    def param_counts(self, params: dict) -> dict:
+        """Scalars per top-level key of `params` (grids and MLPs)."""
+        return {k: sum(t.numel() for _, t in tree_paths(v)) for k, v in params.items()}

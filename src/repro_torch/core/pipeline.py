@@ -26,10 +26,12 @@ compacted scatter is an `index_copy` whose backward gathers the gradient
 back to the compacted sigma / rgb.  `suggest_budget` picks the pow2 point
 budget from a measured live fraction.  Integer stage outputs (Morton keys,
 the compaction order, the stratum index, v3's per-ray counts, the budget)
-match the reference exactly on the same inputs.  v3's float sums,
-cumulative sums and exp run in the reference's f32 order (`ref_sum`,
-`ref_cumsum`, `ref_exp`): its counts floor a 1024-ray cumulative sum, and
-`torch.cumsum` on the CPU accumulates in float64 and rounds otherwise.
+match the reference exactly on the same inputs.  Stage 2b's float sums,
+cumulative sums, exp and scalar divisions run in the reference's f32 order
+(`ref_sum`, `ref_cumsum`, `ref_exp`, `_div`): v3's counts floor a 1024-ray
+cumulative sum and both versions search their CDFs for each sample's
+stratum, and `torch.cumsum` on the CPU accumulates in float64 and rounds
+otherwise, so a sample on a CDF edge would land in another stratum.
 """
 from __future__ import annotations
 
@@ -162,21 +164,28 @@ class CompactionPlan(NamedTuple):
     overflow: torch.Tensor  # () int64 live points dropped (budget too small)
 
 
+def live_cdf(live: torch.Tensor):
+    """v2's per-ray placement density over its strata (B, S) f32, uniform
+    over the live ones (dead rays: over all), and its CDF, scanned in the
+    reference's f32 order (`ref_cumsum`)."""
+    w = live.to(torch.float32)
+    total = torch.sum(w, dim=-1, keepdim=True)
+    w = torch.where(total > 0, w, torch.ones_like(w))       # dead ray -> uniform
+    pdf = w / torch.sum(w, dim=-1, keepdim=True)
+    return pdf, ref_cumsum(pdf)
+
+
 def inverse_cdf_strata(ts: torch.Tensor, live: torch.Tensor, n_out: int,
                        near: float, far: float):
     """The placement plan of `RenderPipeline.redistribute`.
 
     Each ray's live mask over its S strata becomes a piecewise-constant CDF
-    (dead rays: uniform), and `n_out` stratified u in (0, 1), with jitter
-    recycled from `ts`, are inverted through it.  Returns (j (B, n_out)
+    (`live_cdf`), and `n_out` stratified u in (0, 1), with jitter recycled
+    from `ts`, are inverted through it.  Returns (j (B, n_out)
     int64 stratum index, u, cdf_lo, p): sample k lands in stratum j[k] at
     fraction (u - cdf_lo) / p of it."""
     b, s = ts.shape
-    w = live.to(torch.float32)
-    total = torch.sum(w, dim=-1, keepdim=True)
-    w = torch.where(total > 0, w, torch.ones_like(w))       # dead ray -> uniform
-    pdf = w / torch.sum(w, dim=-1, keepdim=True)
-    cdf = torch.cumsum(pdf, dim=-1)
+    pdf, cdf = live_cdf(live)
 
     k = torch.arange(n_out, device=ts.device)
     jitter = (ts[:, :n_out] - near) / (far - near) * s - k
@@ -296,7 +305,7 @@ class RenderPipeline:
         j, u, cdf_lo, p = inverse_cdf_strata(ts, live, n_out, near, far)
         frac = torch.clamp((u - cdf_lo) / p, 0.0, 1.0 - 1e-6)
         ts_new = near + (j.to(torch.float32) + frac) * h
-        deltas = h / (p * n_out)
+        deltas = _div(h, p * n_out)
         return ts_new, deltas
 
     # ---- stage 2b, v3: density-weighted, workload-balanced ----

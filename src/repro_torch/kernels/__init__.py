@@ -15,7 +15,10 @@ a CUDA tensor to the plain version.
 
 `LAUNCHES` counts, per kernel, the launches its wrapper made -- one per call
 that reached the kernel, nothing else -- so a run can show that its path
-went through the kernels (reset it with `reset_launches`).
+went through the kernels (reset it with `reset_launches`).  Wrappers count
+through `count_launch`, which holds a lock around the increment, so the
+counts stay exact while a serving thread and the training loop launch at
+once.
 """
 from __future__ import annotations
 
@@ -45,12 +48,20 @@ LAUNCHES: dict[str, int] = {
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+_lock = threading.Lock()          # loading the libraries
+_launch_lock = threading.Lock()   # the launch counts
+
+
+def count_launch(name: str) -> None:
+    """Add one to `name`'s launch count (a read-modify-write under a lock)."""
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _launch_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def nvcc() -> str:

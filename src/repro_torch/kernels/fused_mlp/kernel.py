@@ -65,7 +65,7 @@ def _launch(name: str, n_layers: int, x, weights, biases) -> torch.Tensor:
         status = _entry(n_layers)(*(_k.ptr(t) for t in tensors), _k.ptr(out), n,
                                   *dims, _k.stream_handle(device))
     _k.check_status("fused_mlp", status, name)
-    _k.LAUNCHES[name] += 1
+    _k.count_launch(name)
     return out
 
 

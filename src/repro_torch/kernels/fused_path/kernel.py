@@ -68,5 +68,5 @@ def fused_encode(points: torch.Tensor, tables: torch.Tensor, resolutions,
                           _k.ptr(reads), n, n_levels, table_size, n_features,
                           _k.stream_handle(device))
     _k.check_status("fused_encode", status, "fused_encode")
-    _k.LAUNCHES["fused_encode"] += 1
+    _k.count_launch("fused_encode")
     return out, reads

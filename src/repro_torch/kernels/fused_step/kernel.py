@@ -121,7 +121,7 @@ def fused_step_fwd(points, sh, t_density, t_color, mlp_d: dict, mlp_c: dict,
             _k.ptr(points), _k.ptr(sh), _k.ptr(t_density), _k.ptr(t_color), c_mlp, c_res,
             c_dd, c_dc, c_dims, _k.ptr(out_d), _k.ptr(out_c), _k.stream_handle(device))
     _k.check_status("fused_step", status, "fused_step_fwd")
-    _k.LAUNCHES["fused_step_fwd"] += 1
+    _k.count_launch("fused_step_fwd")
     return out_d, out_c
 
 
@@ -177,7 +177,7 @@ def fused_step_bwd_launch(points, sh, g_d, g_c, t_density, t_color, mlp_d: dict,
             _k.ptr(sc[0]) if sc else null, _k.ptr(sc[1]) if sc else null,
             _k.ptr(grad_mlp), _k.stream_handle(device))
     _k.check_status("fused_step", status, "fused_step_bwd")
-    _k.LAUNCHES["fused_step_bwd"] += 1
+    _k.count_launch("fused_step_bwd")
     return streams, grad_mlp, d_sh
 
 

@@ -72,7 +72,7 @@ def bum_scatter(table: torch.Tensor, idx_sorted: torch.Tensor,
         status = _entry()(_k.ptr(idx_sorted), _k.ptr(vals_sorted), _k.ptr(table), m,
                           table.shape[0], table.shape[1], _k.stream_handle(device))
     _k.check_status("bum_scatter", status, "bum_scatter")
-    _k.LAUNCHES["bum_scatter"] += 1
+    _k.count_launch("bum_scatter")
     return table
 
 
@@ -116,5 +116,5 @@ def bum_sort(addr: torch.Tensor, vals: torch.Tensor,
             _k.ptr(key_tmp1), _k.ptr(vals_tmp), _k.ptr(scratch), m, f, widths, n_passes,
             _k.stream_handle(device))
     _k.check_status("bum_sort", status, "bum_sort")
-    _k.LAUNCHES["bum_sort"] += 1
+    _k.count_launch("bum_sort")
     return addr_s, vals_s

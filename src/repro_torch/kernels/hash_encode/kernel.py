@@ -60,5 +60,5 @@ def hash_encode(points: torch.Tensor, tables: torch.Tensor, resolutions,
                           n, n_levels, table_size, n_features,
                           _k.stream_handle(device))
     _k.check_status("hash_encode", status, "hash_encode")
-    _k.LAUNCHES["hash_encode"] += 1
+    _k.count_launch("hash_encode")
     return out

@@ -61,7 +61,7 @@ def composite(sigma, rgb, deltas, ts):
                           _k.ptr(color), _k.ptr(depth), _k.ptr(opacity), r, s,
                           _k.stream_handle(device))
     _k.check_status("composite", status, "composite")
-    _k.LAUNCHES["composite"] += 1
+    _k.count_launch("composite")
     return color, depth, opacity
 
 
@@ -89,5 +89,5 @@ def composite_backward(sigma, rgb, deltas, ts, g_color, g_depth, g_opacity,
                               _k.ptr(g_color), _k.ptr(g_depth), _k.ptr(g_opacity), *out,
                               r, s, _k.stream_handle(device))
     _k.check_status("composite", status, "composite_bwd")
-    _k.LAUNCHES["composite_bwd"] += 1
+    _k.count_launch("composite_bwd")
     return tuple(grads)

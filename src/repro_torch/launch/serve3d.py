@@ -12,8 +12,9 @@ advances them in train cohorts (``--max-cohort 1`` for pure time-slicing)
 under round-robin or EDF selection with a bounded resident set, and serves
 novel-view renders mid-training from the published snapshots
 (``--dense-render`` for the dense path).  The session guard is on by
-default; ``--chaos`` injects one NaN-params fault into scene-001 mid-run.
-``--devices`` and ``--async-serving`` are not ported yet and raise.
+default; ``--chaos`` injects one NaN-params fault into scene-001 mid-run;
+``--async-serving`` serves renders from a serving thread.  ``--devices``
+is not ported yet and raises.
 Prints per-session progress, scenes/s, render-latency percentiles and the
 guard's telemetry.
 """
@@ -108,7 +109,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "previews every healthy slice until a scene's first "
                          "full snapshot lands (0 = full snapshots only)")
     ap.add_argument("--async-serving", action="store_true",
-                    help="drive renders from a serving thread (not ported yet)")
+                    help="drive renders from a serving thread")
     ap.add_argument("--chaos", action="store_true",
                     help="demo fault injection: poison scene-001's params "
                          "with NaN mid-run and watch the guard roll it back")

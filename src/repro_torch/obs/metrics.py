@@ -114,6 +114,15 @@ class Registry:
     def histogram(self, name: str, window: int = 4096) -> Histogram:
         return self._get(name, Histogram, window)
 
+    def get(self, name: str):
+        """The metric registered under `name`, or None."""
+        with self._lock:
+            return self._metrics.get(name)
+
+    def names(self) -> list[str]:
+        with self._lock:
+            return sorted(self._metrics)
+
     def snapshot(self) -> dict:
         """Deterministic flat dict: sorted names -> typed JSON-able values."""
         with self._lock:

@@ -1,15 +1,20 @@
 """Host-side trace spans with a bounded, Chrome-trace-shaped event buffer.
 
-The port's copy of the part of `repro.obs.trace` that the render path uses:
+The port's copy of `repro.obs.trace`:
 
     with trace.span("pipeline/shade"):
         ...
 
+    @trace.traced("trainer/evaluate")   # checks the knob on every call
+    def evaluate(...): ...
+
 Events are (name, category, start, duration, thread, depth, args) tuples in
-a bounded process-global ring buffer.  One knob gates everything: the
-``REPRO_OBS`` environment variable at import, or `set_enabled` at run time;
-when it is off, `span` returns one shared no-op object.  `clock` (an alias
-of ``time.perf_counter``) is the one wall clock for spans and for the
+a bounded process-global ring buffer (``REPRO_OBS_BUFFER`` events, or
+``configure(buffer_size=)``).  One knob gates everything: the ``REPRO_OBS``
+environment variable at import, or `set_enabled` / `configure` at run
+time; when it is off, `span` returns one shared no-op object and a
+`traced` function is called as it is.  `clock` (an alias of
+``time.perf_counter``) is the one wall clock for spans and for the
 service's latency bookkeeping.  Spans time host work: a CUDA kernel runs
 asynchronously, so a span around a launch measures the enqueue unless the
 region ends in a synchronize.  The reference's hook into ``jax.profiler``
@@ -17,6 +22,7 @@ is left out.
 """
 from __future__ import annotations
 
+import functools
 import os
 import threading
 import time
@@ -62,6 +68,15 @@ def enabled() -> bool:
 
 def set_enabled(on: bool) -> None:
     _STATE.enabled = bool(on)
+
+
+def configure(enabled: bool | None = None, buffer_size: int | None = None) -> None:
+    """Run-time overrides of the environment's defaults; a new buffer size
+    keeps the newest events that fit."""
+    if enabled is not None:
+        _STATE.enabled = bool(enabled)
+    if buffer_size is not None:
+        _STATE.events = deque(_STATE.events, maxlen=int(buffer_size))
 
 
 def events() -> list[SpanEvent]:
@@ -120,6 +135,39 @@ def span(name: str, cat: str = "obs", args: dict | None = None):
     if not _STATE.enabled:
         return NULL
     return Span(name, cat, args)
+
+
+def traced(name: str | None = None, cat: str = "obs"):
+    """Decorator form of `span` (default name: the function's qualname).
+    The knob is read on every call, so decorating while it is off freezes
+    nothing."""
+    def deco(fn):
+        label = name if name is not None else fn.__qualname__
+
+        @functools.wraps(fn)
+        def wrapper(*a, **k):
+            if not _STATE.enabled:
+                return fn(*a, **k)
+            with Span(label, cat):
+                return fn(*a, **k)
+
+        return wrapper
+
+    return deco
+
+
+def record(name: str, start_s: float, end_s: float, cat: str = "obs",
+           args: dict | None = None) -> None:
+    """Append a finished span from two `clock()` readings (seconds), for a
+    region that no ``with`` block can bracket; it shares the span
+    timeline, so recorded and bracketed spans interleave in the trace."""
+    if not _STATE.enabled:
+        return
+    th = threading.current_thread()
+    _STATE.events.append(SpanEvent(
+        name, cat, start_s * 1e6, max(0.0, end_s - start_s) * 1e6,
+        th.ident or 0, th.name, getattr(_tls, "depth", 0), args,
+    ))
 
 
 def instant(name: str, cat: str = "obs", args: dict | None = None) -> None:

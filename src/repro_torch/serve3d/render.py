@@ -1,10 +1,9 @@
 """RenderService: batched novel-view rendering from published snapshots.
 
-The port of `repro.serve3d.render` (synchronous plane).  Requests target a
-session; the service resolves each against the session's latest published
-snapshot at drain time, so a render always sees one consistent,
-fully-published view.  A request whose session has not published yet stays
-queued.
+The port of `repro.serve3d.render`.  Requests target a session; the
+service resolves each against the session's latest published snapshot at
+drain time, so a render always sees one consistent, fully-published view.
+A request whose session has not published yet stays queued.
 
 Coalescing: pending requests are grouped by geometry (field config, render
 config, image size, focal, chunk, serving path and budget, level); a group
@@ -23,8 +22,28 @@ Levels: level 0 renders full resolution from a full snapshot; level k > 0
 renders at h>>k and is answerable by a preview snapshot.
 
 Device: every group renders on the service's device (``"cuda"`` unless the
-caller passes ``device="cpu"``).  The device copy of each session's latest
-snapshot is kept until the session publishes a newer one.
+caller passes ``device="cpu"``).  On a card the service owns one CUDA
+stream, and every drain, sync or async, runs on it: the kernels launch on
+the current stream, so a render's kernels can overlap a training slice's
+(which run on the default stream), and no tensor of a render is used on
+another stream.  The device copy of each session's latest snapshot is made
+on that stream, used only there, and kept until the session publishes a
+newer one.  On the CPU there is no stream; the code path is otherwise the
+same.
+
+Async serving plane (`start_async`): a serving thread drives the drain
+loop, so a render need not wait for the end of the training slice in
+flight.  It drains whenever work is pending -- woken by `submit` and
+`notify`, and every 0.1 s, so deadlines expire while the trainer runs --
+and keeps the results for `poll_results`.  The ordering contract is the
+reference's: requests are answered from published snapshots only, each
+drain's results are ordered by request id, and one drain runs at a time,
+sync or async, so pixels are the bytes a sync drain of the same snapshot
+version gives.  Where the reference's plane rests on XLA releasing the GIL
+while a slice runs, here the two threads share it: PyTorch releases it
+inside its ops, the Python between them does not.  A serving thread that
+raises stops, and `stop_async` re-raises its exception; nothing falls back
+to the sync drain.
 
 Degradation ladder:
 
@@ -40,11 +59,12 @@ Degradation ladder:
 
 Fault site ``serve3d.render_group`` (kind ``render_fail``,
 `repro_torch.testing.faults`) raises inside a group's render, which the
-retry rung then handles.  Device placement across cards and the async
-serving thread are not ported yet.
+retry rung then handles.  Device placement across cards is not ported
+yet.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from dataclasses import dataclass, field as dc_field
 from typing import Any, NamedTuple
@@ -132,10 +152,22 @@ class RenderService:
         self._queue: list[RenderRequest] = []
         self._next_id = 0
         self._stale: set[str] = set()
+        # the queue, the async results and the latency bookkeeping are
+        # shared with the serving thread under this lock
         self._lock = threading.Lock()
         self._drain_mutex = threading.Lock()   # one drain at a time
-        # session -> (snapshot version, params on device, occ ema on device)
+        # every drain runs on this stream (None on the CPU)
+        self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        # session -> (snapshot version, params on device, occ ema on device),
+        # made and used on the render stream only
         self._resident: dict[str, tuple[int, dict, Any]] = {}
+        # async serving plane
+        self._async_thread: threading.Thread | None = None
+        self._async_stop = threading.Event()
+        self._async_wake = threading.Event()
+        self._async_results: list = []
+        self._async_error: BaseException | None = None
+        self._draining = False
         self.expired = 0
         self.failed = 0
         self.shed_drains = 0
@@ -180,6 +212,7 @@ class RenderService:
                                 level=int(level))
             self._next_id += 1
             self._queue.append(req)
+        self._async_wake.set()
         return req.request_id
 
     def mark_stale(self, session_id: str, stale: bool = True) -> None:
@@ -194,16 +227,112 @@ class RenderService:
         with self._lock:
             return len(self._queue)
 
+    # ---- async serving plane ----
+
+    @property
+    def async_active(self) -> bool:
+        """The serving thread is alive."""
+        return self._async_thread is not None and self._async_thread.is_alive()
+
+    @property
+    def async_started(self) -> bool:
+        """`start_async` ran and `stop_async` has not: the plane owns the
+        drains, even if its thread has died (`stop_async` then re-raises)."""
+        return self._async_thread is not None
+
+    @property
+    def idle(self) -> bool:
+        """No drain in flight and no async result undelivered."""
+        with self._lock:
+            return not self._draining and not self._async_results
+
+    def start_async(self, poll_s: float = 0.002) -> None:
+        """Start the serving thread: it drains whenever work is pending and
+        keeps the results for `poll_results`; while requests wait for a
+        snapshot it waits `poll_s` for a `notify`, then up to 0.1 s.
+        Idempotent."""
+        if self.async_active:
+            return
+        self.stop_async()   # a thread that died: re-raise what it died of
+        self._async_stop.clear()
+
+        def serve():
+            try:
+                while not self._async_stop.is_set():
+                    self._async_wake.wait(timeout=0.1)
+                    self._async_wake.clear()
+                    while self.pending and not self._async_stop.is_set():
+                        self._serve(collect=True)
+                        if self.pending:
+                            # the rest await a publish: yield until the next
+                            # notify instead of spinning
+                            if not self._async_wake.wait(timeout=poll_s):
+                                break
+                            self._async_wake.clear()
+            except BaseException as e:
+                # kept for stop_async to re-raise in the caller's thread;
+                # raised here too, so the thread's excepthook reports it
+                self._async_error = e
+                raise
+
+        self._async_thread = threading.Thread(target=serve, name="serve3d-render",
+                                              daemon=True)
+        self._async_thread.start()
+
+    def notify(self) -> None:
+        """Wake the serving thread: a snapshot landed, work may be ready."""
+        self._async_wake.set()
+
+    def stop_async(self, wait: bool = True) -> None:
+        """Stop the serving thread (joining it when `wait`), and re-raise
+        the exception it died of, if any.  Results it finished stay for
+        `poll_results`."""
+        if self._async_thread is None:
+            return
+        self._async_stop.set()
+        self._async_wake.set()
+        if wait:
+            self._async_thread.join()
+        self._async_thread = None
+        err, self._async_error = self._async_error, None
+        if err is not None:
+            raise err
+
+    def poll_results(self) -> list:
+        """Everything the async plane finished since the last poll, each
+        drain's results in request-id order."""
+        with self._lock:
+            out, self._async_results = self._async_results, []
+        return out
+
     # ---- serving ----
 
     def drain(self) -> list:
         """Serve every pending request whose session has a published
         snapshot; the rest stay queued.  Returns `RenderResult`s and typed
-        `RenderError`s, ordered by request id."""
+        `RenderError`s, ordered by request id.  Serialized with the async
+        plane's drains."""
+        return self._serve(collect=False)
+
+    def _serve(self, collect: bool) -> list:
+        """One drain on the render stream; with `collect`, its results join
+        the async results before the drain counts as finished, so `idle`
+        never reads true between the two."""
         with self._drain_mutex:
-            with obs_trace.span("serve3d/render_drain", cat="serve3d",
-                                args={"pending": self.pending}):
-                results = self._drain()
+            with self._lock:
+                self._draining = True
+            try:
+                stream = (torch.cuda.stream(self._stream) if self._stream is not None
+                          else contextlib.nullcontext())
+                with obs_trace.span("serve3d/render_drain", cat="serve3d",
+                                    args={"pending": self.pending}), stream:
+                    results = self._drain()
+                if collect and results:
+                    with self._lock:
+                        self._async_results.extend(results)
+            finally:
+                with self._lock:
+                    self._draining = False
         if obs_trace.enabled():
             obs_metrics.gauge("serve3d.render.queue_depth").set(self.pending)
         return results
@@ -354,15 +483,16 @@ class RenderService:
         for gi, (req, snap) in enumerate(items):
             lat = now - req.submitted_at
             sid = req.session_id
-            hist = self.latencies.get(sid)
-            if hist is None:
-                hist = self.latencies[sid] = obs_metrics.Histogram(
-                    window=self.latency_window)
-            hist.observe(lat)
-            first = sid not in self.ttfuv_s
-            if first and sid in self._registered_at:
-                self.ttfuv_s[sid] = now - self._registered_at[sid]
-            self.served[sid] = self.served.get(sid, 0) + 1
+            with self._lock:
+                hist = self.latencies.get(sid)
+                if hist is None:
+                    hist = self.latencies[sid] = obs_metrics.Histogram(
+                        window=self.latency_window)
+                hist.observe(lat)
+                first = sid not in self.ttfuv_s
+                if first and sid in self._registered_at:
+                    self.ttfuv_s[sid] = now - self._registered_at[sid]
+                self.served[sid] = self.served.get(sid, 0) + 1
             if obs_on:
                 obs_metrics.counter("serve3d.render.served").inc()
                 obs_metrics.histogram("serve3d.render.latency_ms").observe(lat * 1e3)
@@ -386,10 +516,12 @@ class RenderService:
 
     def latency_stats(self) -> dict:
         """Percentiles over the recent latency window; counts are lifetime."""
-        merged = obs_metrics.Histogram(
-            window=self.latency_window * max(1, len(self.latencies)))
-        for hist in self.latencies.values():
-            for v in hist.values():
+        with self._lock:
+            windows = [hist.values() for hist in self.latencies.values()]
+            served, ttfuv = dict(self.served), dict(self.ttfuv_s)
+        merged = obs_metrics.Histogram(window=self.latency_window * max(1, len(windows)))
+        for values in windows:
+            for v in values:
                 merged.observe(v)
         degraded = {
             "expired": self.expired,
@@ -400,12 +532,12 @@ class RenderService:
         if merged.count == 0:
             return {"count": 0, "degraded": degraded}
         return {
-            "count": sum(self.served.values()),
+            "count": sum(served.values()),
             "degraded": degraded,
             "p50_ms": merged.quantile(0.50) * 1e3,
             "p95_ms": merged.quantile(0.95) * 1e3,
             "p99_ms": merged.quantile(0.99) * 1e3,
             "max_ms": max(merged.values()) * 1e3,
-            "per_session": dict(self.served),
-            "ttfuv_s": dict(self.ttfuv_s),
+            "per_session": served,
+            "ttfuv_s": ttfuv,
         }

@@ -26,12 +26,21 @@ retried on the next quantum.  ``guard=None`` / ``False`` unwinds `run` on
 any slice error.  ``snapshot_levels=k`` publishes level-k previews every
 healthy slice until a session's first full snapshot lands.
 
+``async_serving=True`` serves renders from the render service's serving
+thread (`RenderService.start_async`): `run` starts it, each quantum hands
+it the fresh snapshots (`notify`) and collects what it finished
+(`poll_results`), and `run` stops it in ``finally``, delivering what came in
+after the last quantum as one final hook event.  A serving thread that
+raised makes `run` raise.  Trained bytes do not depend on the plane: a
+render reads published host snapshots only, on its own CUDA stream.
+
 Every session trains and renders on ``device`` (``"cuda"`` unless the caller
 passes ``device="cpu"``).  Sharding sessions over several cards
-(``devices``) and the async serving thread (``async_serving``) are not
-ported yet and raise.
+(``devices``) is not ported yet and raises.
 """
 from __future__ import annotations
+
+import time
 
 from ..obs import export as obs_export
 from ..obs import metrics as obs_metrics
@@ -63,13 +72,13 @@ class ReconstructionService:
         a `GuardConfig`, or None / False.  render_deadline_s /
         shed_threshold: forwarded to `RenderService`.  snapshot_levels: k >
         0 publishes level-k previews until the first full snapshot.
+        async_serving: `run` serves renders from a serving thread.
         device: where every session trains and renders."""
         if devices is not None:
             raise NotImplementedError(
                 "devices: sharding sessions over several cards is not ported yet")
-        if async_serving:
-            raise NotImplementedError("async_serving: the serving thread is not ported yet")
         self.device = device
+        self.async_serving = bool(async_serving)
         self.store = SnapshotStore(persist_dir=persist_dir)
         self.renderer = RenderService(self.store, default_deadline_s=render_deadline_s,
                                       shed_threshold=shed_threshold, device=device)
@@ -165,7 +174,13 @@ class ReconstructionService:
                     self._publish(member, level=self.snapshot_levels)
                 if member.status == DONE:
                     self.store.gc_previews(member.session_id)
-            results = self.renderer.drain()
+            if self.renderer.async_started:
+                # the serving thread owns the drains: hand it the fresh
+                # snapshots, collect what it finished since the last quantum
+                self.renderer.notify()
+                results = self.renderer.poll_results()
+            else:
+                results = self.renderer.drain()
         if obs_trace.enabled():
             obs_metrics.counter("serve3d.quanta").inc()
             obs_metrics.gauge("serve3d.sessions_active").set(sum(
@@ -199,15 +214,32 @@ class ReconstructionService:
                 self.renderer.mark_stale(member.session_id, False)
 
     def run(self, hook=None, max_quanta: int = 100_000) -> dict:
-        """Drive quanta until every session is done and the render queue is
-        empty.  `hook(service, event)` runs after each quantum -- the place
-        to submit mid-training render requests or stream telemetry."""
-        for _ in range(max_quanta):
-            if self.scheduler.all_done and self.renderer.pending == 0:
-                break
-            event = self.step()
-            if hook is not None:
-                hook(self, event)
+        """Drive quanta until every session is done, the render queue is
+        empty and (async serving) the serving thread is idle.
+        `hook(service, event)` runs after each quantum -- the place to
+        submit mid-training render requests or stream telemetry."""
+        renderer = self.renderer
+        if self.async_serving:
+            renderer.start_async()
+        try:
+            for _ in range(max_quanta):
+                if self.scheduler.all_done and renderer.pending == 0 and renderer.idle:
+                    break
+                if renderer.async_started and not renderer.async_active:
+                    break   # the serving thread died: `finally` re-raises
+                event = self.step()
+                if hook is not None:
+                    hook(self, event)
+                if event["trained"] is None and renderer.async_started:
+                    # only the serving thread has work: yield the GIL to it
+                    time.sleep(0.002)
+        finally:
+            if renderer.async_started:
+                renderer.stop_async()
+                final = renderer.poll_results()
+                if final and hook is not None:
+                    hook(self, {"trained": None, "cohort": [], "step": None,
+                                "guard": {}, "results": final})
         self.store.wait()
         return self.telemetry()
 
@@ -231,7 +263,7 @@ class ReconstructionService:
             "stragglers_flagged": self.scheduler.stragglers_flagged,
             "devices": 1,
             "placement": None,
-            "async_serving": False,
+            "async_serving": self.async_serving,
         }
 
     def metrics(self) -> dict:

@@ -1,5 +1,6 @@
 """The phases of ``chip_smoke.py``: build, kernel parity, train (Instant-3D
-and the Instant-NGP baseline), serve, the reconstruction service.
+and the Instant-NGP baseline), serve, the reconstruction service, stage 2b
+v3, the async serving plane and the entry points.
 
 Each phase takes an explicit device, so the CPU tests can rehearse the
 paths at a tiny size with ``device="cpu"``; `main` runs them all on the
@@ -75,13 +76,30 @@ card and fails on anything wrong -- there is no CPU fallback.
    `render_image` the served bytes; 32 steps of its compacted points
    through `EncodingReuseCache`, every cached encode the plain hash encode
    bit for bit;
-7. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
-   summed over the six main paths, and per path) and, last, the device
+7. the async serving plane and the entry points (slice 11's main paths):
+   phase 5's service run with ``async_serving`` off and on, alternating,
+   two runs each, counters zeroed around each run (``service_async``: the
+   last async run's); every session DONE, every request answered exactly
+   once, every session's final params and occupancy EMA the same bytes in
+   all four runs, and every async answer the bytes of a sync drain of the
+   snapshot it was rendered from (the hook keeps the snapshots); wall,
+   scenes/s, median per-slice wall and render p50 / p95 per mode with their
+   spread.  Then the training CLI (`examples.train_nerf_instant3d`) to 200
+   steps with a checkpoint every 100, resumed to 300 and held byte for
+   byte to an uninterrupted 300-step run; the quickstart (PSNR >= 20 dB);
+   the service demo with ``--async-serving`` (every scene done, every
+   render answered); and `tools/torch_service_profile.py` in its own
+   process: one quantum with the serving thread rendering beside it under
+   torch.profiler (device busy, idle share, render / slice overlap);
+8. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
+   summed over the seven main paths, and per path) and, last, the device
    line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import re
 import subprocess
@@ -89,6 +107,7 @@ import sys
 import tempfile
 import time
 from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -103,6 +122,8 @@ from .core.trainer import (Instant3DTrainer, TrainerConfig, _branch_update, defa
                            default_samples_per_ray, image_rays, train_cohort)
 from .data.rays_dataset import RaySampler
 from .data.synthetic_scene import build_dataset
+from .examples import quickstart, reconstruct_service
+from .examples import train_nerf_instant3d as train_cli
 from .kernels.fused_mlp import kernel as mlp_kernel
 from .kernels.fused_mlp import ref as mlp_ref
 from .kernels.fused_path import kernel as fp_kernel
@@ -118,6 +139,7 @@ from .kernels.hash_encode import ops as he_ops
 from .kernels.hash_encode import ref as he_ref
 from .kernels.volume_render import kernel as vr_kernel
 from .kernels.volume_render import ref as vr_ref
+from .obs import metrics as obs_metrics
 from .obs import trace as obs_trace
 from .optim.adamw import tree_paths
 from .serve3d import (DONE, ReconstructionService, RenderResult, RenderService,
@@ -287,6 +309,17 @@ SAMPLERS = {"uniform": {}, "v2": {"redistribute": True}, "v3": {"redistribute_v3
 V3_LANE_BUDGETS = (V3_MAX_BUDGET, 2 * V3_MAX_BUDGET)
 V3_SERVE_REQUESTS = 2
 REUSE_STEPS = 32
+
+# The async serving plane and the entry points (this slice's main paths):
+# phase 5's service run with the serving thread off and on, alternating
+# sync, async, sync, async; the training CLI trained to 200 steps with a
+# checkpoint every 100, resumed to 300 and held to an uninterrupted 300;
+# the quickstart's 200 steps; the service demo with --async-serving at its
+# defaults (4 scenes x 96 steps, slices of 8, 24x24 views).
+SERVICE_MODE_RUNS = 2
+CLI_ITERS, CLI_RESUME_ITERS, CLI_CKPT_EVERY = 200, 300, 100
+QUICKSTART_ITERS = 200
+SERVICE_PROFILE_TIMEOUT_S = 420
 
 # whole-image agreement of the card's path with the plain versions on the
 # CPU (the CPU tests' slice-level tolerance against JAX): rgb in [0, 1],
@@ -1238,28 +1271,41 @@ def service_main_path(device, datasets: list, persist_dir: str,
                       plan=((FieldConfig(decomposed=False), NGP_SERVICE_ITERS),)
                       + ((FieldConfig(), SERVICE_ITERS),) * 3,
                       slice_iters: int = SERVICE_SLICE,
-                      render_steps=SERVICE_RENDER_STEPS, held_out: int = HELD_OUT) -> dict:
+                      render_steps=SERVICE_RENDER_STEPS, held_out: int = HELD_OUT,
+                      async_serving: bool = False) -> dict:
     """`ReconstructionService(guard=True, persist_dir=...)` trains one
     session per (field config, steps) of `plan` on `datasets` (all but the
     first `held_out` views), answers renders asked from the run hook after
     the quanta ending at `render_steps` and one a scene after the run, then
     evaluates each scene on its held-out views.  Launch counters are zeroed
     just before the run and read just after the last render.  The run is
-    traced (`repro_torch.obs`): `spans` sums each span name's wall time."""
+    traced (`repro_torch.obs`): `spans` sums each span name's wall time,
+    `slice_ms` lists every training slice's.  With `async_serving` the
+    renders asked mid-training are served by the serving thread, and
+    `snapshots` keeps every full snapshot the hook saw, by (session,
+    version) -- the store keeps only the latest.  `asked` maps each request
+    id to its (session, pose)."""
     svc = ReconstructionService(slice_iters=slice_iters, guard=True,
-                                persist_dir=persist_dir, device=device)
+                                persist_dir=persist_dir, async_serving=async_serving,
+                                device=device)
     for k, (ds, (field_cfg, iters)) in enumerate(zip(datasets, plan)):
         svc.submit_scene(ds, field_cfg, cfg, target_iters=iters, seed=k,
                          train_views=range(held_out, ds.images.shape[0]))
     poses = sphere_poses(8, seed=123)
-    cohorts, answers = [], []
+    cohorts, answers, asked, snapshots = [], [], {}, {}
 
     def hook(s, event):
         if event["cohort"]:
             cohorts.append(len(event["cohort"]))
+        if async_serving:
+            for sid in s.sessions:
+                snap = s.store.latest(sid, level=0)
+                if snap is not None:
+                    snapshots.setdefault((sid, snap.version), snap)
         for sid in event["cohort"]:
             if s.sessions[sid].step in render_steps:
-                s.request_render(sid, poses[len(answers) % len(poses)])
+                pose = poses[len(asked) % len(poses)]
+                asked[s.request_render(sid, pose)] = (sid, pose)
         answers.extend(event["results"])
 
     traced = obs_trace.enabled()
@@ -1269,24 +1315,28 @@ def service_main_path(device, datasets: list, persist_dir: str,
     try:
         telemetry = svc.run(hook=hook)
         spans: dict = {}
+        slice_ms = []
         for e in obs_trace.events():
             if e.dur_us is not None:
                 tot = spans.setdefault(e.name, {"ms": 0.0, "count": 0})
                 tot["ms"] += e.dur_us / 1e3
                 tot["count"] += 1
+                if e.name == "serve3d/slice":
+                    slice_ms.append(e.dur_us / 1e3)
     finally:
         obs_trace.set_enabled(traced)
         obs_trace.clear()
     for k, sid in enumerate(svc.sessions):
-        svc.request_render(sid, poses[-1 - k])
+        asked[svc.request_render(sid, poses[-1 - k])] = (sid, poses[-1 - k])
     answers.extend(svc.renderer.drain())
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     evals = {sid: s.evaluate(views=range(held_out)) for sid, s in svc.sessions.items()}
-    return {"service": svc, "telemetry": telemetry, "spans": spans,
+    return {"service": svc, "telemetry": telemetry, "spans": spans, "slice_ms": slice_ms,
             "render": svc.renderer.latency_stats(), "cohorts": cohorts,
-            "answers": answers, "launches": launches, "evals": evals,
+            "answers": answers, "asked": asked, "snapshots": snapshots,
+            "launches": launches, "evals": evals,
             "expected_renders": len(svc.sessions) * (len(render_steps) + 1)}
 
 
@@ -1301,9 +1351,11 @@ def check_service(run: dict, must_launch=tuple(KERNELS), cohorts=SERVICE_COHORTS
     if not_done:
         problems.append(f"sessions not done: {not_done}")
     bad = [r for r in run["answers"] if not isinstance(r, RenderResult)]
-    if bad or len(run["answers"]) != run["expected_renders"] or svc.renderer.pending:
-        problems.append(f"renders: {len(run['answers'])} answered of "
-                        f"{run['expected_renders']}, errors {bad}, "
+    ids = sorted(r.request_id for r in run["answers"])
+    if bad or len(ids) != run["expected_renders"] or svc.renderer.pending \
+            or ids != sorted(run["asked"]):
+        problems.append(f"renders: {len(ids)} answered of {run['expected_renders']} "
+                        f"(each asked once: {ids == sorted(run['asked'])}), errors {bad}, "
                         f"{svc.renderer.pending} pending")
     if set(run["cohorts"]) != set(cohorts):
         problems.append(f"cohort sizes {sorted(set(run['cohorts']))}, expected {sorted(cohorts)}")
@@ -1748,6 +1800,238 @@ def _v3_phase(device, card: str) -> dict:
             "serve_launches": served["launches"]}
 
 
+# ---- phase 7: the async serving plane and the entry points --------------------
+
+def replay_sync(device, run: dict, result) -> bool:
+    """A sync drain of the snapshot `result` was rendered from (the hook
+    kept it), in a fresh `RenderService` on `device` with the session's
+    geometry, gives `result`'s bytes."""
+    sid, pose = run["asked"][result.request_id]
+    snap = run["snapshots"][(sid, result.snapshot_version)]
+    store = SnapshotStore()
+    store.publish(sid, snap.params, step=snap.step, occ=snap.occ)
+    fresh = RenderService(store, device=device)
+    geom = run["service"].renderer._geom[sid]
+    fresh.register_session(sid, **{f.name: getattr(geom, f.name)
+                                   for f in dataclasses.fields(geom)})
+    fresh.submit(sid, pose)
+    (again,) = fresh.drain()
+    return (isinstance(again, RenderResult) and np.array_equal(again.rgb, result.rgb)
+            and np.array_equal(again.depth, result.depth))
+
+
+def service_modes(device, datasets: list, tmp: str, runs: int = SERVICE_MODE_RUNS,
+                  **kw) -> dict:
+    """`service_main_path` with ``async_serving`` off and on, alternating,
+    `runs` times each -> {"sync": [run, ...], "async": [run, ...]}.  Each
+    async answer is replayed by `replay_sync` (``replayed``), then the kept
+    snapshots are dropped."""
+    out = {"sync": [], "async": []}
+    for k in range(runs):
+        for mode in out:
+            run = service_main_path(device, datasets, f"{tmp}/{mode}-{k}",
+                                    async_serving=mode == "async", **kw)
+            run["replayed"] = ([replay_sync(device, run, r) for r in run["answers"]]
+                               if mode == "async" else [])
+            run["snapshots"] = {}
+            out[mode].append(run)
+    return out
+
+
+def check_service_modes(modes: dict, must_launch=tuple(KERNELS), cohorts=SERVICE_COHORTS,
+                        min_psnr: float = MIN_PSNR_DB) -> list[str]:
+    """What the sync / async gate refuses: any run failing `check_service`
+    (every session DONE, every request answered exactly once, ...), a
+    session whose final params or occupancy EMA differ from the first sync
+    run's by a byte, an async run not reporting the plane, or an async
+    answer that a sync drain of its snapshot does not reproduce."""
+    problems = []
+    first = modes["sync"][0]["service"].sessions
+    for mode, runs in modes.items():
+        for k, run in enumerate(runs):
+            problems += [f"{mode} run {k}: {p}"
+                         for p in check_service(run, must_launch, cohorts, min_psnr)]
+            if run["telemetry"]["async_serving"] != (mode == "async"):
+                problems.append(f"{mode} run {k}: telemetry async_serving "
+                                f"{run['telemetry']['async_serving']}")
+            for sid, sess in run["service"].sessions.items():
+                a, b = first[sid].state, sess.state
+                if _bits(a.params) != _bits(b.params) or _bits(
+                        {"e": a.occ_state.density_ema}) != _bits({"e": b.occ_state.density_ema}):
+                    problems.append(f"{mode} run {k}: {sid}'s params or occupancy differ "
+                                    "from sync run 0's")
+    for k, run in enumerate(modes["async"]):
+        if not run["replayed"] or not all(run["replayed"]):
+            problems.append(f"async run {k}: {run['replayed'].count(False)} of "
+                            f"{len(run['replayed'])} answers differ from a sync drain of "
+                            "their snapshot")
+    return problems
+
+
+def _spread(values) -> dict:
+    v = np.asarray(values, dtype=float)
+    return {"runs": [float(x) for x in v], "median": float(np.median(v)),
+            "min": float(v.min()), "max": float(v.max())}
+
+
+def service_mode_summary(runs: list) -> dict:
+    """Per mode, over its runs: wall, scenes/s, median per-slice wall and
+    the mid-training renders' p50 / p95 / count (`telemetry()["render"]`,
+    read at the end of `run`, before the post-run renders)."""
+    return {
+        "wall_s": _spread([r["telemetry"]["wall_s"] for r in runs]),
+        "scenes_per_s": _spread([r["telemetry"]["scenes_per_sec"] for r in runs]),
+        "median_slice_ms": _spread([float(np.median(r["slice_ms"])) for r in runs]),
+        "render_p50_ms": _spread([r["telemetry"]["render"]["p50_ms"] for r in runs]),
+        "render_p95_ms": _spread([r["telemetry"]["render"]["p95_ms"] for r in runs]),
+        "render_count": [r["telemetry"]["render"]["count"] for r in runs],
+        "launches": runs[-1]["launches"],
+    }
+
+
+def _entry(fn, *args, **kwargs) -> dict:
+    """Run an entry point with its stdout captured; its result dict gains
+    ``wall_s``, ``stdout`` and ``launches`` (counters zeroed just before,
+    read just after)."""
+    buf = io.StringIO()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = dict(kernels.LAUNCHES)
+    out["stdout"] = buf.getvalue()
+    return out
+
+
+def entry_points(device, tmp: str, iters: tuple = (CLI_ITERS, CLI_RESUME_ITERS),
+                 ckpt_every: int = CLI_CKPT_EVERY, quickstart_iters: int = QUICKSTART_ITERS,
+                 service_argv: tuple = ()) -> dict:
+    """The three entry points on `device`: the training CLI to iters[0]
+    and resumed to iters[1] against an uninterrupted iters[1] run, the
+    quickstart, the service demo with --async-serving (plus
+    `service_argv`).  The demo switches tracing on; it is restored."""
+    dev = ["--device", str(device), "--ckpt-every", str(ckpt_every)]
+    first = _entry(train_cli.main, dev + ["--iters", str(iters[0]), "--ckpt-dir", f"{tmp}/a"])
+    resumed = _entry(train_cli.main, dev + ["--iters", str(iters[1]), "--ckpt-dir", f"{tmp}/a",
+                                            "--auto-resume"])
+    whole = _entry(train_cli.main, dev + ["--iters", str(iters[1]), "--ckpt-dir", f"{tmp}/b"])
+    a, b = resumed["state"], whole["state"]
+    cli = {"first": first, "resumed": resumed, "whole": whole,
+           "resumed_line": f"resumed from step {iters[0]}" in resumed["stdout"],
+           "params": _bits(a.params) == _bits(b.params),
+           "moments": (_bits(a.opt_state.m) == _bits(b.opt_state.m)
+                       and _bits(a.opt_state.v) == _bits(b.opt_state.v)),
+           "occupancy": _bits({"e": a.occ_state.density_ema})
+           == _bits({"e": b.occ_state.density_ema})}
+    quick = _entry(quickstart.main, iters=quickstart_iters, device=device)
+    traced = obs_trace.enabled()
+    try:
+        demo = _entry(reconstruct_service.main,
+                      ["--device", str(device), "--async-serving", *service_argv])
+    finally:
+        obs_trace.set_enabled(traced)
+        obs_trace.clear()
+        obs_metrics.REGISTRY.reset()
+    return {"cli": cli, "quickstart": quick, "service": demo}
+
+
+def check_entry_points(ent: dict, min_psnr: float = MIN_PSNR_DB) -> list[str]:
+    """What the entry-point gate refuses: a resumed CLI run not the bytes
+    of the uninterrupted one or without its ``resumed from step`` line, a
+    quickstart PSNR under `min_psnr`, a demo scene not DONE or a demo
+    request not answered exactly once with a `RenderResult`."""
+    problems = []
+    cli = ent["cli"]
+    for k in ("resumed_line", "params", "moments", "occupancy"):
+        if not cli[k]:
+            problems.append(f"training CLI resume: {k} failed")
+    psnr = ent["quickstart"]["eval"]["psnr_rgb"]
+    if not psnr >= min_psnr:
+        problems.append(f"quickstart PSNR {psnr:.2f} dB < {min_psnr}")
+    demo = ent["service"]
+    not_done = {sid: s.status for sid, s in demo["service"].sessions.items() if s.status != DONE}
+    ids = sorted(r.request_id for r in demo["answered"])
+    bad = [r for r in demo["answered"] if not isinstance(r, RenderResult)]
+    if not_done or bad or not ids or ids != sorted(demo["asked"]):
+        problems.append(f"service demo: not done {not_done}, {len(ids)} answers to "
+                        f"{len(demo['asked'])} requests, errors {bad}")
+    return problems
+
+
+def profile_async_quantum(timeout_s: float = SERVICE_PROFILE_TIMEOUT_S) -> dict:
+    """`tools/torch_service_profile.py` in its own process (torch.profiler
+    stays out of this one) -> its JSON report."""
+    tool = Path(__file__).resolve().parents[2] / "tools" / "torch_service_profile.py"
+    done = subprocess.run([sys.executable, str(tool)], capture_output=True, text=True,
+                          timeout=timeout_s)
+    if done.returncode != 0:
+        raise RuntimeError(f"{tool.name} exited {done.returncode}:\n"
+                           f"{done.stdout[-4000:]}\n{done.stderr[-4000:]}")
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+def _async_phase(device, card: str) -> dict:
+    """Phase 7: the service sync against async and its gates, the entry
+    points and theirs, one profile of an async quantum."""
+    datasets = service_datasets(device)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        modes = service_modes(device, datasets, tmp)
+    print(f"service sync / async: {SERVICE_MODE_RUNS} runs each, alternating, in "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
+    summary = {mode: service_mode_summary(runs) for mode, runs in modes.items()}
+    for mode, summ in summary.items():
+        print(f"service {mode} [{card}]: " + json.dumps(summ), flush=True)
+    problems = check_service_modes(modes)
+    replayed = sum(len(r["replayed"]) for r in modes["async"])
+    print(f"service sync vs async: every session DONE, every request answered once, final "
+          f"params and occupancy equal across {2 * SERVICE_MODE_RUNS} runs, {replayed} async "
+          f"answers equal to a sync drain of their snapshot: {not problems}", flush=True)
+    if problems:
+        raise RuntimeError(f"service sync / async gate failed: {problems}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ent = entry_points(device, tmp)
+    cli = ent["cli"]
+    for name in ("first", "resumed", "whole"):
+        run = cli[name]
+        print(f"train_nerf_instant3d {name}: wall {run['wall_s']:.2f} s, from step "
+              f"{run['start']} to {run['state'].step}, s/iter per chunk "
+              f"{[round(x, 6) for x in run['step_s']]}, PSNR {json.dumps(run['eval'])} "
+              f"[{card}]")
+    print(f"train_nerf_instant3d resume vs uninterrupted: " + json.dumps(
+        {k: cli[k] for k in ("resumed_line", "params", "moments", "occupancy")}), flush=True)
+    quick = ent["quickstart"]
+    print(f"quickstart: wall {quick['wall_s']:.2f} s, {QUICKSTART_ITERS} steps in "
+          f"{quick['train_s']:.2f} s ({quick['train_s'] / QUICKSTART_ITERS * 1e3:.3f} ms a "
+          f"step), PSNR views 0-1 {json.dumps(quick['eval'])}, param_counts "
+          f"{json.dumps(quick['param_counts'])} [{card}]")
+    demo = ent["service"]
+    tel = demo["telemetry"]
+    print(f"reconstruct_service --async-serving: wall {demo['wall_s']:.2f} s, "
+          f"{tel['scenes_done']} scenes in {tel['wall_s']:.3f} s ({tel['scenes_per_sec']:.4f} "
+          f"scenes/s), renders {len(demo['answered'])} of {len(demo['asked'])} asked, "
+          f"render {json.dumps({k: v for k, v in tel['render'].items() if k != 'degraded'})}, "
+          f"PSNR {json.dumps(demo['evals'])} [{card}]")
+    print(f"entry-point launches: " + json.dumps(
+        {"train_nerf_instant3d": cli["whole"]["launches"], "quickstart": quick["launches"],
+         "reconstruct_service": demo["launches"]}), flush=True)
+    problems = check_entry_points(ent)
+    if problems:
+        raise RuntimeError(f"entry-point gate failed: {problems}")
+
+    t0 = time.perf_counter()
+    prof = profile_async_quantum()
+    print(f"async quantum profile ({time.perf_counter() - t0:.1f} s, "
+          f"tools/torch_service_profile.py) [{card}]: {json.dumps(prof)}", flush=True)
+    if not prof["render_kernels"] or not prof["slice_kernels"]:
+        raise RuntimeError(f"the profiled quantum ran no render or no slice kernel: {prof}")
+    return {"summary": summary, "async_launches": modes["async"][-1]["launches"]}
+
+
 # ---- the script ---------------------------------------------------------------
 
 def _ptxas_summary(logs: dict[str, str]) -> list[str]:
@@ -1929,13 +2213,16 @@ def main() -> int:
         if not identity_holds(ident):
             raise RuntimeError(f"a bit-identity contract failed: {ident}")
 
-    # this slice's main path: stage 2b v3 under a hard point ceiling
+    # slice 10's main path: stage 2b v3 under a hard point ceiling
     v3 = _v3_phase(device, card)
     cases.extend(v3["cases"])
 
+    # this slice's main paths: the async serving plane, the entry points
+    plane = _async_phase(device, card)
+
     paths = {"train": run["launches"], "train_ngp": ngp["launches"], "serve": serve_launches,
              "service": service["launches"], "train_v3": v3["train_launches"],
-             "serve_v3": v3["serve_launches"]}
+             "serve_v3": v3["serve_launches"], "service_async": plane["async_launches"]}
     report = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == name]

@@ -28,7 +28,7 @@ from repro_torch.core import rendering as t_rendering
 from repro_torch.core import trainer as t_trainer
 from repro_torch.core.encoding import sh_encoding as t_sh_encoding
 from repro_torch.core.pipeline import RenderPipeline as TPipeline
-from repro_torch.core.pipeline import inverse_cdf_strata
+from repro_torch.core.pipeline import inverse_cdf_strata, live_cdf
 
 GEOM = dict(n_levels=4, max_resolution=64, log2_table_density=12,
             log2_table_color=10, hidden=16)
@@ -295,3 +295,78 @@ def test_pipeline_renders_match_jax(route, snapshot):
     assert int(got["overflow"]) == int(want["overflow"])
     assert int(got["points_queried"]) == int(want["points_queried"])
     np.testing.assert_allclose(float(got["live_fraction"]), float(want["live_fraction"]))
+
+
+# ---- stage 2b v2 in the reference's f32 order ----
+
+# A live mask of 7 strata out of 48 (pdf 1/7 each) whose CDF XLA's blocked
+# f32 scan ends at 1 + 2^-23 and torch.cumsum's float64 accumulation at 1,
+# and candidates whose column 6 puts sample 6, scaled by the CDF's last
+# entry, exactly on the edge 1/7 as JAX computes it, so the two CDFs send it
+# to strata 7 and 6 (found by a search over masks of 3, 7 and 11 live
+# strata).
+EDGE_LIVE = (6, 7, 8, 13, 21, 26, 39)
+EDGE_TS6 = 2.5714285373687744
+
+
+def _jax_v2(ts, live, n_out):
+    pipe = JPipeline(j_field.Field(J_FCFG), j_rendering.RenderConfig(n_samples=ts.shape[1]))
+    return pipe.redistribute(jnp.asarray(ts), jnp.asarray(live), n_out=n_out)
+
+
+def _jax_strata(ts, live, n_out, near, far):
+    """The stratum index and CDF of JAX's `redistribute`, step by step."""
+    s = ts.shape[1]
+    w = jnp.asarray(live, jnp.float32)
+    total = jnp.sum(w, axis=-1, keepdims=True)
+    w = jnp.where(total > 0, w, 1.0)
+    cdf = jnp.cumsum(w / jnp.sum(w, axis=-1, keepdims=True), axis=-1)
+    jitter = (jnp.asarray(ts)[:, :n_out] - near) / (far - near) * s - jnp.arange(n_out)
+    u = (jnp.arange(n_out) + jnp.clip(jitter, 0.0, 1.0 - 1e-6)) / n_out * cdf[:, -1:]
+    j = jax.vmap(lambda c, uu: jnp.searchsorted(c, uu, side="right"))(cdf, u)
+    return np.asarray(jnp.clip(j, 0, s - 1)), np.asarray(cdf)
+
+
+def test_v2_sample_on_a_cdf_edge_takes_jaxs_stratum():
+    s = 48
+    near, far = T_RCFG.near, T_RCFG.far
+    live = np.zeros((1, s), bool)
+    live[0, list(EDGE_LIVE)] = True
+    ts = (near + (np.arange(s) + 0.5) / s * (far - near)).astype(np.float32)[None]
+    ts[0, 6] = np.float32(EDGE_TS6)
+    want_j, want_cdf = _jax_strata(ts, live, s, near, far)
+    pdf, cdf = live_cdf(_t(live))
+    # the input is what it claims: torch.cumsum ends this CDF otherwise
+    assert torch.cumsum(pdf, -1)[0, -1] != float(want_cdf[0, -1])
+    np.testing.assert_array_equal(cdf.numpy(), want_cdf)
+    j = inverse_cdf_strata(_t(ts), _t(live), s, near, far)[0].numpy()
+    assert want_j[0, 6] == 7
+    np.testing.assert_array_equal(j, want_j)
+    jt, jd = _jax_v2(ts, live, s)
+    pipe = TPipeline(t_field.Field(T_FCFG), t_rendering.RenderConfig(n_samples=s))
+    tt, td = pipe.redistribute(_t(ts), _t(live))
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+
+
+@pytest.mark.parametrize("s", [12, 24, 48])
+def test_v2_cdf_and_placement_are_jaxs_bit_for_bit(s):
+    """Random masks (live shares 0.05-0.6, four rays dead): the CDF equals
+    `jnp.cumsum`'s and the stratum index, placed ts and deltas equal JAX's,
+    bit for bit."""
+    rng = np.random.default_rng(s)
+    near, far = T_RCFG.near, T_RCFG.far
+    b = 256
+    ts = (near + (np.arange(s) + rng.uniform(0, 1, (b, s))) / s * (far - near)).astype(np.float32)
+    live = rng.uniform(size=(b, s)) < rng.uniform(0.05, 0.6, (b, 1))
+    live[:4] = False
+    pipe = TPipeline(t_field.Field(T_FCFG), t_rendering.RenderConfig(n_samples=s))
+    for n_out in (s, s // 4):
+        want_j, want_cdf = _jax_strata(ts, live, n_out, near, far)
+        np.testing.assert_array_equal(live_cdf(_t(live))[1].numpy(), want_cdf)
+        j = inverse_cdf_strata(_t(ts), _t(live), n_out, near, far)[0].numpy()
+        np.testing.assert_array_equal(j, want_j)
+        jt, jd = _jax_v2(ts, live, n_out)
+        tt, td = pipe.redistribute(_t(ts), _t(live), n_out=n_out)
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+        np.testing.assert_array_equal(td.numpy(), np.asarray(jd))

@@ -292,9 +292,12 @@ def test_preview_serving_resolution_and_gc(datasets):
 
 
 def test_unported_options_raise(datasets):
-    for kw in (dict(devices=2), dict(async_serving=True)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            ReconstructionService(device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        ReconstructionService(device="cpu", devices=2)
+    # the async serving plane is ported: the service builds and reports it
+    svc = ReconstructionService(device="cpu", async_serving=True)
+    assert svc.telemetry()["async_serving"] is True
+    assert not svc.renderer.async_active
     with pytest.raises(NotImplementedError, match="not ported yet"):
         SessionScheduler(placement=object())
     # stage 2b v3 serving is ported: a v3 session registers
