@@ -15,8 +15,15 @@ v2 and v3 under a ceiling of 4096 points a step and serves v3 at 800x800,
 runs the service again with the async serving plane off and on and holds
 the two byte for byte, runs the training CLI (resumed against
 uninterrupted), the quickstart and the service demo, profiles one async
-quantum (``tools/torch_service_profile.py``), and prints one JSON line with
-every kernel's report and, last, the device line.  It exits non-zero,
+quantum (``tools/torch_service_profile.py``), runs the service again over
+two slots of the card (``devices=["cuda:0", "cuda:0"]``: two driver
+threads) and with ``devices=1`` and holds both to the placement-free bytes,
+moves a suspended session between the slots bit for bit and from the CPU
+to the card (against a session resumed on the card from the CPU run's
+host tree), trains the field's ``residual_policy="stash"`` (the default's
+bytes: on the card both policies run the same kernels) and
+``merged_backward=False`` options, and prints one JSON line with every
+kernel's report and, last, the device line.  It exits non-zero,
 with no result, on any failure, and when no CUDA card is present.  The phases live in ``src/repro_torch/smoke.py``.
 """
 import sys

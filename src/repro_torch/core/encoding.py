@@ -22,6 +22,7 @@ class HashGridConfig:
     log2_table_size: int = 19       # T = 2^19 (Instant-NGP default)
     base_resolution: int = 16
     max_resolution: int = 2048
+    merged_backward: bool = True    # BUM merge in the backward (False: index_add_)
 
     @property
     def table_size(self) -> int:
@@ -51,7 +52,8 @@ class HashEncoding:
 
     def __call__(self, points: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
         """points (N, 3) in [0, 1) -> (N, L*F) f32."""
-        return he_ops.hash_encode(points, tables, self.resolutions, self.dense_flags)
+        return he_ops.hash_encode(points, tables, self.resolutions, self.dense_flags,
+                                  merged_backward=self.cfg.merged_backward)
 
     @property
     def param_bytes(self) -> int:

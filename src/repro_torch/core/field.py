@@ -61,8 +61,12 @@ class FieldConfig:
     hidden: int = 64
     geo_features: int = 15          # density MLP extra outputs
     sh_degree: int = 4
-    # what the fused ops keep between forward and backward; only the
-    # reference's default, "recompute", is ported
+    # the table-gradient commit: merged (BUM, deterministic) or the flagged
+    # unmerged path (index_add_, atomics on a card)
+    merged_backward: bool = True
+    # what the fused ops and the MLP heads keep between forward and backward
+    # on the plain route: "recompute" re-derives it in the backward, "stash"
+    # keeps it (bit-identical gradients); the card's kernels recompute
     residual_policy: str = "recompute"
 
     def grid_cfg(self, branch: str) -> enc.HashGridConfig:
@@ -73,6 +77,7 @@ class FieldConfig:
             log2_table_size=log2_t,
             base_resolution=self.base_resolution,
             max_resolution=self.max_resolution,
+            merged_backward=self.merged_backward,
         )
 
 
@@ -99,12 +104,12 @@ class Field:
             sizes.append(cfg.grid_cfg("color").table_size)
         self._fused_encode = fp_ops.make_fused_encode(
             self.density_enc.resolutions, tuple(sizes), cfg.n_features,
-            residual_policy=cfg.residual_policy)
+            residual_policy=cfg.residual_policy, merged_backward=cfg.merged_backward)
         # the one-op training step (encode both grids + both MLP heads);
         # decomposed fields only, as in the reference
         self._fused_step = fs_ops.make_fused_step(
             self.density_enc.resolutions, tuple(sizes), cfg.n_features,
-            residual_policy=cfg.residual_policy,
+            residual_policy=cfg.residual_policy, merged_backward=cfg.merged_backward,
         ) if cfg.decomposed else None
 
     # ---- params ----
@@ -144,12 +149,14 @@ class Field:
         color-grid features, or None for the NGP baseline (the color MLP then
         eats the density head's geo features)."""
         m = params["density_mlp"]
-        out = mlp_ops.mlp2(hd, m["w1"], m["b1"], m["w2"], m["b2"])
+        policy = self.cfg.residual_policy
+        out = mlp_ops.mlp2(hd, m["w1"], m["b1"], m["w2"], m["b2"], residual_policy=policy)
         sigma, geo = trunc_exp(out[..., 0]), out[..., 1:]
         cin = torch.cat([hc if hc is not None else geo,
                          enc.sh_encoding(dirs, self.cfg.sh_degree)], dim=-1)
         m = params["color_mlp"]
-        raw = mlp_ops.mlp3(cin, m["w1"], m["b1"], m["w2"], m["b2"], m["w3"], m["b3"])
+        raw = mlp_ops.mlp3(cin, m["w1"], m["b1"], m["w2"], m["b2"], m["w3"], m["b3"],
+                           residual_policy=policy)
         return sigma, torch.sigmoid(raw)
 
     def query(self, params: dict, points: torch.Tensor, dirs: torch.Tensor):

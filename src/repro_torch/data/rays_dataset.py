@@ -37,6 +37,14 @@ class RaySampler:
             np.ascontiguousarray(ds.images[views].reshape(-1, 3), dtype=np.float32)).to(device)
         self.n = self.rgb.shape[0]
 
+    def to(self, device) -> "RaySampler":
+        """Move the rays to `device` (in place; returns self)."""
+        self.device = torch.device(device)
+        self.origins = self.origins.to(self.device)
+        self.dirs = self.dirs.to(self.device)
+        self.rgb = self.rgb.to(self.device)
+        return self
+
     def sample_idx(self, generator: torch.Generator, batch: int) -> torch.Tensor:
         """A batch of uniform ray indices in [0, n), on the generator's device."""
         return torch.randint(0, self.n, (batch,), generator=generator,

@@ -13,7 +13,9 @@ are answered mid-training from the latest snapshot and scored against the
 scene's ground truth.  ``--snapshot-levels k`` streams h>>k previews
 before each scene's first full snapshot, ``--async-serving`` serves
 renders from a serving thread, ``--device`` (default ``cuda``) picks where
-everything runs; ``--devices`` is not ported yet and raises.
+everything runs; ``--devices N`` shards the sessions over the first N
+cards, ``--devices cuda:0,cuda:0`` (or ``cpu,cpu``) over an explicit list
+of slots.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from ..core.field import FieldConfig
 from ..core.rendering import RenderConfig
 from ..core.trainer import TrainerConfig
 from ..data.synthetic_scene import build_dataset
+from ..launch.serve3d import devices_arg
 from ..obs import export as obs_export
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
@@ -43,8 +46,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="train-cohort cap (default unlimited; 1 = pure time-slicing)")
     ap.add_argument("--dense-render", action="store_true",
                     help="serve views dense instead of redistributed")
-    ap.add_argument("--devices", type=int, default=None,
-                    help="shard sessions across N cards (not ported yet)")
+    ap.add_argument("--devices", type=devices_arg, default=None,
+                    help="shard sessions over the first N cards, or over an "
+                         "explicit comma-separated device list (cuda:0,cuda:0)")
     ap.add_argument("--snapshot-levels", type=int, default=0,
                     help="publish h>>k preview snapshots until a scene's "
                          "first full snapshot (0 = off)")
@@ -129,6 +133,9 @@ def main(argv=None) -> dict:
           f"({tel['scenes_per_sec']:.3f} scenes/sec)  "
           f"renders {r.get('count', 0)}: p50 {r.get('p50_ms', 0):.0f} ms, "
           f"p95 {r.get('p95_ms', 0):.0f} ms")
+    if tel["placement"] is not None:
+        print(f"placement loads {tel['placement']['loads']} over "
+              f"{tel['placement']['devices']}")
     print("\nmetrics snapshot:")
     print(obs_export.format_metrics(service.metrics()))
     if args.trace_out:

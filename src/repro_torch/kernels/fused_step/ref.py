@@ -18,6 +18,8 @@ backward's table gradient bit for bit.  `backward_f64` is the same backward
 in float64 arithmetic: the yardstick against which both the kernel and the
 f32 plain version are measured where a pre-activation lies so close to 0
 that f32 rounding decides which side of the ReLU it falls on.
+`residual_bytes` counts what each residual policy keeps between forward
+and backward.
 """
 from __future__ import annotations
 
@@ -177,3 +179,31 @@ def encode_block_dedup(points, tables, resolutions, table_size: int, dense_flags
             per_block.append(w_mat @ tables[level][uniq].to(torch.float32))
         outs.append(torch.cat(per_block, dim=0))
     return torch.cat(outs, dim=-1)
+
+
+def residual_bytes(policy: str, n_points: int, n_levels: int, n_features: int,
+                   table_sizes, sh_dim: int, mlp_d_params: int, mlp_c_params: int,
+                   itemsize: int = 4) -> int:
+    """Bytes held between forward and backward for one fused step, the
+    reference's count (`repro.kernels.fused_step.ref.residual_bytes`):
+    every tensor the backward keeps reachable, kept inputs included.
+
+    * "stash": weights (L, N, 8) + two (L*N*8,) streams per grid + both
+      feature blocks (N, L*F) + SH + MLP params; no tables, no points.
+    * "recompute": points + SH + tables + MLP params, nothing else.
+
+    Static arithmetic, so a production-scale footprint needs no memory."""
+    n, levels, f = int(n_points), int(n_levels), int(n_features)
+    grids = len(tuple(table_sizes))
+    mlp = (int(mlp_d_params) + int(mlp_c_params)) * itemsize
+    sh = n * int(sh_dim) * itemsize
+    if policy == "stash":
+        w_stack = levels * n * 8 * itemsize
+        streams = grids * 2 * (levels * n * 8) * itemsize
+        feats = grids * n * levels * f * itemsize
+        return w_stack + streams + feats + sh + mlp
+    if policy == "recompute":
+        points = n * 3 * itemsize
+        tables = sum(levels * int(t) * f for t in table_sizes) * itemsize
+        return points + sh + tables + mlp
+    raise ValueError(f"unknown residual_policy {policy!r}")

@@ -8,9 +8,13 @@ update stream of every corner of every level, level l's addresses offset by
 l*T into the flat (L*T, F) table (`corner_updates`), is sorted stably by
 address (`grid_update.ops.sort_stream`) and committed through
 `grid_update.ops.merged_scatter_add` with one write per run -- on a CUDA
-tensor the `bum_sort` and `bum_scatter` kernels.  The backward does
-nothing when the tables are frozen (`needs_input_grad`), and the points get
-a zero gradient, as in the reference.
+tensor the `bum_sort` and `bum_scatter` kernels.  With
+``merged_backward=False`` the stream is committed unsorted with the
+reference's unmerged scatter (``flat.at[idx].add``): `index_add_` on both
+devices, the flagged atomic path on a card, whose sums are not reproducible
+run to run.  The backward does nothing when the tables are frozen
+(`needs_input_grad`), and the points get a zero gradient, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -48,9 +52,10 @@ def corner_updates(points, resolutions, dense_flags, table_size: int, grad):
 
 class _HashEncode(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, points, tables, resolutions, dense_flags):
+    def forward(ctx, points, tables, resolutions, dense_flags, merged):
         ctx.save_for_backward(points)
         ctx.geometry = (resolutions, dense_flags, tuple(tables.shape), tables.dtype)
+        ctx.merged = merged
         return _forward(points, tables, resolutions, dense_flags)
 
     @staticmethod
@@ -59,19 +64,24 @@ class _HashEncode(torch.autograd.Function):
         resolutions, dense_flags, (n_levels, table_size, n_features), dtype = ctx.geometry
         g_points = torch.zeros_like(points) if ctx.needs_input_grad[0] else None
         if not ctx.needs_input_grad[1]:
-            return g_points, None, None, None
+            return g_points, None, None, None, None
         grad = g.reshape(points.shape[0], n_levels, n_features).to(torch.float32)
         idx, vals = corner_updates(points, resolutions, dense_flags, table_size, grad)
         flat = torch.zeros((n_levels * table_size, n_features), dtype=torch.float32,
                            device=points.device)
-        # no spill row: every address lies in [0, L*T)
-        idx, vals = gu_ops.sort_stream(idx, vals, (n_levels * table_size - 1).bit_length())
-        flat = gu_ops.merged_scatter_add(flat, idx, vals, presorted=True)
-        return g_points, flat.reshape(n_levels, table_size, n_features).to(dtype), None, None
+        if ctx.merged:
+            # no spill row: every address lies in [0, L*T)
+            idx, vals = gu_ops.sort_stream(idx, vals, (n_levels * table_size - 1).bit_length())
+            flat = gu_ops.merged_scatter_add(flat, idx, vals, presorted=True)
+        else:
+            flat.index_add_(0, idx, vals)
+        grad_tables = flat.reshape(n_levels, table_size, n_features).to(dtype)
+        return g_points, grad_tables, None, None, None
 
 
 def hash_encode(points: torch.Tensor, tables: torch.Tensor, resolutions,
-                dense_flags) -> torch.Tensor:
+                dense_flags, merged_backward: bool = True) -> torch.Tensor:
     """points (N, 3) in [0, 1)^3, tables (L, T, F) -> (N, L*F) f32,
-    differentiable in `tables` through the merged backward."""
-    return _HashEncode.apply(points, tables, resolutions, dense_flags)
+    differentiable in `tables` through the merged backward (or the
+    unmerged one with ``merged_backward=False``)."""
+    return _HashEncode.apply(points, tables, resolutions, dense_flags, bool(merged_backward))

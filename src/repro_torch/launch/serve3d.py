@@ -13,8 +13,10 @@ under round-robin or EDF selection with a bounded resident set, and serves
 novel-view renders mid-training from the published snapshots
 (``--dense-render`` for the dense path).  The session guard is on by
 default; ``--chaos`` injects one NaN-params fault into scene-001 mid-run;
-``--async-serving`` serves renders from a serving thread.  ``--devices``
-is not ported yet and raises.
+``--async-serving`` serves renders from a serving thread.  ``--devices N``
+shards the sessions over the first N cards (more than the machine has
+raises); ``--devices cuda:0,cuda:0`` (or ``cpu,cpu``) places them over an
+explicit list of slots, duplicates allowed.
 Prints per-session progress, scenes/s, render-latency percentiles and the
 guard's telemetry.
 """
@@ -33,6 +35,12 @@ from ..obs import export as obs_export
 from ..obs import trace as obs_trace
 from ..serve3d import GuardConfig, ReconstructionService
 from ..testing import faults
+
+
+def devices_arg(text: str):
+    """``--devices``: a card count (``2``) or a comma-separated device list
+    (``cuda:0,cuda:0``, ``cpu,cpu``)."""
+    return int(text) if text.strip().isdigit() else [d.strip() for d in text.split(",")]
 
 
 def build_service(args) -> tuple[ReconstructionService, dict]:
@@ -102,8 +110,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--shed-threshold", type=int, default=None,
                     help="ready-request queue depth that triggers quality "
                          "shedding (halved samples per ray) before drops")
-    ap.add_argument("--devices", type=int, default=None,
-                    help="shard sessions across N cards (not ported yet)")
+    ap.add_argument("--devices", type=devices_arg, default=None,
+                    help="shard sessions over the first N cards, or over an "
+                         "explicit comma-separated device list (cuda:0,cuda:0)")
     ap.add_argument("--snapshot-levels", type=int, default=0,
                     help="preview snapshot level k: publish cheap h>>k "
                          "previews every healthy slice until a scene's first "
@@ -177,6 +186,8 @@ def main(argv=None):
     print(f"\ndevices {tel['devices']}  scenes/sec {tel['scenes_per_sec']:.3f}  "
           f"renders {r.get('count', 0)}  "
           f"p50 {r.get('p50_ms', float('nan')):.0f} ms  p95 {r.get('p95_ms', float('nan')):.0f} ms")
+    if tel["placement"] is not None:
+        print(f"placement loads {tel['placement']['loads']}")
     g = tel.get("guard")
     if g is not None:
         print(f"guard: rollbacks {g['rollbacks']}  "

@@ -22,14 +22,19 @@ Levels: level 0 renders full resolution from a full snapshot; level k > 0
 renders at h>>k and is answerable by a preview snapshot.
 
 Device: every group renders on the service's device (``"cuda"`` unless the
-caller passes ``device="cpu"``).  On a card the service owns one CUDA
-stream, and every drain, sync or async, runs on it: the kernels launch on
-the current stream, so a render's kernels can overlap a training slice's
-(which run on the default stream), and no tensor of a render is used on
-another stream.  The device copy of each session's latest snapshot is made
-on that stream, used only there, and kept until the session publishes a
-newer one.  On the CPU there is no stream; the code path is otherwise the
-same.
+caller passes ``device="cpu"``), or, with a `DevicePlacement`, on the
+device holding its sessions' training state, looked up at drain time: the
+group key carries that device, so a group never straddles devices (slots
+that share a card share its groups) and a moved session's renders follow
+it.  On a card the service
+owns one CUDA stream per device, made on the device's first group, and
+every group, sync or async, runs under that device and its stream: the
+kernels launch on the current stream, so a render's kernels can overlap a
+training slice's (which run on the default stream), and no tensor of a
+render is used on another stream.  The device copy of each session's
+latest snapshot is kept per (session, device), made on that device's
+stream, used only there, and kept until the session publishes a newer
+one.  On the CPU there is no stream; the code path is otherwise the same.
 
 Async serving plane (`start_async`): a serving thread drives the drain
 loop, so a render need not wait for the end of the training slice in
@@ -59,8 +64,7 @@ Degradation ladder:
 
 Fault site ``serve3d.render_group`` (kind ``render_fail``,
 `repro_torch.testing.faults`) raises inside a group's render, which the
-retry rung then handles.  Device placement across cards is not ported
-yet.
+retry rung then handles.
 """
 from __future__ import annotations
 
@@ -137,17 +141,20 @@ class RenderService:
     def __init__(self, store: SnapshotStore, latency_window: int = 4096,
                  default_deadline_s: float | None = None,
                  shed_threshold: int | None = None,
-                 max_attempts: int = 2, device="cuda"):
+                 max_attempts: int = 2, device="cuda", placement=None):
         """default_deadline_s: deadline of requests submitted without one
         (None = never expire).  shed_threshold: ready-queue depth above
         which a drain halves redistributed budgets (None = never shed).
         max_attempts: group renders per request before it errors.
-        device: where every group renders."""
+        device: where every group renders without a placement.
+        placement: a `DevicePlacement`; a group then renders on the device
+        holding its sessions (an unplaced session's on `device`)."""
         self.store = store
         self.default_deadline_s = default_deadline_s
         self.shed_threshold = shed_threshold
         self.max_attempts = int(max_attempts)
         self.device = torch.device(device)
+        self.placement = placement
         self._geom: dict[str, _SessionGeom] = {}
         self._queue: list[RenderRequest] = []
         self._next_id = 0
@@ -156,11 +163,11 @@ class RenderService:
         # shared with the serving thread under this lock
         self._lock = threading.Lock()
         self._drain_mutex = threading.Lock()   # one drain at a time
-        # every drain runs on this stream (None on the CPU)
-        self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
-        # session -> (snapshot version, params on device, occ ema on device),
-        # made and used on the render stream only
-        self._resident: dict[str, tuple[int, dict, Any]] = {}
+        # card -> the render stream every group on it runs on
+        self._streams: dict[torch.device, torch.cuda.Stream] = {}
+        # (session, device) -> (snapshot version, params, occ ema) on that
+        # device, made and used on its render stream only
+        self._resident: dict[tuple, tuple[int, dict, Any]] = {}
         # async serving plane
         self._async_thread: threading.Thread | None = None
         self._async_stop = threading.Event()
@@ -315,17 +322,15 @@ class RenderService:
         return self._serve(collect=False)
 
     def _serve(self, collect: bool) -> list:
-        """One drain on the render stream; with `collect`, its results join
-        the async results before the drain counts as finished, so `idle`
-        never reads true between the two."""
+        """One drain; with `collect`, its results join the async results
+        before the drain counts as finished, so `idle` never reads true
+        between the two."""
         with self._drain_mutex:
             with self._lock:
                 self._draining = True
             try:
-                stream = (torch.cuda.stream(self._stream) if self._stream is not None
-                          else contextlib.nullcontext())
                 with obs_trace.span("serve3d/render_drain", cat="serve3d",
-                                    args={"pending": self.pending}), stream:
+                                    args={"pending": self.pending}):
                     results = self._drain()
                 if collect and results:
                     with self._lock:
@@ -378,6 +383,9 @@ class RenderService:
                 obs_trace.instant("serve3d/render_shed", cat="serve3d",
                                   args={"ready": len(ready)})
 
+        # coalesce by geometry, serving path, level and the device the
+        # placement gives now: groups never straddle devices and a moved
+        # session renders where it trains
         groups: dict[tuple, list[tuple[RenderRequest, Snapshot]]] = {}
         for req, snap in ready:
             g = self._geom[req.session_id]
@@ -385,7 +393,8 @@ class RenderService:
             if shed and spr is not None:
                 spr = max(2, spr // 2)
             key = (g.field_cfg, g.render_cfg, g.h, g.w, g.focal, g.eval_chunk,
-                   g.occ_cfg, spr, g.redistribute_v3, req.level)
+                   g.occ_cfg, spr, g.redistribute_v3, req.level,
+                   self._placed(req.session_id))
             groups.setdefault(key, []).append((req, snap))
 
         for key, items in groups.items():
@@ -411,30 +420,66 @@ class RenderService:
         results.sort(key=lambda r: r.request_id)
         return results
 
-    def _resident_copy(self, snap: Snapshot):
-        """(params, occ ema) of `snap` on the service's device, copied once
-        per published version."""
-        cached = self._resident.get(snap.session_id)
+    def _placed(self, session_id: str) -> torch.device:
+        """The device a session's renders run on: its placement's, or the
+        service's device without one or while unplaced."""
+        if self.placement is not None:
+            dev = self.placement.device(session_id)
+            if dev is not None:
+                return torch.device(dev)
+        return self.device
+
+    def render_stream(self, dev=None) -> torch.cuda.Stream | None:
+        """The render stream of card `dev` (default: the service's device),
+        made on first use; None off CUDA."""
+        dev = self.device if dev is None else torch.device(dev)
+        if dev.type != "cuda":
+            return None
+        dev = torch.device("cuda", torch.cuda.current_device() if dev.index is None
+                           else dev.index)
+        stream = self._streams.get(dev)
+        if stream is None:
+            stream = self._streams[dev] = torch.cuda.Stream(dev)
+        return stream
+
+    def _device_ctx(self, dev: torch.device):
+        """`dev` as the current device and its render stream as the current
+        stream; a no-op off CUDA."""
+        stream = self.render_stream(dev)
+        if stream is None:
+            return contextlib.nullcontext()
+        ctx = contextlib.ExitStack()
+        ctx.enter_context(torch.cuda.device(stream.device))
+        ctx.enter_context(torch.cuda.stream(stream))
+        return ctx
+
+    def _resident_copy(self, snap: Snapshot, dev: torch.device):
+        """(params, occ ema) of `snap` on `dev`, copied once per published
+        version."""
+        key = (snap.session_id, dev)
+        cached = self._resident.get(key)
         if cached is None or cached[0] != snap.version:
-            occ = None if snap.occ is None else snap.occ[0].to(self.device)
-            cached = (snap.version, _to_device(snap.params, self.device), occ)
-            self._resident[snap.session_id] = cached
+            occ = None if snap.occ is None else snap.occ[0].to(dev)
+            cached = (snap.version, _to_device(snap.params, dev), occ)
+            self._resident[key] = cached
         return cached[1], cached[2]
 
     def _render_group(self, field_cfg, render_cfg, h, w, focal, eval_chunk,
-                      occ_cfg, samples_per_ray, redistribute_v3, level,
+                      occ_cfg, samples_per_ray, redistribute_v3, level, device,
                       items) -> list[RenderResult]:
         with obs_trace.span("serve3d/render_group", cat="serve3d",
                             args={"group": len(items),
                                   "redistribute": samples_per_ray is not None,
                                   "v3": bool(redistribute_v3),
-                                  "level": int(level)}):
+                                  "level": int(level), "device": str(device),
+                                  "sessions": sorted({r.session_id for r, _ in items})}), \
+                self._device_ctx(device):
             return self._render_group_inner(field_cfg, render_cfg, h, w, focal,
                                             eval_chunk, occ_cfg, samples_per_ray,
-                                            redistribute_v3, level, items)
+                                            redistribute_v3, level, device, items)
 
     def _render_group_inner(self, field_cfg, render_cfg, h, w, focal, eval_chunk,
-                            occ_cfg, samples_per_ray, redistribute_v3, level,
+                            occ_cfg, samples_per_ray, redistribute_v3, level, dev,
                             items) -> list[RenderResult]:
         inj = faults.check("serve3d.render_group", session=items[0][0].session_id)
         if inj is not None and inj.kind == "render_fail":
@@ -442,7 +487,6 @@ class RenderService:
         if level > 0:
             h = max(1, h >> level)
             w = max(1, w >> level)
-        dev = self.device
         origins, dirs = [], []
         n = chunk = None
         for req, _snap in items:
@@ -451,7 +495,7 @@ class RenderService:
             dirs.append(d)
         origins = torch.stack(origins)   # (G, n_pad, 3)
         dirs = torch.stack(dirs)
-        resident = [self._resident_copy(snap) for _req, snap in items]
+        resident = [self._resident_copy(snap, dev) for _req, snap in items]
         params = [p for p, _occ in resident]
         ts = rendering.sample_ts(None, chunk, render_cfg, device=dev)
 

@@ -1,7 +1,7 @@
-"""ReconstructionService: the serve3d facade, on one card.
+"""ReconstructionService: the serve3d facade.
 
-The port of `repro.serve3d.service` (``devices=None``, synchronous
-serving).  One object owns the train -> snapshot -> serve loop:
+The port of `repro.serve3d.service`.  One object owns the train -> snapshot
+-> serve loop:
 
     service = ReconstructionService(slice_iters=16)
     sid = service.submit_scene(dataset, field_cfg, trainer_cfg, target_iters=256)
@@ -34,9 +34,15 @@ after the last quantum as one final hook event.  A serving thread that
 raised makes `run` raise.  Trained bytes do not depend on the plane: a
 render reads published host snapshots only, on its own CUDA stream.
 
-Every session trains and renders on ``device`` (``"cuda"`` unless the caller
-passes ``device="cpu"``).  Sharding sessions over several cards
-(``devices``) is not ported yet and raises.
+Without ``devices``, every session trains and renders on ``device``
+(``"cuda"`` unless the caller passes ``device="cpu"``).  ``devices`` shards
+the sessions over a `DevicePlacement`: an int (the first n cards; more
+than the machine has raises), an explicit list (``["cuda:0", "cuda:0"]``
+puts two slots on one card, ``["cpu"] * 4`` four on the CPU) or None.  The
+scheduler then caps residency per device and advances one cohort per slot
+each quantum on its slot threads, renders run on their session's device,
+and a finished or quarantined session's slot load is released.  One slot
+is the placement-free service bit for bit.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ from ..obs import export as obs_export
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from .guard import GuardConfig, SessionGuard
+from .placement import DevicePlacement
 from .render import RenderService
 from .scheduler import SessionScheduler
 from .session import DONE, QUARANTINED, SceneSession
@@ -73,17 +80,20 @@ class ReconstructionService:
         shed_threshold: forwarded to `RenderService`.  snapshot_levels: k >
         0 publishes level-k previews until the first full snapshot.
         async_serving: `run` serves renders from a serving thread.
-        device: where every session trains and renders."""
-        if devices is not None:
-            raise NotImplementedError(
-                "devices: sharding sessions over several cards is not ported yet")
+        devices: shard sessions over a `DevicePlacement` (an int, a device
+        list or None: see the module docstring); ``max_resident`` is then
+        per device.  device: where every session trains and renders without
+        ``devices``."""
         self.device = device
+        self.placement = DevicePlacement(devices) if devices is not None else None
         self.async_serving = bool(async_serving)
         self.store = SnapshotStore(persist_dir=persist_dir)
         self.renderer = RenderService(self.store, default_deadline_s=render_deadline_s,
-                                      shed_threshold=shed_threshold, device=device)
+                                      shed_threshold=shed_threshold, device=device,
+                                      placement=self.placement)
         self.scheduler = SessionScheduler(slice_iters=slice_iters, policy=policy,
-                                          max_resident=max_resident, max_cohort=max_cohort)
+                                          max_resident=max_resident, max_cohort=max_cohort,
+                                          placement=self.placement)
         if guard is True:
             guard = GuardConfig()
         self.guard = SessionGuard(guard) if guard else None
@@ -161,7 +171,7 @@ class ReconstructionService:
                         # publish the restored last-good tree once, so the
                         # scene's renders are answered (stale)
                         self._publish(member)
-                        self.store.gc_previews(member.session_id)
+                        self._retire(member.session_id)
                     continue
                 slices = len(member.telemetry["step"])
                 if (member.status == DONE or slices % self.snapshot_every == 0
@@ -213,6 +223,13 @@ class ReconstructionService:
             if self.guard is None or member.session_id not in self.guard.quarantined:
                 self.renderer.mark_stale(member.session_id, False)
 
+    def _retire(self, session_id: str) -> None:
+        """A quarantined session stops holding slot capacity and preview
+        snapshots; its full snapshot keeps being served."""
+        self.store.gc_previews(session_id)
+        if self.placement is not None:
+            self.placement.release(session_id)
+
     def run(self, hook=None, max_quanta: int = 100_000) -> dict:
         """Drive quanta until every session is done, the render queue is
         empty and (async serving) the serving thread is idle.
@@ -234,6 +251,7 @@ class ReconstructionService:
                     # only the serving thread has work: yield the GIL to it
                     time.sleep(0.002)
         finally:
+            self.scheduler.close()    # no slot thread outlives the run
             if renderer.async_started:
                 renderer.stop_async()
                 final = renderer.poll_results()
@@ -261,8 +279,8 @@ class ReconstructionService:
             "guard": self.guard.stats() if self.guard is not None else None,
             "publish_failures": self.publish_failures,
             "stragglers_flagged": self.scheduler.stragglers_flagged,
-            "devices": 1,
-            "placement": None,
+            "devices": self.placement.n if self.placement is not None else 1,
+            "placement": self.placement.stats() if self.placement is not None else None,
             "async_serving": self.async_serving,
         }
 

@@ -23,11 +23,18 @@ session has a checkpoint dir); `resume` restores from the in-memory tree,
 else from the newest valid checkpoint on disk (a fresh process).
 
 Every tensor lives on the session's ``device`` (``"cuda"`` unless the
-caller passes ``device="cpu"``).  Placing sessions on several cards
-(`place` with a device) is not ported yet.
+caller passes ``device="cpu"``).  `place` pins the session to a slot of a
+`DevicePlacement` while it holds no device state (before `start`, or
+suspended mid-move): the trainer and the ray sampler follow the new device,
+and `start` / `resume` materialize there.  Every entry point that touches
+the device runs under `_device_ctx` (`torch.cuda.device` of the session's
+card), so the current device is the session's in whatever thread drives
+it.  The draws come from CPU generators keyed by the absolute step, so a
+move is bit-transparent.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any
 
@@ -67,8 +74,7 @@ class SceneSession:
         self.ckpt = CheckpointManager(ckpt_dir, keep_last=2) if ckpt_dir else None
         self.state: TrainState | None = None
         self._host_tree: dict | None = None
-        # the mesh slot of a placed session; None on one card, the only
-        # placement ported
+        # the slot of a placed session (serve3d.placement); None unplaced
         self.device_slot: int | None = None
         # samples per ray the service serves this session's renders at
         # (None = dense); `evaluate` marches the same quadrature
@@ -84,10 +90,23 @@ class SceneSession:
         return self.trainer.device
 
     def place(self, device, slot: int | None = None) -> None:
-        """Pin the session to a card of a mesh: only ``None`` (the
-        session's own device) is ported."""
-        if device is not None or slot is not None:
-            raise NotImplementedError("placing sessions on a device mesh is not ported yet")
+        """Pin this session to a placement slot and its device.  Legal while
+        the session holds no device state (before `start`, or suspended):
+        the next `start` / `resume` materializes on the new device, the
+        ray sampler's rays included."""
+        assert self.state is None, \
+            f"{self.session_id}: suspend before moving a resident session"
+        self.trainer.device = torch.device(device)
+        self.device_slot = slot
+
+    def _device_ctx(self):
+        """The session's card as the current device (a no-op off CUDA)."""
+        dev = self.device
+        return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+    def _materialize_sampler(self):
+        if self.sampler.device != self.device:
+            self.sampler = self.sampler.to(self.device)
 
     # ---- lifecycle ----
 
@@ -113,7 +132,9 @@ class SceneSession:
 
     def start(self):
         assert self.status == PENDING, f"cannot start from {self.status}"
-        self.state = self._init_state()
+        with self._device_ctx():
+            self._materialize_sampler()
+            self.state = self._init_state()
         self.status = ACTIVE
 
     def run_slice(self, n_iters: int) -> dict:
@@ -129,7 +150,8 @@ class SceneSession:
         t0 = obs_trace.clock()
         with obs_trace.span("serve3d/slice", cat="serve3d",
                             args={"session": self.session_id, "iters": n,
-                                  "step": int(self.step), "device": self.device_slot}):
+                                  "step": int(self.step), "device": self.device_slot}), \
+                self._device_ctx():
             self.state, hist = self.trainer.train(self.state, self.sampler, iters=n,
                                                   log_every=n)
         if inj is not None:
@@ -200,7 +222,8 @@ class SceneSession:
         with obs_trace.span("serve3d/slice", cat="serve3d",
                             args={"cohort": len(sessions), "iters": n,
                                   "step": int(sessions[0].step),
-                                  "device": sessions[0].device_slot}):
+                                  "device": sessions[0].device_slot}), \
+                sessions[0]._device_ctx():
             states, hists = train_cohort([s.trainer for s in sessions],
                                          [s.state for s in sessions],
                                          [s.sampler for s in sessions],
@@ -233,9 +256,12 @@ class SceneSession:
         if tree is None:
             if self.ckpt is None:
                 raise RuntimeError(f"{self.session_id}: nothing to resume from")
-            template = self.trainer.suspend(self._init_state())
+            with self._device_ctx():
+                template = self.trainer.suspend(self._init_state())
             tree, _meta = self.ckpt.restore(template)
-        self.state = self.trainer.resume(tree)
+        with self._device_ctx():
+            self._materialize_sampler()
+            self.state = self.trainer.resume(tree)
         self._host_tree = None
         self.status = DONE if self.done else ACTIVE
 
@@ -283,8 +309,9 @@ class SceneSession:
         (atomic swap).  Level 0 is the full snapshot, k > 0 a preview."""
         meta = {"loss": float(self.telemetry["loss"][-1]) if self.telemetry["loss"] else None,
                 "train_wall_s": self.train_wall_s}
-        return store.publish(self.session_id, self._current_params(), self.step, meta,
-                             occ=self._current_occ(), level=level)
+        with self._device_ctx():
+            return store.publish(self.session_id, self._current_params(), self.step, meta,
+                                 occ=self._current_occ(), level=level)
 
     def evaluate(self, views=None) -> dict:
         """PSNR of the current params against this session's ground truth,
@@ -295,8 +322,9 @@ class SceneSession:
         occ = None
         if self.render_spr is not None and self.trainer_cfg.use_occupancy:
             occ = self._current_occ()
-        return self.trainer.evaluate(self._current_params(), self.dataset, views=views,
-                                     occ=occ, samples_per_ray=self.render_spr)
+        with self._device_ctx():
+            return self.trainer.evaluate(self._current_params(), self.dataset, views=views,
+                                         occ=occ, samples_per_ray=self.render_spr)
 
     def progress(self) -> dict:
         return {

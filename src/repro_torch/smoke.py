@@ -1,6 +1,7 @@
 """The phases of ``chip_smoke.py``: build, kernel parity, train (Instant-3D
 and the Instant-NGP baseline), serve, the reconstruction service, stage 2b
-v3, the async serving plane and the entry points.
+v3, the async serving plane and the entry points, sessions over two slots
+of the card and the field's last two options.
 
 Each phase takes an explicit device, so the CPU tests can rehearse the
 paths at a tiny size with ``device="cpu"``; `main` runs them all on the
@@ -91,8 +92,29 @@ card and fails on anything wrong -- there is no CPU fallback.
    render answered); and `tools/torch_service_profile.py` in its own
    process: one quantum with the serving thread rendering beside it under
    torch.profiler (device busy, idle share, render / slice overlap);
-8. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
-   summed over the seven main paths, and per path) and, last, the device
+8. sessions across slots and the field's last two options (slice 12's
+   main paths): phase 5's service configuration run placement-free, with
+   ``devices=1`` and with ``devices=["cuda:0", "cuda:0"]`` and the async
+   serving plane (two slot threads, counters zeroed around the run:
+   ``service_two_slots``); every session of both placed runs ends on the
+   placement-free run's bytes, the two slots hold scenes [0, 1, 0, 1], the
+   slices of both ``serve3d-dev`` threads overlap in wall time, every
+   kernel is launched, every render answered by a group on its sessions'
+   device.  A session suspended, moved to the other slot and resumed ends
+   on an unmoved run's bytes; a session trained on the CPU slot of
+   ``["cpu", "cuda:0"]``, suspended, moved to the card and resumed holds
+   all its state and rays on the card, renders there, and ends on the
+   bytes of a session resumed on the card from the CPU run's host tree;
+   `session_devices` past the card count raises.  Then
+   `FieldConfig(residual_policy="stash")` trained 200 steps ends on the
+   default run's bytes -- on the card both policies run the same kernels
+   (they recompute), so this shows determinism only; the CPU tests hold
+   stash's own plain path to recompute's bytes -- and
+   `FieldConfig(merged_backward=False)` (the atomic commit on the dense
+   steps) reaches 20 dB held-out PSNR; its two runs' bytes are reported,
+   not gated;
+9. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
+   summed over the eight main paths, and per path) and, last, the device
    line.
 """
 from __future__ import annotations
@@ -142,8 +164,9 @@ from .kernels.volume_render import ref as vr_ref
 from .obs import metrics as obs_metrics
 from .obs import trace as obs_trace
 from .optim.adamw import tree_paths
-from .serve3d import (DONE, ReconstructionService, RenderResult, RenderService,
-                      SceneSession, SnapshotStore)
+from .launch.mesh import session_devices
+from .serve3d import (DONE, DevicePlacement, ReconstructionService, RenderResult,
+                      RenderService, SceneSession, SnapshotStore)
 from .testing import faults
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
@@ -320,6 +343,28 @@ SERVICE_MODE_RUNS = 2
 CLI_ITERS, CLI_RESUME_ITERS, CLI_CKPT_EVERY = 200, 300, 100
 QUICKSTART_ITERS = 200
 SERVICE_PROFILE_TIMEOUT_S = 420
+
+# Sessions across slots (slice 12's main path): phase 5's service on two
+# slots of the one card, with the async serving plane.  The least-loaded
+# placement puts scenes 0-3 on slots [0, 1, 0, 1]: the NGP session (scene 0)
+# and Instant-3D scene 2 train alone on slot 0 (their configs differ), scenes
+# 1 and 3 as a cohort of 2 on slot 1.  The device move goes to the other
+# slot at the first suspend step of the contracts.  The move across devices
+# trains FieldConfig() on the CPU slot (plain routes) for 24 steps (the
+# first fold at 23), then on the card (kernels; compacted steps from 32) to
+# 40, at 256 rays on 32x32 views so the CPU leg stays short.  The field's last two
+# options train TrainerConfig() for 200 steps (100 dense, then compacted).
+PLACEMENT_SLOTS = ("cuda:0", "cuda:0")
+PLACEMENT_PLACED = {"scene-000": 0, "scene-001": 1, "scene-002": 0, "scene-003": 1}
+PLACEMENT_COHORTS = {1, 2}
+CROSS_SLOTS = ("cpu", "cuda:0")
+CROSS_DATA = dict(n_views=6, h=32, w=32, gt_samples=48)
+# headroom 0.7: at this size's live fraction the budget buckets below the
+# dense count, so the card leg's compacted steps shade through the fused step
+CROSS_CFG = TrainerConfig(n_rays=256, budget_headroom=0.7,
+                          occ=occupancy.OccupancyConfig(update_interval=8, warmup_steps=16))
+CROSS_ITERS, CROSS_AT = 40, 24
+OPTION_ITERS = 200
 
 # whole-image agreement of the card's path with the plain versions on the
 # CPU (the CPU tests' slice-level tolerance against JAX): rgb in [0, 1],
@@ -1272,7 +1317,7 @@ def service_main_path(device, datasets: list, persist_dir: str,
                       + ((FieldConfig(), SERVICE_ITERS),) * 3,
                       slice_iters: int = SERVICE_SLICE,
                       render_steps=SERVICE_RENDER_STEPS, held_out: int = HELD_OUT,
-                      async_serving: bool = False) -> dict:
+                      async_serving: bool = False, devices=None) -> dict:
     """`ReconstructionService(guard=True, persist_dir=...)` trains one
     session per (field config, steps) of `plan` on `datasets` (all but the
     first `held_out` views), answers renders asked from the run hook after
@@ -1284,19 +1329,24 @@ def service_main_path(device, datasets: list, persist_dir: str,
     renders asked mid-training are served by the serving thread, and
     `snapshots` keeps every full snapshot the hook saw, by (session,
     version) -- the store keeps only the latest.  `asked` maps each request
-    id to its (session, pose)."""
+    id to its (session, pose).  With `devices` the sessions are placed
+    (`ReconstructionService(devices=...)`): `loads` are the slot loads once
+    every scene is submitted, `slice_spans` every slice's (thread, start,
+    end) in microseconds and `render_groups` every render group's span
+    arguments (device, sessions)."""
     svc = ReconstructionService(slice_iters=slice_iters, guard=True,
                                 persist_dir=persist_dir, async_serving=async_serving,
-                                device=device)
+                                devices=devices, device=device)
     for k, (ds, (field_cfg, iters)) in enumerate(zip(datasets, plan)):
         svc.submit_scene(ds, field_cfg, cfg, target_iters=iters, seed=k,
                          train_views=range(held_out, ds.images.shape[0]))
+    loads = svc.placement.loads() if svc.placement is not None else None
     poses = sphere_poses(8, seed=123)
     cohorts, answers, asked, snapshots = [], [], {}, {}
 
     def hook(s, event):
-        if event["cohort"]:
-            cohorts.append(len(event["cohort"]))
+        # a quantum trains one cohort a slot: count each slot's
+        cohorts.extend(Counter(s.sessions[sid].device_slot for sid in event["cohort"]).values())
         if async_serving:
             for sid in s.sessions:
                 snap = s.store.latest(sid, level=0)
@@ -1315,7 +1365,7 @@ def service_main_path(device, datasets: list, persist_dir: str,
     try:
         telemetry = svc.run(hook=hook)
         spans: dict = {}
-        slice_ms = []
+        slice_ms, slice_spans, render_groups = [], [], []
         for e in obs_trace.events():
             if e.dur_us is not None:
                 tot = spans.setdefault(e.name, {"ms": 0.0, "count": 0})
@@ -1323,6 +1373,9 @@ def service_main_path(device, datasets: list, persist_dir: str,
                 tot["count"] += 1
                 if e.name == "serve3d/slice":
                     slice_ms.append(e.dur_us / 1e3)
+                    slice_spans.append((e.thread_name, e.ts_us, e.ts_us + e.dur_us))
+                elif e.name == "serve3d/render_group":
+                    render_groups.append(e.args)
     finally:
         obs_trace.set_enabled(traced)
         obs_trace.clear()
@@ -1334,6 +1387,7 @@ def service_main_path(device, datasets: list, persist_dir: str,
     launches = dict(kernels.LAUNCHES)
     evals = {sid: s.evaluate(views=range(held_out)) for sid, s in svc.sessions.items()}
     return {"service": svc, "telemetry": telemetry, "spans": spans, "slice_ms": slice_ms,
+            "slice_spans": slice_spans, "render_groups": render_groups, "loads": loads,
             "render": svc.renderer.latency_stats(), "cohorts": cohorts,
             "answers": answers, "asked": asked, "snapshots": snapshots,
             "launches": launches, "evals": evals,
@@ -2032,6 +2086,297 @@ def _async_phase(device, card: str) -> dict:
     return {"summary": summary, "async_launches": modes["async"][-1]["launches"]}
 
 
+# ---- phase 8: sessions across slots, the field's last two options -----------
+
+def slice_overlap(spans, prefix: str = "serve3d-dev") -> dict:
+    """From a run's (thread, start, end) slice spans: the slot threads
+    named `prefix*` that trained slices, their slice counts, and the wall
+    time (ms) two of them spent inside a slice at once."""
+    by_thread: dict = {}
+    for name, t0, t1 in spans:
+        if name.startswith(prefix):
+            by_thread.setdefault(name, []).append((t0, t1))
+    names = sorted(by_thread)
+    overlap_us = sum(max(0.0, min(e0, e1) - max(s0, s1))
+                     for i, a in enumerate(names) for b in names[i + 1:]
+                     for s0, e0 in by_thread[a] for s1, e1 in by_thread[b])
+    return {"threads": names, "slices": {t: len(v) for t, v in by_thread.items()},
+            "overlap_ms": overlap_us / 1e3}
+
+
+def same_final_state(a: dict, b: dict) -> dict:
+    """Per session of service run `b`: its final step, params and occupancy
+    EMA the bytes of the same session in run `a`."""
+    out = {}
+    for sid, sess in b["service"].sessions.items():
+        x, y = a["service"].sessions[sid].state, sess.state
+        out[sid] = (x.step == y.step and _bits(x.params) == _bits(y.params)
+                    and _bits({"e": x.occ_state.density_ema})
+                    == _bits({"e": y.occ_state.density_ema}))
+    return out
+
+
+def groups_on_their_devices(run: dict) -> bool:
+    """Every render group of a placed run rendered on the device its
+    placement holds each of its sessions on (and there was a group)."""
+    placement = run["service"].placement
+    return bool(run["render_groups"]) and all(
+        g["device"] == str(torch.device(placement.device(sid))) for g in run["render_groups"]
+        for sid in g["sessions"])
+
+
+def placement_runs(device, datasets: list, slots=PLACEMENT_SLOTS, one_slot=1, **kw) -> dict:
+    """Phase 5's service configuration (no persisted snapshots; `kw` goes to
+    `service_main_path`) run placement-free, with ``devices=one_slot`` and
+    over `slots` with the async serving plane, in that order."""
+    return {"placement_free": service_main_path(device, datasets, None, **kw),
+            "n1": service_main_path(device, datasets, None, devices=one_slot, **kw),
+            "two_slots": service_main_path(device, datasets, None, devices=list(slots),
+                                           async_serving=True, **kw)}
+
+
+def check_placement(runs: dict, placed=PLACEMENT_PLACED, cohorts=PLACEMENT_COHORTS,
+                    must_launch=tuple(KERNELS), min_psnr: float = MIN_PSNR_DB) -> list[str]:
+    """What the placement gate refuses: a run failing `check_service`, a
+    placed run's session not on the placement-free run's bytes, the N=1 run
+    not all on slot 0, the two-slot run not placed as `placed`, its loads
+    not released, its slot threads' slices never overlapping, or a render
+    group off its sessions' device."""
+    problems = []
+    for mode, run in runs.items():
+        problems += [f"{mode}: {p}" for p in check_service(
+            run, must_launch, cohorts if mode == "two_slots" else SERVICE_COHORTS, min_psnr)]
+    for mode in ("n1", "two_slots"):
+        same = same_final_state(runs["placement_free"], runs[mode])
+        if not all(same.values()):
+            problems.append(f"{mode}: sessions off the placement-free bytes: {same}")
+    n1 = runs["n1"]["telemetry"]
+    if n1["devices"] != 1 or set(n1["placement"]["placed"].values()) != {0}:
+        problems.append(f"n1: placement {n1['placement']}")
+    two = runs["two_slots"]
+    tel = two["telemetry"]
+    if tel["placement"]["placed"] != placed or tel["placement"]["loads"] != [0, 0] \
+            or two["loads"] != [2, 2] or not tel["async_serving"]:
+        problems.append(f"two_slots: placement {tel['placement']}, loads at admission "
+                        f"{two['loads']}, async {tel['async_serving']}")
+    overlap = slice_overlap(two["slice_spans"])
+    if len(overlap["threads"]) < 2 or not overlap["overlap_ms"] > 0:
+        problems.append(f"two_slots: the slot threads' slices never overlapped: {overlap}")
+    if not groups_on_their_devices(two):
+        problems.append(f"two_slots: render groups off their devices: {two['render_groups']}")
+    return problems
+
+
+def device_move(device, datasets: list, field_cfg: FieldConfig = FieldConfig(),
+                cfg: TrainerConfig = TrainerConfig(), iters: int = IDENTITY_ITERS,
+                move_at: int = SUSPEND_AT[0], slots=PLACEMENT_SLOTS,
+                held_out: int = HELD_OUT) -> dict:
+    """Scene 1 on a `DevicePlacement` over `slots`: trained to `move_at`,
+    suspended, moved to the least-loaded other slot, resumed and trained to
+    `iters`; against an unmoved session of the same scene and seed."""
+    views = range(held_out, datasets[1].images.shape[0])
+
+    def session(sid):
+        return SceneSession(sid, datasets[1], field_cfg, cfg, iters, seed=1,
+                            train_views=views, device=device)
+
+    placement = DevicePlacement(list(slots))
+    moved = session("moved")
+    slot = placement.assign("moved")
+    moved.place(placement.device_for_slot(slot), slot)
+    moved.start()
+    moved.run_slice(move_at)
+    moved.suspend()
+    new = placement.move("moved")
+    moved.place(placement.device_for_slot(new), new)
+    moved.resume()
+    moved.run_slice(iters - moved.step)
+    still = session("still")
+    still.start()
+    still.run_slice(iters)
+    return {"from_slot": slot, "to_slot": new, "at": move_at, "iters": iters,
+            **_state_equal(still.state, moved.state)}
+
+
+def _on(tensors, device) -> bool:
+    """Every tensor on `device` (as a tensor made there reports it)."""
+    want = torch.empty(0, device=device).device
+    return all(t.device == want for t in tensors)
+
+
+def cross_device_move(dataset, field_cfg: FieldConfig = FieldConfig(),
+                      cfg: TrainerConfig = CROSS_CFG, iters: int = CROSS_ITERS,
+                      move_at: int = CROSS_AT, slots=CROSS_SLOTS) -> dict:
+    """A session on a `DevicePlacement` over `slots` (the CPU, then a card):
+    trained on slot 0 to `move_at`, suspended, moved to slot 1, resumed
+    (then every state tensor and the sampler's rays must be on slot 1's
+    device) and trained to `iters`; against a session trained unplaced on
+    slot 0's device to `move_at`, suspended, and resumed on slot 1's device
+    from its host tree (`rollback`).  Each is then served once through a
+    `RenderService` on slot 0's device -- the moved one placed, so its group
+    must render on slot 1's device -- and once unplaced on slot 1's."""
+    placement = DevicePlacement(list(slots))
+    target = torch.device(placement.device_for_slot(1))
+
+    def session(sid, device):
+        return SceneSession(sid, dataset, field_cfg, cfg, iters, seed=1, device=device)
+
+    moved = session("moved", slots[0])
+    slot = placement.assign("moved")
+    moved.place(placement.device_for_slot(slot), slot)
+    moved.start()
+    moved.run_slice(move_at)
+    moved.suspend()
+    new = placement.move("moved")
+    moved.place(placement.device_for_slot(new), new)
+    moved.resume()
+    st = moved.state
+    on_new = _on([t for tree in (st.params, st.opt_state.m, st.opt_state.v)
+                  for _, t in tree_paths(tree)]
+                 + [st.opt_state.step, st.occ_state.density_ema, moved.sampler.origins,
+                    moved.sampler.dirs, moved.sampler.rgb], target)
+    on_new = on_new and moved.device == moved.sampler.device == target
+    moved.run_slice(iters - moved.step)
+    cpu_leg = session("still", slots[0])
+    cpu_leg.start()
+    cpu_leg.run_slice(move_at)
+    cpu_leg.suspend()
+    still = session("still", target)
+    still.rollback(cpu_leg._host_tree)
+    still.run_slice(iters - still.step)
+    store = SnapshotStore()
+    placed = RenderService(store, device=slots[0], placement=placement)
+    unplaced = RenderService(store, device=target)
+    answers = []
+    for svc, sess in ((placed, moved), (unplaced, still)):
+        sess.publish(store)
+        svc.register_session(sess.session_id, field_cfg, cfg.render, dataset.h, dataset.w,
+                             dataset.focal, cfg.eval_chunk)
+        svc.submit(sess.session_id, dataset.poses[0])
+        answers += svc.drain()
+    if target.type == "cuda":
+        torch.cuda.synchronize()
+    a, b = answers
+    return {"slots": list(slots), "from_slot": slot, "to_slot": new, "at": move_at,
+            "iters": iters, "on_new_device": on_new,
+            "render_on": sorted(str(d) for _, d in placed._resident),
+            "render_equal": (isinstance(a, RenderResult) and isinstance(b, RenderResult)
+                             and np.array_equal(a.rgb, b.rgb)
+                             and np.array_equal(a.depth, b.depth)),
+            **_state_equal(still.state, moved.state)}
+
+
+def cross_move_holds(move: dict) -> bool:
+    return (all(move[k] for k in ("on_new_device", "render_equal", "params", "adam_m",
+                                  "adam_v", "occupancy_ema", "steps"))
+            and move["render_on"] == [str(torch.device(move["slots"][1]))]
+            and (move["from_slot"], move["to_slot"]) == (0, 1))
+
+
+def option_runs(device, iters: int = OPTION_ITERS, field_cfg: FieldConfig = FieldConfig(),
+                cfg: TrainerConfig = TrainerConfig(), **kw) -> dict:
+    """`train_main_path` (`kw` goes to it) at `iters` steps on `field_cfg`
+    (default), with ``residual_policy="stash"``, and twice with
+    ``merged_backward=False``."""
+    cfg = dataclasses.replace(cfg, iters=iters)
+    plan = (("default", {}), ("stash", {"residual_policy": "stash"}),
+            ("unmerged", {"merged_backward": False}),
+            ("unmerged_again", {"merged_backward": False}))
+    return {name: train_main_path(device, dataclasses.replace(field_cfg, **opt), cfg, **kw)
+            for name, opt in plan}
+
+
+def _same_run_bytes(a: dict, b: dict) -> dict:
+    x, y = a["state"], b["state"]
+    return {"params": _bits(x.params) == _bits(y.params),
+            "moments": (_bits(x.opt_state.m) == _bits(y.opt_state.m)
+                        and _bits(x.opt_state.v) == _bits(y.opt_state.v)),
+            "occupancy": _bits({"e": x.occ_state.density_ema})
+            == _bits({"e": y.occ_state.density_ema})}
+
+
+def check_options(opts: dict, kernels_of_path=TRAIN_KERNELS,
+                  min_psnr: float = MIN_PSNR_DB) -> list[str]:
+    """What the field-option gate refuses: a run failing `check_training`
+    (both routes, finite losses, held-out PSNR, the path's kernels), or the
+    "stash" run not on the default run's bytes.  The two unmerged runs may
+    differ: their dense steps commit with atomics."""
+    problems = [f"{name}: {p}" for name, run in opts.items()
+                for p in check_training(run, kernels_of_path, min_psnr)]
+    stash = _same_run_bytes(opts["default"], opts["stash"])
+    if not all(stash.values()):
+        problems.append(f"stash is not the default run's bytes: {stash}")
+    return problems
+
+
+def _placement_phase(device, card: str) -> dict:
+    """Phase 8: the service placement-free, on one slot and on two slots of
+    the card, and its gate; the device move; session_devices past the card
+    count; the field's last two options."""
+    datasets = service_datasets(device)
+    t0 = time.perf_counter()
+    runs = placement_runs(device, datasets)
+    summary = {mode: {"wall_s": r["telemetry"]["wall_s"],
+                      "scenes_per_s": r["telemetry"]["scenes_per_sec"],
+                      "median_slice_ms": float(np.median(r["slice_ms"])),
+                      "render_p50_ms": r["telemetry"]["render"].get("p50_ms"),
+                      "cohorts": dict(sorted(Counter(r["cohorts"]).items())),
+                      "launches": r["launches"]} for mode, r in runs.items()}
+    two = runs["two_slots"]
+    print(f"placement ({time.perf_counter() - t0:.2f} s for three runs) [{card}]: "
+          + json.dumps({**summary, "two_slot_loads_at_admission": two["loads"],
+                        "two_slot_placement": two["telemetry"]["placement"],
+                        "two_slot_overlap": slice_overlap(two["slice_spans"]),
+                        "two_slot_render_groups": len(two["render_groups"])}), flush=True)
+    problems = check_placement(runs)
+    same = {mode: same_final_state(runs["placement_free"], runs[mode])
+            for mode in ("n1", "two_slots")}
+    print(f"placement bit identity vs placement-free: {json.dumps(same)}; render groups on "
+          f"their devices {groups_on_their_devices(two)}: {not problems}", flush=True)
+    if problems:
+        raise RuntimeError(f"placement gate failed: {problems}")
+
+    move = device_move(device, datasets)
+    print(f"device move (suspend, move, resume): {json.dumps(move)}", flush=True)
+    if not all(move[k] for k in ("params", "adam_m", "adam_v", "occupancy_ema", "steps")) \
+            or move["from_slot"] == move["to_slot"]:
+        raise RuntimeError(f"the device move is not bit-identical: {move}")
+    t0 = time.perf_counter()
+    cross = cross_device_move(build_dataset(1, device="cpu", **CROSS_DATA)[1])
+    print(f"device move across devices ({time.perf_counter() - t0:.2f} s) [{card}]: "
+          f"{json.dumps(cross)}", flush=True)
+    if not cross_move_holds(cross):
+        raise RuntimeError(f"the move from the CPU to the card does not hold: {cross}")
+    try:
+        session_devices(torch.cuda.device_count() + 1)
+    except ValueError as e:
+        print(f"session_devices(device_count + 1) raises ValueError: {e}", flush=True)
+    else:
+        raise RuntimeError("session_devices past the card count did not raise")
+
+    t0 = time.perf_counter()
+    opts = option_runs(device)
+    print(f"field options: {len(opts)} runs of {OPTION_ITERS} steps in "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
+    for name, run in opts.items():
+        print(f"field option {name} [{card}]: " + json.dumps({
+            "held_out": run["eval"], "loss": run["hist"]["loss"][-1],
+            "dense_ms_median": _warm_median(run["dense_ms"]),
+            "compact_ms_median": _warm_median(run["compact_ms"]),
+            "launches": run["launches"]}), flush=True)
+    stash = _same_run_bytes(opts["default"], opts["stash"])
+    atomic = _same_run_bytes(opts["unmerged"], opts["unmerged_again"])
+    print(f"field option stash vs default (gate; on the card both policies run the same "
+          f"recomputing kernels, so this shows determinism only): {json.dumps(stash)}; "
+          f"merged_backward=False "
+          f"two runs (index_add_'s atomics on the dense steps, reported, not gated): "
+          f"{json.dumps(atomic)}", flush=True)
+    problems = check_options(opts)
+    if problems:
+        raise RuntimeError(f"field-option gate failed: {problems}")
+    return {"two_slot_launches": two["launches"]}
+
+
 # ---- the script ---------------------------------------------------------------
 
 def _ptxas_summary(logs: dict[str, str]) -> list[str]:
@@ -2217,12 +2562,15 @@ def main() -> int:
     v3 = _v3_phase(device, card)
     cases.extend(v3["cases"])
 
-    # this slice's main paths: the async serving plane, the entry points
+    # slice 11's main paths: the async serving plane, the entry points
     plane = _async_phase(device, card)
+    # this slice's main paths: sessions over two slots, the last two options
+    placed = _placement_phase(device, card)
 
     paths = {"train": run["launches"], "train_ngp": ngp["launches"], "serve": serve_launches,
              "service": service["launches"], "train_v3": v3["train_launches"],
-             "serve_v3": v3["serve_launches"], "service_async": plane["async_launches"]}
+             "serve_v3": v3["serve_launches"], "service_async": plane["async_launches"],
+             "service_two_slots": placed["two_slot_launches"]}
     report = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == name]

@@ -179,8 +179,10 @@ def test_reconstruct_service_async_on_the_cpu(capsys):
     assert len(out["asked"]) == 4 and sorted(ids) == sorted(out["asked"])
     assert all(isinstance(r, RenderResult) for r in out["answered"])
     assert "scenes on 1 device(s)" in text and "metrics snapshot:" in text
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        reconstruct_service.main(["--device", "cpu", "--scenes", "1", "--devices", "2"])
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match="devices but only"):
+        reconstruct_service.main(["--device", "cpu", "--scenes", "1",
+                                  "--devices", str(n + 2)])
 
 
 def test_entry_points_default_to_the_card():

@@ -172,8 +172,16 @@ def test_frozen_tables_commit_nothing(rng, monkeypatch):
     (od.sum() + oc.sum()).backward()
     assert commits == [{"presorted": True}]          # the density table only
     assert t_tc.grad is None and t_td.grad.any()
-    with pytest.raises(NotImplementedError, match="stash"):
-        t_fp_ops.make_fused_encode(RES, (TD, TC), F, residual_policy="stash")
+    # the "stash" policy is ported: the same single commit, the same bytes
+    commits.clear()
+    s_td = t_td.detach().clone().requires_grad_(True)
+    od, oc = t_fp_ops.make_fused_encode(RES, (TD, TC), F, residual_policy="stash")(
+        pts, s_td, t_tc)
+    (od.sum() + oc.sum()).backward()
+    assert commits == [{"presorted": True}] and t_tc.grad is None
+    assert torch.equal(s_td.grad, t_td.grad)
+    with pytest.raises(ValueError, match="residual_policy"):
+        t_fp_ops.make_fused_encode(RES, (TD, TC), F, residual_policy="keep")
     with pytest.raises(ValueError, match="grids"):
         t_fp_ops.make_fused_encode(RES, (TD, TC), F)(pts, t_td)
     with pytest.raises(ValueError, match="is not"):

@@ -408,8 +408,19 @@ def test_fused_step_frozen_table_gets_no_gradient(rng):
     out_d, raw_c = t_step(_t(pts), _t(sh), t_td, t_tc, md, mc)
     (out_d.sum() + raw_c.sum()).backward()
     assert t_tc.grad is None and t_td.grad is not None and t_td.grad.any()
-    with pytest.raises(NotImplementedError, match="stash"):
-        t_fs_ops.make_fused_step(RES, (TD, TC), F, residual_policy="stash")
+    # the "stash" policy is ported: the frozen table still gets nothing and
+    # the density table the same bytes
+    s_td, s_tc = _t(td, grad=True), _t(tc)
+    s_md = {k: _t(v, grad=True) for k, v in mlp_d.items()}
+    s_mc = {k: _t(v, grad=True) for k, v in mlp_c.items()}
+    out_d, raw_c = t_fs_ops.make_fused_step(RES, (TD, TC), F, residual_policy="stash")(
+        _t(pts), _t(sh), s_td, s_tc, s_md, s_mc)
+    (out_d.sum() + raw_c.sum()).backward()
+    assert s_tc.grad is None and torch.equal(s_td.grad, t_td.grad)
+    assert all(torch.equal(s_md[k].grad, md[k].grad) for k in md)
+    assert all(torch.equal(s_mc[k].grad, mc[k].grad) for k in mc)
+    with pytest.raises(ValueError, match="residual_policy"):
+        t_fs_ops.make_fused_step(RES, (TD, TC), F, residual_policy="keep")
 
 
 def test_dedup_oracle_matches_jax(rng):

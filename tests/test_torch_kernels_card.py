@@ -883,3 +883,93 @@ def test_fused_step_kernels_match_plain_on_v3_packed_points(need_color, card):
         for name in back[k]:
             assert _rel(back[k][name].cpu().double(), exact[k][name]) <= 1e-4, name
     assert _rel(back[4].cpu().double(), exact[4]) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_two_slots_on_one_card_end_on_the_placement_free_bytes(card):
+    """The multi-device quantum on the card: two slots that are both
+    ``cuda:0`` (two slot threads launching every training kernel at
+    once, renders on the render stream) against the placement-free
+    service, three Instant-3D scenes on FieldConfig() at a small image
+    size; every session's final params and occupancy the same bytes, every
+    render answered, and the unmerged commit (index_add_ on the card) within
+    1e-5 of the merged one on one dense step's table gradients."""
+    from repro_torch.core import occupancy
+    from repro_torch.core.rendering import RenderConfig
+    from repro_torch.core.trainer import TrainerConfig
+    from repro_torch.data.synthetic_scene import build_dataset
+    from repro_torch.optim.adamw import tree_paths
+    from repro_torch.serve3d import DONE, ReconstructionService, RenderResult
+    rcfg = RenderConfig()
+    # headroom 0.7: at this size's live fraction (~0.56) the budget buckets
+    # to 8192 of 12,288 points, so steps 32-39 shade through the fused step
+    cfg = TrainerConfig(n_rays=256, budget_headroom=0.7,
+                        occ=occupancy.OccupancyConfig(update_interval=8, warmup_steps=16))
+    datasets = [build_dataset(k, n_views=6, h=32, w=32, cfg=rcfg, gt_samples=48,
+                              device=card)[1] for k in range(3)]
+    runs = {}
+    for devices in (None, ["cuda:0", "cuda:0"]):
+        svc = ReconstructionService(slice_iters=8, devices=devices, device=card,
+                                    async_serving=devices is not None)
+        for k, ds in enumerate(datasets):
+            svc.submit_scene(ds, FieldConfig(), cfg, target_iters=40, seed=k)
+        answers = []
+
+        def hook(s, ev):
+            answers.extend(ev["results"])
+            for sid in ev["cohort"]:
+                if s.sessions[sid].step == 24:
+                    s.request_render(sid, datasets[0].poses[1])
+
+        kernels.reset_launches()
+        tel = svc.run(hook=hook)
+        torch.cuda.synchronize()
+        assert all(s.status == DONE for s in svc.sessions.values())
+        assert len(answers) == 3 and all(isinstance(r, RenderResult) for r in answers)
+        runs[devices is not None] = (svc, dict(kernels.LAUNCHES), tel)
+    (free, _, _), (two, launches, tel) = runs[False], runs[True]
+    assert tel["placement"]["placed"] == {"scene-000": 0, "scene-001": 1, "scene-002": 0}
+    missing = [k for k in ("hash_encode", "fused_mlp2", "fused_mlp3", "composite",
+                           "composite_bwd", "fused_step_fwd", "fused_step_bwd", "bum_sort",
+                           "bum_scatter") if launches[k] == 0]
+    assert missing == [], launches
+    for sid, sess in two.sessions.items():
+        a, b = free.sessions[sid].state, sess.state
+        assert all(torch.equal(_bits(x), _bits(y)) for (_, x), (_, y)
+                   in zip(tree_paths(a.params), tree_paths(b.params))), sid
+        assert torch.equal(a.occ_state.density_ema, b.occ_state.density_ema), sid
+    # merged_backward=False on the card: index_add_'s sum, to rounding
+    enc = Field(FieldConfig()).density_enc
+    gen = torch.Generator().manual_seed(5)
+    pts = _u(gen, (49152, 3), 0.0, 1.0 - 1e-6, card)
+    tables = _u(gen, (16, 1 << 18, 2), -1e-4, 1e-4, card)
+    g = _u(gen, (49152, 32), -1, 1, card)
+    grads = []
+    for merged in (True, False):
+        t = tables.clone().requires_grad_(True)
+        (he_ops.hash_encode(pts, t, enc.resolutions, enc.dense_flags, merged_backward=merged)
+         * g).sum().backward()
+        grads.append(t.grad)
+    assert _rel(grads[1], grads[0]) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_session_moves_from_the_cpu_to_the_card(card):
+    """A session on DevicePlacement(["cpu", "cuda:0"]): trained on the CPU
+    slot (plain routes) to step 24, suspended, moved to the card, resumed
+    and trained to 40 through the kernels.  After the resume every state
+    tensor and the sampler's rays are on cuda:0; a placed render service on
+    the CPU renders the session on cuda:0; and the params, both Adam
+    moments and the occupancy EMA are the bytes of a session trained
+    unplaced on the CPU to 24 and resumed on the card from its host tree."""
+    from repro_torch.data.synthetic_scene import build_dataset
+    kernels.reset_launches()
+    move = smoke.cross_device_move(build_dataset(1, device="cpu", **smoke.CROSS_DATA)[1])
+    assert move["on_new_device"] and move["render_on"] == ["cuda:0"], move
+    assert move["render_equal"], move
+    assert all(move[k] for k in ("params", "adam_m", "adam_v", "occupancy_ema", "steps")), move
+    assert smoke.cross_move_holds(move)
+    # the card leg trained through the kernels, compacted steps included
+    assert all(kernels.LAUNCHES[k] > 0 for k in ("hash_encode", "fused_step_fwd",
+                                                  "fused_step_bwd", "bum_scatter")), \
+        dict(kernels.LAUNCHES)

@@ -44,7 +44,7 @@ from repro_torch.data.synthetic_scene import build_dataset
 from repro_torch.obs import trace as obs_trace
 from repro_torch.optim.adamw import tree_paths
 from repro_torch.serve3d import (
-    ACTIVE, DONE, PENDING, ReconstructionService, RenderResult, RenderService,
+    ACTIVE, DONE, PENDING, DevicePlacement, ReconstructionService, RenderResult, RenderService,
     SceneSession, SessionScheduler, SnapshotStore,
 )
 from repro_torch.testing import faults
@@ -292,21 +292,35 @@ def test_preview_serving_resolution_and_gc(datasets):
 
 
 def test_unported_options_raise(datasets):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ReconstructionService(device="cpu", devices=2)
+    # devices=N counts CUDA cards (session_devices): more than the machine
+    # has fails at construction, with no fallback to the CPU
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match="devices but only"):
+        ReconstructionService(device="cpu", devices=n + 2)
     # the async serving plane is ported: the service builds and reports it
     svc = ReconstructionService(device="cpu", async_serving=True)
     assert svc.telemetry()["async_serving"] is True
     assert not svc.renderer.async_active
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        SessionScheduler(placement=object())
+    # placement is ported: a scheduler takes one, the service reports it
+    placement = DevicePlacement(["cpu", "cpu"])
+    sched = SessionScheduler(placement=placement)
+    assert sched.placement is placement
+    svc = ReconstructionService(device="cpu", devices=["cpu", "cpu"])
+    assert svc.telemetry()["devices"] == 2
+    assert svc.telemetry()["placement"] == {"devices": ["cpu", "cpu"], "loads": [0, 0],
+                                            "placed": {}}
+    assert svc.scheduler.placement is svc.placement is svc.renderer.placement
     # stage 2b v3 serving is ported: a v3 session registers
     rs = RenderService(SnapshotStore(), device="cpu")
     rs.register_session("x", FIELD_CFG, RCFG, 16, 16, 20.0, occ_cfg=TRAIN_CFG.occ,
                         samples_per_ray=4, redistribute_v3=True)
     assert rs._geom["x"].redistribute_v3 and rs._geom["x"].samples_per_ray == 4
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        _session("x", datasets[0], 4).place("cuda:1", 1)
+    # a session without device state is retargeted (nothing is allocated
+    # until start / resume, so no card is needed to place it)
+    sess = _session("x", datasets[0], 4)
+    sess.place("cuda:1", 1)
+    assert sess.device == torch.device("cuda", 1) and sess.device_slot == 1
+    assert sess.cohort_key()[0] == 1 and sess.progress()["device"] == 1
 
 
 def test_entry_points_default_to_the_card():
@@ -316,8 +330,9 @@ def test_entry_points_default_to_the_card():
                Instant3DTrainer.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert launch.build_parser().parse_args([]).device == "cuda"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        launch.main(["--device", "cpu", "--scenes", "1", "--devices", "2"])
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match="devices but only"):
+        launch.main(["--device", "cpu", "--scenes", "1", "--devices", str(n + 2)])
 
 
 # ---- the trace and the launcher ----

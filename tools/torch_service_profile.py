@@ -138,7 +138,7 @@ def main() -> int:
             kernels.reset_launches()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                with torch.cuda.stream(svc.renderer._stream):
+                with torch.cuda.stream(svc.renderer.render_stream()):
                     torch.cuda._sleep(1000)        # marks the render stream
                 for k, sid in enumerate(svc.sessions):
                     svc.request_render(sid, poses[4 + k])
