@@ -22,8 +22,13 @@ moves a suspended session between the slots bit for bit and from the CPU
 to the card (against a session resumed on the card from the CPU run's
 host tree), trains the field's ``residual_policy="stash"`` (the default's
 bytes: on the card both policies run the same kernels) and
-``merged_backward=False`` options, and prints one JSON line with every
-kernel's report and, last, the device line.  It exits non-zero,
+``merged_backward=False`` options, holds the table-reading kernels on bf16
+and f16 tables to themselves on the tables' f32 copies and to their plain
+versions, trains both fields with ``FieldConfig(grid_dtype="bfloat16")``,
+serves from the trained bf16 snapshot (eval == served), runs two bf16
+sessions as one cohort of the service (cohort == sequential) and holds the
+service's four bit-identity contracts at bf16, and prints
+one JSON line with every kernel's report and, last, the device line.  It exits non-zero,
 with no result, on any failure, and when no CUDA card is present.  The phases live in ``src/repro_torch/smoke.py``.
 """
 import sys

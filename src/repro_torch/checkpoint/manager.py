@@ -15,6 +15,10 @@ NamedTuple's fields as ``.name``, sequence items by index, joined by "/"
 `save` takes the host copy synchronously (a tensor on the card is copied
 to numpy before `save` returns; the writer thread only ever sees numpy).
 `restore` returns numpy arrays; the caller puts them on its device.
+bf16 leaves are written as their raw bits (``|V2``, as `np.savez` writes
+the reference's bf16 arrays) and restored as such where the template's leaf
+is bf16 (`repro_torch.bridge` turns them back into bf16 tensors); a 2-byte
+void leaf under a float16 template comes back as float16.
 
 Fault site ``checkpoint.write`` (`repro_torch.testing.faults`):
 ``kill_mid_write`` raises after the array file lands, before the rename;
@@ -33,6 +37,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from .. import bridge
 from ..testing import faults
 
 
@@ -58,10 +63,24 @@ def _children(tree) -> list[tuple[str, Any]] | None:
 
 
 def _host_array(leaf) -> np.ndarray:
-    """A numpy copy of a leaf that shares no storage with it."""
+    """A numpy copy of a leaf that shares no storage with it (bf16 as its
+    bits)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy().copy()
+        return bridge.tensor_to_array(leaf)
     return np.array(leaf, copy=True)
+
+
+def _as_template(arr: np.ndarray, template) -> np.ndarray:
+    """A restored array read as the template's 2-byte float: the raw 2-byte
+    bits of a bf16 leaf are float16 under a float16 template and bf16 bits
+    (``|V2``) under any other; everything else as stored."""
+    if not bridge.is_bf16_bits(arr.dtype):
+        return arr
+    if isinstance(template, torch.Tensor):
+        half = template.dtype == torch.float16
+    else:
+        half = np.asarray(template).dtype == np.float16
+    return arr.view(np.float16 if half else bridge.BF16_BITS)
 
 
 def tree_to_flat(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -85,7 +104,7 @@ def flat_to_tree(template, flat: dict[str, np.ndarray], prefix: str = ""):
         if tuple(arr.shape) != tuple(np.shape(template)):
             raise ValueError(f"shape mismatch for {prefix}: ckpt {arr.shape} "
                              f"vs model {tuple(np.shape(template))}")
-        return arr
+        return _as_template(arr, template)
     built = [flat_to_tree(v, flat, f"{prefix}/{k}" if prefix else k) for k, v in kids]
     if isinstance(template, dict):
         return dict(zip(sorted(template), built))

@@ -42,13 +42,15 @@ class HashEncoding:
             cfg.n_levels, cfg.base_resolution, cfg.max_resolution)
         self.dense_flags = he_ref.level_is_dense(self.resolutions, cfg.table_size)
 
-    def init(self, generator: torch.Generator, device="cuda") -> torch.Tensor:
-        """Tables ~ U(-1e-4, 1e-4) as in Instant-NGP, drawn on the
-        generator's device and moved to `device`."""
+    def init(self, generator: torch.Generator, device="cuda",
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """Tables ~ U(-1e-4, 1e-4) as in Instant-NGP, drawn in f32 on the
+        generator's device, cast to `dtype` (the reference's draw-then-cast)
+        and moved to `device`."""
         cfg = self.cfg
         u = torch.rand((cfg.n_levels, cfg.table_size, cfg.n_features),
                        generator=generator, device=generator.device)
-        return (u * 2e-4 - 1e-4).to(device)
+        return (u * 2e-4 - 1e-4).to(dtype).to(device)
 
     def __call__(self, points: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
         """points (N, 3) in [0, 1) -> (N, L*F) f32."""
@@ -57,7 +59,8 @@ class HashEncoding:
 
     @property
     def param_bytes(self) -> int:
-        """Bytes of the f32 tables (L, T, F)."""
+        """Bytes of the tables (L, T, F) counted at 4 a value, whatever their
+        dtype, as the reference counts them."""
         c = self.cfg
         return c.n_levels * c.table_size * c.n_features * 4
 

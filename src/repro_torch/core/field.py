@@ -46,6 +46,12 @@ def trunc_exp(x: torch.Tensor) -> torch.Tensor:
     return _TruncExp.apply(x)
 
 
+# The tables' element types the kernels take, by `FieldConfig.grid_dtype`
+# (the float dtypes of the reference's jnp.dtype(cfg.grid_dtype) cast).
+GRID_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+               "float16": torch.float16}
+
+
 @dataclass(frozen=True)
 class FieldConfig:
     # grid geometry (shared by both branches; table sizes differ)
@@ -64,10 +70,23 @@ class FieldConfig:
     # the table-gradient commit: merged (BUM, deterministic) or the flagged
     # unmerged path (index_add_, atomics on a card)
     merged_backward: bool = True
+    # the hash tables' element type: "float32", "bfloat16" or "float16" (the
+    # kernels read the 2-byte rows themselves; table gradients leave in it;
+    # the MLPs and the optimizer's moments stay f32)
+    grid_dtype: str = "float32"
     # what the fused ops and the MLP heads keep between forward and backward
     # on the plain route: "recompute" re-derives it in the backward, "stash"
     # keeps it (bit-identical gradients); the card's kernels recompute
     residual_policy: str = "recompute"
+
+    def __post_init__(self):
+        if self.grid_dtype not in GRID_DTYPES:
+            raise ValueError(f"grid_dtype must be one of {tuple(GRID_DTYPES)}, "
+                             f"got {self.grid_dtype!r}")
+
+    @property
+    def table_dtype(self) -> torch.dtype:
+        return GRID_DTYPES[self.grid_dtype]
 
     def grid_cfg(self, branch: str) -> enc.HashGridConfig:
         log2_t = self.log2_table_density if branch == "density" else self.log2_table_color
@@ -119,13 +138,14 @@ class Field:
         draws come from `generator` (a different stream than jax.random, so
         the values differ -- `repro_torch.bridge` carries JAX params over)."""
         cfg = self.cfg
+        dtype = cfg.table_dtype
         enc_dim = self.density_enc.cfg.out_dim
-        params = {"density_grid": self.density_enc.init(generator, device)}
+        params = {"density_grid": self.density_enc.init(generator, device, dtype)}
         w1, b1 = _init_linear(generator, enc_dim, cfg.hidden, device)
         w2, b2 = _init_linear(generator, cfg.hidden, 1 + cfg.geo_features, device)
         params["density_mlp"] = {"w1": w1, "b1": b1, "w2": w2, "b2": b2}
         if cfg.decomposed:
-            params["color_grid"] = self.color_enc.init(generator, device)
+            params["color_grid"] = self.color_enc.init(generator, device, dtype)
             color_in = self.color_enc.cfg.out_dim + self.sh_dim
         else:
             color_in = cfg.geo_features + self.sh_dim

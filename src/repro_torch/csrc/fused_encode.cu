@@ -41,7 +41,9 @@
 //      with atomicCAS inserts, whose probe loops hold each warp to its
 //      longest;
 //   3. each reader loads its row with one vector load (L2 evict-last, as in
-//      hash_encode.cu) into the payload slot of its read id;
+//      hash_encode.cu; a 2-byte table's row, bf16 or f16, in one load of
+//      its 2F bytes, widened to f32 in registers) into the payload slot of
+//      its read id, as f32;
 //   4. after one barrier every thread reads its 8 corners from the payload
 //      and sums them in corner order 0..7, into a shared (256, G*F) tile.
 // No atomic's order reaches the output: a winner is the largest id, and the
@@ -95,9 +97,9 @@ __device__ __forceinline__ uint32_t slot_of(uint32_t addr, uint32_t round) {
     return (h * 0xc2b2ae35u) >> (32 - kSlotBits);
 }
 
-template <int F>
+template <int F, class T>
 __global__ void __launch_bounds__(kBlockPoints)
-fused_encode_kernel(const float* __restrict__ points, const float* __restrict__ tables,
+fused_encode_kernel(const float* __restrict__ points, const T* __restrict__ tables,
                     float* __restrict__ out, int* __restrict__ reads,
                     const LevelGeom geom, int n, int n_levels, int table_size) {
     constexpr int G = levels_per_block<F>();
@@ -254,33 +256,49 @@ fused_encode_kernel(const float* __restrict__ points, const float* __restrict__ 
     }
 }
 
-template <int F>
-int launch(const float* points, const float* tables, float* out, int* reads,
+template <int F, class T>
+int launch(const float* points, const T* tables, float* out, int* reads,
            const LevelGeom& geom, int n, int n_levels, int table_size, cudaStream_t stream) {
     constexpr size_t smem = smem_bytes<F>();
-    cudaError_t err = cudaFuncSetAttribute(fused_encode_kernel<F>,
+    cudaError_t err = cudaFuncSetAttribute(fused_encode_kernel<F, T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     constexpr int G = levels_per_block<F>();
     const dim3 grid((n + kBlockPoints - 1) / kBlockPoints, (n_levels + G - 1) / G);
-    fused_encode_kernel<F><<<grid, kBlockPoints, smem, stream>>>(
+    fused_encode_kernel<F, T><<<grid, kBlockPoints, smem, stream>>>(
         points, tables, out, reads, geom, n, n_levels, table_size);
     return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int launch_features(const float* points, const void* tables, float* out, int* reads,
+                    const LevelGeom& geom, int n, int n_levels, int table_size, int n_features,
+                    cudaStream_t s) {
+    const T* t = static_cast<const T*>(tables);
+    switch (n_features) {
+        case 1: return launch<1>(points, t, out, reads, geom, n, n_levels, table_size, s);
+        case 2: return launch<2>(points, t, out, reads, geom, n, n_levels, table_size, s);
+        case 4: return launch<4>(points, t, out, reads, geom, n, n_levels, table_size, s);
+        case 8: return launch<8>(points, t, out, reads, geom, n, n_levels, table_size, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
 }
 
 }  // namespace
 
 // points (n, 3), tables (n_levels, table_size, n_features), out
-// (n, n_levels * n_features): f32, contiguous, on the current device, tables
-// and out aligned to 16 bytes; reads (ceil(n / 256), n_levels) int32.
-// resolutions / dense_flags are host arrays of n_levels ints.  table_size is
-// a power of two below 2^31.  Returns the CUDA status after the launch (0 on
-// success).
-extern "C" int fused_encode_fwd(const float* points, const float* tables,
+// (n, n_levels * n_features): contiguous, on the current device; points and
+// out f32, tables of the element type `table_type` (TableType: f32, bf16,
+// f16); tables and out aligned to 16 bytes; reads (ceil(n / 256), n_levels)
+// int32.  resolutions / dense_flags are host arrays of n_levels ints.
+// table_size is a power of two below 2^31.  Returns the CUDA status after
+// the launch (0 on success).
+extern "C" int fused_encode_fwd(const float* points, const void* tables,
                                 const int* resolutions, const int* dense_flags,
                                 float* out, int* reads, int n, int n_levels,
-                                int table_size, int n_features, void* stream) {
+                                int table_size, int n_features, int table_type,
+                                void* stream) {
     if (n_levels < 1 || n_levels > kMaxLevels || table_size < 1 ||
         (table_size & (table_size - 1)) != 0) {
         return static_cast<int>(cudaErrorInvalidValue);
@@ -292,11 +310,9 @@ extern "C" int fused_encode_fwd(const float* points, const float* tables,
         geom.dense[l] = dense_flags[l];
     }
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (n_features) {
-        case 1: return launch<1>(points, tables, out, reads, geom, n, n_levels, table_size, s);
-        case 2: return launch<2>(points, tables, out, reads, geom, n, n_levels, table_size, s);
-        case 4: return launch<4>(points, tables, out, reads, geom, n, n_levels, table_size, s);
-        case 8: return launch<8>(points, tables, out, reads, geom, n, n_levels, table_size, s);
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    return with_table_type(table_type, [&](auto tag) {
+        using T = typename decltype(tag)::type;
+        return launch_features<T>(points, tables, out, reads, geom, n, n_levels, table_size,
+                                  n_features, s);
+    });
 }

@@ -26,8 +26,11 @@
 // banks), and while those copies land its threads gather the tile's
 // features (`gather_inputs`: (point, level) items, kGatherItems per thread
 // at a time so that all their table reads are in flight together; each
-// corner row one vector load; sentinel rows (x < 0) read row 0 at weight 0,
-// points past N give all-zero rows).  Every layer product then runs
+// corner row one vector load -- at a 2-byte table (bf16 / f16; both grids
+// share one element type) one load of the row's 2F bytes, widened to f32 in
+// registers, so the rest of both passes is the f32 table's arithmetic on
+// the same values; sentinel rows (x < 0) read row 0 at weight 0, points
+// past N give all-zero rows).  Every layer product then runs
 // through mlp_tile.cuh's split-TF32 routine on tiles in shared memory; the
 // pre-activations z = x W + b come from one helper (`affine`), so the
 // backward's recompute gives the forward's own z bit for bit and its ReLU
@@ -71,7 +74,9 @@
 //   the wrapper stable-sorts each grid's stream by address and commits it
 //   with the bum_scatter kernel, which sums each run in stream order and
 //   drops the spill entries -- each table row summed in exactly the plain
-//   version's order.
+//   version's order.  The streams and the commit are f32 whatever the
+//   tables' element type; the wrapper casts each committed gradient to its
+//   table's dtype after the commit, as the reference does.
 // A grid whose table is frozen gets no stream at all (null pointers), as
 // the reference dead-code-eliminates its commit.  Corner weights are (w_x *
 // w_y) * w_z with the scaled coordinate rounded first, as in the plain
@@ -253,11 +258,30 @@ __device__ void stage_weights(float* smem, const TileLayout& lay, const Mlps& m,
     mlp_tile::commit();
 }
 
-// One table row of F floats through the read-only cache, in as few loads as
-// its width allows.
-template <int F>
-__device__ __forceinline__ void load_row(const float* __restrict__ row, float (&v)[F]) {
-    if constexpr (F % 4 == 0) {
+// One table row of F elements through the read-only cache as f32, in as few
+// loads as its width allows: F floats, or the 2F bytes of F 2-byte elements
+// widened in registers.
+template <int F, class T>
+__device__ __forceinline__ void load_row(const T* __restrict__ row, float (&v)[F]) {
+    if constexpr (sizeof(T) == 2) {
+        uint32_t w[(F + 1) / 2];
+        if constexpr (F == 1) {
+            w[0] = __ldg(reinterpret_cast<const unsigned short*>(row));
+        } else if constexpr (F == 2) {
+            w[0] = __ldg(reinterpret_cast<const unsigned int*>(row));
+        } else if constexpr (F == 4) {
+            const uint2 x = __ldg(reinterpret_cast<const uint2*>(row));
+            w[0] = x.x;
+            w[1] = x.y;
+        } else {
+            const uint4 x = __ldg(reinterpret_cast<const uint4*>(row));
+            w[0] = x.x;
+            w[1] = x.y;
+            w[2] = x.z;
+            w[3] = x.w;
+        }
+        widen_row<T, F>(w, v);
+    } else if constexpr (F % 4 == 0) {
 #pragma unroll
         for (int f = 0; f < F; f += 4) {
             const float4 x = __ldg(reinterpret_cast<const float4*>(row + f));
@@ -282,9 +306,9 @@ __device__ __forceinline__ void load_row(const float* __restrict__ row, float (&
 // all their table reads are in flight together (the reads, mostly from L2,
 // bound this phase).  Points past the end get all-zero rows, which add
 // nothing anywhere.
-template <int F>
+template <int F, class T>
 __device__ void gather_inputs(const float* __restrict__ points, const float* __restrict__ sh,
-                              const float* __restrict__ td, const float* __restrict__ tc,
+                              const T* __restrict__ td, const T* __restrict__ tc,
                               const Geom& g, const Dims& d, const TileLayout& lay, int base,
                               float* xd, float* xc) {
     constexpr int P = kTilePoints;
@@ -300,8 +324,8 @@ __device__ void gather_inputs(const float* __restrict__ points, const float* __r
             const LevelPoint q = live ? level_point(points[3 * i], points[3 * i + 1],
                                                     points[3 * i + 2], g.res[l])
                                       : level_point(-1.0f, 0.0f, 0.0f, 1);
-            const float* tbl_d = td + static_cast<size_t>(live ? l : 0) * d.table_d * F;
-            const float* tbl_c = tc + static_cast<size_t>(live ? l : 0) * d.table_c * F;
+            const T* tbl_d = td + static_cast<size_t>(live ? l : 0) * d.table_d * F;
+            const T* tbl_c = tc + static_cast<size_t>(live ? l : 0) * d.table_c * F;
 #pragma unroll
             for (int c = 0; c < 8; ++c) {
                 wts[u][c] = corner_weight(q, c);
@@ -366,10 +390,10 @@ __device__ __forceinline__ void affine(const X& x, const float* w, int ld_w, con
 
 // ---- forward ----
 
-template <int F>
+template <int F, class T>
 __global__ void __launch_bounds__(kTileThreads, 2)
 fused_step_fwd_kernel(const float* __restrict__ points, const float* __restrict__ sh,
-                      const float* __restrict__ td, const float* __restrict__ tc,
+                      const T* __restrict__ td, const T* __restrict__ tc,
                       const Mlps m, const Geom g, const Dims d,
                       float* __restrict__ out_d, float* __restrict__ out_c) {
     extern __shared__ __align__(16) float smem[];
@@ -433,11 +457,11 @@ __device__ void column_sums(const float* tile, int ld, int n, float* __restrict_
     }
 }
 
-template <int F>
+template <int F, class T>
 __global__ void __launch_bounds__(kTileThreads)
 fused_step_bwd_kernel(const float* __restrict__ points, const float* __restrict__ sh,
                       const float* __restrict__ g_d, const float* __restrict__ g_c,
-                      const float* __restrict__ td, const float* __restrict__ tc,
+                      const T* __restrict__ td, const T* __restrict__ tc,
                       const Mlps m, const Geom g, const Dims d,
                       float* __restrict__ partials, float* __restrict__ d_sh,
                       long long* __restrict__ addr_d, float* __restrict__ val_d,
@@ -655,11 +679,11 @@ bool read_args(const int* dims, const int* res, const int* dense_d, const int* d
     return true;
 }
 
-// How many blocks of fused_step_fwd_kernel<F> with `bytes` of shared memory
+// How many blocks of fused_step_fwd_kernel<F, T> with `bytes` of shared memory
 // `device` holds at once (the occupancy calculator), 0 if none fits.  The
 // first launch at a (device, size) asks the runtime and allows the kernel
 // that much shared memory; later ones read the answer back.
-template <int F>
+template <int F, class T>
 int resident_fwd_blocks(size_t bytes, int device) {
     struct Seen { int device; size_t bytes; int blocks; };
     static std::mutex mu;
@@ -673,11 +697,11 @@ int resident_fwd_blocks(size_t bytes, int device) {
     }
     int sms = 0, per_sm = 0;
     if ((bytes > allowed &&
-         cudaFuncSetAttribute(fused_step_fwd_kernel<F>,
+         cudaFuncSetAttribute(fused_step_fwd_kernel<F, T>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes)) != cudaSuccess) ||
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_step_fwd_kernel<F>,
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_step_fwd_kernel<F, T>,
                                                       kTileThreads, bytes) != cudaSuccess)
         return 0;
     seen.push_back({device, bytes, per_sm * sms});
@@ -687,37 +711,37 @@ int resident_fwd_blocks(size_t bytes, int device) {
 // The forward's grid: one block per free slot on the card, each looping
 // over tiles (its weights staged once), or one per tile when the tiles run
 // out first.
-template <int F>
-int launch_fwd(const float* points, const float* sh, const float* td, const float* tc,
+template <int F, class T>
+int launch_fwd(const float* points, const float* sh, const T* td, const T* tc,
                const Mlps& m, const Geom& g, const Dims& d, float* out_d, float* out_c,
                cudaStream_t s) {
     const size_t bytes = TileLayout(d, false).bytes();
     if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
     int device = 0;
     cudaGetDevice(&device);
-    const int slots = resident_fwd_blocks<F>(bytes, device);
+    const int slots = resident_fwd_blocks<F, T>(bytes, device);
     if (slots < 1) {
         const cudaError_t err = cudaGetLastError();
         return static_cast<int>(err != cudaSuccess ? err : cudaErrorInvalidConfiguration);
     }
     const int tiles = (d.n + kTilePoints - 1) / kTilePoints;
-    fused_step_fwd_kernel<F><<<tiles < slots ? tiles : slots, kTileThreads, bytes, s>>>(
+    fused_step_fwd_kernel<F, T><<<tiles < slots ? tiles : slots, kTileThreads, bytes, s>>>(
         points, sh, td, tc, m, g, d, out_d, out_c);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <int F>
+template <int F, class T>
 int launch_bwd(const float* points, const float* sh, const float* g_d, const float* g_c,
-               const float* td, const float* tc, const Mlps& m, const Geom& g, const Dims& d,
+               const T* td, const T* tc, const Mlps& m, const Geom& g, const Dims& d,
                float* partials, float* d_sh, long long* addr_d, float* val_d,
                long long* addr_c, float* val_c, float* grad_mlp, cudaStream_t s) {
     const TileLayout lay(d, true);
     const size_t bytes = lay.bytes();
     if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-    cudaFuncSetAttribute(fused_step_bwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(bytes));
+    cudaFuncSetAttribute(fused_step_bwd_kernel<F, T>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
     const int blocks = (d.n + kTilePoints - 1) / kTilePoints;
-    fused_step_bwd_kernel<F><<<blocks, kTileThreads, bytes, s>>>(
+    fused_step_bwd_kernel<F, T><<<blocks, kTileThreads, bytes, s>>>(
         points, sh, g_d, g_c, td, tc, m, g, d, partials, d_sh, addr_d, val_d, addr_c, val_c);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -727,18 +751,57 @@ int launch_bwd(const float* points, const float* sh, const float* g_d, const flo
     return static_cast<int>(cudaGetLastError());
 }
 
+// The forward / backward at the table element type T, dispatched on F.
+template <class T>
+int forward_features(const float* points, const float* sh, const void* td, const void* tc,
+                     const Mlps& m, const Geom& g, const Dims& d, float* out_d, float* out_c,
+                     cudaStream_t s) {
+    const T* a = static_cast<const T*>(td);
+    const T* b = static_cast<const T*>(tc);
+    switch (d.f) {
+        case 1: return launch_fwd<1>(points, sh, a, b, m, g, d, out_d, out_c, s);
+        case 2: return launch_fwd<2>(points, sh, a, b, m, g, d, out_d, out_c, s);
+        case 4: return launch_fwd<4>(points, sh, a, b, m, g, d, out_d, out_c, s);
+        case 8: return launch_fwd<8>(points, sh, a, b, m, g, d, out_d, out_c, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+template <class T>
+int backward_features(const float* points, const float* sh, const float* g_d, const float* g_c,
+                      const void* td, const void* tc, const Mlps& m, const Geom& g,
+                      const Dims& d, float* partials, float* d_sh, long long* addr_d,
+                      float* val_d, long long* addr_c, float* val_c, float* grad_mlp,
+                      cudaStream_t s) {
+    const T* a = static_cast<const T*>(td);
+    const T* b = static_cast<const T*>(tc);
+    switch (d.f) {
+        case 1: return launch_bwd<1>(points, sh, g_d, g_c, a, b, m, g, d, partials, d_sh,
+                                     addr_d, val_d, addr_c, val_c, grad_mlp, s);
+        case 2: return launch_bwd<2>(points, sh, g_d, g_c, a, b, m, g, d, partials, d_sh,
+                                     addr_d, val_d, addr_c, val_c, grad_mlp, s);
+        case 4: return launch_bwd<4>(points, sh, g_d, g_c, a, b, m, g, d, partials, d_sh,
+                                     addr_d, val_d, addr_c, val_c, grad_mlp, s);
+        case 8: return launch_bwd<8>(points, sh, g_d, g_c, a, b, m, g, d, partials, d_sh,
+                                     addr_d, val_d, addr_c, val_c, grad_mlp, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
 }  // namespace
 
 // Dims (11 host ints): n, levels, n_features, sh_dim, T_density, T_color,
 // density hidden, density outputs, color hidden 1, color hidden 2, color
 // outputs.  mlp: host array of the 10 device pointers w1d b1d w2d b2d w1c b1c
 // w2c b2c w3c b3c ((d_in, d_out) layout).  res / dense_d / dense_c: host
-// arrays of `levels` ints.  points (n, 3), sh (n, sh_dim), tables (L, T, F),
-// out_d (n, density outputs), out_c (n, color outputs): f32, contiguous.
-extern "C" int fused_step_forward(const float* points, const float* sh, const float* td,
-                                  const float* tc, const void* const* mlp, const int* res,
+// arrays of `levels` ints.  points (n, 3), sh (n, sh_dim), out_d (n, density
+// outputs), out_c (n, color outputs): f32, contiguous; tables (L, T, F),
+// contiguous, both of the element type `table_type` (TableType: f32, bf16,
+// f16).
+extern "C" int fused_step_forward(const float* points, const float* sh, const void* td,
+                                  const void* tc, const void* const* mlp, const int* res,
                                   const int* dense_d, const int* dense_c, const int* dims,
-                                  float* out_d, float* out_c, void* stream) {
+                                  int table_type, float* out_d, float* out_c, void* stream) {
     Dims d;
     Geom g;
     Mlps m;
@@ -746,13 +809,10 @@ extern "C" int fused_step_forward(const float* points, const float* sh, const fl
         return static_cast<int>(cudaErrorInvalidValue);
     if (d.n == 0) return 0;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (d.f) {
-        case 1: return launch_fwd<1>(points, sh, td, tc, m, g, d, out_d, out_c, s);
-        case 2: return launch_fwd<2>(points, sh, td, tc, m, g, d, out_d, out_c, s);
-        case 4: return launch_fwd<4>(points, sh, td, tc, m, g, d, out_d, out_c, s);
-        case 8: return launch_fwd<8>(points, sh, td, tc, m, g, d, out_d, out_c, s);
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    return with_table_type(table_type, [&](auto tag) {
+        using T = typename decltype(tag)::type;
+        return forward_features<T>(points, sh, td, tc, m, g, d, out_d, out_c, s);
+    });
 }
 
 // As the forward, plus: g_d (n, density outputs) and g_c (n, color outputs)
@@ -761,11 +821,13 @@ extern "C" int fused_step_forward(const float* points, const float* sh, const fl
 // gradients in the order of `mlp`; addr_* (levels * n_blocks * 32 * 8,)
 // int64 and val_* (the same, n_features) the update stream of each grid, in
 // (level, point, corner) order with points past n at the spill address
-// levels * T, or null pointers for a frozen grid.
+// levels * T, or null pointers for a frozen grid.  The streams are f32
+// whatever the tables' element type.
 extern "C" int fused_step_backward(const float* points, const float* sh, const float* g_d,
-                                   const float* g_c, const float* td, const float* tc,
+                                   const float* g_c, const void* td, const void* tc,
                                    const void* const* mlp, const int* res, const int* dense_d,
-                                   const int* dense_c, const int* dims, float* partials,
+                                   const int* dense_c, const int* dims, int table_type,
+                                   float* partials,
                                    float* d_sh, long long* addr_d, float* val_d,
                                    long long* addr_c, float* val_c, float* grad_mlp,
                                    void* stream) {
@@ -776,17 +838,11 @@ extern "C" int fused_step_backward(const float* points, const float* sh, const f
         return static_cast<int>(cudaErrorInvalidValue);
     if (d.n == 0) return 0;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (d.f) {
-        case 1: return launch_bwd<1>(points, sh, g_d, g_c, td, tc, m, g, d, partials, d_sh,
-                                     addr_d, val_d, addr_c, val_c, grad_mlp, s);
-        case 2: return launch_bwd<2>(points, sh, g_d, g_c, td, tc, m, g, d, partials, d_sh,
-                                     addr_d, val_d, addr_c, val_c, grad_mlp, s);
-        case 4: return launch_bwd<4>(points, sh, g_d, g_c, td, tc, m, g, d, partials, d_sh,
-                                     addr_d, val_d, addr_c, val_c, grad_mlp, s);
-        case 8: return launch_bwd<8>(points, sh, g_d, g_c, td, tc, m, g, d, partials, d_sh,
-                                     addr_d, val_d, addr_c, val_c, grad_mlp, s);
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    return with_table_type(table_type, [&](auto tag) {
+        using T = typename decltype(tag)::type;
+        return backward_features<T>(points, sh, g_d, g_c, td, tc, m, g, d, partials, d_sh,
+                                    addr_d, val_d, addr_c, val_c, grad_mlp, s);
+    });
 }
 
 // The shared-memory bytes a forward / backward block of these widths needs

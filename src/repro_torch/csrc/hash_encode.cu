@@ -20,7 +20,10 @@
 // ray-ordered and Morton-ordered points share corners and sectors there.
 // Each thread loads its point once, computes the corner indices in 32-bit
 // arithmetic, and reads each corner row with one vector load (float2 at
-// F=2; two float4 at F=8) through the read-only path.  The tile's features
+// F=2; two float4 at F=8; at a 2-byte table (bf16 / f16) one load of the
+// row's 2F bytes, a 32-bit load at F=2, widened to f32 in registers)
+// through the read-only path: a 2-byte table halves the gathers' bytes and
+// the arithmetic is the f32 table's, on the same f32 values.  The tile's features
 // are staged in shared memory (row stride L*F + min(F, 4) floats, which
 // keeps a warp's stores free of bank conflicts) and, after one barrier,
 // written out as whole rows: 16-byte streaming stores (st.global.cs) of one
@@ -68,10 +71,10 @@ __device__ __forceinline__ void store_tile(float* p, const float (&v)[F]) {
     }
 }
 
-template <int F>
+template <int F, class T>
 __global__ void __launch_bounds__(kTile * kMaxLevels)
 hash_encode_kernel(const float* __restrict__ points,
-                   const float* __restrict__ tables,
+                   const T* __restrict__ tables,
                    float* __restrict__ out,
                    const LevelGeom geom, int n, int n_levels, int table_size) {
     extern __shared__ __align__(16) float tile[];
@@ -107,7 +110,7 @@ hash_encode_kernel(const float* __restrict__ points,
         const uint32_t stride = static_cast<uint32_t>(res) + 1u;
         const uint32_t stride2 = stride * stride;
         const uint32_t mask = static_cast<uint32_t>(table_size - 1);
-        const float* __restrict__ tbl =
+        const T* __restrict__ tbl =
             tables + static_cast<uint32_t>(l) * static_cast<uint32_t>(table_size) * F;
         const uint64_t policy = table_policy();
 
@@ -159,28 +162,44 @@ hash_encode_kernel(const float* __restrict__ points,
     }
 }
 
-template <int F>
-void launch(const float* points, const float* tables, float* out,
+template <int F, class T>
+void launch(const float* points, const T* tables, float* out,
             const LevelGeom& geom, int n, int n_levels, int table_size,
             cudaStream_t stream) {
     const int blocks = (n + kTile - 1) / kTile;
     const size_t smem = sizeof(float) * kTile * tile_ld(n_levels * F, F);
-    hash_encode_kernel<F><<<blocks, kTile * n_levels, smem, stream>>>(
+    hash_encode_kernel<F, T><<<blocks, kTile * n_levels, smem, stream>>>(
         points, tables, out, geom, n, n_levels, table_size);
+}
+
+template <class T>
+int launch_features(const float* points, const void* tables, float* out,
+                    const LevelGeom& geom, int n, int n_levels, int table_size,
+                    int n_features, cudaStream_t s) {
+    const T* t = static_cast<const T*>(tables);
+    switch (n_features) {
+        case 1: launch<1>(points, t, out, geom, n, n_levels, table_size, s); break;
+        case 2: launch<2>(points, t, out, geom, n, n_levels, table_size, s); break;
+        case 4: launch<4>(points, t, out, geom, n, n_levels, table_size, s); break;
+        case 8: launch<8>(points, t, out, geom, n, n_levels, table_size, s); break;
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // points (n, 3), tables (n_levels, table_size, n_features), out
-// (n, n_levels * n_features): f32, contiguous, on the current device;
-// tables and out aligned to 16 bytes; n_levels * table_size * n_features
-// and n * n_levels * n_features below 2^31.  resolutions / dense_flags are
-// host arrays of n_levels ints.  Returns cudaGetLastError() after the
-// launch (0 on success).
-extern "C" int hash_encode_fwd(const float* points, const float* tables,
+// (n, n_levels * n_features): contiguous, on the current device; points and
+// out f32, tables of the element type `table_type` (TableType: f32, bf16,
+// f16); tables and out aligned to 16 bytes; n_levels * table_size *
+// n_features and n * n_levels * n_features below 2^31 elements.
+// resolutions / dense_flags are host arrays of n_levels ints.  Returns
+// cudaGetLastError() after the launch (0 on success).
+extern "C" int hash_encode_fwd(const float* points, const void* tables,
                                const int* resolutions, const int* dense_flags,
                                float* out, int n, int n_levels, int table_size,
-                               int n_features, void* stream) {
+                               int n_features, int table_type, void* stream) {
     if (n_levels < 1 || n_levels > kMaxLevels || table_size < 1 ||
         (table_size & (table_size - 1)) != 0 || n < 0) {
         return static_cast<int>(cudaErrorInvalidValue);
@@ -192,12 +211,9 @@ extern "C" int hash_encode_fwd(const float* points, const float* tables,
         geom.dense[l] = dense_flags[l];
     }
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (n_features) {
-        case 1: launch<1>(points, tables, out, geom, n, n_levels, table_size, s); break;
-        case 2: launch<2>(points, tables, out, geom, n, n_levels, table_size, s); break;
-        case 4: launch<4>(points, tables, out, geom, n, n_levels, table_size, s); break;
-        case 8: launch<8>(points, tables, out, geom, n, n_levels, table_size, s); break;
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-    return static_cast<int>(cudaGetLastError());
+    return with_table_type(table_type, [&](auto tag) {
+        using T = typename decltype(tag)::type;
+        return launch_features<T>(points, tables, out, geom, n, n_levels, table_size,
+                                  n_features, s);
+    });
 }

@@ -162,6 +162,24 @@ def require_cuda_f32(what: str, device: torch.device, **tensors) -> None:
     require_cuda(what, device, torch.float32, **tensors)
 
 
+# The table element types the gathers of #1, #5, #6 and #8 take
+# (`FieldConfig.grid_dtype`), by the code their C entry points take
+# (`TableType` in csrc/common.cuh).
+TABLE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def table_type(what: str, device: torch.device, **tables) -> int:
+    """The C code of the tables' one element type: contiguous tensors on one
+    CUDA device, all f32, all bf16 or all f16; raises on anything else."""
+    dtypes = {t.dtype for t in tables.values()}
+    if len(dtypes) != 1 or next(iter(dtypes)) not in TABLE_TYPES:
+        raise ValueError(f"{what}: tables are {sorted(map(str, dtypes))}, expected one of "
+                         f"{sorted(map(str, TABLE_TYPES))}")
+    dtype = dtypes.pop()
+    require_cuda(what, device, dtype, **tables)
+    return TABLE_TYPES[dtype]
+
+
 def stream_handle(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 

@@ -9,7 +9,11 @@ stream in the plain version's order (level, point, corner; `ref.bwd_table_stream
 lays it out the same way); its second pass orders the stream stably by
 address with the `bum_sort` kernel and commits it with the `bum_scatter`
 kernel (each counts its own launches), so each table row is summed in the
-plain version's order.
+plain version's order.  Both grids' tables share one element type, f32,
+bf16 or f16 (`FieldConfig.grid_dtype`): the kernels load their own 2-byte
+rows and widen them in registers; the streams and the commit stay f32, and
+each committed table gradient is cast to its table's dtype after the commit,
+as the reference's backward casts it.
 """
 from __future__ import annotations
 
@@ -34,9 +38,9 @@ MAX_OUT_D, MAX_OUT_C = 16, 4
 def _entry(name: str):
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "fused_step_forward":
-        return _k.function("fused_step", name, [p] * 11 + [p])
+        return _k.function("fused_step", name, [p] * 9 + [i] + [p] * 3)
     if name == "fused_step_backward":
-        return _k.function("fused_step", name, [p] * 18 + [p])
+        return _k.function("fused_step", name, [p] * 11 + [i] + [p] * 8)
     fn = _k.function("fused_step", "fused_step_smem_bytes", [p, i])
     fn.restype = ctypes.c_longlong
     return fn
@@ -47,13 +51,15 @@ def _mlp_list(mlp_d: dict, mlp_c: dict) -> list:
 
 
 def _check(what, points, sh, t_density, t_color, mlp_d, mlp_c, resolutions,
-           dense_d, dense_c) -> list[int]:
-    """Validate the inputs; returns the 11 dims the C side takes."""
+           dense_d, dense_c) -> tuple[list[int], int]:
+    """Validate the inputs; returns the 11 dims the C side takes and the
+    tables' element type code."""
     device = points.device
     mlps = _mlp_list(mlp_d, mlp_c)
-    named = {"points": points, "sh": sh, "t_density": t_density, "t_color": t_color}
+    named = {"points": points, "sh": sh}
     named.update({f"mlp{k}": t for k, t in enumerate(mlps)})
     _k.require_cuda_f32(what, device, **named)
+    code = _k.table_type(what, device, t_density=t_density, t_color=t_color)
     n = points.shape[0]
     if points.ndim != 2 or points.shape[1] != 3 or sh.ndim != 2 or sh.shape[0] != n:
         raise ValueError(f"{what}: points {tuple(points.shape)} / sh {tuple(sh.shape)} "
@@ -85,7 +91,7 @@ def _check(what, points, sh, t_density, t_color, mlp_d, mlp_c, resolutions,
         raise ValueError(f"{what}: head widths {w2d.shape[1]}, {w3c.shape[1]} exceed "
                          f"{MAX_OUT_D}, {MAX_OUT_C}")
     return [n, levels, f, s_dim, table_d, table_c, w1d.shape[1], w2d.shape[1],
-            w1c.shape[1], w2c.shape[1], w3c.shape[1]]
+            w1c.shape[1], w2c.shape[1], w3c.shape[1]], code
 
 
 def _c_args(dims, resolutions, dense_d, dense_c, mlps):
@@ -104,10 +110,10 @@ def _check_smem(what: str, c_dims, backward: bool) -> None:
 
 def fused_step_fwd(points, sh, t_density, t_color, mlp_d: dict, mlp_c: dict,
                    resolutions, dense_d, dense_c):
-    """points (N, 3), sh (N, S), tables (L, T, F), MLP dicts, f32 on one CUDA
-    device -> (out_d (N, 1+geo), raw_c (N, 3))."""
-    dims = _check("fused_step_fwd", points, sh, t_density, t_color, mlp_d, mlp_c,
-                  resolutions, dense_d, dense_c)
+    """points (N, 3), sh (N, S), MLP dicts f32, tables (L, T, F) f32, bf16 or
+    f16, on one CUDA device -> (out_d (N, 1+geo), raw_c (N, 3)) f32."""
+    dims, code = _check("fused_step_fwd", points, sh, t_density, t_color, mlp_d, mlp_c,
+                        resolutions, dense_d, dense_c)
     device, n = points.device, dims[0]
     out_d = torch.empty((n, dims[7]), device=device, dtype=torch.float32)
     out_c = torch.empty((n, dims[10]), device=device, dtype=torch.float32)
@@ -119,7 +125,7 @@ def fused_step_fwd(points, sh, t_density, t_color, mlp_d: dict, mlp_c: dict,
     with torch.cuda.device(device):
         status = _entry("fused_step_forward")(
             _k.ptr(points), _k.ptr(sh), _k.ptr(t_density), _k.ptr(t_color), c_mlp, c_res,
-            c_dd, c_dc, c_dims, _k.ptr(out_d), _k.ptr(out_c), _k.stream_handle(device))
+            c_dd, c_dc, c_dims, code, _k.ptr(out_d), _k.ptr(out_c), _k.stream_handle(device))
     _k.check_status("fused_step", status, "fused_step_fwd")
     _k.count_launch("fused_step_fwd")
     return out_d, out_c
@@ -138,13 +144,13 @@ def _commit(addr, vals, levels: int, table_size: int, f: int):
 def fused_step_bwd_launch(points, sh, g_d, g_c, t_density, t_color, mlp_d: dict,
                           mlp_c: dict, resolutions, dense_d, dense_c, *,
                           need_density: bool = True, need_color: bool = True):
-    """Pass 1 of the backward, the kernel launch alone, on CUDA f32 tensors.
-    Returns (streams, grad_mlp, d_sh): streams maps "density" / "color" to
-    that grid's (addr (M,) int64, vals (M, F)) update stream, or None for a
-    grid not needed; grad_mlp (P,) holds the MLP gradients in `_mlp_list`
-    order."""
-    dims = _check("fused_step_bwd", points, sh, t_density, t_color, mlp_d, mlp_c,
-                  resolutions, dense_d, dense_c)
+    """Pass 1 of the backward, the kernel launch alone, on CUDA tensors (the
+    tables f32, bf16 or f16, the rest f32).  Returns (streams, grad_mlp,
+    d_sh): streams maps "density" / "color" to that grid's (addr (M,) int64,
+    vals (M, F) f32) update stream, or None for a grid not needed; grad_mlp
+    (P,) holds the MLP gradients in `_mlp_list` order."""
+    dims, code = _check("fused_step_bwd", points, sh, t_density, t_color, mlp_d, mlp_c,
+                        resolutions, dense_d, dense_c)
     _k.require_cuda_f32("fused_step_bwd", points.device, g_d=g_d, g_c=g_c)
     n, levels, f = dims[0], dims[1], dims[2]
     if g_d.shape != (n, dims[7]) or g_c.shape != (n, dims[10]):
@@ -171,7 +177,7 @@ def fused_step_bwd_launch(points, sh, g_d, g_c, t_density, t_color, mlp_d: dict,
     with torch.cuda.device(device):
         status = _entry("fused_step_backward")(
             _k.ptr(points), _k.ptr(sh), _k.ptr(g_d), _k.ptr(g_c), _k.ptr(t_density),
-            _k.ptr(t_color), c_mlp, c_res, c_dd, c_dc, c_dims, _k.ptr(partials),
+            _k.ptr(t_color), c_mlp, c_res, c_dd, c_dc, c_dims, code, _k.ptr(partials),
             _k.ptr(d_sh),
             _k.ptr(sd[0]) if sd else null, _k.ptr(sd[1]) if sd else null,
             _k.ptr(sc[0]) if sc else null, _k.ptr(sc[1]) if sc else null,
@@ -184,9 +190,11 @@ def fused_step_bwd_launch(points, sh, g_d, g_c, t_density, t_color, mlp_d: dict,
 def fused_step_bwd(points, sh, g_d, g_c, t_density, t_color, mlp_d: dict, mlp_c: dict,
                    resolutions, dense_d, dense_c, *, need_density: bool = True,
                    need_color: bool = True):
-    """The backward on CUDA f32 tensors; g_d (N, 1+geo) and g_c (N, 3) are
-    the cotangents.  Returns (d_t_density or None, d_t_color or None,
-    d_mlp_d, d_mlp_c, d_sh); a grid not needed gets no update stream."""
+    """The backward on CUDA tensors (the tables f32, bf16 or f16, the rest
+    f32); g_d (N, 1+geo) and g_c (N, 3) are the cotangents.  Returns
+    (d_t_density or None, d_t_color or None, d_mlp_d, d_mlp_c, d_sh); each
+    table gradient is committed in f32 and leaves in its table's dtype; a
+    grid not needed gets no update stream."""
     streams, grad_mlp, d_sh = fused_step_bwd_launch(
         points, sh, g_d, g_c, t_density, t_color, mlp_d, mlp_c, resolutions, dense_d,
         dense_c, need_density=need_density, need_color=need_color)
@@ -199,7 +207,7 @@ def fused_step_bwd(points, sh, g_d, g_c, t_density, t_color, mlp_d: dict, mlp_c:
         elif streams[name] is None:
             grads.append(torch.zeros_like(t))
         else:
-            grads.append(_commit(*streams[name], levels, t.shape[1], f))
+            grads.append(_commit(*streams[name], levels, t.shape[1], f).to(t.dtype))
     mlps = _mlp_list(mlp_d, mlp_c)
     pieces = list(torch.split(grad_mlp, [t.numel() for t in mlps]))
     shaped = [piece.reshape(t.shape) for piece, t in zip(pieces, mlps)]

@@ -10,6 +10,13 @@ address bits the table needs) and a CPU tensor to `torch.sort`; the commit
 sends a CPU tensor to the plain `ref.segment_commit` and a CUDA tensor to
 the kernel (`kernel.bum_scatter`), which sums each run in stream order on
 one thread -- no float atomics, so the result is the same bits on every run.
+A 2-byte table (bf16 / f16, `FieldConfig.grid_dtype`) is committed as the
+reference's Pallas wrapper commits it (`bum_scatter_pallas`): into an f32
+copy of the table, each row's f32 value plus its run's f32 sum, rounded to
+the table's dtype once at the end.  (The reference's XLA route rounds each
+run's sum to the table's dtype before a 2-byte add, a second rounding; the
+two agree on a zero table, which is what every training caller commits
+into.)
 
 `windowed_scatter_add` is ported in its stacked form only: idx (W, M) and
 vals (W, M, F) are W per-step streams committed one after another in step
@@ -21,13 +28,19 @@ from __future__ import annotations
 import torch
 
 from . import kernel, ref
+from .. import TABLE_TYPES
 
 
 def _commit(table, idx_s, vals_s):
-    """Merge-and-commit of a sorted stream into a copy of `table`."""
+    """Merge-and-commit of a sorted stream into a copy of `table` (a 2-byte
+    table through an f32 copy, rounded once)."""
     if table.device.type == "cuda":
-        return kernel.bum_scatter(table.clone(), idx_s.contiguous(),
-                                  vals_s.to(torch.float32).contiguous())
+        if table.dtype not in TABLE_TYPES:
+            raise ValueError(f"merged_scatter_add: table is {table.dtype}, expected one of "
+                             f"{sorted(map(str, TABLE_TYPES))}")
+        work = table.to(torch.float32, copy=True)
+        kernel.bum_scatter(work, idx_s.contiguous(), vals_s.to(torch.float32).contiguous())
+        return work.to(table.dtype)
     if table.device.type != "cpu":
         raise ValueError(f"merged_scatter_add: no route for device {table.device}")
     return ref.segment_commit(table, idx_s, vals_s)

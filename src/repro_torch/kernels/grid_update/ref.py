@@ -6,7 +6,10 @@ scatter-add) and of the reference's merge body `_segment_commit`
 kernel `kernel.bum_scatter`: an address-sorted update stream is merged into
 one sum per run of equal addresses -- summed in stream order, from zero --
 and each run commits once.  Entries whose address lies outside [0, T) (the
-spill row T of padded streams) are dropped.
+spill row T of padded streams) are dropped.  The commit adds in f32 and
+rounds to the table's dtype once, as the reference's Pallas kernel does: a
+2-byte table (bf16 / f16) gets bf16(f32(row) + run sum), where the
+reference's XLA route rounds the run sum to the table's dtype first.
 
 On a CPU tensor `Tensor.index_add_` adds its sources one after another in
 index order, so the run sums are the reference's `segment_sum` sums bit for
@@ -46,7 +49,8 @@ def run_starts(idx_s: torch.Tensor) -> torch.Tensor:
 def segment_commit(table: torch.Tensor, idx_s: torch.Tensor,
                    vals_s: torch.Tensor) -> torch.Tensor:
     """table (T, F) plus the run-merged, address-sorted stream (idx_s (M,),
-    vals_s (M, F)): one stream-order sum per run, committed once per run."""
+    vals_s (M, F)): one stream-order sum per run, committed once per run,
+    added to the row in f32 and rounded to the table's dtype once."""
     if idx_s.numel() == 0:
         return table.clone()
     m, t = idx_s.shape[0], table.shape[0]
@@ -58,8 +62,10 @@ def segment_commit(table: torch.Tensor, idx_s: torch.Tensor,
     # slots and out-of-range runs go to the spill row t
     addr = torch.full((m,), t, dtype=idx_s.dtype, device=idx_s.device).scatter(0, seg, idx_s)
     addr = torch.where((addr >= 0) & (addr < t), addr, torch.full_like(addr, t))
-    spill = torch.zeros((1,) + tuple(table.shape[1:]), dtype=table.dtype, device=table.device)
-    return torch.cat([table, spill]).index_add(0, addr, summed.to(table.dtype))[:t]
+    acc = torch.promote_types(table.dtype, torch.float32)
+    spill = torch.zeros((1,) + tuple(table.shape[1:]), dtype=acc, device=table.device)
+    work = torch.cat([table.to(acc), spill])
+    return work.index_add(0, addr, summed.to(acc))[:t].to(table.dtype)
 
 
 def radix_passes(key_bits: int) -> list[tuple[int, int]]:

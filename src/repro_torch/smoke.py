@@ -1,7 +1,7 @@
 """The phases of ``chip_smoke.py``: build, kernel parity, train (Instant-3D
 and the Instant-NGP baseline), serve, the reconstruction service, stage 2b
 v3, the async serving plane and the entry points, sessions over two slots
-of the card and the field's last two options.
+of the card, the field's last two options and half-width hash-grid tables.
 
 Each phase takes an explicit device, so the CPU tests can rehearse the
 paths at a tiny size with ``device="cpu"``; `main` runs them all on the
@@ -113,8 +113,25 @@ card and fails on anything wrong -- there is no CPU fallback.
    `FieldConfig(merged_backward=False)` (the atomic commit on the dense
    steps) reaches 20 dB held-out PSNR; its two runs' bytes are reported,
    not gated;
-9. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
-   summed over the eight main paths, and per path) and, last, the device
+9. half-width tables (slice 13's main paths): the kernels that read
+   tables -- #1 at N = 1024 x 48, #8 at 32,768 on each grid, #5 at budgets
+   8192 and 32,768, #6 at 8192 -- on bf16 tables, and on f16 tables at the
+   first shape of each; every case the bytes of the same kernel on the
+   tables' f32 copies (for #6 its f32 streams, MLP and SH gradients, and
+   table gradients that are the f32 commit cast), within the f32 case's
+   tolerance of its plain version on the same 2-byte tables, the same bytes
+   on two launches; #7 committing into a nonzero 2-byte table, the plain
+   commit exactly.  Then `FieldConfig(grid_dtype="bfloat16")` trained 400
+   steps on both fields with phase 3's gates (20 dB held-out, the paths'
+   kernels; the tables still bf16, the moments f32), their PSNR beside the
+   f32 runs'; four 800x800 views served from the trained bf16 snapshot on
+   the redistributed route, eval == served byte for byte; two bf16
+   sessions in the service as one cohort for 128 steps, each ending on the
+   bytes of its sequential run; phase 5's four bit-identity contracts at
+   bf16 (the guard's rollback reads bf16 trees, suspend / resume writes
+   them to disk);
+10. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
+   summed over the twelve main paths, and per path) and, last, the device
    line.
 """
 from __future__ import annotations
@@ -155,6 +172,7 @@ from .kernels.fused_step import kernel as fs_kernel
 from .kernels.fused_step import ops as fs_ops
 from .kernels.fused_step import ref as fs_ref
 from .kernels.grid_update import kernel as gu_kernel
+from .kernels.grid_update import ops as gu_ops
 from .kernels.grid_update import ref as gu_ref
 from .kernels.hash_encode import kernel as he_kernel
 from .kernels.hash_encode import ops as he_ops
@@ -366,6 +384,15 @@ CROSS_CFG = TrainerConfig(n_rays=256, budget_headroom=0.7,
 CROSS_ITERS, CROSS_AT = 40, 24
 OPTION_ITERS = 200
 
+# Half-width tables (slice 13's main paths): FieldConfig(grid_dtype=
+# "bfloat16") trained on both fields for TrainerConfig()'s 400 steps,
+# served at 800x800 (4 views on the redistributed route) and run as a
+# cohort of two sessions in the service for 128 steps; the kernel cases on
+# bf16 tables, and on f16 tables at the first shape of each kernel.
+GRID_DTYPE = "bfloat16"
+GRID_DTYPE_CASES = (torch.bfloat16, torch.float16)
+GRID_SERVE_REQUESTS = 4
+
 # whole-image agreement of the card's path with the plain versions on the
 # CPU (the CPU tests' slice-level tolerance against JAX): rgb in [0, 1],
 # depth in [near, far] = [2, 6]
@@ -448,8 +475,9 @@ def _same_bits(a, b) -> bool:
                       [t for y in x for t in flat(y)])
     xs, ys = flat(a), flat(b)
     return len(xs) == len(ys) and all(
-        x.shape == y.shape and torch.equal(x.contiguous().view(torch.int32),
-                                           y.contiguous().view(torch.int32))
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(x.contiguous().reshape(-1).view(torch.uint8),
+                        y.contiguous().reshape(-1).view(torch.uint8))
         for x, y in zip(xs, ys))
 
 
@@ -461,17 +489,19 @@ def _same_nonzero_rows(a, b) -> bool:
 
 # ---- phase 2: kernel parity ---------------------------------------------------
 
-def _hash_encode_case(gen, device, n, enc, label, points=None):
+def _hash_encode_case(gen, device, n, enc, label, points=None, dtype=torch.float32):
     """Kernel #1 against its plain version on `points` (uniform in the unit
     cube when None), the first 4 rows made sentinels: error, sentinel rows
-    exactly zero, the same bytes on two launches."""
+    exactly zero, the same bytes on two launches.  The tables are drawn in
+    f32 and cast to `dtype`; a 2-byte table's case is also held to the
+    kernel on its f32 copy (`_upcast_fields`)."""
     cfg = enc.cfg
     if points is None:
         points = _uniform(gen, (n, 3), 0.0, 1.0 - 1e-6, device)
     points = points.clone()
     points[:4, 0] = -1.0                                # sentinel rows
     tables = _uniform(gen, (cfg.n_levels, cfg.table_size, cfg.n_features),
-                      -1.0, 1.0, device)
+                      -1.0, 1.0, device).to(dtype)
     res, dense = enc.resolutions, enc.dense_flags
     run = lambda: he_kernel.hash_encode(points, tables, res, dense)  # noqa: E731
     got = run()
@@ -482,11 +512,12 @@ def _hash_encode_case(gen, device, n, enc, label, points=None):
         .reshape(-1) + lv * cfg.table_size for lv in range(cfg.n_levels)])
     unique_rows = int(torch.unique(rows).numel())
     f = cfg.n_features
-    n_bytes = 4 * (n * 3 + n * cfg.n_levels * f + unique_rows * f)
+    n_bytes = 4 * (n * 3 + n * cfg.n_levels * f) + tables.element_size() * unique_rows * f
     n_flops = n * cfg.n_levels * (25 + 16 * f)
     err = _max_err(got, want)
     sentinel_zero = not got[:4].any()
     deterministic = _same_bits(got, run())
+    up = tables.float()
     return {
         "kernel": "hash_encode", "case": label,
         "shape": [n, cfg.n_levels, cfg.table_size, f],
@@ -497,7 +528,20 @@ def _hash_encode_case(gen, device, n, enc, label, points=None):
         "plain_ms": cuda_ms(lambda: he_ref.hash_encode(points, tables, res, dense),
                             iters=10),
         "bound": bound(n_bytes, n_flops),
+        **_upcast_fields(tables, lambda: _same_bits(got, he_kernel.hash_encode(
+            points, up, res, dense)), lambda: he_kernel.hash_encode(points, up, res, dense)),
     }
+
+
+def _upcast_fields(tables, same_as_upcast, upcast_run) -> dict:
+    """A 2-byte table's case: its dtype, whether the kernel gave the bytes of
+    the same kernel on the table's f32 copy (bf16 / f16 -> f32 is exact and
+    the arithmetic is the f32 kernel's, so any difference is a fault), and
+    the f32 kernel's time on that copy.  Nothing for an f32 table."""
+    if tables.dtype == torch.float32:
+        return {}
+    return {"dtype": str(tables.dtype).removeprefix("torch."),
+            "upcast_identical": same_as_upcast(), "f32_ms": cuda_ms(upcast_run)}
 
 
 def serving_points(device, render_cfg: RenderConfig = RenderConfig(),
@@ -615,8 +659,9 @@ def _composite_bwd_case(gen, device, r, s, label, needs=TRAIN_COMPOSITE_NEEDS, i
 
 def _fused_step_inputs(gen, device, n: int, field: Field, points=None):
     """Morton-sorted points (`points` as given, when given: a compacted
-    step's), SH of random unit dirs, tables U(-1, 1) and the field's MLPs
-    (He-uniform weights, biases U(-0.1, 0.1)) at its widths."""
+    step's), SH of random unit dirs, tables U(-1, 1) in the field's
+    `grid_dtype` and the field's MLPs (He-uniform weights, biases U(-0.1,
+    0.1)) at its widths."""
     cfg = field.cfg
     if points is None:
         pts = _uniform(gen, (n, 3), 0.0, 1.0 - 1e-6, device)
@@ -629,7 +674,8 @@ def _fused_step_inputs(gen, device, n: int, field: Field, points=None):
     params = field.init(gen, device)
     tables = []
     for key in ("density_grid", "color_grid"):
-        tables.append(_uniform(gen, tuple(params[key].shape), -1.0, 1.0, device))
+        tables.append(_uniform(gen, tuple(params[key].shape), -1.0, 1.0, device)
+                      .to(cfg.table_dtype))
     for key in ("density_mlp", "color_mlp"):
         for name, t in params[key].items():
             if name.startswith("b"):
@@ -641,9 +687,9 @@ def _fused_step_inputs(gen, device, n: int, field: Field, points=None):
 
 def _fused_counts(pts, tables, mlp_d, mlp_c, geometry):
     """(bytes, encode flops, MLP multiply-adds) of one fused forward on these
-    inputs: points read once, each table row the points touch read once,
-    every MLP parameter read once; encode flops as hash_encode's for both
-    grids."""
+    inputs: points read once, each table row the points touch read once (at
+    the tables' element size), every MLP parameter read once; encode flops
+    as hash_encode's for both grids."""
     n = pts.shape[0]
     res, dense_d, dense_c = geometry
     corners, _ = fp_ref.corner_geometry(pts, res)
@@ -655,15 +701,16 @@ def _fused_counts(pts, tables, mlp_d, mlp_c, geometry):
     mlp_params = sum(t.numel() for t in list(mlp_d.values()) + list(mlp_c.values()))
     macs = sum(mlp_d[k].numel() for k in ("w1", "w2")) + \
         sum(mlp_c[k].numel() for k in ("w1", "w2", "w3"))
-    n_bytes = 4 * (n * 3 + rows * f + mlp_params)
+    n_bytes = 4 * (n * 3 + mlp_params) + tables[0].element_size() * rows * f
     return n_bytes, 2 * n * levels * (25 + 16 * f), n * macs
 
 
 def _fused_step_fwd_case(gen, device, n: int, field: Field, label: str, points=None):
     """Kernel #5 against the plain step on Morton-sorted points, the last 4
-    rows sentinels; the same bytes on two launches.  Its bound counts the
-    heads' layer products at the tensor cores' split-TF32 rate, the encode
-    in f32."""
+    rows sentinels; the same bytes on two launches (and, at a 2-byte
+    `grid_dtype`, those of the kernel on the tables' f32 copies).  Its bound
+    counts the heads' layer products at the tensor cores' split-TF32 rate,
+    the encode in f32."""
     pts, sh, tables, mlp_d, mlp_c, geometry = _fused_step_inputs(gen, device, n, field, points)
     pts[-4:] = -1.0                                     # sentinel rows
     run = lambda: fs_kernel.fused_step_fwd(pts, sh, *tables, mlp_d, mlp_c,  # noqa: E731
@@ -679,6 +726,9 @@ def _fused_step_fwd_case(gen, device, n: int, field: Field, label: str, points=N
     n_bytes, enc_flops, macs = _fused_counts(pts[:-4], tables, mlp_d, mlp_c, geometry)
     n_bytes += 4 * n * (sh.shape[1] + got[0].shape[1] + got[1].shape[1])
     err = _max_err(got, want)
+    up = [t.float() for t in tables]
+    run_up = lambda: fs_kernel.fused_step_fwd(pts, sh, *up, mlp_d, mlp_c,  # noqa: E731
+                                              *geometry)
     return {
         "kernel": "fused_step_fwd", "case": label, "shape": [n, *tables[0].shape],
         "max_abs_err": err, "err": err, "deterministic": deterministic,
@@ -686,6 +736,7 @@ def _fused_step_fwd_case(gen, device, n: int, field: Field, label: str, points=N
         "plain_ms": cuda_ms(lambda: fs_ref.fused_step_ref(pts, sh, *tables, mlp_d, mlp_c,
                                                           *geometry), iters=10),
         "bound": bound(n_bytes, enc_flops, split_tf32_macs=macs),
+        **_upcast_fields(tables[0], lambda: _same_bits(got, run_up()), run_up),
     }
 
 
@@ -695,26 +746,37 @@ def _fused_step_bwd_case(gen, device, n: int, field: Field, label: str,
     exact stream-order reference); the plain time is the plain backward on
     the card, whose table commits go through bum_scatter.  need_color=False
     is a step with the color grid frozen: no color stream, no color table
-    gradient."""
+    gradient.  At a 2-byte `grid_dtype` the table gradients are held before
+    their cast: the kernel's f32 commit (the wrapper on the tables' f32
+    copies, whose streams, MLP and SH gradients must be the 2-byte launch's
+    bytes, and whose table gradients cast to the dtype must be its output)
+    against the plain backward's f32 commit on the same values; the MLP and
+    SH gradients against the plain backward on the 2-byte tables."""
     pts, sh, tables, mlp_d, mlp_c, geometry = _fused_step_inputs(gen, device, n, field, points)
     g_d = _uniform(gen, (n, mlp_d["w2"].shape[1]), -1.0, 1.0, device)
     g_c = _uniform(gen, (n, mlp_c["w3"].shape[1]), -1.0, 1.0, device)
     needs = (True, need_color)
+    up = [t.float() for t in tables]
     run = lambda: fs_kernel.fused_step_bwd(pts, sh, g_d, g_c, *tables, mlp_d, mlp_c,  # noqa: E731
                                            *geometry, need_color=need_color)
+    run_up = lambda: fs_kernel.fused_step_bwd(pts, sh, g_d, g_c, *up, mlp_d, mlp_c,  # noqa: E731
+                                              *geometry, need_color=need_color)
     got = run()
+    got32 = run_up() if tables[0].dtype != torch.float32 else got
     cpu = lambda t: {k: v.cpu() for k, v in t.items()} if isinstance(t, dict) else t.cpu()  # noqa: E731
-    want = fs_ops._plain_backward(geometry, *(cpu(t) for t in (pts, sh, *tables, mlp_d, mlp_c,
-                                                                g_d, g_c)), needs)
+    plain_on = lambda ts: fs_ops._plain_backward(  # noqa: E731
+        geometry, *(cpu(t) for t in (pts, sh, *ts, mlp_d, mlp_c, g_d, g_c)), needs)
+    want = plain_on(tables)
+    want32 = plain_on(up) if tables[0].dtype != torch.float32 else want
     grids = [k for k in (0, 1) if needs[k]]
     if not need_color and (got[1] is not None or want[1] is not None):
         raise RuntimeError("fused_step_bwd: a frozen color grid got a gradient")
-    table_err = max(_rel_err(got[k].cpu(), want[k]) for k in grids)
-    rows_same = all(_same_nonzero_rows(got[k].cpu(), want[k]) for k in grids)
+    table_err = max(_rel_err(got32[k].cpu(), want32[k]) for k in grids)
+    rows_same = all(_same_nonzero_rows(got32[k].cpu(), want32[k]) for k in grids)
     mlp_err = max(_rel_err(got[k][name].cpu(), want[k][name])
                   for k in (2, 3) for name in got[k])
     sh_err = _rel_err(got[4].cpu(), want[4])
-    abs_err = max([_max_err(got[k].cpu(), want[k]) for k in grids] +
+    abs_err = max([_max_err(got32[k].cpu(), want32[k]) for k in grids] +
                   [_max_err(got[k][name].cpu(), want[k][name])
                    for k in (2, 3) for name in got[k]] + [_max_err(got[4].cpu(), want[4])])
     deterministic = _same_bits([g for g in got if g is not None],
@@ -724,10 +786,23 @@ def _fused_step_bwd_case(gen, device, n: int, field: Field, label: str,
     # d_sh written once; the backward's work is twice the forward's, on top of
     # the recompute: encode in f32, layer products on the tensor cores
     n_bytes += 4 * (g_d.numel() + g_c.numel() + 2 * sh.numel()
-                    + sum(tables[k].numel() for k in grids)
                     + sum(t.numel() for t in list(mlp_d.values()) + list(mlp_c.values())))
+    n_bytes += tables[0].element_size() * sum(tables[k].numel() for k in grids)
     plain = lambda: fs_ops._plain_backward(geometry, pts, sh, *tables, mlp_d, mlp_c,  # noqa: E731
                                            g_d, g_c, needs)
+
+    def same_as_upcast():
+        """The 2-byte launch's f32 streams, MLP and SH gradients are the f32
+        launch's bytes, and its table gradients are the f32 ones cast."""
+        launch = lambda ts: fs_kernel.fused_step_bwd_launch(  # noqa: E731
+            pts, sh, g_d, g_c, *ts, mlp_d, mlp_c, *geometry, need_color=need_color)
+        a, b = launch(tables), launch(up)
+        streams = [x for st in a[0].values() if st is not None for x in st]
+        streams_up = [x for st in b[0].values() if st is not None for x in st]
+        return (_same_bits(streams, streams_up) and _same_bits(a[1:], b[1:])
+                and _same_bits(got[2:], got32[2:])
+                and all(torch.equal(got[k], got32[k].to(tables[k].dtype)) for k in grids))
+
     return {
         "kernel": "fused_step_bwd", "case": label, "shape": [n, *tables[0].shape],
         "max_abs_err": abs_err, "err": max(mlp_err, sh_err), "table_rel_err": table_err,
@@ -737,6 +812,7 @@ def _fused_step_bwd_case(gen, device, n: int, field: Field, label: str,
         "ms": cuda_ms(run, iters=20),
         "plain_ms": cuda_ms(plain, iters=5, warmup=2),
         "bound": bound(n_bytes, 3 * enc_flops, split_tf32_macs=3 * macs),
+        **_upcast_fields(tables[0], same_as_upcast, run_up),
     }
 
 
@@ -851,32 +927,36 @@ def _morton_points(gen, n: int, device):
     return pts[torch.sort(fp_ref.morton_key(pts), stable=True).indices].contiguous()
 
 
-def _fused_encode_case(gen, device, n: int, enc, label: str, n_sentinel: int = 0):
+def _fused_encode_case(gen, device, n: int, enc, label: str, n_sentinel: int = 0,
+                       dtype=torch.float32):
     """Kernel #8 against the plain fused encode on Morton-sorted points, the
     last `n_sentinel` rows sentinels; its distinct reads per (block, level)
     against the plain count on the valid rows, and its block dedup ratio
-    against `dedup_stats`."""
+    against `dedup_stats`; the same bytes on two launches.  The tables are
+    drawn in f32 and cast to `dtype` (`_upcast_fields`)."""
     cfg = enc.cfg
     res, dense = enc.resolutions, enc.dense_flags
     pts = _morton_points(gen, n, device)
     if n_sentinel:
         pts[n - n_sentinel:] = -1.0
-    tables = _uniform(gen, (cfg.n_levels, cfg.table_size, cfg.n_features), -1.0, 1.0, device)
-    got, reads = fp_kernel.fused_encode(pts, tables, res, dense)
+    tables = _uniform(gen, (cfg.n_levels, cfg.table_size, cfg.n_features), -1.0, 1.0,
+                      device).to(dtype)
+    run = lambda: fp_kernel.fused_encode(pts, tables, res, dense)  # noqa: E731
+    got, reads = run()
     want = fp_ref.fused_encode(pts, tables, res, dense)
     n_valid = n - n_sentinel
     valid = pts[:n_valid]
     corners, _ = fp_ref.corner_geometry(valid, res)
     plain_reads = fp_ref.block_distinct_reads(
         fp_ref.level_indices(corners, res, cfg.table_size, dense)).cpu()
-    reads = reads.cpu().to(torch.int64)
+    reads64 = reads.cpu().to(torch.int64)
     nb = plain_reads.shape[0]
     stats = fp_ref.dedup_stats(valid, res, dense, cfg.table_size)
-    ratio = fp_ref.unique_ratio_block(reads[:nb], n_valid)
+    ratio = fp_ref.unique_ratio_block(reads64[:nb], n_valid)
     dedup = {
-        "reads_kernel": int(reads.sum()), "reads_plain": stats["unique_reads_block"],
-        "per_block_equal": bool(torch.equal(reads[:nb], plain_reads)
-                                and not reads[nb:].any()),
+        "reads_kernel": int(reads64.sum()), "reads_plain": stats["unique_reads_block"],
+        "per_block_equal": bool(torch.equal(reads64[:nb], plain_reads)
+                                and not reads64[nb:].any()),
         "unique_ratio_block_kernel": ratio, "unique_ratio_block_plain":
             stats["unique_ratio_block"],
         "unique_ratio_global": stats["unique_ratio_global"],
@@ -887,15 +967,20 @@ def _fused_encode_case(gen, device, n: int, enc, label: str, n_sentinel: int = 0
     err = _max_err(got, want)
     sentinel_zero = not got[n_valid:].any()
     f = cfg.n_features
-    n_bytes = 4 * (n * 3 + n * cfg.n_levels * f + stats["unique_reads_global"] * f)
+    n_bytes = (4 * (n * 3 + n * cfg.n_levels * f)
+               + tables.element_size() * stats["unique_reads_global"] * f)
     n_flops = n_valid * cfg.n_levels * 8 * f * 2
+    up = tables.float()
+    run_up = lambda: fp_kernel.fused_encode(pts, up, res, dense)  # noqa: E731
     return {
         "kernel": "fused_encode", "case": label, "shape": [n, *tables.shape],
         "max_abs_err": err, "dedup": dedup, "sentinel_rows_zero": sentinel_zero,
+        "deterministic": _same_bits((got, reads), run()),
         "ok": err <= TOLERANCE["fused_encode"] and dedup["ok"] and sentinel_zero,
-        "ms": cuda_ms(lambda: fp_kernel.fused_encode(pts, tables, res, dense)),
+        "ms": cuda_ms(run),
         "plain_ms": cuda_ms(lambda: fp_ref.fused_encode(pts, tables, res, dense), iters=10),
         "bound": bound(n_bytes, n_flops),
+        **_upcast_fields(tables, lambda: _same_bits((got, reads), run_up()), run_up),
     }
 
 
@@ -1222,7 +1307,7 @@ def check_training(run: dict, kernels_of_path=TRAIN_KERNELS,
 
 def _bits(tree) -> list[bytes]:
     """Every leaf's raw bytes, in key order."""
-    return [t.detach().cpu().contiguous().view(torch.int32).numpy().tobytes()
+    return [t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
             for _, t in tree_paths(tree)]
 
 
@@ -1707,33 +1792,34 @@ def v3_plan_against_cpu(step: dict, budget: int, render_cfg: RenderConfig = Rend
                                        else torch.equal(a[k], b[k]) for k in keys)}
 
 
-def serve_v3(device, run: dict, n_requests: int = V3_SERVE_REQUESTS, hw: int = IMAGE_HW
-             ) -> dict:
-    """A `RenderService` session on the v3 run's snapshot serving
-    `n_requests` hw x hw views through stage 2b v3 (S' = 12 a ray), counters
-    zeroed just before and read just after; then `render_image` of the same
-    snapshot and pose must be the served bytes (eval == served)."""
+def serve_trained(device, run: dict, n_requests: int = V3_SERVE_REQUESTS,
+                  hw: int = IMAGE_HW, session_id: str = "v3") -> dict:
+    """A `RenderService` session on a trained run's snapshot serving
+    `n_requests` hw x hw views on the redistributed route the run's trainer
+    renders (S' = 12 a ray; stage 2b v3 for a v3 run, v2 otherwise),
+    counters zeroed just before and read just after; then `render_image` of
+    the same snapshot and pose must be the served bytes (eval == served)."""
     tr, state = run["trainer"], run["state"]
     cfg = tr.cfg
     store = SnapshotStore()
-    store.publish("v3", state.params, step=state.step, occ=state.occ_state)
+    store.publish(session_id, state.params, step=state.step, occ=state.occ_state)
     svc = RenderService(store, device=device)
     spr = default_samples_per_ray(cfg.render.n_samples)
-    svc.register_session("v3", tr.field.cfg, cfg.render, hw, hw, focal_for(hw),
+    svc.register_session(session_id, tr.field.cfg, cfg.render, hw, hw, focal_for(hw),
                          eval_chunk=cfg.eval_chunk, occ_cfg=cfg.occ, samples_per_ray=spr,
-                         redistribute_v3=True)
+                         redistribute_v3=cfg.redistribute_v3)
     poses = sphere_poses(max(n_requests, 1), seed=0)
     kernels.reset_launches()
     t0 = time.perf_counter()
     for pose in poses[:n_requests]:
-        svc.submit("v3", pose)
+        svc.submit(session_id, pose)
     results = svc.drain()
     wall = time.perf_counter() - t0
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     check_results(results, svc, hw, n_requests)
-    snap = store.latest("v3")
+    snap = store.latest(session_id)
     view = dataclasses.make_dataclass("View", ["h", "w", "focal"])(hw, hw, focal_for(hw))
     rgb, depth = tr.render_image(snap.params, poses[0], view, occ=snap.occ,
                                  samples_per_ray=spr)
@@ -1830,7 +1916,7 @@ def _v3_phase(device, card: str) -> dict:
     if failed:
         raise RuntimeError(f"v3 kernel parity failed: {failed}")
 
-    served = serve_v3(device, v3)
+    served = serve_trained(device, v3)
     print(f"serve_v3: drained {len(served['results'])} requests in {served['wall_s']:.3f} s, "
           f"{served['samples_per_ray']} samples a ray [{card}]")
     for r in served["results"]:
@@ -2377,6 +2463,176 @@ def _placement_phase(device, card: str) -> dict:
     return {"two_slot_launches": two["launches"]}
 
 
+# ---- phase 9: half-width hash-grid tables (FieldConfig.grid_dtype) -----------
+
+def _bum_scatter_table_case(gen, device, n: int, enc, label: str, dtype):
+    """Kernel #7 committing a dense step's sorted stream of one grid (N points)
+    into a NONZERO table of `dtype` through `merged_scatter_add` (a 2-byte
+    table goes through an f32 copy and is rounded once), against the plain
+    commit on CPU copies (exact)."""
+    cfg = enc.cfg
+    pts = _uniform(gen, (n, 3), 0.0, 1.0 - 1e-6, device)
+    grad = _uniform(gen, (n, cfg.n_levels, cfg.n_features), -1.0, 1.0, device)
+    idx, vals = he_ops.corner_updates(pts, enc.resolutions, enc.dense_flags,
+                                      cfg.table_size, grad)
+    order = torch.sort(idx, stable=True).indices
+    idx_s, vals_s = idx[order].contiguous(), vals[order].contiguous()
+    rows = cfg.n_levels * cfg.table_size
+    table = _uniform(gen, (rows, cfg.n_features), -1.0, 1.0, device).to(dtype)
+    run = lambda: gu_ops.merged_scatter_add(table, idx_s, vals_s, presorted=True)  # noqa: E731
+    got = run()
+    want = gu_ref.segment_commit(table.cpu(), idx_s.cpu(), vals_s.cpu())
+    exact = bool(torch.equal(got.cpu(), want))
+    m, f = vals_s.shape
+    return {
+        "kernel": "bum_scatter", "case": label, "shape": [m, rows, f],
+        "dtype": str(dtype).removeprefix("torch."),
+        "max_abs_err": _max_err(got.cpu().float(), want.float()),
+        "err": _rel_err(got.cpu().float(), want.float()), "exact": exact,
+        "deterministic": _same_bits(got, run()), "ok": exact,
+        "ms": cuda_ms(run),
+        "plain_ms": cuda_ms(lambda: gu_ref.segment_commit(table, idx_s, vals_s), iters=10),
+        # the stream read once, the table read and the new table written once
+        "bound": bound(m * (8 + 4 * f) + 2 * table.element_size() * table.numel(), m * f),
+    }
+
+
+def grid_dtype_parity(device, field_cfg: FieldConfig = FieldConfig(), seed: int = 0,
+                      dtypes=GRID_DTYPE_CASES) -> list[dict]:
+    """The kernels that read tables, on 2-byte tables at the main paths'
+    shapes (bf16), and at the first shape of each (f16): #1 on a dense
+    step's N = 1024 x 48 points of the density grid, #8 at an NGP step's
+    budget on each grid, #5 at budgets 8192 and 32,768, #6 at 8192, and #7
+    committing into a nonzero 2-byte table.  Each case of #1, #5, #6 and #8
+    must give the bytes of the same kernel on the tables' f32 copies, agree
+    with its plain version on the same 2-byte tables within the f32 case's
+    tolerance, and give the same bytes on two launches."""
+    cases = []
+    for k, dtype in enumerate(dtypes):
+        gen = torch.Generator().manual_seed(seed + 6)
+        name = str(dtype).removeprefix("torch.")
+        field = Field(dataclasses.replace(field_cfg, grid_dtype=name))
+        grids = (("density", field.density_enc), ("color", field.color_enc))
+        first = k > 0       # f16: the first shape of each kernel
+        cases.append(_hash_encode_case(gen, device, DENSE_POINTS, field.density_enc,
+                                       f"{name}, density, N={DENSE_POINTS}", dtype=dtype))
+        for grid, e in grids[:1 if first else 2]:
+            cases.append(_fused_encode_case(gen, device, PARITY_BUDGET, e,
+                                            f"{name}, {grid}, N={PARITY_BUDGET}", dtype=dtype))
+        for budget in (TRAIN_BUDGET,) if first else (TRAIN_BUDGET, PARITY_BUDGET):
+            cases.append(_fused_step_fwd_case(gen, device, budget, field,
+                                              f"{name}, budget {budget}"))
+        cases.append(_fused_step_bwd_case(gen, device, TRAIN_BUDGET, field,
+                                          f"{name}, budget {TRAIN_BUDGET}"))
+        cases.append(_bum_scatter_table_case(gen, device, TRAIN_BUDGET, field.color_enc,
+                                             f"{name} nonzero table, color", dtype))
+    return cases
+
+
+def tables_keep_their_dtype(run: dict) -> bool:
+    """Whether a trained state's tables are still in the field's
+    `grid_dtype`, and its MLPs and both Adam moments f32."""
+    state, want = run["state"], run["trainer"].field.cfg.table_dtype
+    moments = tree_paths(state.opt_state.m) + tree_paths(state.opt_state.v)
+    return (all(t.dtype == (want if path[0].endswith("grid") else torch.float32)
+                for path, t in tree_paths(state.params))
+            and all(t.dtype == torch.float32 for _, t in moments))
+
+
+def cohort_service(device, datasets: list, persist_dir: str, field_cfg: FieldConfig,
+                   cfg: TrainerConfig = TrainerConfig(), iters: int = SERVICE_ITERS,
+                   held_out: int = HELD_OUT, **kw) -> dict:
+    """`service_main_path` (`kw` goes to it) with one session of `field_cfg`
+    per dataset, all one cohort, then each session's final state against a
+    plain `train` of its scene from its seed: params, both Adam moments, the
+    occupancy EMA and the steps byte for byte (cohort == sequential)."""
+    run = service_main_path(device, datasets, persist_dir, cfg,
+                            plan=((field_cfg, iters),) * len(datasets), held_out=held_out,
+                            **kw)
+    views = range(held_out, datasets[0].images.shape[0])
+    run["vs_sequential"] = {}
+    for k, (sid, sess) in enumerate(run["service"].sessions.items()):
+        tr = Instant3DTrainer(Field(field_cfg), cfg, device=device)
+        state, _ = tr.train(tr.init(torch.Generator().manual_seed(k)),
+                            RaySampler(datasets[k], views=views, device=device), iters=iters,
+                            log_every=iters)
+        run["vs_sequential"][sid] = _state_equal(state, sess.state)
+    return run
+
+
+def _grid_dtype_phase(device, card: str, f32_runs: dict) -> dict:
+    """Phase 9: the 2-byte kernel cases; both fields trained at bf16 (their
+    PSNR beside the f32 runs' of `f32_runs`); 800x800 served from the
+    trained bf16 snapshot on the redistributed route, eval == served; a
+    two-session bf16 cohort in the service, cohort == sequential; the
+    service's four bit-identity contracts at bf16 (phase 5's)."""
+    t0 = time.perf_counter()
+    cases = grid_dtype_parity(device)
+    failed = [f"{c['kernel']} {c['case']}" for c in cases if not _print_case(c, card)]
+    print(f"grid_dtype parity: {len(cases)} cases in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    if failed:
+        raise RuntimeError(f"grid_dtype kernel parity failed: {failed}")
+
+    field_cfg = FieldConfig(grid_dtype=GRID_DTYPE)
+    runs = {}
+    for name, cfg, path in (("train", field_cfg, TRAIN_KERNELS),
+                            ("train_ngp", dataclasses.replace(field_cfg, decomposed=False),
+                             NGP_TRAIN_KERNELS)):
+        t0 = time.perf_counter()
+        run = train_main_path(device, cfg)
+        label = f"{name}_{GRID_DTYPE}"
+        print(f"{label}: {TrainerConfig().iters} steps + held-out eval in "
+              f"{time.perf_counter() - t0:.2f} s [{card}]")
+        _print_training(run, card, label)
+        problems = check_training(run, path)
+        if not tables_keep_their_dtype(run):
+            problems.append("the trained tables left their dtype or the moments left f32")
+        if problems:
+            raise RuntimeError(f"{label} gate failed: {problems}")
+        runs[name] = run
+    print(f"grid_dtype held-out PSNR {GRID_DTYPE} vs float32 [{card}]: " + json.dumps(
+        {name: {GRID_DTYPE: run["eval"], "float32": f32_runs[name]["eval"]}
+         for name, run in runs.items()}), flush=True)
+
+    served = serve_trained(device, runs["train"], n_requests=GRID_SERVE_REQUESTS,
+                           session_id="redist")
+    print(f"serve_{GRID_DTYPE}: drained {len(served['results'])} requests in "
+          f"{served['wall_s']:.3f} s, {served['samples_per_ray']} samples a ray [{card}]")
+    print(f"serve_{GRID_DTYPE} latency_stats [{card}]: {json.dumps(served['latency'])}")
+    print(f"serve_{GRID_DTYPE}-path launches: {json.dumps(served['launches'])}")
+    print(f"serve_{GRID_DTYPE} eval == served: {json.dumps(served['eval_vs_served'])}",
+          flush=True)
+    missing = [k for k in SERVE_KERNELS if served["launches"].get(k, 0) == 0]
+    if missing or not all(served["eval_vs_served"].values()):
+        raise RuntimeError(f"serve_{GRID_DTYPE} failed: never launched {missing}, "
+                           f"eval vs served {served['eval_vs_served']}")
+
+    datasets = service_datasets(device, n=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        service = cohort_service(device, datasets, f"{tmp}/snapshots", field_cfg)
+        wall = time.perf_counter() - t0
+        _print_service(service, card)
+        print(f"service_{GRID_DTYPE} cohort == sequential ({wall:.2f} s) [{card}]: "
+              f"{json.dumps(service['vs_sequential'])}", flush=True)
+        problems = check_service(service, must_launch=TRAIN_KERNELS[0] + SERVE_KERNELS,
+                                 cohorts={2})
+        if not all(all(v.values()) for v in service["vs_sequential"].values()):
+            problems.append("a cohort member is not its sequential run's bytes")
+        if problems:
+            raise RuntimeError(f"service_{GRID_DTYPE} gate failed: {problems}")
+        t0 = time.perf_counter()
+        ident = service_identity(device, datasets, f"{tmp}/ckpt", field_cfg)
+    print(f"service_{GRID_DTYPE} bit identity ({time.perf_counter() - t0:.2f} s) [{card}]: "
+          f"{json.dumps(ident)}", flush=True)
+    if not identity_holds(ident):
+        raise RuntimeError(f"a bit-identity contract failed at {GRID_DTYPE}: {ident}")
+    return {"cases": cases, "train_launches": runs["train"]["launches"],
+            "train_ngp_launches": runs["train_ngp"]["launches"],
+            "serve_launches": served["launches"], "service_launches": service["launches"]}
+
+
 # ---- the script ---------------------------------------------------------------
 
 def _ptxas_summary(logs: dict[str, str]) -> list[str]:
@@ -2413,6 +2669,10 @@ def _print_case(c: dict, card: str) -> bool:
                   f"{d['unique_ratio_block_kernel']:.6f} (plain "
                   f"{d['unique_ratio_block_plain']:.6f}, tol {DEDUP_RATIO_TOL:.0e}) "
                   f"sentinel rows zero {c['sentinel_rows_zero']}")
+    if "upcast_identical" in c:
+        ok = ok and c["upcast_identical"]
+        extra += (f" {c['dtype']}: same bytes as on the f32 copy {c['upcast_identical']} "
+                  f"(f32 kernel {c['f32_ms']:.4f} ms)")
     if c.get("library_ms") is not None:
         extra += f"  library {c['library_ms']:.4f} ms"
     print(f"parity {c['kernel']:<14} {c['case']:<28} err {err:.3e} (tol {tol:.0e}) "
@@ -2564,13 +2824,20 @@ def main() -> int:
 
     # slice 11's main paths: the async serving plane, the entry points
     plane = _async_phase(device, card)
-    # this slice's main paths: sessions over two slots, the last two options
+    # slice 12's main paths: sessions over two slots, the last two options
     placed = _placement_phase(device, card)
+    # this slice's main paths: half-width tables, trained, served, in a cohort
+    half = _grid_dtype_phase(device, card, {"train": run, "train_ngp": ngp})
+    cases.extend(half["cases"])
 
     paths = {"train": run["launches"], "train_ngp": ngp["launches"], "serve": serve_launches,
              "service": service["launches"], "train_v3": v3["train_launches"],
              "serve_v3": v3["serve_launches"], "service_async": plane["async_launches"],
-             "service_two_slots": placed["two_slot_launches"]}
+             "service_two_slots": placed["two_slot_launches"],
+             f"train_{GRID_DTYPE}": half["train_launches"],
+             f"train_ngp_{GRID_DTYPE}": half["train_ngp_launches"],
+             f"serve_{GRID_DTYPE}": half["serve_launches"],
+             f"service_{GRID_DTYPE}": half["service_launches"]}
     report = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == name]
@@ -2592,6 +2859,7 @@ def main() -> int:
                        "bound_ms": c["bound"][0], "bound_by": c["bound"][1],
                        **({"deterministic": c["deterministic"]}
                           if "deterministic" in c else {}),
+                       **({k: c[k] for k in ("dtype", "upcast_identical", "f32_ms") if k in c}),
                        **({"dedup": c["dedup"]} if "dedup" in c else {})} for c in mine],
             **({"breakdown": breakdown} if name == "fused_step_bwd" else {}),
         })

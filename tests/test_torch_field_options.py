@@ -305,7 +305,7 @@ def test_field_config_carries_both_options():
     assert cfg.merged_backward is True and cfg.residual_policy == "recompute"
     j_names = {f.name for f in dataclasses.fields(JFieldConfig)}
     t_names = {f.name for f in dataclasses.fields(FieldConfig)}
-    assert t_names == j_names - {"grid_dtype"}
+    assert t_names == j_names
     off = FieldConfig(merged_backward=False)
     assert not off.grid_cfg("density").merged_backward
     assert not off.grid_cfg("color").merged_backward

@@ -528,15 +528,16 @@ def test_training_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_fused_encode_wrapper_refuses_what_the_kernel_does_not_take():
-    """The fused encode's wrapper takes (N, 3) points and (L, T, F) tables,
-    f32, on the card; anything else raises, before anything is built."""
+    """The fused encode's wrapper takes (N, 3) f32 points and (L, T, F)
+    tables of f32, bf16 or f16, on the card; anything else raises, before
+    anything is built."""
     pts, tables = torch.zeros((8, 3)), torch.zeros((2, 16, 2))
     with pytest.raises(ValueError, match="expected"):
         t_fp_kernel.fused_encode(pts, tables, [2, 4], [1, 1])          # CPU tensors
     with pytest.raises(ValueError, match="float32"):
         t_fp_kernel.fused_encode(pts.double(), tables, [2, 4], [1, 1])
-    with pytest.raises(ValueError, match="float32"):
-        t_fp_kernel.fused_encode(pts, tables.half(), [2, 4], [1, 1])
+    with pytest.raises(ValueError, match="expected one of"):
+        t_fp_kernel.fused_encode(pts, tables.double(), [2, 4], [1, 1])
     with pytest.raises(ValueError, match=r"\(N, 3\)"):
         t_fp_kernel.fused_encode(torch.zeros((8, 2)), tables, [2, 4], [1, 1])
     with pytest.raises(ValueError, match=r"\(L, T, F\)"):

@@ -21,7 +21,12 @@ its tile walk.  The redesigned kernels (the hash encode, both MLPs, the
 fused step's forward and backward) give the same bytes on two launches.
 Stage 2b v3's shapes: the composite on its ragged lane grids (invalid lanes
 with deltas 0 and ts at far) and the fused step on its Morton-packed points
-at the ceiling of 4096, with the same tolerances.
+at the ceiling of 4096, with the same tolerances.  Half-width tables
+(`FieldConfig.grid_dtype`): #1, #5, #6 and #8 on bf16 and f16 tables give
+the bytes of the same kernel on the tables' f32 copies (the widening is
+exact) and meet the f32 tolerances against their plain versions on the
+2-byte tables; #7 commits into a nonzero 2-byte table as the plain commit,
+exactly.
 """
 import ctypes
 
@@ -184,7 +189,7 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(card):
     tables3 = torch.rand((2, 256, 3), device=card)
     levels = (ctypes.c_int * 2)(4, 8)
     status = he_kernel._entry()(kernels.ptr(pts), kernels.ptr(tables3), levels, levels,
-                                kernels.ptr(out), 64, 2, 256, 3,
+                                kernels.ptr(out), 64, 2, 256, 3, 0,
                                 kernels.stream_handle(card))
     assert status != 0
     with pytest.raises(RuntimeError, match="CUDA error"):
@@ -973,3 +978,179 @@ def test_session_moves_from_the_cpu_to_the_card(card):
     assert all(kernels.LAUNCHES[k] > 0 for k in ("hash_encode", "fused_step_fwd",
                                                   "fused_step_bwd", "bum_scatter")), \
         dict(kernels.LAUNCHES)
+
+
+# ---- half-width tables (FieldConfig.grid_dtype) ----
+
+HALF_DTYPES = [torch.bfloat16, torch.float16]
+
+
+def _same(a, b):
+    """The same dtype, shape and bytes."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().reshape(-1).view(torch.uint8),
+                            b.contiguous().reshape(-1).view(torch.uint8)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", HALF_DTYPES, ids=str)
+@pytest.mark.parametrize("f", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [49152, 77])
+def test_hash_encode_on_half_width_tables(n, f, dtype, card):
+    """#1 on a bf16 / f16 table: the bytes of the same kernel on the table's
+    f32 copy (the widening is exact and the arithmetic the f32 kernel's),
+    within 1e-5 of the plain version on the same 2-byte table, the same
+    bytes on two launches, sentinel rows exactly zero."""
+    enc = Field(FieldConfig(n_features=f)).density_enc
+    gen = torch.Generator().manual_seed(n + f)
+    pts = _u(gen, (n, 3), 0.0, 1.0 - 1e-6, card)
+    pts[:3, 0] = -1.0
+    tables = _u(gen, (enc.cfg.n_levels, enc.cfg.table_size, f), -1, 1, card).to(dtype)
+    args = (enc.resolutions, enc.dense_flags)
+    got = he_kernel.hash_encode(pts, tables, *args)
+    assert got.dtype == torch.float32
+    assert _same(got, he_kernel.hash_encode(pts, tables.float(), *args))
+    assert _same(got, he_kernel.hash_encode(pts, tables, *args))
+    assert float((got - he_ref.hash_encode(pts, tables, *args)).abs().max()) <= 1e-5
+    assert not got[:3].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", HALF_DTYPES, ids=str)
+@pytest.mark.parametrize("f", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [32768, 257])
+def test_fused_encode_on_half_width_tables(n, f, dtype, card):
+    """#8 on a bf16 / f16 table: features and distinct reads the bytes of
+    the kernel on the f32 copy, within 1e-5 of the plain version on the
+    2-byte table, the same bytes on two launches."""
+    enc = Field(FieldConfig(n_features=f)).density_enc
+    gen = torch.Generator().manual_seed(n + f)
+    pts = _morton(_u(gen, (n, 3), 0.0, 1.0 - 1e-6, card))
+    pts[n - 5:] = -1.0
+    tables = _u(gen, (enc.cfg.n_levels, enc.cfg.table_size, f), -1, 1, card).to(dtype)
+    args = (enc.resolutions, enc.dense_flags)
+    got, reads = fp_kernel.fused_encode(pts, tables, *args)
+    up, up_reads = fp_kernel.fused_encode(pts, tables.float(), *args)
+    again, again_reads = fp_kernel.fused_encode(pts, tables, *args)
+    assert _same(got, up) and _same(reads, up_reads)
+    assert _same(got, again) and _same(reads, again_reads)
+    assert float((got - fp_ref.fused_encode(pts, tables, *args)).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", HALF_DTYPES, ids=str)
+@pytest.mark.parametrize("f", list(fs_kernel.FEATURE_COUNTS))
+@pytest.mark.parametrize("n", [8192, 32768, 77])
+def test_fused_step_fwd_on_half_width_tables(n, f, dtype, card):
+    """#5 on bf16 / f16 tables (both grids one dtype): the bytes of the
+    kernel on the f32 copies, within 1e-5 of the plain step on the 2-byte
+    tables, the same bytes on two launches."""
+    field = Field(FieldConfig(n_features=f))
+    gen = torch.Generator().manual_seed(n + f)
+    pts, sh, tables, mlp_d, mlp_c, geometry = _morton_step_inputs(gen, n, card, field)
+    half = [t.to(dtype) for t in tables]
+    got = fs_kernel.fused_step_fwd(pts, sh, *half, mlp_d, mlp_c, *geometry)
+    up = fs_kernel.fused_step_fwd(pts, sh, *(t.float() for t in half), mlp_d, mlp_c,
+                                  *geometry)
+    again = fs_kernel.fused_step_fwd(pts, sh, *half, mlp_d, mlp_c, *geometry)
+    want = fs_ref.fused_step_ref(pts, sh, *half, mlp_d, mlp_c, *geometry)
+    for g, u, a, w in zip(got, up, again, want):
+        assert _same(g, u) and _same(g, a)
+        assert float((g - w).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", HALF_DTYPES, ids=str)
+@pytest.mark.parametrize("need_color", [True, False])
+@pytest.mark.parametrize("n", [8192, 77])
+def test_fused_step_bwd_on_half_width_tables(n, need_color, dtype, card):
+    """#6 on bf16 / f16 tables: its f32 streams, MLP and SH gradients the
+    bytes of the kernel on the f32 copies, its table gradients in the
+    tables' dtype and the f32 commit cast; the f32 commit within 1e-5 of the
+    plain backward's (the same nonzero rows), MLP and SH gradients within
+    1e-4 of the plain backward on the 2-byte tables; the same bytes twice."""
+    field = Field(FieldConfig())
+    gen = torch.Generator().manual_seed(n + 13)
+    pts, sh, tables, mlp_d, mlp_c, geometry = _morton_step_inputs(gen, n, card, field)
+    half = [t.to(dtype) for t in tables]
+    up = [t.float() for t in half]
+    g_d = _u(gen, (n, mlp_d["w2"].shape[1]), -1, 1, card)
+    g_c = _u(gen, (n, mlp_c["w3"].shape[1]), -1, 1, card)
+    args = (mlp_d, mlp_c, *geometry)
+    launch = lambda ts: fs_kernel.fused_step_bwd_launch(  # noqa: E731
+        pts, sh, g_d, g_c, *ts, *args, need_color=need_color)
+    (s_half, m_half, sh_half), (s_up, m_up, sh_up) = launch(half), launch(up)
+    for name in ("density", "color"):
+        assert (s_half[name] is None) == (s_up[name] is None)
+        if s_half[name] is not None:
+            assert all(_same(a, b) for a, b in zip(s_half[name], s_up[name]))
+    assert _same(m_half, m_up) and _same(sh_half, sh_up)
+    bwd = lambda ts: fs_kernel.fused_step_bwd(  # noqa: E731
+        pts, sh, g_d, g_c, *ts, *args, need_color=need_color)
+    got, got32, again = bwd(half), bwd(up), bwd(half)
+    cpu = lambda x: {k: v.cpu() for k, v in x.items()} if isinstance(x, dict) else x.cpu()  # noqa: E731
+    plain = lambda ts: fs_ops._plain_backward(  # noqa: E731
+        geometry, *(cpu(x) for x in (pts, sh, *ts, mlp_d, mlp_c, g_d, g_c)), (True, need_color))
+    want, want32 = plain(half), plain(up)
+    for k in (0, 1):
+        if k == 1 and not need_color:
+            assert got[1] is None and want[1] is None
+            continue
+        assert got[k].dtype == dtype and _same(got[k], got32[k].to(dtype))
+        assert _same(got[k], again[k])
+        assert _rel(got32[k].cpu(), want32[k]) <= 1e-5
+        assert torch.equal(_rows(got32[k].cpu()), _rows(want32[k]))
+    for k in (2, 3):
+        for name in got[k]:
+            assert _same(got[k][name], got32[k][name])
+            assert _rel(got[k][name].cpu(), want[k][name]) <= 1e-4
+    assert _same(got[4], got32[4]) and _rel(got[4].cpu(), want[4]) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", HALF_DTYPES, ids=str)
+@pytest.mark.parametrize("m,t,f", [(1_048_576, 1 << 20, 2), (1000, 64, 1), (4097, 256, 8)])
+def test_bum_scatter_commits_into_a_nonzero_half_width_table(m, t, f, dtype, card):
+    """#7 through `merged_scatter_add` into a nonzero bf16 / f16 table: an
+    f32 working copy, each row's f32 value plus its run's sum rounded once,
+    the plain commit on CPU copies exactly; the table keeps its dtype."""
+    from repro_torch.kernels.grid_update import ops as gu_ops
+    gen = torch.Generator().manual_seed(m + f)
+    idx = torch.sort(torch.randint(0, t + 1, (m,), generator=gen)).values.to(card)
+    vals = _u(gen, (m, f), -1, 1, card)
+    table = _u(gen, (t, f), -1, 1, card).to(dtype)
+    got = gu_ops.merged_scatter_add(table, idx, vals, presorted=True)
+    assert got.dtype == dtype
+    assert torch.equal(got.cpu(), gu_ref.segment_commit(table.cpu(), idx.cpu(), vals.cpu()))
+    assert _same(got, gu_ops.merged_scatter_add(table, idx, vals, presorted=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", HALF_DTYPES, ids=str)
+def test_table_gradients_leave_in_the_tables_dtype_on_the_card(dtype, card):
+    """The dense route's hash-encode backward and the fused encode's backward
+    on 2-byte tables: the gradient in the tables' dtype, the f32 route's
+    gradient cast; a table of any other dtype raises."""
+    field = Field(FieldConfig())
+    gen = torch.Generator().manual_seed(17)
+    pts = _morton(_u(gen, (4096, 3), 0.0, 1.0 - 1e-6, card))
+    encs = (field.density_enc, field.color_enc)
+    half = [_u(gen, (e.cfg.n_levels, e.cfg.table_size, 2), -1, 1, card).to(dtype)
+            for e in encs]
+    g = [_u(gen, (4096, e.cfg.out_dim), -1, 1, card) for e in encs]
+
+    def grads(tables, fused):
+        leaves = [t.clone().requires_grad_(True) for t in tables]
+        outs = (field._fused_encode(pts, *leaves) if fused else
+                [he_ops.hash_encode(pts, t, e.resolutions, e.dense_flags)
+                 for t, e in zip(leaves, encs)])
+        sum((o * gg).sum() for o, gg in zip(outs, g)).backward()
+        return [t.grad for t in leaves]
+
+    for fused in (False, True):
+        got, want = grads(half, fused), grads([t.float() for t in half], fused)
+        for a, b in zip(got, want):
+            assert a.dtype == dtype and _same(a, b.to(dtype))
+    with pytest.raises(ValueError, match="expected one of"):
+        he_kernel.hash_encode(pts, half[0].double(), *(encs[0].resolutions,
+                                                       encs[0].dense_flags))

@@ -587,7 +587,7 @@ def test_chip_smoke_v3_phase_rehearsal():
     plan = smoke.v3_plan_against_cpu(step, 256, T_RCFG)
     assert plan["s_ray_differ_from_cpu"] == 0 and plan["two_runs_same_bytes"]
     assert plan["sum_s_ray"] <= 256
-    served = smoke.serve_v3("cpu", v3, n_requests=2, hw=12)
+    served = smoke.serve_trained("cpu", v3, n_requests=2, hw=12)
     assert served["eval_vs_served"] == {"rgb": True, "depth": True}
     assert served["samples_per_ray"] == 4 and len(served["results"]) == 2
     reuse = smoke.reuse_replay("cpu", v3, steps=6, budget=256, held_out=1)
