@@ -27,7 +27,12 @@ and f16 tables to themselves on the tables' f32 copies and to their plain
 versions, trains both fields with ``FieldConfig(grid_dtype="bfloat16")``,
 serves from the trained bf16 snapshot (eval == served), runs two bf16
 sessions as one cohort of the service (cohort == sequential) and holds the
-service's four bit-identity contracts at bf16, and prints
+service's four bit-identity contracts at bf16 -- every training step of
+all of it a replay of a CUDA graph captured once per step variant -- then
+trains four paths (both fields, v3 at 4096, bf16) captured and under
+``eager_steps()`` and holds each pair to the same bytes, with capture
+times, step times of both, the graphs' memory and a profiled replay
+(``tools/torch_train_profile.py``), and prints
 one JSON line with every kernel's report and, last, the device line.  It exits non-zero,
 with no result, on any failure, and when no CUDA card is present.  The phases live in ``src/repro_torch/smoke.py``.
 """

@@ -79,8 +79,9 @@ def _linspace(start: float, stop: float, num: int, device) -> torch.Tensor:
     bit for bit."""
     div = num - 1
     step = torch.arange(div, dtype=torch.float32, device=device) / div
-    start_t = torch.tensor(start, dtype=torch.float32, device=device)
-    stop_t = torch.tensor(stop, dtype=torch.float32, device=device)
+    # filled on the device: no host-to-device copy
+    start_t = torch.full((), start, dtype=torch.float32, device=device)
+    stop_t = torch.full((), stop, dtype=torch.float32, device=device)
     head = start_t * (1 - step) + stop_t * step
     return torch.cat([head, stop_t[None]])
 

@@ -16,10 +16,26 @@ same code: the step-keyed freeze schedule, the occupancy cadence (a fold
 every `update_interval` steps after `warmup_steps`), the overflow window
 that widens the budget, the live fraction re-measured at each fold, and the
 history.  Where the reference stacks the members and runs one compiled
-step over them (`jax.lax.map`), the port loops over the members each step;
-each keeps its own bookkeeping in its trainer (live fraction, overflow
-window, so its own budget).  PyTorch runs eagerly, so there is no step
-cache: each step builds its autograd graph.  The reference draws with
+step over them (`jax.lax.map`), the port's compiled step loops over the
+members; each keeps its own bookkeeping in its trainer (live fraction,
+overflow window, so its own budget).
+
+The compiled-step cache is the reference's: `cohort_step_fn` builds (or
+returns) the step of one variant, keyed by `_cohort_step_key` (field
+config, trainer config, freeze flags, budget, bitfield use, cohort size),
+process-wide, counting ``trainer.step_cache.hit`` / ``.miss`` while tracing;
+`step_variant_cached` says whether a variant is built, and `train_cohort`
+names a variant's first call's span ``trainer/step_compile`` and later
+ones ``trainer/step``; `occ_update_fn` is the occupancy fold per (field
+config, occupancy config, cohort size); `Instant3DTrainer.step_fn` is the
+per-instance step and `step_cache_keys` the built keys of a trainer's
+configs.  A cache entry is a `step_graph.CompiledStep` over the eager
+`Instant3DTrainer.step` (the fold over `occupancy.update`): on a CUDA card
+every step is a replay of a CUDA graph captured once per variant and
+device, on the CPU the eager body runs.  `eager_steps()` runs the card's
+steps eagerly (the counterpart of `jax.disable_jit()`), and
+`clear_step_cache()` drops every entry and its graphs' memory, so tests
+depend on no earlier test's cache.  The reference draws with
 ``split(fold_in(PRNGKey(seed), i), 3)``, bits the port cannot reproduce, so
 training takes a draw stream per member, `draws(i) -> (ray_idx (B,), u_ts
 (B, S), u_occ (R^3, 3))`; by default `default_draws(cfg, sampler.n)`, a
@@ -38,7 +54,9 @@ JAX used `vmap`.
 """
 from __future__ import annotations
 
+import functools
 import math
+import threading
 from dataclasses import dataclass, field as dc_field
 from typing import Any, Callable, NamedTuple
 
@@ -46,8 +64,9 @@ import numpy as np
 import torch
 
 from . import field as field_lib
-from . import losses, occupancy, rendering
+from . import losses, occupancy, rendering, step_graph
 from .pipeline import RenderPipeline, suggest_budget
+from .step_graph import eager_steps  # noqa: F401  (the cache's public surface)
 from .. import bridge
 from ..obs import metrics as _metrics
 from ..obs import trace as _trace
@@ -292,6 +311,97 @@ def default_draws(cfg: TrainerConfig, n_pool: int) -> Callable:
     return draws
 
 
+# ---- the compiled-step and occupancy-fold caches (process-wide) ----
+#
+# Keyed as the reference's: every trainer and every cohort with the same
+# configs shares one compiled step per variant, so sequential baselines and
+# a cohort re-formed under another lead session build nothing new.
+
+_COHORT_STEP_CACHE: dict[tuple, step_graph.CompiledStep] = {}
+_OCC_UPDATE_CACHE: dict[tuple, step_graph.CompiledStep] = {}
+_cache_lock = threading.Lock()
+
+
+def _cohort_step_key(field_cfg, cfg: TrainerConfig, freeze_color: bool,
+                     freeze_density: bool, budget: int | None, use_bits: bool,
+                     m: int) -> tuple:
+    """Cache key of one compiled step variant, the reference's tuple."""
+    return (field_cfg, cfg, bool(freeze_color), bool(freeze_density),
+            budget, bool(use_bits), int(m))
+
+
+def step_variant_cached(field_cfg, cfg: TrainerConfig, freeze_color: bool,
+                        freeze_density: bool, budget: int | None,
+                        use_bits: bool, m: int) -> bool:
+    """Whether this step variant has been built (so a call of it on a card
+    that has run it replays and captures nothing)."""
+    return _cohort_step_key(field_cfg, cfg, freeze_color, freeze_density,
+                            budget, use_bits, m) in _COHORT_STEP_CACHE
+
+
+def cohort_step_fn(field_cfg, cfg: TrainerConfig, freeze_color: bool,
+                   freeze_density: bool, budget: int | None, use_bits: bool,
+                   m: int) -> step_graph.CompiledStep:
+    """The compiled step of an M-member cohort's variant:
+    (params, opt_states, batches, ts, occ_emas), each a list of M, ->
+    (params, opt_states, losses, auxes), lists of M, member r's entries
+    `Instant3DTrainer.step` on its own inputs, the members one after
+    another (one CUDA graph for the M steps on a card)."""
+    key = _cohort_step_key(field_cfg, cfg, freeze_color, freeze_density, budget, use_bits, m)
+    with _cache_lock:
+        fn = _COHORT_STEP_CACHE.get(key)
+        if _trace.enabled():
+            _metrics.counter(f"trainer.step_cache.{'miss' if fn is None else 'hit'}").inc()
+        if fn is None:
+            step = functools.partial(
+                Instant3DTrainer(field_lib.Field(field_cfg), cfg).step,
+                freeze_color=bool(freeze_color), freeze_density=bool(freeze_density),
+                budget=budget, use_bits=bool(use_bits))
+
+            def member_steps(params, opt_states, batches, ts, occ_emas):
+                if not len(params) == len(opt_states) == len(batches) == len(ts) \
+                        == len(occ_emas) == m:
+                    raise ValueError(f"cohort step of {m} members called on "
+                                     f"{len(params)}")
+                outs = [step(*member) for member in zip(params, opt_states, batches, ts,
+                                                        occ_emas)]
+                return tuple(list(column) for column in zip(*outs))
+
+            fn = _COHORT_STEP_CACHE[key] = step_graph.CompiledStep(member_steps)
+    return fn
+
+
+def occ_update_fn(field_cfg, occ_cfg: occupancy.OccupancyConfig,
+                  m: int) -> step_graph.CompiledStep:
+    """The compiled occupancy fold of an M-member cohort: (params, EMAs,
+    jitters), each a list of M, -> the new EMAs, member r's
+    `occupancy.update` at its jitter (R^3, 3); the fold count stays on the
+    host."""
+    key = (field_cfg, occ_cfg, int(m))
+    with _cache_lock:
+        fn = _OCC_UPDATE_CACHE.get(key)
+        if fn is None:
+            field = field_lib.Field(field_cfg)
+
+            def fold_members(params, emas, jitters):
+                with torch.no_grad():
+                    return [occupancy.update(field, p, occupancy.OccupancyState(e, 0), occ_cfg,
+                                             jitter=j).density_ema
+                            for p, e, j in zip(params, emas, jitters)]
+
+            fn = _OCC_UPDATE_CACHE[key] = step_graph.CompiledStep(fold_members)
+    return fn
+
+
+def clear_step_cache() -> None:
+    """Drop every compiled step and occupancy fold, with their graphs (a
+    trainer's own `step_fn` entries stay with the trainer)."""
+    with _cache_lock:
+        _COHORT_STEP_CACHE.clear()
+        _OCC_UPDATE_CACHE.clear()
+    step_graph.release_devices()
+
+
 class Instant3DTrainer:
     def __init__(self, field: field_lib.Field, cfg: TrainerConfig, device="cuda"):
         self.field = field
@@ -308,6 +418,7 @@ class Instant3DTrainer:
         # the last update_interval steps' overflow counts, kept across
         # train() calls so time-sliced training widens as one long run
         self._overflow_window: list = []
+        self._step_fns: dict = {}
 
     # ---- state ----
 
@@ -371,6 +482,26 @@ class Instant3DTrainer:
         with torch.no_grad():
             params, opt_state = self.opt.apply(params, grads, opt_state, mask=mask)
         return params, opt_state, loss, aux
+
+    def step_fn(self, freeze_color: bool, freeze_density: bool = False,
+                budget: int | None = None, use_bits: bool | None = None):
+        """This trainer's compiled step of one variant: (params, opt_state,
+        batch, ts, occ_ema) -> (params, opt_state, loss, aux), `step` at
+        these flags (use_bits defaults to cfg.use_occupancy)."""
+        if use_bits is None:
+            use_bits = self.cfg.use_occupancy
+        key = (freeze_color, freeze_density, budget, use_bits)
+        if key not in self._step_fns:
+            self._step_fns[key] = step_graph.CompiledStep(functools.partial(
+                self.step, freeze_color=bool(freeze_color),
+                freeze_density=bool(freeze_density), budget=budget, use_bits=bool(use_bits)))
+        return self._step_fns[key]
+
+    def step_cache_keys(self) -> set:
+        """The built cohort-step keys of this trainer's configs, without the
+        configs: {(freeze_color, freeze_density, budget, use_bits, m)}."""
+        return {k[2:] for k in _COHORT_STEP_CACHE
+                if k[0] == self.field.cfg and k[1] == self.cfg}
 
     def _current_budget(self, use_bits: bool) -> int | None:
         """Point budget for the next step, or None for the dense path; dense
@@ -517,8 +648,10 @@ def train_cohort(trainers: list, states: list, samplers: list, iters: int | None
 
     All members share (field config, trainer config) and sit at the same
     absolute step.  Each step, the members are partitioned by their step
-    variant (use_bits, budget) and every group runs its members one after
-    another; the partition shifts only at a fold, when members' measured
+    variant (use_bits, budget) and every group runs its members through
+    the variant's compiled step (`cohort_step_fn`, one after another), and
+    a fold through `occ_update_fn`; the partition shifts only at a fold,
+    when members' measured
     budgets drift apart, and it changes where the work happens, never the
     numbers.  Each member keeps its own bookkeeping in its trainer (live
     fraction, overflow window), exactly as M sequential `train` calls, and
@@ -562,24 +695,34 @@ def train_cohort(trainers: list, states: list, samplers: list, iters: int | None
         freeze_density = not _branch_update(i, cfg.f_density)
         groups = _partition_members(trainers, cfg.use_occupancy, occ_updates)
         u_occ: list = [None] * m
+        obs_on = _trace.enabled()
         for (use_bits, budget), members in groups:
-            with _trace.span("trainer/step", cat="trainer",
+            batches, ts = [], []
+            for k in members:
+                ray_idx, u_ts, u_occ[k] = draws[k](i)
+                ts.append(rendering.sample_ts(None, cfg.n_rays, cfg.render, trainers[k].device,
+                                              u=u_ts))
+                batches.append(samplers[k].gather(ray_idx))
+            # a variant's first call builds it (captures it on a card): the
+            # reference's compile / execute split, probed only while tracing
+            fresh = obs_on and not step_variant_cached(
+                field_cfg, cfg, freeze_color, freeze_density, budget, use_bits, len(members))
+            fn = cohort_step_fn(field_cfg, cfg, freeze_color, freeze_density, budget,
+                                use_bits, len(members))
+            with _trace.span("trainer/step_compile" if fresh else "trainer/step",
+                             cat="trainer",
                              args={"step": int(i), "cohort": len(members),
                                    "budget": budget, "use_bits": use_bits}):
-                for k in members:
-                    tr = trainers[k]
-                    ray_idx, u_ts, u_occ[k] = draws[k](i)
-                    ts = rendering.sample_ts(None, cfg.n_rays, cfg.render, tr.device, u=u_ts)
-                    batch = samplers[k].gather(ray_idx)
-                    params[k], opts[k], loss, aux = tr.step(
-                        params[k], opts[k], batch, ts, occs[k].density_ema,
-                        freeze_color=freeze_color, freeze_density=freeze_density,
-                        budget=budget, use_bits=use_bits)
-                    last[k] = (loss, aux, budget)
-                    overflow_all[k].append(aux["overflow"])
-                    tr._overflow_window.append(aux["overflow"])
-                    del tr._overflow_window[:-interval]
-        obs_on = _trace.enabled()
+                new_p, new_o, losses_m, auxes = fn(
+                    [params[k] for k in members], [opts[k] for k in members], batches, ts,
+                    [occs[k].density_ema for k in members])
+            for r, k in enumerate(members):
+                params[k], opts[k] = new_p[r], new_o[r]
+                aux = auxes[r]
+                last[k] = (losses_m[r], aux, budget)
+                overflow_all[k].append(aux["overflow"])
+                trainers[k]._overflow_window.append(aux["overflow"])
+                del trainers[k]._overflow_window[:-interval]
         if obs_on:
             _metrics.counter("trainer.steps").inc(m)
             _metrics.gauge("trainer.cohort_size").set(m)
@@ -587,14 +730,17 @@ def train_cohort(trainers: list, states: list, samplers: list, iters: int | None
 
         if cfg.use_occupancy and i >= cfg.occ.warmup_steps and (i + 1) % interval == 0:
             for (use_bits, _budget), members in groups:
+                fold = occ_update_fn(field_cfg, cfg.occ, len(members))
                 with _trace.span("trainer/occ_update", cat="trainer",
                                  args={"step": int(i), "cohort": len(members)}), \
                         torch.no_grad():
-                    for k in members:
+                    emas = fold([params[k] for k in members],
+                                [occs[k].density_ema for k in members],
+                                [(u_occ[k].to(trainers[k].device) - 0.5) / cfg.occ.resolution
+                                 for k in members])
+                    for r, k in enumerate(members):
                         tr = trainers[k]
-                        jitter = (u_occ[k].to(tr.device) - 0.5) / cfg.occ.resolution
-                        occs[k] = occupancy.update(tr.field, params[k], occs[k], cfg.occ,
-                                                   jitter=jitter)
+                        occs[k] = occupancy.OccupancyState(emas[r], int(occs[k].step) + 1)
                         hists[k]["occ_folds"].append(i)
                         if use_bits:
                             # re-measure the live fraction at the fold (one

@@ -13,15 +13,21 @@ its kernel (``kernel.py``), whose wrapper validates the inputs, launches on
 the current stream and raises if the launch fails; there is no fallback from
 a CUDA tensor to the plain version.
 
-`LAUNCHES` counts, per kernel, the launches its wrapper made -- one per call
-that reached the kernel, nothing else -- so a run can show that its path
-went through the kernels (reset it with `reset_launches`).  Wrappers count
-through `count_launch`, which holds a lock around the increment, so the
-counts stay exact while a serving thread and the training loop launch at
-once.
+`LAUNCHES` counts, per kernel, the kernel executions on the card -- one per
+call that reached the kernel, nothing else -- so a run can show that its
+path went through the kernels (reset it with `reset_launches`).  Wrappers
+count through `count_launch`, which holds a lock around the increment, so
+the counts stay exact while a serving thread and the training loop launch
+at once.  A launch made while a CUDA graph is captured executes nothing:
+inside `record_launches` the calling thread's counts, and those made on the
+capture stream it names (the autograd engine's device thread runs a
+backward there), go to the graph's own record instead, and each replay of
+the graph adds the record to `LAUNCHES` (`add_launches`).  Other threads
+go on counting into `LAUNCHES` meanwhile.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -52,16 +58,55 @@ _lock = threading.Lock()          # loading the libraries
 _launch_lock = threading.Lock()   # the launch counts
 
 
+_tls = threading.local()                # the record this thread counts into
+_stream_records: dict[int, dict] = {}   # capture stream handle -> its record
+
+
 def count_launch(name: str) -> None:
-    """Add one to `name`'s launch count (a read-modify-write under a lock)."""
+    """Add one to `name`'s launch count (a read-modify-write under a lock):
+    in `LAUNCHES`, or in the record of a capture underway in this thread
+    or on the current stream (`record_launches`)."""
+    record = getattr(_tls, "record", None)
+    if record is None and _stream_records:
+        record = _stream_records.get(torch.cuda.current_stream().cuda_stream)
     with _launch_lock:
-        LAUNCHES[name] += 1
+        if record is None:
+            LAUNCHES[name] += 1
+        else:
+            record[name] = record.get(name, 0) + 1
 
 
 def reset_launches() -> None:
     with _launch_lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def record_launches(stream: torch.cuda.Stream | None = None):
+    """Count this thread's launches, and any thread's launches on `stream`,
+    into a fresh record (yielded: {kernel: launches}) in place of
+    `LAUNCHES`, until the block ends: a CUDA graph's capture, whose
+    launches execute only when the graph is replayed."""
+    record: dict[str, int] = {}
+    outer = getattr(_tls, "record", None)
+    key = None if stream is None else stream.cuda_stream
+    _tls.record = record
+    if key is not None:
+        _stream_records[key] = record
+    try:
+        yield record
+    finally:
+        _tls.record = outer
+        if key is not None:
+            del _stream_records[key]
+
+
+def add_launches(record: dict) -> None:
+    """Add a record's counts to `LAUNCHES`: one replay of its graph."""
+    with _launch_lock:
+        for name, n in record.items():
+            LAUNCHES[name] += n
 
 
 def nvcc() -> str:

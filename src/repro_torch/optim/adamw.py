@@ -12,7 +12,8 @@ Instant-3D's different update frequencies reach the optimizer: a masked
 leaf keeps its params AND its moments, as the accelerator skips that
 branch's back-propagation.  `lr_scale_fn` maps a leaf's key path to an lr
 factor.  The step is an int32 tensor on the params' device and the bias
-corrections are f32 powers of it, so a step makes no host sync.  The
+corrections are f32 powers of it, so a step makes no host sync and no
+host-to-device copy (it can be captured as a CUDA graph).  The
 arithmetic is the reference's, operation for operation.
 """
 from __future__ import annotations
@@ -82,8 +83,10 @@ class AdamW:
         lr_t = self.lr(step)
         b1, b2 = self.b1, self.b2
         step_f = step.to(torch.float32)
-        bias1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=step.device), step_f)
-        bias2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=step.device), step_f)
+        # the constants are filled on the device: a host-to-device copy would
+        # make the step uncapturable as a CUDA graph
+        bias1 = 1.0 - torch.pow(torch.full((), b1, dtype=torch.float32, device=step.device), step_f)
+        bias2 = 1.0 - torch.pow(torch.full((), b2, dtype=torch.float32, device=step.device), step_f)
 
         new_p, new_m, new_v = [], [], []
         for path, p in tree_paths(params):

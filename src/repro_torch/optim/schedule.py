@@ -5,4 +5,5 @@ import torch
 
 
 def constant(lr: float):
-    return lambda step: torch.tensor(lr, dtype=torch.float32, device=step.device)
+    """lr as an f32 tensor filled on the step's device (no host copy)."""
+    return lambda step: torch.full((), lr, dtype=torch.float32, device=step.device)

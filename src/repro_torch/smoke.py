@@ -1,7 +1,8 @@
 """The phases of ``chip_smoke.py``: build, kernel parity, train (Instant-3D
 and the Instant-NGP baseline), serve, the reconstruction service, stage 2b
 v3, the async serving plane and the entry points, sessions over two slots
-of the card, the field's last two options and half-width hash-grid tables.
+of the card, the field's last two options, half-width hash-grid tables
+and compiled (CUDA-graph) steps.
 
 Each phase takes an explicit device, so the CPU tests can rehearse the
 paths at a tiny size with ``device="cpu"``; `main` runs them all on the
@@ -130,14 +131,30 @@ card and fails on anything wrong -- there is no CPU fallback.
    bytes of its sequential run; phase 5's four bit-identity contracts at
    bf16 (the guard's rollback reads bf16 trees, suspend / resume writes
    them to disk);
-10. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
-   summed over the twelve main paths, and per path) and, last, the device
-   line.
+10. compiled steps (slice 14's main paths): every phase above trains
+   through the compiled-step cache, each step a replay of a CUDA graph
+   captured once per variant (each phase prints its graphs, replays and
+   capture ms, then empties the cache).  Then each `COMPILED_PATHS` path
+   -- FieldConfig() and the NGP baseline for 400 steps, stage 2b v3 at a
+   ceiling of 4096 and bf16 tables for 200 -- trains captured and under
+   `eager_steps()` from one seed: the same bytes (params, Adam moments and
+   step, occupancy grid, history, the trainer's live fraction and overflow
+   window), the built keys the variants the run took, every step and fold
+   a replay, the captured launches less the warm-ups' the eager ones;
+   printed beside capture ms per variant, median step ms per route
+   captured and eager, the graphs' memory; then
+   `tools/torch_train_profile.py` in its own process profiles each
+   route's step eagerly and as a replay (idle share, copy-in, copy-out,
+   the graph alone);
+11. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
+   summed over the sixteen main paths, and per path) and, last, the
+   device line.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import re
@@ -157,8 +174,10 @@ from .core import occupancy
 from .core.field import Field, FieldConfig
 from .core.pipeline import RenderPipeline
 from .core.rendering import RenderConfig, sample_ts, sphere_poses
-from .core.trainer import (Instant3DTrainer, TrainerConfig, _branch_update, default_draws,
-                           default_samples_per_ray, image_rays, train_cohort)
+from .core import trainer as trainer_lib
+from .core.trainer import (Instant3DTrainer, TrainerConfig, _branch_update, clear_step_cache,
+                           default_draws, default_samples_per_ray, eager_steps, image_rays,
+                           train_cohort)
 from .data.rays_dataset import RaySampler
 from .data.synthetic_scene import build_dataset
 from .examples import quickstart, reconstruct_service
@@ -392,6 +411,23 @@ OPTION_ITERS = 200
 GRID_DTYPE = "bfloat16"
 GRID_DTYPE_CASES = (torch.bfloat16, torch.float16)
 GRID_SERVE_REQUESTS = 4
+
+# Compiled steps (slice 14's main paths): every training path runs its
+# steps as CUDA-graph replays; phase 10 trains each of these paths twice
+# from one seed, captured and under `eager_steps()`, and holds the two to
+# the same bytes: FieldConfig() and the NGP baseline for TrainerConfig()'s
+# 400 steps (dense, compacted through #5 / #6, and through #8), stage 2b v3
+# at a ceiling of 4096 and bf16 tables for 200 (the cut: steps).
+COMPILED_PATHS = (
+    ("train", FieldConfig(), TrainerConfig(), 400),
+    ("train_ngp", FieldConfig(decomposed=False), TrainerConfig(), 400),
+    ("train_v3", FieldConfig(), TrainerConfig(max_budget=V3_MAX_BUDGET, redistribute_v3=True),
+     200),
+    (f"train_{GRID_DTYPE}", FieldConfig(grid_dtype=GRID_DTYPE), TrainerConfig(), 200),
+)
+COMPILED_HISTORY = ("step", "loss", "live_fraction", "points_queried", "overflow", "budget",
+                    "occ_folds", "overflow_total", "overflow_steps")
+TRAIN_PROFILE_TIMEOUT_S = 420
 
 # whole-image agreement of the card's path with the plain versions on the
 # CPU (the CPU tests' slice-level tolerance against JAX): rgb in [0, 1],
@@ -2635,6 +2671,198 @@ def _grid_dtype_phase(device, card: str, f32_runs: dict) -> dict:
 
 # ---- the script ---------------------------------------------------------------
 
+# ---- phase 10: compiled steps -------------------------------------------------
+
+def graph_stats() -> dict:
+    """What the compiled-step and fold caches hold: built step variants,
+    graphs (one per variant and device), their replays (a cohort's graph
+    replays once a step for all its members), the fold graphs' replays,
+    capture ms by variant key (without the configs), the warm-ups'
+    launches and the graphs' static bytes."""
+    out = {"variants": len(trainer_lib._COHORT_STEP_CACHE), "graphs": 0, "replays": 0,
+           "fold_graphs": 0, "fold_replays": 0, "static_bytes": 0, "capture_ms": {},
+           "warmup_launches": Counter()}
+    for table, kind in ((trainer_lib._COHORT_STEP_CACHE, "step"),
+                        (trainer_lib._OCC_UPDATE_CACHE, "fold")):
+        for key, entry in table.items():
+            for graph in entry.graphs.values():
+                out["graphs" if kind == "step" else "fold_graphs"] += 1
+                out["replays" if kind == "step" else "fold_replays"] += graph.replays
+                out["static_bytes"] += graph.static_bytes
+                out["warmup_launches"].update(graph.warmup_launches)
+                if kind == "step":
+                    out["capture_ms"][str(key[2:])] = round(graph.capture_ms, 3)
+    return out
+
+
+def print_graphs(name: str, card: str) -> dict:
+    """Print and return `graph_stats` for a phase, then drop the cache so
+    the next phase holds only its own graphs."""
+    stats = graph_stats()
+    summary = {k: v for k, v in stats.items() if k not in ("capture_ms", "warmup_launches")}
+    summary["capture_ms_total"] = round(sum(stats["capture_ms"].values()), 3)
+    print(f"{name} compiled steps [{card}]: {json.dumps(summary)}", flush=True)
+    clear_step_cache()
+    return stats
+
+
+def compiled_run(sampler, field_cfg: FieldConfig, cfg: TrainerConfig, iters: int) -> dict:
+    """`iters` steps from `cfg.seed` on `sampler`, every step logged, launch
+    counters zeroed just before and read just after."""
+    device = sampler.device
+    trainer = Instant3DTrainer(Field(field_cfg), cfg, device=device)
+    state = trainer.init()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, hist = trainer.train(state, sampler, iters=iters, log_every=1)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    walls = np.diff(np.asarray([0.0] + hist["wall_s"])) * 1e3
+    return {"trainer": trainer, "state": state, "hist": hist, "wall_s": wall,
+            "launches": dict(kernels.LAUNCHES),
+            "dense_ms": [w for w, b in zip(walls, hist["budget"]) if b is None],
+            "compact_ms": [w for w, b in zip(walls, hist["budget"]) if b is not None]}
+
+
+def variants_taken(run: dict, field_cfg: FieldConfig, cfg: TrainerConfig) -> set:
+    """The step-cache keys (without the configs) of the variants a run's
+    steps took, from its history: step i freezes by the schedule, reads the
+    bitfield after the first fold before it, and shades at its budget."""
+    hist, keys = run["hist"], set()
+    for step, budget in zip(hist["step"], hist["budget"]):
+        i = step - 1
+        keys.add(((not _branch_update(i, cfg.f_color)) and field_cfg.decomposed,
+                  not _branch_update(i, cfg.f_density), budget,
+                  cfg.use_occupancy and any(f < i for f in hist["occ_folds"]), 1))
+    return keys
+
+
+def same_run(a: dict, b: dict) -> dict:
+    """Two runs' final params, Adam moments and step, occupancy grid and
+    its fold count, histories (loss, budgets, overflow, live fraction,
+    points, folds) and the trainers' live fraction and overflow window:
+    equal byte for byte, each."""
+    sa, sb = a["state"], b["state"]
+    ta, tb = a["trainer"], b["trainer"]
+    return {
+        "params": _bits(sa.params) == _bits(sb.params),
+        "adam": (_bits(sa.opt_state.m) == _bits(sb.opt_state.m)
+                 and _bits(sa.opt_state.v) == _bits(sb.opt_state.v)
+                 and int(sa.opt_state.step) == int(sb.opt_state.step)),
+        "occupancy": (_bits({"e": sa.occ_state.density_ema}) == _bits(
+            {"e": sb.occ_state.density_ema}) and sa.occ_state.step == sb.occ_state.step
+            and sa.step == sb.step),
+        "history": all(a["hist"][k] == b["hist"][k] for k in COMPILED_HISTORY),
+        "trainer": (ta._live_frac == tb._live_frac
+                    and ta._overflow_window == tb._overflow_window),
+    }
+
+
+def compiled_against_eager(sampler, field_cfg: FieldConfig, cfg: TrainerConfig,
+                           iters: int) -> dict:
+    """One path trained captured (the cache emptied first) and under
+    `eager_steps()`, from one seed: the two runs, whether they end on the
+    same bytes, the built keys against the variants taken, the graphs
+    (`graph_stats`), the card memory they hold (reserved bytes with the
+    graphs alive less without, both after `empty_cache`) and whether the
+    captured run's launches less its warm-ups' are the eager run's, kernel
+    for kernel."""
+    device = torch.device(sampler.device)
+    clear_step_cache()
+    captured = compiled_run(sampler, field_cfg, cfg, iters)
+    stats = graph_stats()
+    keys = captured["trainer"].step_cache_keys()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_stats(device)["reserved_bytes.all.current"]
+    clear_step_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held -= torch.cuda.memory_stats(device)["reserved_bytes.all.current"]
+    with eager_steps():
+        eager = compiled_run(sampler, field_cfg, cfg, iters)
+    warm = stats["warmup_launches"]
+    diff = {k: captured["launches"][k] - warm.get(k, 0) - eager["launches"][k]
+            for k in captured["launches"]}
+    return {"captured": captured, "eager": eager, "same": same_run(captured, eager),
+            "keys": keys, "taken": variants_taken(captured, field_cfg, cfg), "stats": stats,
+            "graph_bytes": held, "launch_diff": diff,
+            "replayed_steps": stats["replays"] == iters,
+            "folds_replayed": stats["fold_replays"] == len(captured["hist"]["occ_folds"])}
+
+
+def profile_replayed_step(timeout_s: float = TRAIN_PROFILE_TIMEOUT_S) -> dict:
+    """`tools/torch_train_profile.py` in its own process -> its JSON report
+    (each route's step eagerly and as a replay)."""
+    tool = Path(__file__).resolve().parents[2] / "tools" / "torch_train_profile.py"
+    done = subprocess.run([sys.executable, str(tool)], capture_output=True, text=True,
+                          timeout=timeout_s)
+    if done.returncode != 0:
+        raise RuntimeError(f"{tool.name} exited {done.returncode}:\n"
+                           f"{done.stdout[-4000:]}\n{done.stderr[-4000:]}")
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+def _compiled_phase(device, card: str) -> dict:
+    """Phase 10: each `COMPILED_PATHS` path captured against eager, then one
+    profiled replay of each route."""
+    _, ds = build_dataset(0, device=device)
+    sampler = RaySampler(ds, views=range(HELD_OUT, ds.images.shape[0]), device=device)
+    out, problems = {}, []
+    for name, field_cfg, cfg, iters in COMPILED_PATHS:
+        t0 = time.perf_counter()
+        res = compiled_against_eager(sampler, field_cfg, cfg, iters)
+        out[name] = res
+        cap, eag, stats = res["captured"], res["eager"], res["stats"]
+        print(f"compiled {name}: {iters} steps captured and eager in "
+              f"{time.perf_counter() - t0:.2f} s [{card}]")
+        print(f"compiled {name} same bytes as eager_steps(): {json.dumps(res['same'])}")
+        print(f"compiled {name} keys {sorted(map(str, res['keys']))} == variants taken: "
+              f"{res['keys'] == res['taken']}")
+        print(f"compiled {name} capture ms per variant [{card}]: "
+              f"{json.dumps(stats['capture_ms'])}")
+        print(f"compiled {name} median step ms captured / eager [{card}]: " + json.dumps(
+            {route: [_warm_median(cap[f"{route}_ms"]), _warm_median(eag[f"{route}_ms"])]
+             for route in ("dense", "compact")}) + f", wall s {cap['wall_s']:.3f} / "
+            f"{eag['wall_s']:.3f}", flush=True)
+        print(f"compiled {name} graphs [{card}]: {stats['graphs']} step + "
+              f"{stats['fold_graphs']} fold, replays {stats['replays']} + "
+              f"{stats['fold_replays']}, memory {res['graph_bytes'] / 2**20:.1f} MiB "
+              f"reserved (static buffers {stats['static_bytes'] / 2**20:.1f} MiB), "
+              f"warm-up launches {json.dumps(dict(stats['warmup_launches']))}")
+        print(f"compiled {name} launches: captured {json.dumps(cap['launches'])}, eager "
+              f"{json.dumps(eag['launches'])}, captured - warm-ups - eager "
+              f"{json.dumps(res['launch_diff'])}", flush=True)
+        if not all(res["same"].values()):
+            problems.append(f"{name}: captured and eager runs differ: {res['same']}")
+        if res["keys"] != res["taken"]:
+            problems.append(f"{name}: keys {res['keys']} != variants taken {res['taken']}")
+        if any(res["launch_diff"].values()):
+            problems.append(f"{name}: launches differ from eager: {res['launch_diff']}")
+        if not (res["replayed_steps"] and res["folds_replayed"]):
+            problems.append(f"{name}: a step or fold did not replay: {stats['replays']} "
+                            f"replays for {iters} steps")
+    clear_step_cache()
+    if problems:
+        raise RuntimeError(f"compiled-step gate failed: {problems}")
+    t0 = time.perf_counter()
+    prof = profile_replayed_step()
+    routes = ("dense", "compacted", "compacted_color_frozen")
+    keys = ("wall_ms", "device_busy_ms", "device_idle_share", "host_wall_ms",
+            "device_idle_share_unprofiled", "device_launches")
+    print(f"step profile ({time.perf_counter() - t0:.1f} s, tools/torch_train_profile.py) "
+          f"[{card}]: " + json.dumps(
+              {route: {"eager": {k: prof[route][k] for k in keys},
+                       "replayed": {k: prof[route]["replayed"][k] for k in keys}}
+               for route in routes}), flush=True)
+    print(f"replayed step copies and graph [{card}]: " + json.dumps(
+        {route: {k: prof[route]["replayed"][k] for k in ("copy_in_ms", "copy_out_ms",
+                                                          "graph_replay_ms", "call_ms",
+                                                          "capture_ms")}
+         for route in routes}), flush=True)
+    return {"paths": out, "profile": prof}
+
+
 def _ptxas_summary(logs: dict[str, str]) -> list[str]:
     lines = []
     for name, log in sorted(logs.items()):
@@ -2761,7 +2989,9 @@ def main() -> int:
         raise RuntimeError(f"fused encode gradients differ from hash encode's: {ident}")
 
     # slice 2's main path: training Instant-3D, then its split route
+    clear_step_cache()
     run = _train_phase(device, FieldConfig(), "train", TRAIN_KERNELS, card)
+    print_graphs("train", card)
     split = split_route_parity(device, run)
     print(f"split route vs one-op step (compacted, trained state): {json.dumps(split)} "
           f"(tol tables {SPLIT_TABLE_TOL:.0e}, MLP {SPLIT_MLP_TOL:.0e} relative)", flush=True)
@@ -2770,6 +3000,7 @@ def main() -> int:
     # this slice's main path: training the Instant-NGP baseline
     ngp = _train_phase(device, FieldConfig(decomposed=False), "train_ngp",
                        NGP_TRAIN_KERNELS, card, NGP_DETERMINISM_STEPS)
+    print_graphs("train_ngp", card)
     ratios = {route: _warm_median(run[f"{route}_ms"]) / _warm_median(ngp[f"{route}_ms"])
               for route in ("dense", "compact")}
     print(f"step time Instant-3D / Instant-NGP (median ms ratio): {json.dumps(ratios)} "
@@ -2817,18 +3048,26 @@ def main() -> int:
               f"{json.dumps(ident)}", flush=True)
         if not identity_holds(ident):
             raise RuntimeError(f"a bit-identity contract failed: {ident}")
+    if print_graphs("service", card)["replays"] == 0:
+        raise RuntimeError("the service trained no step through a compiled graph")
 
     # slice 10's main path: stage 2b v3 under a hard point ceiling
     v3 = _v3_phase(device, card)
     cases.extend(v3["cases"])
+    print_graphs("v3", card)
 
     # slice 11's main paths: the async serving plane, the entry points
     plane = _async_phase(device, card)
+    print_graphs("async", card)
     # slice 12's main paths: sessions over two slots, the last two options
     placed = _placement_phase(device, card)
-    # this slice's main paths: half-width tables, trained, served, in a cohort
+    print_graphs("placement", card)
+    # slice 13's main paths: half-width tables, trained, served, in a cohort
     half = _grid_dtype_phase(device, card, {"train": run, "train_ngp": ngp})
     cases.extend(half["cases"])
+    print_graphs(GRID_DTYPE, card)
+    # this slice's main paths: each training path captured against eager
+    compiled = _compiled_phase(device, card)
 
     paths = {"train": run["launches"], "train_ngp": ngp["launches"], "serve": serve_launches,
              "service": service["launches"], "train_v3": v3["train_launches"],
@@ -2837,7 +3076,9 @@ def main() -> int:
              f"train_{GRID_DTYPE}": half["train_launches"],
              f"train_ngp_{GRID_DTYPE}": half["train_ngp_launches"],
              f"serve_{GRID_DTYPE}": half["serve_launches"],
-             f"service_{GRID_DTYPE}": half["service_launches"]}
+             f"service_{GRID_DTYPE}": half["service_launches"],
+             **{f"compiled_{name}": res["captured"]["launches"]
+                for name, res in compiled["paths"].items()}}
     report = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == name]

@@ -26,10 +26,16 @@ at the ceiling of 4096, with the same tolerances.  Half-width tables
 the bytes of the same kernel on the tables' f32 copies (the widening is
 exact) and meet the f32 tolerances against their plain versions on the
 2-byte tables; #7 commits into a nonzero 2-byte table as the plain commit,
-exactly.
+exactly.  Compiled steps: a replayed training step (the dense route,
+Instant-3D's compacted step at 8192, the NGP baseline's through the fused
+encode, v3 at 4096, bf16 tables) is the eager step's bytes, a replay counts
+the eager step's launches, and a capture beside the async serving thread
+changes neither thread's bytes.
 """
 import ctypes
+import threading
 
+import numpy as np
 import pytest
 import torch
 
@@ -1154,3 +1160,191 @@ def test_table_gradients_leave_in_the_tables_dtype_on_the_card(dtype, card):
     with pytest.raises(ValueError, match="expected one of"):
         he_kernel.hash_encode(pts, half[0].double(), *(encs[0].resolutions,
                                                        encs[0].dense_flags))
+
+
+# ---- compiled steps: CUDA-graph replays of the training step ----
+
+# (field, TrainerConfig overrides, budget): the dense step, Instant-3D's
+# compacted step through the fused step (#5, #6), the NGP baseline's through
+# the fused encode (#8), stage 2b v3 at its ceiling and bf16 tables
+REPLAY_CASES = {
+    "dense": (FieldConfig(), {}, None),
+    "compacted_8192": (FieldConfig(), {}, 8192),
+    "ngp_query_fused": (FieldConfig(decomposed=False), {}, 32768),
+    "v3_4096": (FieldConfig(), {"max_budget": 4096, "redistribute_v3": True}, 4096),
+    "bfloat16": (FieldConfig(grid_dtype="bfloat16"), {}, 8192),
+}
+REPLAY_DATA = dict(n_views=6, h=32, w=32, gt_samples=48)
+
+
+def _replay_inputs(card, cfg, n_steps: int):
+    from repro_torch.core import rendering
+    from repro_torch.core.trainer import default_draws
+    from repro_torch.data.rays_dataset import RaySampler
+    from repro_torch.data.synthetic_scene import build_dataset
+    sampler = RaySampler(build_dataset(0, device=card, **REPLAY_DATA)[1], device=card)
+    draws = default_draws(cfg, sampler.n)
+    return [(sampler.gather(ray_idx), rendering.sample_ts(None, cfg.n_rays, cfg.render, card,
+                                                          u=u_ts))
+            for ray_idx, u_ts, _ in (draws(i) for i in range(n_steps))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(REPLAY_CASES))
+def test_replayed_steps_are_the_eager_bytes(case, card):
+    """Four steps of each variant pair (color live, frozen) from a folded
+    state at TrainerConfig()'s shapes (1024 rays x 48): the replayed chain
+    ends every step on the eager chain's params, moments, loss and aux
+    byte for byte; after the captures, LAUNCHES over n replays equals n
+    eager steps' counts, kernel for kernel."""
+    from repro_torch.core import occupancy
+    from repro_torch.core.trainer import Instant3DTrainer, TrainerConfig
+    from repro_torch.optim.adamw import tree_paths
+    field_cfg, over, budget = REPLAY_CASES[case]
+    cfg = TrainerConfig(**over)
+    tr = Instant3DTrainer(Field(field_cfg), cfg, device=card)
+    state = tr.init()
+    ema = occupancy.update(tr.field, state.params, state.occ_state, cfg.occ,
+                           generator=torch.Generator().manual_seed(3)).density_ema
+    inputs = _replay_inputs(card, cfg, 8)
+    flags = [dict(freeze_color=bool(k % 2) and field_cfg.decomposed, budget=budget,
+                  use_bits=budget is not None) for k in range(len(inputs))]
+    fns = {f["freeze_color"]: tr.step_fn(**f) for f in flags}
+
+    def leaves(p, o, loss, aux):
+        return ([t for _, t in tree_paths(p)] + [o.step] + [t for _, t in tree_paths(o.m)]
+                + [t for _, t in tree_paths(o.v)] + [loss]
+                + [aux[k] for k in ("live_fraction", "overflow")])
+
+    def chain(replay: bool, steps):
+        p, o, out = state.params, state.opt_state, []
+        for (batch, ts), f in steps:
+            if replay:
+                p, o, loss, aux = fns[f["freeze_color"]](p, o, batch, ts, ema)
+            else:
+                p, o, loss, aux = tr.step(p, o, batch, ts, ema, **f)
+            out.append(leaves(p, o, loss, aux))
+        torch.cuda.synchronize()
+        return out
+
+    steps = list(zip(inputs, flags))
+    for a, b in zip(chain(False, steps[:4]), chain(True, steps[:4])):   # captures here
+        assert all(_same(x, y) for x, y in zip(a, b))
+    assert all(len(fn.graphs) == 1 for fn in fns.values())
+    counts = {}
+    for replay in (True, False):
+        kernels.reset_launches()
+        chain(replay, steps[4:])
+        counts[replay] = dict(kernels.LAUNCHES)
+    assert counts[True] == counts[False] and sum(counts[True].values()) > 0, counts
+    assert sum(g.replays for fn in fns.values() for g in fn.graphs.values()) == 8
+
+
+@pytest.mark.gpu
+def test_capture_beside_the_async_serving_thread(card):
+    """The async serving thread drains 800x800-sized work on its render
+    stream while a trainer captures its variants (the cache emptied first):
+    every async answer is the bytes of a sync drain of the same snapshot,
+    and the captured run ends on the bytes of the same run under
+    `eager_steps()`."""
+    from repro_torch.core import occupancy
+    from repro_torch.core.rendering import RenderConfig, sphere_poses
+    from repro_torch.core.trainer import (Instant3DTrainer, TrainerConfig, clear_step_cache,
+                                          eager_steps)
+    from repro_torch.data.rays_dataset import RaySampler
+    from repro_torch.data.synthetic_scene import build_dataset
+    from repro_torch.optim.adamw import tree_paths
+    field_cfg, rcfg, ocfg = FieldConfig(), RenderConfig(), occupancy.OccupancyConfig()
+    store = smoke.make_snapshot_store(card, field_cfg, ocfg)
+    svc = smoke.make_service(store, card, field_cfg, rcfg, ocfg, 256, 4096)
+    poses = sphere_poses(6, seed=1)
+    for i, pose in enumerate(poses):
+        svc.submit(("redist", "dense")[i % 2], pose)
+    want = {(r.session_id, i): r for i, r in enumerate(svc.drain())}
+    cfg = TrainerConfig(occ=occupancy.OccupancyConfig(update_interval=8, warmup_steps=16))
+    sampler = RaySampler(build_dataset(0, device=card, **REPLAY_DATA)[1], device=card)
+
+    def train():
+        tr = Instant3DTrainer(Field(field_cfg), cfg, device=card)
+        state, hist = tr.train(tr.init(), sampler, iters=48, log_every=48)
+        return state
+
+    with eager_steps():
+        eager = train()
+    clear_step_cache()
+    svc.start_async()
+    try:
+        for i, pose in enumerate(poses):
+            svc.submit(("redist", "dense")[i % 2], pose)
+        captured = train()
+        got = []
+        for _ in range(600):
+            got += svc.poll_results()
+            if len(got) == len(poses):
+                break
+            threading.Event().wait(0.1)
+    finally:
+        svc.stop_async()
+    torch.cuda.synchronize()
+    assert len(got) == len(poses)
+    for k, r in enumerate(sorted(got, key=lambda r: r.request_id)):
+        w = want[(r.session_id, k)]
+        assert np.array_equal(r.rgb, w.rgb) and np.array_equal(r.depth, w.depth), k
+    for (_, a), (_, b) in zip(tree_paths(eager.params), tree_paths(captured.params)):
+        assert _same(a, b)
+    assert torch.equal(eager.occ_state.density_ema, captured.occ_state.density_ema)
+    clear_step_cache()
+
+
+@pytest.mark.gpu
+def test_replays_beside_another_threads_captures_keep_their_bytes(card):
+    """One thread replays the NGP baseline's compacted step (its MLP
+    backward through cuBLAS) on fixed inputs while another builds fresh
+    Instant-3D variants -- each a warm-up on the capture stream and a
+    capture -- as two slot threads of one card do: every replay gives the
+    first replay's bytes and neither thread raises."""
+    from repro_torch.core import occupancy, step_graph
+    from repro_torch.core.trainer import Instant3DTrainer, TrainerConfig
+    from repro_torch.optim.adamw import tree_paths
+    cfg = TrainerConfig()
+    ((batch, ts),) = _replay_inputs(card, cfg, 1)
+
+    def setup(field_cfg):
+        tr = Instant3DTrainer(Field(field_cfg), cfg, device=card)
+        state = tr.init()
+        ema = occupancy.update(tr.field, state.params, state.occ_state, cfg.occ,
+                               generator=torch.Generator().manual_seed(3)).density_ema
+        return tr, state, ema
+
+    ngp, n_state, n_ema = setup(FieldConfig(decomposed=False))
+    i3d, i_state, i_ema = setup(FieldConfig())
+    replay = ngp.step_fn(False, budget=32768, use_bits=True)
+
+    def leaves():
+        p, _, loss, _ = replay(n_state.params, n_state.opt_state, batch, ts, n_ema)
+        float(loss)                                  # the training loop's read
+        return [t for _, t in tree_paths(p)] + [loss]
+
+    want, errors, differ = leaves(), [], []
+    done = threading.Event()
+
+    def replays():
+        try:
+            while not done.is_set():
+                differ.append(not all(_same(a, b) for a, b in zip(leaves(), want)))
+        except Exception as e:   # noqa: BLE001 -- re-raised in the test's thread
+            errors.append(e)
+
+    worker = threading.Thread(target=replays)
+    worker.start()
+    try:
+        for k in range(24):
+            fc = bool(k % 2)
+            fresh = step_graph.CompiledStep(lambda *a, fc=fc: i3d.step(
+                *a, freeze_color=fc, budget=None, use_bits=True))
+            fresh(i_state.params, i_state.opt_state, batch, ts, i_ema)
+    finally:
+        done.set()
+        worker.join(timeout=120)
+    assert not worker.is_alive() and not errors, errors
+    assert len(differ) > 0 and not any(differ), (sum(differ), len(differ))
