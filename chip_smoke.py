@@ -32,7 +32,12 @@ all of it a replay of a CUDA graph captured once per step variant -- then
 trains four paths (both fields, v3 at 4096, bf16) captured and under
 ``eager_steps()`` and holds each pair to the same bytes, with capture
 times, step times of both, the graphs' memory and a profiled replay
-(``tools/torch_train_profile.py``), and prints
+(``tools/torch_train_profile.py``) -- every chunk of every render of all
+of it a replay of a CUDA graph captured once per render key -- then
+serves four routes (redistributed, dense, v3, bf16) from the trained
+snapshots captured and under ``eager_steps()`` and holds each pair to the
+same bytes, with capture times, latencies of both and the graphs' memory,
+and prints
 one JSON line with every kernel's report and, last, the device line.  It exits non-zero,
 with no result, on any failure, and when no CUDA card is present.  The phases live in ``src/repro_torch/smoke.py``.
 """

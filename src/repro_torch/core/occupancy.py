@@ -29,7 +29,7 @@ class OccupancyConfig:
 
 class OccupancyState(NamedTuple):
     density_ema: torch.Tensor  # (R^3,) f32
-    step: int                  # number of updates folded in
+    step: int                  # number of updates folded in (or a 0-d int tensor)
 
 
 def init_state(cfg: OccupancyConfig, device="cuda") -> OccupancyState:
@@ -69,10 +69,10 @@ def update(field, params: dict, state: OccupancyState, cfg: OccupancyConfig,
 
 def bitfield(state: OccupancyState, cfg: OccupancyConfig) -> torch.Tensor:
     """Thresholded occupancy bits (R^3,) bool -- the cull stage's input;
-    all True while no update has been folded in (step == 0)."""
-    if int(state.step) == 0:
-        return torch.ones_like(state.density_ema, dtype=torch.bool)
-    return state.density_ema > cfg.density_threshold
+    all True while no update has been folded in (step == 0).  The step may
+    be a 0-d tensor on the EMA's device: the choice is made there, with no
+    host read, so a captured render serves any snapshot's fold count."""
+    return (state.density_ema > cfg.density_threshold) | (state.step == 0)
 
 
 def _cell_flat(points_unit: torch.Tensor, resolution: int) -> torch.Tensor:

@@ -48,9 +48,22 @@ with the reference's tree keys, so `repro_torch.checkpoint` writes it in
 the reference's layout.  `tree_all_finite` is the serve3d guard's deep
 check.
 
-The chunk renderers (`make_render_chunk`, ...) serve `RenderService` and
-`evaluate`.  A group of sessions renders as a loop over its members where
-JAX used `vmap`.
+The render caches are the reference's too: `eval_render_fn` (per field
+config, render config and chunk), `redistributed_render_fn`, and the
+batched entries `batched_render_fn` / `batched_redistributed_render_fn`
+keyed by the padded group size as well, all built on `make_render_chunk` /
+`make_redistributed_render_chunk` and shared, under a lock, by
+`RenderService` and `evaluate`, so an eval render and a served render run
+the same entry.  An entry renders every chunk it is given (the
+reference's entries take one chunk a call), on a card each chunk a replay
+of a CUDA graph captured once per device for each eval key and each
+member key (below), on the CPU or inside
+`eager_steps()` the eager chunk renderer.  A group renders as a loop over
+its real members where JAX used `vmap` over the padded group: a batched
+entry (`step_graph.BatchedRender`) renders each member through the
+one-member `step_graph.CompiledRender` of its key less the group
+(`_MEMBER_RENDERS`), shared by every group size.
+`clear_render_cache()` drops every entry and its graphs' memory.
 """
 from __future__ import annotations
 
@@ -91,9 +104,9 @@ def make_redistributed_render_chunk(field_cfg, render_cfg: rendering.RenderConfi
                                     redistribute_v3: bool = False):
     """Occupancy-redistributed chunk renderer (pipeline stage 2b) built from
     configs: (params, origins (N, 3), dirs (N, 3), ts (N, S), occ_ema (R^3,),
-    occ_step) -> (rgb, depth).  The snapshot's EMA rebuilds the bitfield;
-    the dense candidates' liveness is each ray's probe, and S' = budget // N
-    samples per ray are shaded.  While occ_step == 0 the bitfield reads
+    occ_step, an int or a 0-d tensor) -> (rgb, depth).  The snapshot's EMA
+    rebuilds the bitfield; the dense candidates' liveness is each ray's
+    probe, and S' = budget // N samples per ray are shaded.  While occ_step == 0 the bitfield reads
     all-occupied and this is a uniform S'-sample render.  With
     redistribute_v3 the budget is spent unevenly across the chunk's rays
     (stage 2b v3), the EMA weighting each ray's placement, as a v3 trainer
@@ -120,38 +133,95 @@ def default_samples_per_ray(n_samples: int) -> int:
     return min(s, max(4, s // 4))
 
 
-def batched_render_fn(field_cfg, render_cfg: rendering.RenderConfig):
-    """(params list of G dicts, origins (G, chunk, 3), dirs (G, chunk, 3),
-    ts (chunk, S)) -> (rgb (G, chunk, 3), depth (G, chunk)), one member at
-    a time."""
-    render = make_render_chunk(field_cfg, render_cfg)
+# ---- the render caches (process-wide), keyed as the reference's ----
 
-    def fn(params, origins, dirs, ts):
-        outs = [render(p, origins[g], dirs[g], ts) for g, p in enumerate(params)]
-        return (torch.stack([o[0] for o in outs]),
-                torch.stack([o[1] for o in outs]))
+_EVAL_RENDER_CACHE: dict[tuple, step_graph.CompiledRender] = {}
+_REDIST_RENDER_CACHE: dict[tuple, step_graph.CompiledRender] = {}
+_BATCH_RENDER_CACHE: dict[tuple, step_graph.BatchedRender] = {}
+# the batched entries' one-member renders, keyed as them less the group:
+# every group size of a chunk, budget and path shares one graph a device
+_MEMBER_RENDERS: dict[tuple, step_graph.CompiledRender] = {}
+_render_cache_lock = threading.Lock()
 
-    return fn
+
+def _render_entry(cache: dict, key: tuple, make: Callable) -> step_graph.CompiledRender:
+    with _render_cache_lock:
+        fn = cache.get(key)
+        if fn is None:
+            fn = cache[key] = step_graph.CompiledRender(make())
+        return fn
+
+
+def _batched_entry(key: tuple, member_key: tuple, group: int,
+                   make: Callable) -> step_graph.BatchedRender:
+    """The `_BATCH_RENDER_CACHE` entry of `key`: a group of up to `group`
+    members through the member render of `member_key` (`key` less the
+    group)."""
+    member = _render_entry(_MEMBER_RENDERS, member_key, make)
+    with _render_cache_lock:
+        fn = _BATCH_RENDER_CACHE.get(key)
+        if fn is None:
+            fn = _BATCH_RENDER_CACHE[key] = step_graph.BatchedRender(member, group)
+        return fn
+
+
+def eval_render_fn(field_cfg, render_cfg: rendering.RenderConfig,
+                   chunk: int) -> step_graph.CompiledRender:
+    """The compiled `make_render_chunk` of (field_cfg, render_cfg, chunk):
+    (params, origins (k * chunk, 3), dirs, ts (chunk, S)) -> (rgb, depth)."""
+    return _render_entry(_EVAL_RENDER_CACHE, (field_cfg, render_cfg, int(chunk)),
+                         lambda: make_render_chunk(field_cfg, render_cfg))
+
+
+def redistributed_render_fn(field_cfg, render_cfg: rendering.RenderConfig,
+                            occ_cfg: occupancy.OccupancyConfig, chunk: int,
+                            samples_per_ray: int, redistribute_v3: bool = False
+                            ) -> step_graph.CompiledRender:
+    """The compiled `make_redistributed_render_chunk`, budget = chunk *
+    samples_per_ray: (params, origins, dirs, ts, occ_ema, occ_step) ->
+    (rgb, depth).  Neither package calls it (serving and `render_image` go
+    through the batched entry); it is kept for the reference's API."""
+    key = (field_cfg, render_cfg, occ_cfg, int(chunk), int(samples_per_ray),
+           bool(redistribute_v3))
+    return _render_entry(_REDIST_RENDER_CACHE, key, lambda: make_redistributed_render_chunk(
+        field_cfg, render_cfg, occ_cfg, int(chunk) * int(samples_per_ray),
+        redistribute_v3=bool(redistribute_v3)))
+
+
+def batched_render_fn(field_cfg, render_cfg: rendering.RenderConfig, chunk: int,
+                      group: int) -> step_graph.BatchedRender:
+    """(params list of g <= group dicts, origins (g, k * chunk, 3), dirs
+    (g, k * chunk, 3), ts (chunk, S)) -> (rgb (g, k * chunk, 3), depth (g,
+    k * chunk)), keyed by the padded group size as the reference."""
+    member_key = (field_cfg, render_cfg, int(chunk))
+    return _batched_entry(member_key + (int(group),), member_key, group,
+                          lambda: make_render_chunk(field_cfg, render_cfg))
 
 
 def batched_redistributed_render_fn(field_cfg, render_cfg: rendering.RenderConfig,
-                                    occ_cfg, chunk: int, samples_per_ray: int,
-                                    redistribute_v3: bool = False):
+                                    occ_cfg, chunk: int, group: int, samples_per_ray: int,
+                                    redistribute_v3: bool = False
+                                    ) -> step_graph.BatchedRender:
     """Redistributed flavor of `batched_render_fn`, shading chunk *
     samples_per_ray points per member: adds per-member occupancy inputs
-    (occ_ema list of G (R^3,) tensors, occ_step list of G ints).
-    redistribute_v3: stage 2b v3 (`make_redistributed_render_chunk`)."""
-    render = make_redistributed_render_chunk(
+    (occ_ema list of g (R^3,) tensors, occ_step (g,) int32 fold counts on
+    the device).  redistribute_v3: stage 2b v3
+    (`make_redistributed_render_chunk`)."""
+    key = (field_cfg, render_cfg, occ_cfg, int(chunk), int(group), int(samples_per_ray),
+           bool(redistribute_v3))
+    return _batched_entry(key, key[:4] + key[5:], group, lambda: make_redistributed_render_chunk(
         field_cfg, render_cfg, occ_cfg, int(chunk) * int(samples_per_ray),
-        redistribute_v3=redistribute_v3)
+        redistribute_v3=bool(redistribute_v3)))
 
-    def fn(params, origins, dirs, ts, occ_ema, occ_step):
-        outs = [render(p, origins[g], dirs[g], ts, occ_ema[g], occ_step[g])
-                for g, p in enumerate(params)]
-        return (torch.stack([o[0] for o in outs]),
-                torch.stack([o[1] for o in outs]))
 
-    return fn
+def clear_render_cache() -> None:
+    """Drop every render entry, with its graphs."""
+    with _render_cache_lock:
+        _EVAL_RENDER_CACHE.clear()
+        _REDIST_RENDER_CACHE.clear()
+        _BATCH_RENDER_CACHE.clear()
+        _MEMBER_RENDERS.clear()
+    step_graph.release_devices("render")
 
 
 def image_rays(pose, h: int, w: int, focal: float, eval_chunk: int, device="cuda"):
@@ -577,35 +647,31 @@ class Instant3DTrainer:
     def render_image(self, params, pose: np.ndarray, ds, occ=None,
                      samples_per_ray: int | None = None):
         """Render one full view -> (rgb (H, W, 3), depth (H, W)) numpy.  Dense
-        by default; with `occ` (the (density EMA, fold count) pair a snapshot
-        carries) through the redistributed renderer (stage 2b v3 when
-        `cfg.redistribute_v3`), as served.  `params`
-        and the EMA may be host copies (a snapshot's, a suspended tree's):
-        they are moved to the trainer's device."""
+        by default (`eval_render_fn`); with `occ` (the (density EMA, fold
+        count) pair a snapshot carries) through the redistributed renderer
+        (stage 2b v3 when `cfg.redistribute_v3`), as the group-of-1 entry
+        `RenderService` serves a lone request through, so an eval render is
+        the served bytes.  `params` and the EMA may be host copies (a
+        snapshot's, a suspended tree's): they are moved to the trainer's
+        device."""
         cfg = self.cfg
         h, w = ds.h, ds.w
         params = _on_device(params, self.device)
-        if occ is not None:
-            occ = (_on_device(occ[0], self.device), int(occ[1]))
         o, d, n, chunk = image_rays(pose, h, w, ds.focal, cfg.eval_chunk, self.device)
         ts = rendering.sample_ts(None, chunk, cfg.render, self.device)
         if occ is not None and cfg.use_occupancy:
             spr = (int(samples_per_ray) if samples_per_ray is not None
                    else default_samples_per_ray(cfg.render.n_samples))
-            render = make_redistributed_render_chunk(self.field.cfg, cfg.render, cfg.occ,
-                                                     chunk * spr, cfg.redistribute_v3)
-            fn = lambda oo, dd: render(params, oo, dd, ts, occ[0], occ[1])  # noqa: E731
+            fn = batched_redistributed_render_fn(self.field.cfg, cfg.render, cfg.occ, chunk, 1,
+                                                 spr, redistribute_v3=cfg.redistribute_v3)
+            occ_step = torch.tensor([int(occ[1])], dtype=torch.int32, device=self.device)
+            rgb, dep = fn([params], o[None], d[None], ts, [_on_device(occ[0], self.device)],
+                          occ_step)
+            rgb, dep = rgb[0], dep[0]
         else:
-            render = make_render_chunk(self.field.cfg, cfg.render)
-            fn = lambda oo, dd: render(params, oo, dd, ts)  # noqa: E731
-        rgb_out, dep_out = [], []
-        for i in range(0, o.shape[0], chunk):
-            rgb_c, dep_c = fn(o[i:i + chunk], d[i:i + chunk])
-            rgb_out.append(rgb_c)
-            dep_out.append(dep_c)
-        rgb = torch.cat(rgb_out)[:n].reshape(h, w, 3)
-        dep = torch.cat(dep_out)[:n].reshape(h, w)
-        return rgb.cpu().numpy(), dep.cpu().numpy()
+            rgb, dep = eval_render_fn(self.field.cfg, cfg.render, chunk)(params, o, d, ts)
+        return (rgb[:n].reshape(h, w, 3).cpu().numpy(),
+                dep[:n].reshape(h, w).cpu().numpy())
 
     def evaluate(self, params, ds, views=None, occ=None,
                  samples_per_ray: int | None = None) -> dict:

@@ -7,9 +7,14 @@ A request whose session has not published yet stays queued.
 
 Coalescing: pending requests are grouped by geometry (field config, render
 config, image size, focal, chunk, serving path and budget, level); a group
-renders through the trainer's batched chunk renderers
-(`repro_torch.core.trainer`), one member after another -- PyTorch has no
-compiled batch shapes to bucket, so groups are not padded.
+takes the trainer's batched render entry (`repro_torch.core.trainer`) of
+(chunk, its size padded to a power of two by `_pow2_bucket`), the key the
+reference's vmapped entry of the padded group has.  The reference renders
+the padding (repeats of the last request) and drops its pixels; the
+port's entry loops over members, so only the real ones render: on a card
+each member's chunks are replays of the one CUDA graph that every group
+size of the chunk, budget and path shares.  A drain runs under
+`torch.no_grad()`.
 
 Serving paths: a session registered with ``samples_per_ray`` renders
 through pipeline stage 2b (the snapshot's occupancy EMA rebuilds the
@@ -77,6 +82,8 @@ import numpy as np
 import torch
 
 from ..core import rendering
+# the render caches live with the trainer's eval renderers: one entry
+# serves `Instant3DTrainer.evaluate` and this service
 from ..core.trainer import (
     batched_redistributed_render_fn, batched_render_fn, image_rays,
 )
@@ -84,6 +91,10 @@ from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from ..testing import faults
 from .snapshot import Snapshot, SnapshotStore
+
+
+def _pow2_bucket(n: int) -> int:
+    return 1 << (n - 1).bit_length()
 
 
 @dataclass
@@ -330,7 +341,7 @@ class RenderService:
                 self._draining = True
             try:
                 with obs_trace.span("serve3d/render_drain", cat="serve3d",
-                                    args={"pending": self.pending}):
+                                    args={"pending": self.pending}), torch.no_grad():
                     results = self._drain()
                 if collect and results:
                     with self._lock:
@@ -487,6 +498,7 @@ class RenderService:
         if level > 0:
             h = max(1, h >> level)
             w = max(1, w >> level)
+        g_pad = _pow2_bucket(len(items))     # the entry's key, as the reference's
         origins, dirs = [], []
         n = chunk = None
         for req, _snap in items:
@@ -503,23 +515,17 @@ class RenderService:
         # params-only snapshot falls back to dense
         if samples_per_ray is not None and all(occ is not None for _p, occ in resident):
             occ_ema = [occ for _p, occ in resident]
-            occ_step = [int(snap.occ[1]) for _req, snap in items]
-            fn_r = batched_redistributed_render_fn(field_cfg, render_cfg, occ_cfg,
-                                                   chunk, samples_per_ray,
-                                                   redistribute_v3=redistribute_v3)
-
-            def fn(p, o, d, t):
-                return fn_r(p, o, d, t, occ_ema, occ_step)
+            occ_step = torch.tensor([int(snap.occ[1]) for _req, snap in items],
+                                    dtype=torch.int32, device=dev)
+            fn = batched_redistributed_render_fn(field_cfg, render_cfg, occ_cfg, chunk, g_pad,
+                                                 samples_per_ray,
+                                                 redistribute_v3=redistribute_v3)
+            rgb, dep = fn(params, origins, dirs, ts, occ_ema, occ_step)
         else:
-            fn = batched_render_fn(field_cfg, render_cfg)
-
-        rgb_chunks, dep_chunks = [], []
-        for i in range(0, origins.shape[1], chunk):
-            rgb_c, dep_c = fn(params, origins[:, i:i + chunk], dirs[:, i:i + chunk], ts)
-            rgb_chunks.append(rgb_c)
-            dep_chunks.append(dep_c)
-        rgb = torch.cat(rgb_chunks, dim=1)[:, :n].cpu().numpy()
-        dep = torch.cat(dep_chunks, dim=1)[:, :n].cpu().numpy()
+            rgb, dep = batched_render_fn(field_cfg, render_cfg, chunk, g_pad)(
+                params, origins, dirs, ts)
+        rgb = rgb[:, :n].cpu().numpy()
+        dep = dep[:, :n].cpu().numpy()
 
         now = obs_trace.clock()
         obs_on = obs_trace.enabled()

@@ -1,8 +1,8 @@
 """The phases of ``chip_smoke.py``: build, kernel parity, train (Instant-3D
 and the Instant-NGP baseline), serve, the reconstruction service, stage 2b
 v3, the async serving plane and the entry points, sessions over two slots
-of the card, the field's last two options, half-width hash-grid tables
-and compiled (CUDA-graph) steps.
+of the card, the field's last two options, half-width hash-grid tables,
+compiled (CUDA-graph) steps and compiled renders.
 
 Each phase takes an explicit device, so the CPU tests can rehearse the
 paths at a tiny size with ``device="cpu"``; `main` runs them all on the
@@ -146,8 +146,23 @@ card and fails on anything wrong -- there is no CPU fallback.
    `tools/torch_train_profile.py` in its own process profiles each
    route's step eagerly and as a replay (idle share, copy-in, copy-out,
    the graph alone);
-11. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
-   summed over the sixteen main paths, and per path) and, last, the
+11. compiled renders (slice 15's main paths): every phase above serves
+   (and evaluates) through the render caches, each chunk of a view a
+   replay of a CUDA graph captured once per key (each phase prints its
+   render graphs, replays, binds and capture ms per key, then empties the
+   caches).  Then each `COMPILED_ROUTES` route -- redistributed (S' = 12)
+   and dense (S = 48) from phase 3's snapshot, v3 from phase 6's and
+   redistributed from phase 9's bf16 snapshot -- serves 800x800 views, a
+   group of 3 (keyed as padded to 4, only its members rendered) and a
+   level-1 preview a drain, captured (a drain that captures, then one
+   that only replays) and under `eager_steps()`: the same bytes, the
+   built keys the groups taken, every chunk a replay, the captured
+   launches less the warm-ups' the eager ones; then 12 lone requests each
+   way, each its own drain, for p50 / p95; printed beside the group
+   drains' ms per view, capture ms per key, the graphs' memory and the
+   render pool's bytes;
+12. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
+   summed over the twenty main paths, and per path) and, last, the
    device line.
 """
 from __future__ import annotations
@@ -175,9 +190,9 @@ from .core.field import Field, FieldConfig
 from .core.pipeline import RenderPipeline
 from .core.rendering import RenderConfig, sample_ts, sphere_poses
 from .core import trainer as trainer_lib
-from .core.trainer import (Instant3DTrainer, TrainerConfig, _branch_update, clear_step_cache,
-                           default_draws, default_samples_per_ray, eager_steps, image_rays,
-                           train_cohort)
+from .core.trainer import (Instant3DTrainer, TrainerConfig, _branch_update,
+                           clear_render_cache, clear_step_cache, default_draws,
+                           default_samples_per_ray, eager_steps, image_rays, train_cohort)
 from .data.rays_dataset import RaySampler
 from .data.synthetic_scene import build_dataset
 from .examples import quickstart, reconstruct_service
@@ -204,6 +219,7 @@ from .optim.adamw import tree_paths
 from .launch.mesh import session_devices
 from .serve3d import (DONE, DevicePlacement, ReconstructionService, RenderResult,
                       RenderService, SceneSession, SnapshotStore)
+from .serve3d.render import _pow2_bucket
 from .testing import faults
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
@@ -428,6 +444,19 @@ COMPILED_PATHS = (
 COMPILED_HISTORY = ("step", "loss", "live_fraction", "points_queried", "overflow", "budget",
                     "occ_folds", "overflow_total", "overflow_steps")
 TRAIN_PROFILE_TIMEOUT_S = 420
+
+# Compiled renders (this slice's main paths): every render runs its chunks
+# as CUDA-graph replays; phase 11 serves each of these routes from its
+# trained snapshot -- a group of 3 views (keyed as padded to 4) and a
+# level-1 preview a drain -- captured and under `eager_steps()`, and holds
+# the two to the same bytes: route -> the trained run it serves (phase 3's f32
+# Instant-3D run on the redistributed and the dense route, phase 6's v3
+# run, phase 9's bf16 run on the redistributed route).
+COMPILED_ROUTES = {"redist": "train", "dense": "train", "v3": "train_v3",
+                   f"redist_{GRID_DTYPE}": f"train_{GRID_DTYPE}"}
+RENDER_GROUP = 3
+# phase 11's latency: lone requests a route, each its own drain
+LATENCY_REQUESTS = 12
 
 # whole-image agreement of the card's path with the plain versions on the
 # CPU (the CPU tests' slice-level tolerance against JAX): rgb in [0, 1],
@@ -1973,7 +2002,7 @@ def _v3_phase(device, card: str) -> dict:
     if not reuse["bit_identical"]:
         raise RuntimeError("a cached encode differs from the plain hash_encode")
     return {"cases": cases, "train_launches": v3["launches"],
-            "serve_launches": served["launches"]}
+            "serve_launches": served["launches"], "run": v3}
 
 
 # ---- phase 7: the async serving plane and the entry points --------------------
@@ -2666,7 +2695,8 @@ def _grid_dtype_phase(device, card: str, f32_runs: dict) -> dict:
         raise RuntimeError(f"a bit-identity contract failed at {GRID_DTYPE}: {ident}")
     return {"cases": cases, "train_launches": runs["train"]["launches"],
             "train_ngp_launches": runs["train_ngp"]["launches"],
-            "serve_launches": served["launches"], "service_launches": service["launches"]}
+            "serve_launches": served["launches"], "service_launches": service["launches"],
+            "run": runs["train"]}
 
 
 # ---- the script ---------------------------------------------------------------
@@ -2695,14 +2725,60 @@ def graph_stats() -> dict:
     return out
 
 
+RENDER_CACHES = ("_EVAL_RENDER_CACHE", "_REDIST_RENDER_CACHE", "_BATCH_RENDER_CACHE")
+# the caches whose entries hold graphs: a batched entry renders through its
+# member render (`trainer._MEMBER_RENDERS`)
+GRAPH_HOLDERS = {"eval": "_EVAL_RENDER_CACHE", "redist": "_REDIST_RENDER_CACHE",
+                 "member": "_MEMBER_RENDERS"}
+
+
+def key_tail(key: tuple) -> tuple:
+    """A render-cache key without its configs: (chunk,) for
+    `eval_render_fn`, (chunk, group) and (chunk, group, spr, v3) for the
+    batched entries, (chunk,) and (chunk, spr, v3) for their members."""
+    return tuple(k for k in key if isinstance(k, (bool, int)))
+
+
+def render_graph_stats() -> dict:
+    """What the render caches hold: entries (the reference's three
+    caches), graphs (one per eval or member key and device), their replays
+    (one a chunk of a member's view) and binds (one a member's view),
+    capture ms by holder and key tail (summed over the configs that share
+    one), the warm-ups' launches and the graphs' static bytes."""
+    out = {"entries": sum(len(getattr(trainer_lib, t)) for t in RENDER_CACHES),
+           "graphs": 0, "replays": 0, "binds": 0, "static_bytes": 0,
+           "capture_ms": {}, "warmup_launches": Counter()}
+    for holder, table in GRAPH_HOLDERS.items():
+        for key, entry in getattr(trainer_lib, table).items():
+            for graph in entry.graphs.values():
+                out["graphs"] += 1
+                out["replays"] += graph.replays
+                out["binds"] += graph.binds
+                out["static_bytes"] += graph.static_bytes
+                out["warmup_launches"].update(graph.warmup_launches)
+                tail = f"{holder} {key_tail(key)}"
+                out["capture_ms"][tail] = round(out["capture_ms"].get(tail, 0.0)
+                                                + graph.capture_ms, 3)
+    return out
+
+
 def print_graphs(name: str, card: str) -> dict:
-    """Print and return `graph_stats` for a phase, then drop the cache so
-    the next phase holds only its own graphs."""
+    """Print and return `graph_stats` for a phase, with its render graphs'
+    (`render_graph_stats`, under "renders"), then drop both caches so the
+    next phase holds only its own graphs.  A phase that rendered on the
+    card must have replayed a render graph."""
     stats = graph_stats()
     summary = {k: v for k, v in stats.items() if k not in ("capture_ms", "warmup_launches")}
     summary["capture_ms_total"] = round(sum(stats["capture_ms"].values()), 3)
     print(f"{name} compiled steps [{card}]: {json.dumps(summary)}", flush=True)
+    stats["renders"] = renders = render_graph_stats()
+    summary = {k: v for k, v in renders.items() if k not in ("capture_ms", "warmup_launches")}
+    summary["capture_ms"] = renders["capture_ms"]
+    print(f"{name} compiled renders [{card}]: {json.dumps(summary)}", flush=True)
     clear_step_cache()
+    clear_render_cache()
+    if renders["graphs"] and not renders["replays"]:
+        raise RuntimeError(f"{name}: a render graph was built and never replayed")
     return stats
 
 
@@ -2863,6 +2939,220 @@ def _compiled_phase(device, card: str) -> dict:
     return {"paths": out, "profile": prof}
 
 
+# ---- phase 11: compiled renders -----------------------------------------------
+
+def route_service(device, run: dict, route: str, hw: int = IMAGE_HW) -> RenderService:
+    """A `RenderService` with a trained run's snapshot as session `route`:
+    dense when the route is "dense", else on the redistributed route its
+    trainer renders (S' = 12 a ray; stage 2b v3 for a v3 run)."""
+    tr, state = run["trainer"], run["state"]
+    cfg = tr.cfg
+    store = SnapshotStore()
+    store.publish(route, state.params, step=state.step, occ=state.occ_state)
+    svc = RenderService(store, device=device)
+    spr = None if route == "dense" else default_samples_per_ray(cfg.render.n_samples)
+    svc.register_session(route, tr.field.cfg, cfg.render, hw, hw, focal_for(hw),
+                         eval_chunk=cfg.eval_chunk, occ_cfg=cfg.occ, samples_per_ray=spr,
+                         redistribute_v3=cfg.redistribute_v3)
+    return svc
+
+
+def route_drain(svc: RenderService, route: str, hw: int, group: int = RENDER_GROUP,
+                seed: int = 0) -> dict:
+    """One drain of `group` full-resolution views of session `route` (one
+    group, keyed as padded to a power of two) and one level-1 preview, launch
+    counters zeroed just before and read just after: the results, the
+    drain's wall and its launches."""
+    poses = sphere_poses(group, seed=seed)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for pose in poses:
+        svc.submit(route, pose)
+    svc.submit(route, poses[0], level=1)
+    results = svc.drain()
+    if svc.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_results(results, svc, hw, group + 1)
+    return {"results": results, "wall_s": wall, "launches": dict(kernels.LAUNCHES)}
+
+
+def groups_taken(svc: RenderService, results: list) -> tuple[set, int]:
+    """The batched-cache key tails a drain's groups took -- per (session
+    geometry, level): (chunk, padded group), with (samples per ray, v3) on
+    the redistributed route -- and the chunks their real members rendered
+    (the padding renders nothing)."""
+    sizes, geoms = Counter(), {}
+    for r in results:
+        geom = svc._geom[r.session_id]
+        key = (dataclasses.astuple(geom), r.level)
+        sizes[key] += 1
+        geoms[key] = geom
+    tails, chunks = set(), 0
+    for key, g in sizes.items():
+        geom, level = geoms[key], key[1]
+        n = max(1, geom.h >> level) * max(1, geom.w >> level)
+        chunk = min(geom.eval_chunk, n)
+        tail = (chunk, _pow2_bucket(g))
+        if geom.samples_per_ray is not None:
+            tail += (geom.samples_per_ray, geom.redistribute_v3)
+        tails.add(tail)
+        chunks += g * -(-n // chunk)
+    return tails, chunks
+
+
+def _same_pixels(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        np.array_equal(x.rgb, y.rgb) and np.array_equal(x.depth, y.depth) for x, y in zip(a, b))
+
+
+def _pool_bytes(pool) -> int:
+    """Bytes of the card's memory segments in graph pool `pool`."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
+def route_latency(svc: RenderService, route: str, hw: int, n: int = LATENCY_REQUESTS,
+                  seed: int = 1) -> dict:
+    """`n` lone full-resolution requests of session `route`, each submitted
+    once the one before is answered (each its own drain, so no two
+    answers land together): p50 / p95 / max of their latencies (ms,
+    submit to answer, `RenderResult.latency_s`) and the walls (s)."""
+    lat = []
+    t0 = time.perf_counter()
+    for pose in sphere_poses(n, seed=seed):
+        svc.submit(route, pose)
+        results = svc.drain()
+        check_results(results, svc, hw, 1)
+        lat.append(results[0].latency_s * 1e3)
+    wall = time.perf_counter() - t0
+    return {"n": n, "p50_ms": float(np.percentile(lat, 50)),
+            "p95_ms": float(np.percentile(lat, 95)), "max_ms": float(max(lat)),
+            "wall_s": wall, "latency_ms": lat}
+
+
+def compiled_against_eager_renders(device, run: dict, route: str, hw: int = IMAGE_HW,
+                                   n_latency: int = LATENCY_REQUESTS) -> dict:
+    """One route served captured (the render cache emptied first: a drain
+    that captures, then one that only replays, then `n_latency` lone
+    requests) and under `eager_steps()` (one drain, then the lone
+    requests): the drains and latencies, whether the drains' pixels are
+    the same bytes, the built keys against the groups taken, the graphs
+    (`render_graph_stats`), whether every chunk was a replay, the card
+    memory the graphs hold (reserved bytes with them alive less without)
+    and their pool's bytes, and the captured launches less the warm-ups'
+    against the eager ones."""
+    clear_render_cache()
+    svc = route_service(device, run, route, hw)
+    captured = [route_drain(svc, route, hw) for _ in range(2)]
+    stats = render_graph_stats()
+    keys = {key_tail(k) for k in trainer_lib._BATCH_RENDER_CACHE}
+    taken = [groups_taken(svc, d["results"]) for d in captured]
+    latency = route_latency(svc, route, hw, n_latency)
+    after = render_graph_stats()
+    n = hw * hw
+    chunk = min(run["trainer"].cfg.eval_chunk, n)
+    latency_replayed = (after["graphs"] == stats["graphs"]
+                        and after["replays"] - stats["replays"] == n_latency * -(-n // chunk))
+    on_card = torch.device(device).type == "cuda"
+    graphs = [g for entry in trainer_lib._MEMBER_RENDERS.values()
+              for g in entry.graphs.values()]
+    pool = held = 0
+    if on_card:
+        pool = _pool_bytes(graphs[0].dev.pool)
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_stats(device)["reserved_bytes.all.current"]
+    del graphs
+    clear_render_cache()
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        held -= torch.cuda.memory_stats(device)["reserved_bytes.all.current"]
+    with eager_steps():
+        eager = route_drain(svc, route, hw)
+        eager_latency = route_latency(svc, route, hw, n_latency)
+    clear_render_cache()
+    warm = stats["warmup_launches"]
+    diff = {k: captured[0]["launches"][k] - warm.get(k, 0) - eager["launches"][k]
+            for k in eager["launches"]}
+    replay_diff = {k: captured[1]["launches"][k] - eager["launches"][k]
+                   for k in eager["launches"]}
+    return {"captured": captured, "eager": eager, "stats": stats,
+            "latency": {"captured": latency, "eager": eager_latency},
+            "same": {"capture_drain": _same_pixels(captured[0]["results"], eager["results"]),
+                     "replay_drain": _same_pixels(captured[1]["results"], eager["results"])},
+            "keys": keys, "taken": taken[0][0] | taken[1][0],
+            "every_chunk_replayed": (stats["replays"] == taken[0][1] + taken[1][1]
+                                     and latency_replayed),
+            "chunks": taken[0][1] + taken[1][1], "graph_bytes": held, "pool_bytes": pool,
+            "launch_diff": diff, "replay_launch_diff": replay_diff,
+            "launches": {k: captured[0]["launches"][k] + captured[1]["launches"][k]
+                         for k in eager["launches"]}}
+
+
+def _ms_per_view(drain: dict, hw: int = IMAGE_HW) -> float:
+    """A drain's wall per 800x800 of pixels served (a level-1 preview is a
+    quarter view)."""
+    pixels = sum(r.rgb.shape[0] * r.rgb.shape[1] for r in drain["results"])
+    return drain["wall_s"] * 1e3 * hw * hw / pixels
+
+
+def _compiled_render_phase(device, card: str, runs: dict) -> dict:
+    """Phase 11: each `COMPILED_ROUTES` route served captured against
+    eager from its trained run (`runs`: route -> a `train_main_path`-like
+    run)."""
+    out, problems = {}, []
+    for route, name in COMPILED_ROUTES.items():
+        t0 = time.perf_counter()
+        res = compiled_against_eager_renders(device, runs[name], route)
+        out[route] = res
+        stats, cap, eag = res["stats"], res["captured"], res["eager"]
+        print(f"compiled render {route}: {RENDER_GROUP} views (a group padded to "
+              f"{_pow2_bucket(RENDER_GROUP)}, its members only rendered) + a level-1 preview, "
+              f"drained captured twice and eager once, then {LATENCY_REQUESTS} lone requests "
+              f"each way, in {time.perf_counter() - t0:.2f} s [{card}]")
+        print(f"compiled render {route} same bytes as eager_steps(): {json.dumps(res['same'])}")
+        print(f"compiled render {route} keys {sorted(map(str, res['keys']))} == groups taken: "
+              f"{res['keys'] == res['taken']}")
+        print(f"compiled render {route} capture ms per key [{card}]: "
+              f"{json.dumps(stats['capture_ms'])}")
+        lat = {mode: {k: v for k, v in res["latency"][mode].items() if k != "latency_ms"}
+               for mode in ("captured", "eager")}
+        print(f"compiled render {route} latency of {LATENCY_REQUESTS} lone requests, each its "
+              f"own drain, captured (replays only) / eager [{card}]: {json.dumps(lat)}",
+              flush=True)
+        print(f"compiled render {route} group drain ms per view captured (replays only) / "
+              f"eager [{card}]: {_ms_per_view(cap[1]):.3f} / {_ms_per_view(eag):.3f}, drain "
+              f"wall s {cap[0]['wall_s']:.3f} (captures) / {cap[1]['wall_s']:.3f} / "
+              f"{eag['wall_s']:.3f}", flush=True)
+        print(f"compiled render {route} graphs [{card}]: {stats['graphs']}, replays "
+              f"{stats['replays']} for {res['chunks']} chunks, binds {stats['binds']}, memory "
+              f"{res['graph_bytes'] / 2**20:.1f} MiB reserved (static buffers "
+              f"{stats['static_bytes'] / 2**20:.1f} MiB, render pool "
+              f"{res['pool_bytes'] / 2**20:.1f} MiB), warm-up launches "
+              f"{json.dumps(dict(stats['warmup_launches']))}")
+        print(f"compiled render {route} launches: captured {json.dumps(cap[0]['launches'])}, "
+              f"eager {json.dumps(eag['launches'])}, captured - warm-ups - eager "
+              f"{json.dumps(res['launch_diff'])}, replay drain - eager "
+              f"{json.dumps(res['replay_launch_diff'])}", flush=True)
+        if not all(res["same"].values()):
+            problems.append(f"{route}: captured and eager pixels differ: {res['same']}")
+        if res["keys"] != res["taken"]:
+            problems.append(f"{route}: keys {res['keys']} != groups taken {res['taken']}")
+        if any(res["launch_diff"].values()) or any(res["replay_launch_diff"].values()):
+            problems.append(f"{route}: launches differ from eager: {res['launch_diff']}, "
+                            f"{res['replay_launch_diff']}")
+        if not res["every_chunk_replayed"]:
+            problems.append(f"{route}: {stats['replays']} replays for {res['chunks']} chunks, "
+                            f"or a lone request's chunk was not a replay")
+        missing = [k for k in SERVE_KERNELS if res["launches"].get(k, 0) == 0]
+        if missing:
+            problems.append(f"{route}: never launched {missing}")
+    if problems:
+        raise RuntimeError(f"compiled-render gate failed: {problems}")
+    return out
+
+
 def _ptxas_summary(logs: dict[str, str]) -> list[str]:
     lines = []
     for name, log in sorted(logs.items()):
@@ -2990,6 +3280,7 @@ def main() -> int:
 
     # slice 2's main path: training Instant-3D, then its split route
     clear_step_cache()
+    clear_render_cache()
     run = _train_phase(device, FieldConfig(), "train", TRAIN_KERNELS, card)
     print_graphs("train", card)
     split = split_route_parity(device, run)
@@ -3033,6 +3324,8 @@ def main() -> int:
     for sid, e in agree.items():
         if e["rgb_max_abs_err"] > PATH_RGB_TOL or e["depth_max_abs_err"] > PATH_DEPTH_TOL:
             raise RuntimeError(f"served path disagrees with the plain versions on {sid}: {e}")
+    if print_graphs("serve", card)["renders"]["replays"] == 0:
+        raise RuntimeError("the served views rendered no chunk through a compiled graph")
 
     # slice 9's main path: the reconstruction service, then its contracts
     datasets = service_datasets(device)
@@ -3066,8 +3359,11 @@ def main() -> int:
     half = _grid_dtype_phase(device, card, {"train": run, "train_ngp": ngp})
     cases.extend(half["cases"])
     print_graphs(GRID_DTYPE, card)
-    # this slice's main paths: each training path captured against eager
+    # slice 14's main paths: each training path captured against eager
     compiled = _compiled_phase(device, card)
+    # this slice's main paths: each serving route captured against eager
+    renders = _compiled_render_phase(device, card, {
+        "train": run, "train_v3": v3["run"], f"train_{GRID_DTYPE}": half["run"]})
 
     paths = {"train": run["launches"], "train_ngp": ngp["launches"], "serve": serve_launches,
              "service": service["launches"], "train_v3": v3["train_launches"],
@@ -3078,7 +3374,8 @@ def main() -> int:
              f"serve_{GRID_DTYPE}": half["serve_launches"],
              f"service_{GRID_DTYPE}": half["service_launches"],
              **{f"compiled_{name}": res["captured"]["launches"]
-                for name, res in compiled["paths"].items()}}
+                for name, res in compiled["paths"].items()},
+             **{f"compiled_serve_{route}": res["launches"] for route, res in renders.items()}}
     report = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == name]

@@ -30,7 +30,12 @@ exactly.  Compiled steps: a replayed training step (the dense route,
 Instant-3D's compacted step at 8192, the NGP baseline's through the fused
 encode, v3 at 4096, bf16 tables) is the eager step's bytes, a replay counts
 the eager step's launches, and a capture beside the async serving thread
-changes neither thread's bytes.
+changes neither thread's bytes.  Compiled renders: on each route
+(redistributed, dense, v3, bf16 tables) a replayed view is the eager
+view's bytes; a graph captured before any occupancy fold serves a folded
+snapshot's bytes; a render replay takes neither the training graphs'
+lock nor their pool; a render capture on the serving thread beside
+training replays keeps both sides' bytes.
 """
 import ctypes
 import threading
@@ -1348,3 +1353,183 @@ def test_replays_beside_another_threads_captures_keep_their_bytes(card):
         worker.join(timeout=120)
     assert not worker.is_alive() and not errors, errors
     assert len(differ) > 0 and not any(differ), (sum(differ), len(differ))
+
+
+# ---- compiled renders ----
+
+RENDER_ROUTES = {
+    "redist": (FieldConfig(), {}),
+    "dense": (FieldConfig(), {}),
+    "v3": (FieldConfig(), {"max_budget": 4096, "redistribute_v3": True}),
+    "redist_bfloat16": (FieldConfig(grid_dtype="bfloat16"), {}),
+}
+RENDER_HW = 256
+
+
+def _render_run(card, route: str) -> dict:
+    """A run-like dict for `smoke.route_service`: a fresh trainer of the
+    route's configs and its initial params with one occupancy fold."""
+    from repro_torch.core import occupancy
+    from repro_torch.core.trainer import Instant3DTrainer, TrainerConfig, TrainState
+    field_cfg, over = RENDER_ROUTES[route]
+    tr = Instant3DTrainer(Field(field_cfg), TrainerConfig(**over), device=card)
+    state = tr.init()
+    occ = occupancy.update(tr.field, state.params, state.occ_state, tr.cfg.occ,
+                           generator=torch.Generator().manual_seed(3))
+    return {"trainer": tr, "state": TrainState(state.params, state.opt_state, occ, 16)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", sorted(RENDER_ROUTES))
+def test_replayed_renders_are_the_eager_bytes(route, card):
+    """A group of 3 views (keyed as 4) and a level-1 preview at 256x256:
+    the drain that captures and the one that only replays give the pixels
+    of the same drain under `eager_steps()` byte for byte; the replay
+    drain's launches are the eager drain's, and every chunk a replay."""
+    from repro_torch.core.trainer import clear_render_cache, eager_steps
+    clear_render_cache()
+    run = _render_run(card, route)
+    svc = smoke.route_service(card, run, route, hw=RENDER_HW)
+    captured = [smoke.route_drain(svc, route, RENDER_HW) for _ in range(2)]
+    stats = smoke.render_graph_stats()
+    with eager_steps():
+        eager = smoke.route_drain(svc, route, RENDER_HW)
+    for d in captured:
+        assert smoke._same_pixels(d["results"], eager["results"])
+    assert captured[1]["launches"] == eager["launches"] and sum(eager["launches"].values())
+    chunks = sum(smoke.groups_taken(svc, d["results"])[1] for d in captured)
+    assert stats["graphs"] == 1 and stats["replays"] == chunks
+    clear_render_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["redist", "v3"])
+def test_a_render_captured_before_any_fold_serves_folded_snapshots(route, card):
+    """The route's render graph captured on a snapshot with no fold yet
+    (all cells occupied), then a folded snapshot of the same params
+    published and served through it with no new capture: the bytes of the
+    folded snapshot drained under `eager_steps()`, unlike the unfolded
+    view's."""
+    from repro_torch.core import occupancy
+    from repro_torch.core.trainer import clear_render_cache, eager_steps
+    clear_render_cache()
+    run = _render_run(card, route)
+    tr, state = run["trainer"], run["state"]
+    unfolded = tr.init().occ_state
+    ema = state.occ_state.density_ema.clone()
+    ema[ema.numel() // 2:] = 0.0                 # half the grid culled for certain
+    folded = occupancy.OccupancyState(ema, state.occ_state.step)
+    assert int(unfolded.step) == 0 and int(folded.step) == 1
+    svc = smoke.route_service(card, {"trainer": tr, "state": state._replace(
+        occ_state=unfolded)}, route, hw=RENDER_HW)
+    first = smoke.route_drain(svc, route, RENDER_HW)                    # captures
+    captures = smoke.render_graph_stats()
+    svc.store.publish(route, state.params, step=state.step + 1, occ=folded)
+    replayed = smoke.route_drain(svc, route, RENDER_HW)
+    stats = smoke.render_graph_stats()
+    with eager_steps():
+        eager = smoke.route_drain(svc, route, RENDER_HW)
+    assert captures["graphs"] == stats["graphs"] == 1
+    assert stats["replays"] - captures["replays"] == \
+        smoke.groups_taken(svc, replayed["results"])[1]
+    assert smoke._same_pixels(replayed["results"], eager["results"])
+    assert not smoke._same_pixels(first["results"], replayed["results"])
+    clear_render_cache()
+
+
+@pytest.mark.gpu
+def test_render_replays_take_neither_the_training_lock_nor_pool(card):
+    """A render entry's graph lives in the device's render pool, apart from
+    the training graphs', and a view renders through it while another
+    thread holds the training graphs' lock."""
+    from repro_torch.core import step_graph
+    from repro_torch.core.trainer import clear_render_cache
+    clear_render_cache()
+    svc = smoke.route_service(card, _render_run(card, "redist"), "redist", hw=RENDER_HW)
+    want = smoke.route_drain(svc, "redist", RENDER_HW)                  # captures
+    (entry,) = smoke.trainer_lib._MEMBER_RENDERS.values()
+    (graph,) = entry.graphs.values()
+    train_dev = step_graph.device_graphs(graph.dev.device)
+    assert graph.dev is step_graph.device_graphs(graph.dev.device, "render")
+    assert graph.dev is not train_dev and graph.dev.lock is not train_dev.lock
+    assert tuple(graph.dev.pool) != tuple(train_dev.pool)
+    out_ptr = graph.static_out[0].data_ptr()
+    (seg,) = [s for s in torch.cuda.memory_snapshot()
+              if s["address"] <= out_ptr < s["address"] + s["total_size"]]
+    assert tuple(seg["segment_pool_id"]) == tuple(graph.dev.pool)
+    replays, got, errors = graph.replays, [], []
+
+    def render():
+        try:
+            got.append(smoke.route_drain(svc, "redist", RENDER_HW))
+        except Exception as e:   # noqa: BLE001 -- re-raised in the test's thread
+            errors.append(e)
+
+    with train_dev.lock:
+        worker = threading.Thread(target=render)
+        worker.start()
+        worker.join(timeout=300)
+        assert not worker.is_alive()
+    assert not errors, errors
+    assert graph.replays > replays
+    assert smoke._same_pixels(got[0]["results"], want["results"])
+    clear_render_cache()
+
+
+@pytest.mark.gpu
+def test_render_captures_on_the_serving_thread_beside_training_replays(card):
+    """The async serving thread captures its render graphs (the render
+    cache emptied first) while the trainer replays its captured steps:
+    every async answer is the bytes of the same requests drained under
+    `eager_steps()`, and the replayed run ends on the eager run's bytes."""
+    from repro_torch.core import occupancy
+    from repro_torch.core.rendering import RenderConfig, sphere_poses
+    from repro_torch.core.trainer import (Instant3DTrainer, TrainerConfig, clear_render_cache,
+                                          clear_step_cache, eager_steps)
+    from repro_torch.data.rays_dataset import RaySampler
+    from repro_torch.data.synthetic_scene import build_dataset
+    from repro_torch.optim.adamw import tree_paths
+    field_cfg, rcfg, ocfg = FieldConfig(), RenderConfig(), occupancy.OccupancyConfig()
+    store = smoke.make_snapshot_store(card, field_cfg, ocfg)
+    svc = smoke.make_service(store, card, field_cfg, rcfg, ocfg, RENDER_HW, 4096)
+    poses = sphere_poses(6, seed=1)
+    with eager_steps():
+        for i, pose in enumerate(poses):
+            svc.submit(("redist", "dense")[i % 2], pose)
+        want = svc.drain()
+    cfg = TrainerConfig(occ=occupancy.OccupancyConfig(update_interval=8, warmup_steps=16))
+    sampler = RaySampler(build_dataset(0, device=card, **REPLAY_DATA)[1], device=card)
+
+    def train():
+        tr = Instant3DTrainer(Field(field_cfg), cfg, device=card)
+        return tr.train(tr.init(), sampler, iters=48, log_every=48)[0]
+
+    with eager_steps():
+        eager = train()
+    clear_step_cache()
+    train()                                  # captures every variant of the run
+    clear_render_cache()
+    svc.start_async()
+    try:
+        for i, pose in enumerate(poses):
+            svc.submit(("redist", "dense")[i % 2], pose)
+        replayed = train()
+        got = []
+        for _ in range(600):
+            got += svc.poll_results()
+            if len(got) == len(poses):
+                break
+            threading.Event().wait(0.1)
+    finally:
+        svc.stop_async()
+    torch.cuda.synchronize()
+    assert len(got) == len(poses)
+    for r, w in zip(sorted(got, key=lambda r: r.request_id), want):
+        assert r.session_id == w.session_id
+        assert np.array_equal(r.rgb, w.rgb) and np.array_equal(r.depth, w.depth)
+    for (_, a), (_, b) in zip(tree_paths(eager.params), tree_paths(replayed.params)):
+        assert _same(a, b)
+    assert torch.equal(eager.occ_state.density_ema, replayed.occ_state.density_ema)
+    assert smoke.render_graph_stats()["replays"] > 0
+    clear_step_cache()
+    clear_render_cache()
