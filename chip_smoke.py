@@ -37,7 +37,10 @@ of it a replay of a CUDA graph captured once per render key -- then
 serves four routes (redistributed, dense, v3, bf16) from the trained
 snapshots captured and under ``eager_steps()`` and holds each pair to the
 same bytes, with capture times, latencies of both and the graphs' memory,
-and prints
+then trains qwen1.5-0.5b at full width through the LM substrate's
+``launch.train`` (its vocab-embedding backward through #7 and its sort on
+1024-wide rows, the merged runs byte-identical from one seed and across a
+resume) and serves it through ``launch.serve``, and prints
 one JSON line with every kernel's report and, last, the device line.  It exits non-zero,
 with no result, on any failure, and when no CUDA card is present.  The phases live in ``src/repro_torch/smoke.py``.
 """

@@ -132,6 +132,7 @@ class CheckpointManager:
                 target=self._write, args=(step, flat, extra or {}), daemon=True)
             self._thread.start()
         else:
+            self.wait()  # an in-flight save of the same step would share its tmp dir
             self._write(step, flat, extra or {})
 
     def wait(self):

@@ -38,6 +38,19 @@
 // together.  The grid is one block per tile, about five blocks an SM at F =
 // 2 (a persistent grid with double-buffered tiles was slower on every
 // stream of the training paths, PERF.md).
+//
+// Wide rows (any F outside {1, 2, 4, 8}: the LM's vocab-embedding gradient,
+// one row of F = d_model floats a token, 64 to 4096).  A row no longer fits
+// a thread's registers, so the threads of a block span the row, 4 floats a
+// thread where the rows are 16-byte aligned (else 1), and a block walks the
+// runs that start in its tile of kWideTile entries one after another.  Run
+// starts are found as above (the tile's first entry against the entry
+// before it); the last run's end is found by one warp's ballots over the
+// addresses past the tile, so that every run is walked with a known trip
+// count, its loads kWideAhead entries at a time in flight together.  Each
+// thread sums its columns of the run from zero in stream order (__fadd_rn)
+// and adds the sum to the row once: the same bits as the narrow kernel and
+// the plain merge, with no atomics.
 #include "common.cuh"
 #include "mlp_tile.cuh"
 
@@ -183,11 +196,129 @@ int launch(const int64_t* idx, const float* vals, float* table, int64_t m,
     return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int kWideThreads = 256;
+constexpr int kWideTile = 8;                // entries per block
+constexpr int kWideAhead = 4;               // rows of a run in flight together
+
+template <int V>
+struct Vec {
+    float v[V];
+};
+
+template <int V>
+__device__ __forceinline__ Vec<V> load_vec(const float* p) {
+    Vec<V> r;
+    if constexpr (V == 4) {
+        const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+        r.v[0] = x.x;
+        r.v[1] = x.y;
+        r.v[2] = x.z;
+        r.v[3] = x.w;
+    } else {
+        r.v[0] = __ldg(p);
+    }
+    return r;
+}
+
+template <int V>
+__device__ __forceinline__ void add_vec(float (&acc)[V], const Vec<V>& x) {
+#pragma unroll
+    for (int q = 0; q < V; ++q) acc[q] = __fadd_rn(acc[q], x.v[q]);
+}
+
+// V floats a thread: the row is F / V vectors, spread over the block.
+template <int V>
+__global__ void __launch_bounds__(kWideThreads)
+bum_scatter_wide_kernel(const int64_t* __restrict__ idx, const float* __restrict__ vals,
+                        float* __restrict__ table, int64_t m, int64_t table_rows, int f) {
+    __shared__ long long s_idx[kWideTile];
+    __shared__ int s_start[kWideTile + 1];      // run starts in the tile, in stream order
+    __shared__ int s_runs;
+    __shared__ long long s_last_end;            // where the tile's last run ends
+    const long long* idx_ll = reinterpret_cast<const long long*>(idx);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int64_t base = static_cast<int64_t>(blockIdx.x) * kWideTile;
+    const int n = static_cast<int>(m - base < kWideTile ? m - base : kWideTile);
+    if (threadIdx.x < n) s_idx[threadIdx.x] = __ldg(idx_ll + base + threadIdx.x);
+    const long long before = base > 0 ? __ldg(idx_ll + base - 1) : 0;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        int runs = 0;
+        for (int e = 0; e < n; ++e)
+            if (e > 0 ? s_idx[e] != s_idx[e - 1] : (base == 0 || s_idx[0] != before))
+                s_start[runs++] = e;
+        s_runs = runs;
+    }
+    __syncthreads();
+    const int runs = s_runs;
+    if (runs == 0) return;                      // the tile lies inside an earlier run
+    if (warp == 0) {                            // the last run's end, past the tile
+        const long long a = s_idx[s_start[runs - 1]];
+        int64_t j = base + n;
+        while (true) {
+            const int64_t e = j + lane;
+            const bool other = e >= m || __ldg(idx_ll + e) != a;
+            const unsigned hit = __ballot_sync(0xffffffffu, other);
+            if (hit) {
+                j += __ffs(hit) - 1;
+                break;
+            }
+            j += 32;
+        }
+        if (lane == 0) s_last_end = j;
+    }
+    __syncthreads();
+    const int nv = f / V;
+    for (int r = 0; r < runs; ++r) {
+        const long long a = s_idx[s_start[r]];
+        if (a < 0 || a >= table_rows) continue;             // spill row: dropped
+        const int64_t s = base + s_start[r];
+        const int64_t end = r + 1 < runs ? base + s_start[r + 1] : s_last_end;
+        for (int c = threadIdx.x; c < nv; c += blockDim.x) {
+            const float* src = vals + s * f + c * V;
+            float acc[V];
+#pragma unroll
+            for (int q = 0; q < V; ++q) acc[q] = 0.0f;
+            int64_t j = s;
+            for (; j + kWideAhead <= end; j += kWideAhead, src += kWideAhead * f) {
+                Vec<V> x[kWideAhead];
+#pragma unroll
+                for (int u = 0; u < kWideAhead; ++u) x[u] = load_vec<V>(src + u * f);
+#pragma unroll
+                for (int u = 0; u < kWideAhead; ++u) add_vec<V>(acc, x[u]);
+            }
+            for (; j < end; ++j, src += f) add_vec<V>(acc, load_vec<V>(src));
+            float* row = table + a * f + c * V;
+#pragma unroll
+            for (int q = 0; q < V; ++q) row[q] = __fadd_rn(row[q], acc[q]);
+        }
+    }
+}
+
+int launch_wide(const int64_t* idx, const float* vals, float* table, int64_t m,
+                int64_t table_rows, int f, cudaStream_t stream) {
+    const bool vec = f % 4 == 0 &&
+        (reinterpret_cast<uintptr_t>(vals) | reinterpret_cast<uintptr_t>(table)) % 16 == 0;
+    const int nv = vec ? f / 4 : f;
+    const int threads = nv >= kWideThreads ? kWideThreads : (nv + 31) / 32 * 32;
+    const int64_t blocks = (m + kWideTile - 1) / kWideTile;
+    if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+    if (vec)
+        bum_scatter_wide_kernel<4><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+            idx, vals, table, m, table_rows, f);
+    else
+        bum_scatter_wide_kernel<1><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+            idx, vals, table, m, table_rows, f);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // idx (m,) int64 non-decreasing; vals (m, n_features) f32; table
-// (table_rows, n_features) f32, updated in place.  Contiguous, on the current
-// device.  Returns cudaGetLastError() after the launch (0 on success).
+// (table_rows, n_features) f32, updated in place; n_features >= 1 (1, 2, 4
+// and 8 by the tiled kernel, any other by the wide one).  Contiguous, on the
+// current device.  Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int bum_scatter_commit(const int64_t* idx, const float* vals, float* table,
                                   int64_t m, int64_t table_rows, int n_features,
                                   void* stream) {
@@ -201,6 +332,8 @@ extern "C" int bum_scatter_commit(const int64_t* idx, const float* vals, float* 
         case 2: return launch<2>(idx, vals, table, m, table_rows, s);
         case 4: return launch<4>(idx, vals, table, m, table_rows, s);
         case 8: return launch<8>(idx, vals, table, m, table_rows, s);
-        default: return static_cast<int>(cudaErrorInvalidValue);
+        default:
+            if (n_features < 1) return static_cast<int>(cudaErrorInvalidValue);
+            return launch_wide(idx, vals, table, m, table_rows, n_features, s);
     }
 }

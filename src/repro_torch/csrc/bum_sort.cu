@@ -56,6 +56,17 @@
 // operations: the output is exactly addr[o], vals[o] for the stable order o.
 // Between passes the keys travel as 32 bits (key_bits <= 32); the first
 // pass reads the int64 stream and the last writes int64.
+//
+// Wide rows (any F outside {1, 2, 4, 8}: the LM's vocab-embedding stream,
+// one row of F = d_model floats a token, 4 KiB at F = 1024).  Carrying such
+// a row through every pass would move it 2 * n_passes times and leave a
+// tile no room in shared memory.  Instead each entry's int32 position in
+// the stream is the carried value: the F = 1 instance above sorts (key,
+// position), moving the position as 4 bytes of bits and never doing
+// arithmetic on it, and one gather then reads each value row once through
+// the sorted positions and writes it once, 16 bytes a copy where the rows
+// are aligned.  A stable sort's permutation is unique, so the output is the
+// same (addr[o], vals[o]).
 #include "common.cuh"
 #include "mlp_tile.cuh"
 
@@ -493,6 +504,42 @@ int sort_stream(const int64_t* keys, const float* vals, int64_t* keys_out, float
     return 0;
 }
 
+// Each entry's position in the stream, the value the wide sort carries.
+__global__ void stream_positions(uint32_t* __restrict__ pos, int m) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < m) pos[i] = static_cast<uint32_t>(i);
+}
+
+// out[i] = vals[perm[i]], one block a row, V floats a thread and copy.
+template <int V>
+__global__ void gather_rows(const uint32_t* __restrict__ perm, const float* __restrict__ vals,
+                            float* __restrict__ out, int f) {
+    const int64_t i = blockIdx.x;
+    const float* src = vals + static_cast<int64_t>(__ldg(perm + i)) * f;
+    float* dst = out + i * f;
+    for (int c = threadIdx.x * V; c < f; c += blockDim.x * V) {
+        if constexpr (V == 4)
+            *reinterpret_cast<float4*>(dst + c) = __ldg(reinterpret_cast<const float4*>(src + c));
+        else
+            dst[c] = __ldg(src + c);
+    }
+}
+
+// The passes of `widths`, validated: false if any width or their sum is out
+// of range.
+bool make_passes(const int* widths, int n_passes, Passes* passes) {
+    if (n_passes < 1 || n_passes > kMaxPasses) return false;
+    passes->n = n_passes;
+    int bits = 0;
+    for (int p = 0; p < n_passes; ++p) {
+        if (widths[p] < 1 || widths[p] > kMaxBits) return false;
+        passes->shift[p] = bits;
+        passes->width[p] = widths[p];
+        bits += widths[p];
+    }
+    return bits <= 32;
+}
+
 }  // namespace
 
 // keys (m,) int64 in [0, 2^(sum of widths)), vals (m, n_features) f32 ->
@@ -510,18 +557,9 @@ extern "C" int bum_sort_stream(const int64_t* keys, const float* vals, int64_t* 
                                float* vals_out, uint32_t* key_tmp0, uint32_t* key_tmp1,
                                float* vals_tmp, int* scratch, int m, int n_features,
                                const int* widths, int n_passes, void* stream) {
-    if (m < 0 || static_cast<uint32_t>(m) > kCountMask || n_passes < 1 || n_passes > kMaxPasses)
-        return static_cast<int>(cudaErrorInvalidValue);
     Passes passes{};
-    passes.n = n_passes;
-    int bits = 0;
-    for (int p = 0; p < n_passes; ++p) {
-        if (widths[p] < 1 || widths[p] > kMaxBits) return static_cast<int>(cudaErrorInvalidValue);
-        passes.shift[p] = bits;
-        passes.width[p] = widths[p];
-        bits += widths[p];
-    }
-    if (bits > 32) return static_cast<int>(cudaErrorInvalidValue);
+    if (m < 0 || static_cast<uint32_t>(m) > kCountMask || !make_passes(widths, n_passes, &passes))
+        return static_cast<int>(cudaErrorInvalidValue);
     if (m == 0) return 0;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (n_features) {
@@ -537,3 +575,40 @@ extern "C" int bum_sort_stream(const int64_t* keys, const float* vals, int64_t* 
     }
 }
 
+
+// The wide route: keys (m,) int64 as above, vals (m, n_features) f32 with
+// any n_features >= 1 -> keys_out, vals_out sorted as above.  Scratch as
+// above for one value column: key_tmp0, key_tmp1 (m,) uint32, pos and
+// pos_out (m,) uint32, pos_tmp (m,) uint32 (unused for one pass), scratch
+// sized for n_features = 1.  Rows of vals and vals_out 16-byte aligned when
+// n_features % 4 == 0 to be copied 16 bytes at a time.  Returns the CUDA
+// status of the first operation that failed (0 on success).
+extern "C" int bum_sort_rows(const int64_t* keys, const float* vals, int64_t* keys_out,
+                             float* vals_out, uint32_t* key_tmp0, uint32_t* key_tmp1,
+                             uint32_t* pos, uint32_t* pos_tmp, uint32_t* pos_out, int* scratch,
+                             int m, int n_features, const int* widths, int n_passes,
+                             void* stream) {
+    Passes passes{};
+    if (m < 0 || static_cast<uint32_t>(m) > kCountMask || n_features < 1 ||
+        !make_passes(widths, n_passes, &passes))
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (m == 0) return 0;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    stream_positions<<<(m + 255) / 256, 256, 0, s>>>(pos, m);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int status = sort_stream<1>(keys, reinterpret_cast<const float*>(pos), keys_out,
+                                      reinterpret_cast<float*>(pos_out), key_tmp0, key_tmp1,
+                                      reinterpret_cast<float*>(pos_tmp), scratch, m, passes, s);
+    if (status != 0) return status;
+    const bool vec = n_features % 4 == 0 &&
+        (reinterpret_cast<uintptr_t>(vals) | reinterpret_cast<uintptr_t>(vals_out)) % 16 == 0;
+    const int per_thread = vec ? 4 : 1;
+    const int nv = (n_features + per_thread - 1) / per_thread;
+    const int threads = nv >= 256 ? 256 : (nv + 31) / 32 * 32;
+    if (vec)
+        gather_rows<4><<<m, threads, 0, s>>>(pos_out, vals, vals_out, n_features);
+    else
+        gather_rows<1><<<m, threads, 0, s>>>(pos_out, vals, vals_out, n_features);
+    return static_cast<int>(cudaGetLastError());
+}

@@ -1,1 +1,3 @@
-"""Procedural scenes with analytic ground truth and the ray sampler."""
+"""Procedural scenes with analytic ground truth, the ray sampler, and the
+LM substrate's synthetic token streams."""
+from .lm_data import LMStreamConfig, SyntheticLMStream  # noqa: F401

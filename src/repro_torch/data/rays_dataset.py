@@ -4,7 +4,7 @@ The port of `repro.data.rays_dataset`.  All rays are precomputed once (V*H*W
 rows) on the sampler's device; a batch is a gather of uniform random row
 indices, drawn from a `torch.Generator` (`sample_idx`) or handed in ready-
 made (`gather`) -- the trainer's draw stream, which tests fill with the
-reference's draws.
+reference's draws; `sample` is the two together.
 """
 from __future__ import annotations
 
@@ -53,3 +53,7 @@ class RaySampler:
     def gather(self, idx: torch.Tensor) -> rendering.RayBatch:
         idx = idx.to(device=self.device, dtype=torch.int64)
         return rendering.RayBatch(self.origins[idx], self.dirs[idx], self.rgb[idx])
+
+    def sample(self, generator: torch.Generator, batch: int) -> rendering.RayBatch:
+        """A batch of `batch` uniform rays: `gather(sample_idx(generator, batch))`."""
+        return self.gather(self.sample_idx(generator, batch))

@@ -18,10 +18,18 @@ run's sum to the table's dtype before a 2-byte add, a second rounding; the
 two agree on a zero table, which is what every training caller commits
 into.)
 
-`windowed_scatter_add` is ported in its stacked form only: idx (W, M) and
-vals (W, M, F) are W per-step streams committed one after another in step
-order, each exactly as `merged_scatter_add` would commit it (the form the
-fused step's plain backward uses, one row per grid).
+`windowed_scatter_add` takes both of the reference's shapes.  Stacked,
+idx (W, M) and vals (W, M, F) are W per-step streams committed one after
+another in step order, each exactly as `merged_scatter_add` would commit it
+(the form the fused step's plain backward uses, one row per grid).  One
+long stream idx (M,), vals (M, F) is cut into `window`-sized pieces, the
+tail padded with spill-row (T) entries of value zero, and the pieces are
+committed the same way in stream order (the LM's windowed embedding
+backward, F = d_model).  Both halves of each window's commit go by device
+as above: on a card the `bum_sort` and `bum_scatter` kernels, at any F.
+
+`num_unique_addresses` is the paper's Fig. 10 statistic, the number of
+distinct rows a batch of updates touches.
 """
 from __future__ import annotations
 
@@ -88,15 +96,33 @@ def merged_scatter_add(table: torch.Tensor, idx: torch.Tensor, vals: torch.Tenso
     return _commit(table, idx_s, vals_s)
 
 
+def num_unique_addresses(idx: torch.Tensor) -> torch.Tensor:
+    """How many distinct table rows the update stream idx (M,) touches: a
+    0-d int64 tensor on idx's device."""
+    if idx.numel() == 0:
+        return torch.zeros((), dtype=torch.int64, device=idx.device)
+    s = torch.sort(idx.reshape(-1)).values
+    return (s[1:] != s[:-1]).sum() + 1
+
+
 def windowed_scatter_add(table: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
-                         *, presorted: bool = False) -> torch.Tensor:
-    """Stacked per-step streams: idx (W, M), vals (W, M, F), committed window
-    by window in step order, each as `merged_scatter_add` commits it."""
-    if idx.ndim != 2:
-        raise NotImplementedError(
-            "windowed_scatter_add: only the stacked (W, M) form is ported; the "
-            "fixed-size chunking of one long stream is not")
+                         *, window: int = 4096, presorted: bool = False) -> torch.Tensor:
+    """BUM with the paper's sliding window: merge duplicates only within each
+    window of the stream and commit the windows in stream order.  idx (W, M)
+    with vals (W, M, F): W stacked per-step streams (`window` is not used).
+    idx (M,) with vals (M, F): one stream cut into `window`-sized pieces, the
+    tail padded with spill-row entries of value zero.  presorted=True
+    promises every window is already non-decreasing."""
+    if idx.ndim == 1:
+        t, m = table.shape[0], idx.shape[0]
+        pad = (-m) % window
+        if pad:
+            idx = torch.cat([idx, torch.full((pad,), t, dtype=idx.dtype, device=idx.device)])
+            vals = torch.cat([vals, torch.zeros((pad,) + tuple(vals.shape[1:]),
+                                                dtype=vals.dtype, device=vals.device)])
+        idx = idx.reshape(-1, window)
+        vals = vals.reshape((idx.shape[0], window) + tuple(vals.shape[1:]))
     out = table
     for w in range(idx.shape[0]):
-        out = merged_scatter_add(out, idx[w], vals[w], presorted=presorted)
+        out = merged_scatter_add(out, idx[w], vals[w].to(torch.float32), presorted=presorted)
     return out

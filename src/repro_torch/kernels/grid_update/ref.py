@@ -1,11 +1,12 @@
 """Plain PyTorch versions of the embedding-grid gradient commits.
 
 The port of `repro.kernels.grid_update.ref` (the naive duplicate
-scatter-add) and of the reference's merge body `_segment_commit`
-(`repro.kernels.grid_update.ops`), which is the plain version of the CUDA
-kernel `kernel.bum_scatter`: an address-sorted update stream is merged into
-one sum per run of equal addresses -- summed in stream order, from zero --
-and each run commits once.  Entries whose address lies outside [0, T) (the
+scatter-add and the Fig. 10 statistic `unique_fraction`) and of the
+reference's merge body `_segment_commit` (`repro.kernels.grid_update.ops`),
+which is the plain version of the CUDA kernel `kernel.bum_scatter`: an
+address-sorted update stream is merged into one sum per run of equal
+addresses -- summed in stream order, from zero -- and each run commits
+once.  Entries whose address lies outside [0, T) (the
 spill row T of padded streams) are dropped.  The commit adds in f32 and
 rounds to the table's dtype once, as the reference's Pallas kernel does: a
 2-byte table (bf16 / f16) gets bf16(f32(row) + run sum), where the
@@ -37,6 +38,19 @@ RADIX_MAX_BITS = 8          # the widest digit of one pass (256 buckets)
 def scatter_add(table: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """table (T, F) + vals (M, F) at rows idx (M,), duplicates accumulated."""
     return table.index_add(0, idx, vals.to(table.dtype))
+
+
+def unique_fraction(idx: torch.Tensor, window: int = 1000) -> torch.Tensor:
+    """Mean fraction of distinct addresses per window of `window` consecutive
+    updates (the paper's Fig. 10 statistic): a 0-d f32 tensor.  The stream
+    is cut into max(M // window, 1) windows; a tail shorter than a window
+    is dropped."""
+    m = idx.shape[0]
+    n_win = max(m // window, 1)
+    s = torch.sort(idx[: n_win * window].reshape(n_win, window), dim=1).values
+    uniq = torch.ones((n_win, window), dtype=torch.bool, device=idx.device)
+    uniq[:, 1:] = s[:, 1:] != s[:, :-1]
+    return torch.mean(uniq.sum(dim=1).to(torch.float32) / window)
 
 
 def run_starts(idx_s: torch.Tensor) -> torch.Tensor:

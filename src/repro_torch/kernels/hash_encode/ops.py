@@ -85,3 +85,14 @@ def hash_encode(points: torch.Tensor, tables: torch.Tensor, resolutions,
     differentiable in `tables` through the merged backward (or the
     unmerged one with ``merged_backward=False``)."""
     return _HashEncode.apply(points, tables, resolutions, dense_flags, bool(merged_backward))
+
+
+def access_stream(points: torch.Tensor, resolutions, dense_flags,
+                  table_size: int) -> torch.Tensor:
+    """Forward-order corner address stream (the paper's Fig. 8-10
+    instrumentation): (N*8*L,) int64 addresses into the flat (L*T) table,
+    level by level, point by point, corner by corner."""
+    grad = torch.ones((points.shape[0], len(resolutions), 1), dtype=torch.float32,
+                      device=points.device)
+    idx, _ = corner_updates(points, tuple(resolutions), tuple(dense_flags), table_size, grad)
+    return idx

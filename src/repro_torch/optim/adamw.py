@@ -1,11 +1,16 @@
 """AdamW with per-leaf update masks and lr scales.
 
-The port of `repro.optim.adamw` as the trainer uses it (no weight decay,
-no gradient clipping -- the reference's trainer sets neither):
+The port of `repro.optim.adamw`:
 
     opt = AdamW(lr=1e-2, b2=0.99, eps=1e-15, lr_scale_fn=...)
     state = opt.init(params)
     params, state = opt.apply(params, grads, state, mask=mask)
+
+The 3D trainer sets neither weight decay nor gradient clipping; the LM
+trainer (`launch/train.py`) sets both: ``clip_norm`` clips the gradients to
+a global norm first (`clip_by_global_norm`, the leaves' squared sums added
+in the tree's order and taken to f32 as JAX promotes them), and
+``weight_decay`` adds ``lr * scale * wd * p`` to a leaf's update.
 
 Params are nested dicts of tensors.  The `mask` tree (True = update) is how
 Instant-3D's different update frequencies reach the optimizer: a masked
@@ -60,13 +65,33 @@ def tree_from_paths(items) -> dict:
     return out
 
 
+def global_norm(tree) -> torch.Tensor:
+    """The f32 L2 norm of every leaf of `tree` together (0-d tensor)."""
+    total = 0
+    for _, leaf in tree_paths(tree):
+        total = total + torch.sum(torch.square(leaf.to(torch.float32)))
+    return torch.sqrt(total)
+
+
+def clip_by_global_norm(tree, max_norm: float):
+    """(tree scaled by min(1, max_norm / (norm + 1e-9)), norm).  Each leaf
+    leaves in f32, as JAX promotes a 2-byte leaf times an f32 scale."""
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    return tree_from_paths([(p, g.to(torch.promote_types(g.dtype, torch.float32)) * scale)
+                            for p, g in tree_paths(tree)]), norm
+
+
 class AdamW:
     def __init__(self, lr: float | Callable, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8, lr_scale_fn: Callable[[tuple], float] | None = None):
+                 eps: float = 1e-8, weight_decay: float = 0.0, clip_norm: float | None = None,
+                 lr_scale_fn: Callable[[tuple], float] | None = None):
         """lr: a float or a step -> lr schedule; lr_scale_fn maps a leaf's key
         path to an lr factor (grids 1.0, MLPs 0.1 in the trainer)."""
         self.lr = lr if callable(lr) else schedule.constant(lr)
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
+        self.clip_norm = clip_norm
         self.lr_scale_fn = lr_scale_fn
 
     def init(self, params) -> AdamWState:
@@ -79,6 +104,8 @@ class AdamW:
     def apply(self, params, grads, state: AdamWState, mask=None):
         """Returns (new params, new state); new tensors, the inputs untouched.
         grads may hold None for a leaf whose mask is False."""
+        if self.clip_norm is not None:
+            grads, _ = clip_by_global_norm(grads, self.clip_norm)
         step = state.step + 1
         lr_t = self.lr(step)
         b1, b2 = self.b1, self.b2
@@ -103,6 +130,8 @@ class AdamW:
             v1 = b2 * v + (1 - b2) * torch.square(g32)
             scale = self.lr_scale_fn(path) if self.lr_scale_fn is not None else 1.0
             update = lr_t * scale * (m1 / bias1) / (torch.sqrt(v1 / bias2) + self.eps)
+            if self.weight_decay:
+                update = update + lr_t * scale * self.weight_decay * p.to(torch.float32)
             new_p.append((path, (p.to(torch.float32) - update).to(p.dtype)))
             new_m.append((path, m1))
             new_v.append((path, v1))

@@ -1,1 +1,2 @@
-"""Runtime helpers (the part of `repro.runtime` the scheduler uses)."""
+"""Runtime: the fault-tolerant training driver and the straggler watchdog."""
+from .driver import DriverConfig, StragglerStats, TrainDriver, resume_or_init  # noqa: F401

@@ -161,9 +161,18 @@ card and fails on anything wrong -- there is no CPU fallback.
    way, each its own drain, for p50 / p95; printed beside the group
    drains' ms per view, capture ms per key, the graphs' memory and the
    render pool's bytes;
-12. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
-   summed over the twenty main paths, and per path) and, last, the
-   device line.
+12. the LM substrate (slice 16's main paths, `smoke_lm.lm_phase`):
+   qwen1.5-0.5b at full width -- #7 and `bum_sort` on its vocab-wide
+   embedding-gradient rows (F = 1024 and 4096) exactly against their plain
+   versions, the 1-D windowed commit; training 30 steps through
+   `launch.train.train` with the default and the BUM-merged embedding
+   backward (``lm_train``, ``lm_train_dedup``: #7 and `bum_sort` once a
+   step), the merged runs byte-identical from one seed and across a stop
+   at 20 and a resume; serving 8 requests through `launch.serve.serve`
+   (``lm_serve``), prefill and decode against a full forward; an f32
+   forward on the card against the CPU's;
+13. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
+   summed over the main paths, and per path) and, last, the device line.
 """
 from __future__ import annotations
 
@@ -183,7 +192,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import kernels
+from . import kernels, smoke_lm
 from .core import encoding as enc
 from .core import occupancy
 from .core.field import Field, FieldConfig
@@ -3364,6 +3373,13 @@ def main() -> int:
     # this slice's main paths: each serving route captured against eager
     renders = _compiled_render_phase(device, card, {
         "train": run, "train_v3": v3["run"], f"train_{GRID_DTYPE}": half["run"]})
+    # slice 16's main paths: the LM substrate's dense decoder at full width
+    clear_step_cache()
+    clear_render_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = smoke_lm.lm_phase(device, card)
+    cases.extend(lm["cases"])
 
     paths = {"train": run["launches"], "train_ngp": ngp["launches"], "serve": serve_launches,
              "service": service["launches"], "train_v3": v3["train_launches"],
@@ -3375,7 +3391,8 @@ def main() -> int:
              f"service_{GRID_DTYPE}": half["service_launches"],
              **{f"compiled_{name}": res["captured"]["launches"]
                 for name, res in compiled["paths"].items()},
-             **{f"compiled_serve_{route}": res["launches"] for route, res in renders.items()}}
+             **{f"compiled_serve_{route}": res["launches"] for route, res in renders.items()},
+             **lm["launches"]}
     report = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == name]

@@ -133,8 +133,11 @@ def test_windowed_scatter_add_stacked_matches_jax(w, rng):
         jnp.asarray(table), jnp.asarray(idx), jnp.asarray(vals), presorted=True))
     got = t_gu_ops.windowed_scatter_add(_t(table), _t(idx).long(), _t(vals), presorted=True)
     np.testing.assert_array_equal(got.numpy(), want)
-    with pytest.raises(NotImplementedError):
-        t_gu_ops.windowed_scatter_add(_t(table), _t(idx[0]).long(), _t(vals[0]))
+    # one stream (M,) is cut into windows, as in the reference
+    want = np.asarray(j_gu_ops.windowed_scatter_add(
+        jnp.asarray(table), jnp.asarray(idx[0]), jnp.asarray(vals[0]), window=128))
+    got = t_gu_ops.windowed_scatter_add(_t(table), _t(idx[0]).long(), _t(vals[0]), window=128)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def _tile_walk_commit(table, idx, vals, tile: int):

@@ -35,7 +35,12 @@ changes neither thread's bytes.  Compiled renders: on each route
 view's bytes; a graph captured before any occupancy fold serves a folded
 snapshot's bytes; a render replay takes neither the training graphs'
 lock nor their pool; a render capture on the serving thread beside
-training replays keeps both sides' bytes.
+training replays keeps both sides' bytes.  Vocab-wide rows (the LM's
+embedding backward, any F outside {1, 2, 4, 8}): `bum_sort` is torch.sort's
+stable permutation exactly and #7 the plain merge bit for bit at F = 3, 64,
+1024 and 4096, on heavily duplicated token streams with a run across the
+wide commit's tiles, each the same bytes on two launches; the 1-D windowed
+commit gives the plain version's bytes.
 """
 import ctypes
 import threading
@@ -55,6 +60,7 @@ from repro_torch.kernels.fused_step import kernel as fs_kernel
 from repro_torch.kernels.fused_step import ops as fs_ops
 from repro_torch.kernels.fused_step import ref as fs_ref
 from repro_torch.kernels.grid_update import kernel as gu_kernel
+from repro_torch.kernels.grid_update import ops as gu_ops
 from repro_torch.kernels.grid_update import ref as gu_ref
 from repro_torch.kernels.hash_encode import kernel as he_kernel
 from repro_torch.kernels.hash_encode import ops as he_ops
@@ -746,8 +752,78 @@ def test_bum_sort_refuses_what_it_does_not_take(card):
         gu_kernel.bum_sort(torch.zeros((16, 2), dtype=torch.int64, device=card)[:, 0], vals, 8)
     with pytest.raises(ValueError, match="contiguous"):
         gu_kernel.bum_sort(addr, torch.zeros((2, 16), device=card).t(), 8)
-    with pytest.raises(ValueError, match="F in"):
-        gu_kernel.bum_sort(addr, torch.zeros((16, 3), device=card), 8)
+    with pytest.raises(ValueError, match="F >= 1"):
+        gu_kernel.bum_sort(addr, torch.zeros((16, 0), device=card), 8)
+
+
+def _wide_stream(m: int, rows: int, gen):
+    """Token ids as the LM's embedding backward sees them: a few ids
+    repeated many times (the stream's heavy duplication), the rest uniform
+    over the vocabulary, one id repeated past the wide commit's 8-entry
+    tile, and a spill-row (rows) entry -- unsorted."""
+    ids = torch.randint(0, rows, (m,), generator=gen)
+    hot = torch.randint(0, rows, (8,), generator=gen)
+    pick = torch.rand((m,), generator=gen) < 0.5
+    ids = torch.where(pick, hot[torch.randint(0, 8, (m,), generator=gen)], ids)
+    ids[: min(m, 40)] = 7                 # one run of 40 entries across 5 tiles
+    ids[-1] = rows
+    return ids
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,f,rows", [(1024, 1024, 151_936), (16_384, 1024, 151_936),
+                                      (1024, 4096, 65_024), (1000, 64, 256), (333, 3, 97),
+                                      (1, 1024, 16)])
+def test_bum_sort_and_commit_on_vocab_wide_rows(m, f, rows, card):
+    """The wide route of both kernels (any F outside {1, 2, 4, 8}: the LM's
+    vocab-embedding rows, F = d_model): `bum_sort` is torch.sort's stable
+    permutation exactly (keys over the table's bits, spill row included),
+    `bum_scatter` commits the sorted stream into a nonzero table as the
+    plain merge, bit for bit; each one launch, each the same bytes on two
+    launches."""
+    gen = torch.Generator().manual_seed(m + f)
+    ids = _wide_stream(m, rows, gen)
+    vals = (torch.randn((m, f), generator=gen)
+            * 10.0 ** (torch.rand((m, 1), generator=gen) * 6 - 3))
+    bits = rows.bit_length()
+    addr, v = ids.to(card), vals.to(card)
+    before = dict(kernels.LAUNCHES)
+    got = gu_kernel.bum_sort(addr, v, bits)
+    again = gu_kernel.bum_sort(addr, v, bits)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bum_sort"] == before["bum_sort"] + 2
+    want = _stable(ids, vals)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(_bits(got[1]), _bits(again[1]))
+    table = torch.randn((rows, f), generator=gen)
+    out = gu_kernel.bum_scatter(table.to(card), got[0], got[1])
+    out2 = gu_kernel.bum_scatter(table.to(card), got[0], got[1])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bum_scatter"] == before["bum_scatter"] + 2
+    commit = gu_ref.segment_commit(table, want[0], want[1])
+    assert torch.equal(_bits(out.cpu()), _bits(commit))
+    assert torch.equal(_bits(out), _bits(out2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [1, 2, 4, 8, 64, 1024])
+def test_windowed_scatter_add_one_stream_runs_on_the_card(f, card):
+    """The 1-D windowed form (one stream cut into windows, the tail padded
+    with spill-row entries) on the card: each window through bum_sort and
+    bum_scatter, the plain version's bytes."""
+    gen = torch.Generator().manual_seed(f + 3)
+    rows, m, window = 512, 2500, 1024
+    ids = _wide_stream(m, rows, gen)[:-1]
+    vals = torch.randn((m - 1, f), generator=gen)
+    table = torch.zeros((rows, f))
+    before = dict(kernels.LAUNCHES)
+    got = gu_ops.windowed_scatter_add(table.to(card), ids.to(card), vals.to(card),
+                                      window=window)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bum_sort"] == before["bum_sort"] + 3
+    assert kernels.LAUNCHES["bum_scatter"] == before["bum_scatter"] + 3
+    want = gu_ops.windowed_scatter_add(table, ids, vals, window=window)
+    assert torch.equal(_bits(got.cpu()), _bits(want))
 
 
 @pytest.mark.gpu
