@@ -40,7 +40,13 @@ same bytes, with capture times, latencies of both and the graphs' memory,
 then trains qwen1.5-0.5b at full width through the LM substrate's
 ``launch.train`` (its vocab-embedding backward through #7 and its sort on
 1024-wide rows, the merged runs byte-identical from one seed and across a
-resume) and serves it through ``launch.serve``, and prints
+resume) and serves it through ``launch.serve``, then trains
+deepseek-v2-lite at full width (depth cut to 3: MLA attention, its
+mixture-of-experts, the embedding backward through #7 and its sort on
+2048-wide rows) and deepseek-v3's smoke config with its multi-token-
+prediction head, serves deepseek-v2-lite at full width and depth, holds
+prefill / decode and the card against the CPU at f32 with the routing
+decisions that differ, and prints
 one JSON line with every kernel's report and, last, the device line.  It exits non-zero,
 with no result, on any failure, and when no CUDA card is present.  The phases live in ``src/repro_torch/smoke.py``.
 """

@@ -40,10 +40,13 @@
 // stream of the training paths, PERF.md).
 //
 // Wide rows (any F outside {1, 2, 4, 8}: the LM's vocab-embedding gradient,
-// one row of F = d_model floats a token, 64 to 4096).  A row no longer fits
-// a thread's registers, so the threads of a block span the row, 4 floats a
-// thread where the rows are 16-byte aligned (else 1), and a block walks the
-// runs that start in its tile of kWideTile entries one after another.  Run
+// one row of F = d_model floats a token, 64 to 7168).  A row no longer fits
+// a thread's registers, so a row is cut into chunks of kWideThreads vectors
+// of 4 floats where the rows are 16-byte aligned (else 1 float), one chunk
+// a block along the grid's y axis, and a block walks the runs that start in
+// its tile of kWideTile entries one after another over its chunk.  (One
+// block a tile spanning the whole row ran 128 blocks for 1024 tokens and
+// trailed `index_add_` by 38% at F = 7168, PERF.md.)  Run
 // starts are found as above (the tile's first entry against the entry
 // before it); the last run's end is found by one warp's ballots over the
 // addresses past the tile, so that every run is walked with a known trip
@@ -196,7 +199,7 @@ int launch(const int64_t* idx, const float* vals, float* table, int64_t m,
     return static_cast<int>(cudaGetLastError());
 }
 
-constexpr int kWideThreads = 256;
+constexpr int kWideThreads = 128;
 constexpr int kWideTile = 8;                // entries per block
 constexpr int kWideAhead = 4;               // rows of a run in flight together
 
@@ -226,7 +229,8 @@ __device__ __forceinline__ void add_vec(float (&acc)[V], const Vec<V>& x) {
     for (int q = 0; q < V; ++q) acc[q] = __fadd_rn(acc[q], x.v[q]);
 }
 
-// V floats a thread: the row is F / V vectors, spread over the block.
+// V floats a thread: the row is F / V vectors, chunk blockIdx.y of them
+// spread over the block.
 template <int V>
 __global__ void __launch_bounds__(kWideThreads)
 bum_scatter_wide_kernel(const int64_t* __restrict__ idx, const float* __restrict__ vals,
@@ -269,12 +273,14 @@ bum_scatter_wide_kernel(const int64_t* __restrict__ idx, const float* __restrict
     }
     __syncthreads();
     const int nv = f / V;
+    const int c0 = blockIdx.y * blockDim.x + threadIdx.x;
+    const int c_step = gridDim.y * blockDim.x;
     for (int r = 0; r < runs; ++r) {
         const long long a = s_idx[s_start[r]];
         if (a < 0 || a >= table_rows) continue;             // spill row: dropped
         const int64_t s = base + s_start[r];
         const int64_t end = r + 1 < runs ? base + s_start[r + 1] : s_last_end;
-        for (int c = threadIdx.x; c < nv; c += blockDim.x) {
+        for (int c = c0; c < nv; c += c_step) {
             const float* src = vals + s * f + c * V;
             float acc[V];
 #pragma unroll
@@ -302,13 +308,15 @@ int launch_wide(const int64_t* idx, const float* vals, float* table, int64_t m,
     const int nv = vec ? f / 4 : f;
     const int threads = nv >= kWideThreads ? kWideThreads : (nv + 31) / 32 * 32;
     const int64_t blocks = (m + kWideTile - 1) / kWideTile;
-    if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+    const int chunks = (nv + threads - 1) / threads;
+    if (blocks > 0x7fffffff || chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(chunks));
     if (vec)
-        bum_scatter_wide_kernel<4><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-            idx, vals, table, m, table_rows, f);
+        bum_scatter_wide_kernel<4><<<grid, threads, 0, stream>>>(idx, vals, table, m,
+                                                                 table_rows, f);
     else
-        bum_scatter_wide_kernel<1><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-            idx, vals, table, m, table_rows, f);
+        bum_scatter_wide_kernel<1><<<grid, threads, 0, stream>>>(idx, vals, table, m,
+                                                                 table_rows, f);
     return static_cast<int>(cudaGetLastError());
 }
 

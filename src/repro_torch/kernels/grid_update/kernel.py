@@ -18,8 +18,9 @@ Both take value rows of any width F >= 1.  F in `FEATURE_COUNTS` (the 3D
 tables' rows) runs the tiled instantiations above; any other F (the LM's
 vocab-embedding rows, F = d_model) runs each source's wide route: the sort
 carries each entry's int32 stream position through the passes and gathers
-the value rows once through the sorted positions, and the commit spreads
-a row over a block's threads and walks each run in stream order.
+the value rows once through the sorted positions, and the commit cuts a
+row into chunks of 128 vectors, spreads each over a block's threads (one
+block a tile and chunk) and walks each run in stream order.
 
 Each wrapper validates its inputs, launches on the current stream and counts
 the launch; raises on anything its kernel does not take and on a failed

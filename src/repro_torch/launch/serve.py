@@ -41,7 +41,7 @@ def serve(arch: str = "qwen3-8b", smoke: bool = True, batch: int = 4, prompt_len
     """Serve `requests` random prompts of `prompt_len` tokens, `max_new`
     tokens each, `batch` at a time.  params: the model's params (default: a
     fresh init, seed 0).  Returns the counts, the wall and the decode
-    rate."""
+    rate, and whether every decode step's logits were finite."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
@@ -62,12 +62,14 @@ def serve(arch: str = "qwen3-8b", smoke: bool = True, batch: int = 4, prompt_len
     logits, caches, _ = model.prefill(params, tokens=torch.stack(active), max_seq=max_seq)
     tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
     new_counts = [1] * b
+    finite = torch.isfinite(logits).all()       # a device flag, read once at the end
     completed = 0
     t0 = time.perf_counter()
     steps = 0
     while completed < requests and steps < requests * max_new:
         pos = torch.tensor([[p + c - 1] for c in new_counts], dtype=torch.int32, device=dev)
         logits, caches = model.decode_step(params, caches, tok, pos)
+        finite &= torch.isfinite(logits).all()
         tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
         steps += 1
         for i in range(b):
@@ -83,7 +85,7 @@ def serve(arch: str = "qwen3-8b", smoke: bool = True, batch: int = 4, prompt_len
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     out = {"name": cfg.name, "completed": completed, "requests": requests, "steps": steps,
-           "batch": b, "wall_s": dt, "tok_s": steps * b / dt}
+           "batch": b, "wall_s": dt, "tok_s": steps * b / dt, "finite": bool(finite)}
     print(f"[{cfg.name}] served {completed} requests, {steps} decode steps, "
           f"{out['tok_s']:.1f} tok/s aggregate")
     return out

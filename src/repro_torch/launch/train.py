@@ -6,7 +6,8 @@
 The port of `repro.launch.train`, with its flags and defaults; ``--device``
 picks the device (default ``cuda``).  ``--smoke`` swaps in the reduced
 config so the loop runs on the CPU; without it the full config trains
-(qwen1.5-0.5b fits one H100).  The loop is `train`, which `main` calls:
+(qwen1.5-0.5b fits one H100; deepseek-v2-lite at full width with its depth
+cut, ``train(..., n_layers=3)``).  The loop is `train`, which `main` calls:
 AdamW under `warmup_cosine(lr, 10, steps)` with clip_norm 1.0 and weight
 decay 0.01, the deterministic `SyntheticLMStream`, and `TrainDriver`'s
 atomic checkpoints every ``--ckpt-every`` steps (SIGTERM-safe);
@@ -43,11 +44,15 @@ def default_ckpt_dir() -> str:
 
 
 def train_step(model: LM, opt: AdamW, params: dict, opt_state, batch: dict):
-    """One step: (new params, new optimizer state, loss as a 0-d tensor)."""
+    """One step: (new params, new optimizer state, loss as a 0-d tensor).  A
+    leaf the loss does not read (an MoE router's `router_bias`, which only
+    selects experts) gets a zero gradient, as JAX gives it, so the clip's
+    norm, the moments and the weight decay see what the reference's do."""
     paths = [p for p, _ in tree_paths(params)]
     live = tree_from_paths([(p, t.detach().requires_grad_()) for p, t in tree_paths(params)])
     loss = model.loss(live, batch)
-    grads = torch.autograd.grad(loss, [t for _, t in tree_paths(live)])
+    grads = torch.autograd.grad(loss, [t for _, t in tree_paths(live)], allow_unused=True,
+                                materialize_grads=True)
     with torch.no_grad():
         params, opt_state = opt.apply(params, tree_from_paths(zip(paths, grads)), opt_state)
     return params, opt_state, loss.detach()
@@ -56,27 +61,35 @@ def train_step(model: LM, opt: AdamW, params: dict, opt_state, batch: dict):
 def train(arch: str = "qwen1.5-0.5b", smoke: bool = False, steps: int = 100, batch: int = 8,
           seq: int = 128, lr: float = 3e-3, ckpt_dir: str | None = None,
           ckpt_every: int = 50, auto_resume: bool = False, device="cuda",
-          stop_after: int | None = None, **overrides) -> dict:
+          stop_after: int | None = None, checkpoints: bool = True, **overrides) -> dict:
     """Train `arch` (its smoke config with smoke=True; `overrides` replace
     config fields, e.g. dedup_embed_grad=True) for `steps` steps, or stop
-    after `stop_after` of them (the schedule still spans `steps`).  Returns
+    after `stop_after` of them (the schedule still spans `steps`).  With
+    checkpoints=False no checkpoint (nor metrics file) is written, and
+    there is nothing to resume from.  Returns
     the final state (params, AdamW state), the driver's summary, the step it
     started from, and each step's loss and wall ms (a step's loss is read
     on the host, so its wall includes the device's work)."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
+    if auto_resume and not checkpoints:
+        raise ValueError("auto_resume needs checkpoints")
     ckpt_dir = ckpt_dir or default_ckpt_dir()
     model = LM(cfg, device=device)
     opt = AdamW(lr=schedule.warmup_cosine(lr, 10, steps), clip_norm=1.0, weight_decay=0.01)
     stream = SyntheticLMStream(LMStreamConfig(cfg.vocab, seq, batch))
     params0 = model.init(torch.Generator(device=model.device).manual_seed(0))
     template = (params0, opt.init(params0))
-    ckpt = CheckpointManager(ckpt_dir, keep_last=3)
+    ckpt = CheckpointManager(ckpt_dir, keep_last=3) if checkpoints else None
     if auto_resume:
         state, start = resume_or_init(ckpt, template, lambda: template)
     else:
         state, start = template, 0
+    # only the loop holds the initial state from here, so each step frees
+    # the state before it
+    held = [state]
+    del params0, template, state
     history = {"step": [], "loss": [], "step_ms": []}
 
     def step_fn(state, b):
@@ -95,9 +108,10 @@ def train(arch: str = "qwen1.5-0.5b", smoke: bool = False, steps: int = 100, bat
 
     drv = TrainDriver(DriverConfig(
         total_steps=steps if stop_after is None else stop_after, checkpoint_every=ckpt_every,
-        log_every=10, metrics_path=os.path.join(ckpt_dir, "metrics.jsonl")), ckpt)
+        log_every=10,
+        metrics_path=os.path.join(ckpt_dir, "metrics.jsonl") if checkpoints else None), ckpt)
     try:
-        state, summary = drv.run(state, timed, stream.iterator(start_step=start),
+        state, summary = drv.run(held.pop(), timed, stream.iterator(start_step=start),
                                  start_step=start)
     finally:
         drv.close()

@@ -1,7 +1,7 @@
-"""Attention: GQA / MHA with bias, qk-norm and the RoPE variants.
+"""Attention: GQA / MHA with bias, qk-norm and the RoPE variants, and
+DeepSeek's MLA (multi-head latent attention).
 
-The port of `repro.models.attention` up to MLA (DeepSeek's latent
-attention is not ported yet: ROADMAP Queue 1 item 2.1).  Activations are
+The port of `repro.models.attention`.  Activations are
 (B, S, D); projection weights keep the head axis explicit, wq (D, H, hd),
 wo (H, hd, D), as in the reference.  Scores are computed in the inputs'
 dtype, then taken to f32 for the scale, the mask (-1e30) and the softmax;
@@ -12,7 +12,10 @@ denominator and accumulator in f32.  No library attention kernel is used.
 
 Decode: a layer's cache is {'k': (B, S_max, K, hd), 'v': ...}; a decode
 step writes its key and value into slot `pos` as the reference does,
-``cache + one_hot(pos) * new``.
+``cache + one_hot(pos) * new``.  MLA caches the compressed latent
+{'c_kv': (B, S_max, kv_lora), 'k_rope': (B, S_max, d_rope)} instead, and
+its decode is absorbed: `wkv_b`'s key half goes into the query and its
+value half into the output, so the scores run against the latent cache.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from . import layers
-from .config import ModelConfig
+from .config import MLAConfig, ModelConfig
 
 
 def _apply_positional(cfg: ModelConfig, x, positions):
@@ -201,3 +204,104 @@ def decode_attention(params, cfg: ModelConfig, x, cache: dict, pos: torch.Tensor
     probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bkrqs,bske->bqkre", probs, v_cache).reshape(b, 1, cfg.n_heads, cfg.hd)
     return torch.einsum("bshe,hed->bsd", out, params["wo"]), {"k": k_cache, "v": v_cache}
+
+
+# --- DeepSeek MLA (multi-head latent attention) --------------------------------
+
+def init_mla(generator, cfg: ModelConfig, dtype, device=None) -> dict:
+    m: MLAConfig = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    init = lambda shape: layers.normal_init(generator, shape, dtype=dtype, device=device)  # noqa: E731
+    ones = lambda n: torch.ones((n,), dtype=dtype, device=device)  # noqa: E731
+    p = {}
+    if m.q_lora:
+        p["wq_a"] = init((d, m.q_lora))
+        p["q_a_norm"] = ones(m.q_lora)
+        p["wq_b"] = init((m.q_lora, h, m.d_nope + m.d_rope))
+    else:
+        p["wq"] = init((d, h, m.d_nope + m.d_rope))
+    p["wkv_a"] = init((d, m.kv_lora + m.d_rope))
+    p["kv_a_norm"] = ones(m.kv_lora)
+    p["wkv_b"] = init((m.kv_lora, h, m.d_nope + m.d_v))
+    p["wo"] = init((h, m.d_v, d))
+    return p
+
+
+def _mla_q(params, cfg: ModelConfig, x, positions):
+    """(q_nope (B, S, H, d_nope), q_rope (B, S, H, d_rope) rotated): a direct
+    projection, or the low-rank wq_a -> rms_norm -> wq_b when q_lora."""
+    m = cfg.mla
+    if m.q_lora:
+        qa = layers.rms_norm(x @ params["wq_a"], params["q_a_norm"])
+        q = torch.einsum("bsl,lhe->bshe", qa, params["wq_b"])
+    else:
+        q = torch.einsum("bsd,dhe->bshe", x, params["wq"])
+    q_nope, q_rope = q[..., : m.d_nope], q[..., m.d_nope:]
+    return q_nope, layers.apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_kv_latent(params, cfg: ModelConfig, x, positions):
+    """The compressed latent (B, S, kv_lora) and the shared rotary key
+    (B, S, d_rope)."""
+    m = cfg.mla
+    kv = x @ params["wkv_a"]                                   # (B, S, kv_lora + d_rope)
+    c_kv = layers.rms_norm(kv[..., : m.kv_lora], params["kv_a_norm"])
+    k_rope = layers.apply_rope(kv[..., m.kv_lora:][:, :, None, :], positions,
+                               cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def mla_attention_with_cache(params, cfg: ModelConfig, x, positions, causal=True):
+    """Training / prefill MLA: the latent expanded to per-head keys and
+    values, then `_sdpa` (q and k d_nope + d_rope wide, v d_v wide; the
+    rotary key is one head, broadcast to all).  Returns (out (B, S, D),
+    c_kv, k_rope): the latents for the cache."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)
+    c_kv, k_rope = _mla_kv_latent(params, cfg, x, positions)
+    kv = torch.einsum("bsl,lhe->bshe", c_kv, params["wkv_b"])  # (B, S, H, nope + v)
+    k_nope, v = kv[..., : m.d_nope], kv[..., m.d_nope:]
+    k_rope_h = k_rope[:, :, None, :].expand(b, s, cfg.n_heads, m.d_rope)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_h], dim=-1)
+    out = _sdpa(q, k, v, causal)
+    return torch.einsum("bshe,hed->bsd", out, params["wo"]), c_kv, k_rope
+
+
+def mla_attention(params, cfg: ModelConfig, x, positions, causal=True):
+    """Training / prefill MLA (`mla_attention_with_cache` without the latents)."""
+    return mla_attention_with_cache(params, cfg, x, positions, causal)[0]
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, device=None) -> dict:
+    m = cfg.mla
+    return {"c_kv": torch.zeros((batch, max_seq, m.kv_lora), dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_seq, m.d_rope), dtype=dtype, device=device)}
+
+
+def mla_decode_attention(params, cfg: ModelConfig, x, cache: dict, pos: torch.Tensor,
+                         rope_positions=None):
+    """Absorbed MLA decode: attention runs in the kv_lora-wide latent space
+    (a token's cache is kv_lora + d_rope values); `wkv_b`'s key half is
+    absorbed into the query, its value half into the output.  Returns
+    (out (B, 1, D), new cache)."""
+    m = cfg.mla
+    rp = pos if rope_positions is None else rope_positions
+    q_nope, q_rope = _mla_q(params, cfg, x, rp)                # (B, 1, H, .)
+    c_new, r_new = _mla_kv_latent(params, cfg, x, rp)          # (B, 1, L), (B, 1, R)
+    sk = cache["c_kv"].shape[1]
+    oh = F.one_hot(pos[:, 0].to(torch.int64), sk).to(cache["c_kv"].dtype)   # (B, S_max)
+    c_cache = cache["c_kv"] + oh[:, :, None] * c_new
+    r_cache = cache["k_rope"] + oh[:, :, None] * r_new
+    wk_b, wv_b = params["wkv_b"][..., : m.d_nope], params["wkv_b"][..., m.d_nope:]
+    q_lat = torch.einsum("bqhe,lhe->bqhl", q_nope, wk_b)        # (B, 1, H, L)
+    scores = (torch.einsum("bqhl,bsl->bhqs", q_lat, c_cache)
+              + torch.einsum("bqhe,bse->bhqs", q_rope, r_cache)).to(torch.float32)
+    scores = scores / _sqrt_hd(m.d_nope + m.d_rope)
+    valid = torch.arange(sk, device=x.device)[None, :] <= pos  # (B, S_max)
+    scores = torch.where(valid[:, None, None, :], scores, torch.full((), -1e30, device=x.device))
+    probs = torch.softmax(scores, dim=-1).to(c_cache.dtype)
+    o_lat = torch.einsum("bhqs,bsl->bqhl", probs, c_cache)     # (B, 1, H, L)
+    o = torch.einsum("bqhl,lhe->bqhe", o_lat, wv_b)            # (B, 1, H, d_v)
+    return torch.einsum("bshe,hed->bsd", o, params["wo"]), {"c_kv": c_cache, "k_rope": r_cache}

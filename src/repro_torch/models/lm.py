@@ -1,11 +1,13 @@
 """Top-level LM: init / forward / loss / prefill / decode.
 
-The port of `repro.models.lm` for the dense decoders, the configs whose
-segments are [('attn_dense', n)] and which are not encoder-decoders:
-qwen1.5-0.5b, qwen3-8b, yi-9b, chatglm3-6b and qwen2-vl-2b (its text path;
-the vision frontend is a stub that feeds `embeds`).  MLA / MoE, SSM and
-hybrid stacks, whisper's encoder-decoder and deepseek-v3's multi-token
-prediction raise NotImplementedError naming their ROADMAP item.
+The port of `repro.models.lm` for the decoders whose blocks are attention
+(GQA or MLA) with a dense FFN or an MoE layer: qwen1.5-0.5b, qwen3-8b,
+yi-9b, chatglm3-6b, qwen2-vl-2b (its text path; the vision frontend is a
+stub that feeds `embeds`), deepseek-v2-lite and deepseek-v3 with its
+depth-1 multi-token-prediction head (`mtp`: `loss` adds 0.3 times its
+loss; its embedding call is a second `embed`).  SSM and hybrid stacks and
+whisper's encoder-decoder raise NotImplementedError naming their ROADMAP
+item.
 
 `LM` holds the config and the device; params and caches are nested dicts
 of tensors with the reference's keys, stacked (n_layers, ...) segment
@@ -31,10 +33,8 @@ def unported(cfg: ModelConfig) -> str | None:
         return tfm.NOT_PORTED["dec_attn"]
     if cfg.hybrid_attn_every:
         return tfm.NOT_PORTED["mamba2"]
-    if cfg.mtp_depth:
-        return tfm.NOT_PORTED["mla_moe"]
     for kind, _ in segments(cfg):
-        if kind != "attn_dense":
+        if kind in tfm.NOT_PORTED:
             return tfm.NOT_PORTED[kind]
     return None
 
@@ -69,6 +69,14 @@ class LM:
         if not cfg.tie_embeddings:
             params["lm_head"] = layers.normal_init(generator, (cfg.d_model, cfg.vocab),
                                                    dtype=dtype, device=dev)
+        if cfg.mtp_depth:
+            params["mtp"] = {
+                "proj": layers.normal_init(generator, (2 * cfg.d_model, cfg.d_model),
+                                           dtype=dtype, device=dev),
+                "block": tfm.init_block(generator, cfg, self.segs[-1][0], dtype, dev),
+                "norm_h": tfm._init_norm(cfg, dtype, dev),
+                "norm_e": tfm._init_norm(cfg, dtype, dev),
+            }
         return _to(params, self.device)
 
     # ---- positions ----
@@ -112,14 +120,28 @@ class LM:
 
     def loss(self, params, batch: dict) -> torch.Tensor:
         """batch: tokens (B, S), optionally embeds / positions.  Next-token
-        cross-entropy, in f32."""
+        cross-entropy, in f32; the MTP head adds deepseek-v3's auxiliary
+        loss."""
         tokens = batch["tokens"]
-        logits, _ = self.forward(params, tokens=None if "embeds" in batch else tokens,
+        logits, h = self.forward(params, tokens=None if "embeds" in batch else tokens,
                                  embeds=batch.get("embeds"), positions=batch.get("positions"))
-        targets = tokens[:, 1:]
-        lp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
-        nll = -torch.take_along_dim(lp, targets[..., None].to(torch.int64), dim=-1)[..., 0]
-        return nll.mean()
+        loss = _nll(logits[:, :-1], tokens[:, 1:])
+        if self.cfg.mtp_depth:
+            loss = loss + 0.3 * self._mtp_loss(params, h, tokens)
+        return loss
+
+    def _mtp_loss(self, params, h, tokens):
+        """Depth-1 multi-token prediction: from h_t and emb(t+1), predict
+        t+2.  One block of the last segment's kind, without remat, at
+        positions restarting from 0."""
+        cfg, mtp = self.cfg, params["mtp"]
+        emb_next = self.embed(params, tokens[:, 1:])               # (B, S-1, D)
+        z = torch.cat([tfm.apply_norm(cfg, mtp["norm_h"], h[:, :-1]),
+                       tfm.apply_norm(cfg, mtp["norm_e"], emb_next)], dim=-1) @ mtp["proj"]
+        pos = self.default_positions(z.shape[0], z.shape[1])
+        z = tfm.apply_block(mtp["block"], cfg, self.segs[-1][0], z, pos)
+        logits = self.logits(params, tfm.apply_norm(cfg, params["final_norm"], z))
+        return _nll(logits[:, :-1], tokens[:, 2:])
 
     # ---- serving ----
 
@@ -163,6 +185,13 @@ class LM:
                                                           caches[key], pos, rope_positions)
         h = tfm.apply_norm(self.cfg, params["final_norm"], x)
         return self.logits(params, h)[:, 0], new_caches
+
+
+def _nll(logits, targets):
+    """Mean next-token cross-entropy of (B, S, V) logits, in f32."""
+    lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.take_along_dim(lp, targets[..., None].to(torch.int64), dim=-1)[..., 0]
+    return nll.mean()
 
 
 def _to(tree, device):

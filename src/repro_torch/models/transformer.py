@@ -10,8 +10,10 @@ layer axis:
     zamba2           [('mamba2', n)] + a weight-shared attention block
     whisper          encoder [('enc_attn', n)] / decoder [('dec_attn', n)]
 
-`segments` gives every architecture's layout; the blocks of the
-`attn_dense` kind are ported, and any other kind raises
+`segments` gives every architecture's layout.  The `attn_dense`,
+`mla_dense`, `mla_moe` and `attn_moe` kinds are ported (the MoE blocks on
+the dense expert path, `moe.moe_layer` without a mesh; the leading dense
+layers of an MoE config take `moe.dense_d_ff`); any other kind raises
 NotImplementedError naming its ROADMAP item.  The reference scans a
 segment with `lax.scan`; here each stacked leaf is unbound once a pass
 (`torch.unbind`, whose backward stacks the layers' gradients once) and the
@@ -26,15 +28,14 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from . import attention, ffn, layers
+from . import attention, ffn, layers, moe
 from .config import ModelConfig
 from ..optim.adamw import tree_from_paths, tree_paths
 
+PORTED = ("attn_dense", "mla_dense", "mla_moe", "attn_moe")
+
 # the ROADMAP item that ports each block kind not ported yet
 NOT_PORTED = {
-    "mla_dense": "ROADMAP Queue 1 item 2.1 (MLA + MoE)",
-    "mla_moe": "ROADMAP Queue 1 item 2.1 (MLA + MoE)",
-    "attn_moe": "ROADMAP Queue 1 item 2.1 (MLA + MoE)",
     "mamba1": "ROADMAP Queue 1 item 2.2 (SSM and hybrid)",
     "mamba2": "ROADMAP Queue 1 item 2.2 (SSM and hybrid)",
     "enc_attn": "ROADMAP Queue 1 item 2.3 (whisper's encoder-decoder)",
@@ -43,7 +44,7 @@ NOT_PORTED = {
 
 
 def require_ported(kind: str) -> None:
-    if kind != "attn_dense":
+    if kind not in PORTED:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet: {NOT_PORTED.get(kind, 'ROADMAP Queue 1')}")
 
@@ -85,21 +86,40 @@ def apply_norm(cfg: ModelConfig, p, x):
 def init_block(generator, cfg: ModelConfig, kind: str, dtype, device=None) -> dict:
     require_ported(kind)
     p: dict[str, Any] = {"ln1": _init_norm(cfg, dtype, device)}
-    p["attn"] = attention.init_attention(generator, cfg, dtype, device)
+    if kind.startswith("mla"):
+        p["attn"] = attention.init_mla(generator, cfg, dtype, device)
+    else:
+        p["attn"] = attention.init_attention(generator, cfg, dtype, device)
     p["ln2"] = _init_norm(cfg, dtype, device)
-    p["ffn"] = ffn.init_ffn(generator, cfg.d_model, cfg.d_ff, cfg.act, dtype, device)
+    if kind.endswith("moe"):
+        p["moe"] = moe.init_moe(generator, cfg, dtype, device)
+    else:
+        d_ff = cfg.d_ff
+        if cfg.moe is not None and cfg.moe.dense_d_ff:
+            d_ff = cfg.moe.dense_d_ff            # deepseek's leading dense layers are wider
+        p["ffn"] = ffn.init_ffn(generator, cfg.d_model, d_ff, cfg.act, dtype, device)
     return p
 
 
 # --- per-block application ----------------------------------------------------------
 
+def _mlp(params, cfg: ModelConfig, kind: str, h):
+    """The block's second sublayer: the MoE layer or the dense FFN."""
+    if kind.endswith("moe"):
+        return moe.moe_layer(params["moe"], h, cfg)
+    return ffn.ffn(params["ffn"], h, cfg.act)
+
+
 def apply_block(params, cfg: ModelConfig, kind: str, x, positions):
     """Full-sequence (train / prefill) block."""
     require_ported(kind)
     h = apply_norm(cfg, params["ln1"], x)
-    x = x + attention.attention(params["attn"], cfg, h, positions)
+    if kind.startswith("mla"):
+        x = x + attention.mla_attention(params["attn"], cfg, h, positions)
+    else:
+        x = x + attention.attention(params["attn"], cfg, h, positions)
     h = apply_norm(cfg, params["ln2"], x)
-    return x + ffn.ffn(params["ffn"], h, cfg.act)
+    return x + _mlp(params, cfg, kind, h)
 
 
 def apply_block_decode(params, cfg: ModelConfig, kind: str, x, cache, pos,
@@ -108,11 +128,12 @@ def apply_block_decode(params, cfg: ModelConfig, kind: str, x, cache, pos,
     cache slot; rope_positions may carry M-RoPE streams."""
     require_ported(kind)
     h = apply_norm(cfg, params["ln1"], x)
-    y, cache_sa = attention.decode_attention(params["attn"], cfg, h, cache["self"], pos,
-                                             rope_positions)
+    decode = attention.mla_decode_attention if kind.startswith("mla") \
+        else attention.decode_attention
+    y, cache_sa = decode(params["attn"], cfg, h, cache["self"], pos, rope_positions)
     x = x + y
     h = apply_norm(cfg, params["ln2"], x)
-    return x + ffn.ffn(params["ffn"], h, cfg.act), {**cache, "self": cache_sa}
+    return x + _mlp(params, cfg, kind, h), {**cache, "self": cache_sa}
 
 
 def apply_block_prefill(params, cfg: ModelConfig, kind: str, x, positions,
@@ -120,11 +141,15 @@ def apply_block_prefill(params, cfg: ModelConfig, kind: str, x, positions,
     """Full-prompt pass that also returns the block's decode cache."""
     require_ported(kind)
     h = apply_norm(cfg, params["ln1"], x)
-    y, k, v = attention.attention_with_kv(params["attn"], cfg, h, positions)
-    cache = {"self": {"k": _pad_seq(k, max_seq), "v": _pad_seq(v, max_seq)}}
+    if kind.startswith("mla"):
+        y, c_kv, k_rope = attention.mla_attention_with_cache(params["attn"], cfg, h, positions)
+        cache = {"self": {"c_kv": _pad_seq(c_kv, max_seq), "k_rope": _pad_seq(k_rope, max_seq)}}
+    else:
+        y, k, v = attention.attention_with_kv(params["attn"], cfg, h, positions)
+        cache = {"self": {"k": _pad_seq(k, max_seq), "v": _pad_seq(v, max_seq)}}
     x = x + y
     h = apply_norm(cfg, params["ln2"], x)
-    return x + ffn.ffn(params["ffn"], h, cfg.act), cache
+    return x + _mlp(params, cfg, kind, h), cache
 
 
 def _pad_seq(t, max_seq):
@@ -139,6 +164,8 @@ def _pad_seq(t, max_seq):
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dtype,
                      device=None):
     require_ported(kind)
+    if kind.startswith("mla"):
+        return {"self": attention.init_mla_cache(cfg, batch, max_seq, dtype, device)}
     return {"self": attention.init_kv_cache(cfg, batch, max_seq, dtype, device)}
 
 
@@ -160,14 +187,22 @@ def unstack_tree(tree) -> list:
 
 
 def init_segment(generator, cfg: ModelConfig, kind: str, n: int, dtype, device=None):
-    """n blocks' params stacked along a leading layer axis (without a
-    generator, the stacked shapes alone: see `layers.normal_init`)."""
-    if generator is None:
-        return tree_from_paths([(p, torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
-                                                device=t.device))
-                                for p, t in tree_paths(init_block(None, cfg, kind, dtype,
-                                                                  device))])
-    return stack_trees([init_block(generator, cfg, kind, dtype, device) for _ in range(n)])
+    """n blocks' params stacked along a leading layer axis, drawn block by
+    block and written into the stacked leaves as they come, so the draw
+    holds one block beside the stack (without a generator, the stacked
+    shapes alone: see `layers.normal_init`)."""
+    stacked = None
+    for i in range(n):
+        block = tree_paths(init_block(generator, cfg, kind, dtype, device))
+        if stacked is None:
+            stacked = [(p, torch.empty((n,) + tuple(t.shape), dtype=t.dtype, device=t.device))
+                       for p, t in block]
+        if generator is None:
+            break
+        for (_, dst), (_, t) in zip(stacked, block):
+            dst[i].copy_(t)
+        del block
+    return tree_from_paths(stacked)
 
 
 def apply_segment(params, cfg: ModelConfig, kind: str, x, positions):

@@ -4,7 +4,8 @@ The port of `repro.runtime.driver`:
 
 * `TrainDriver` checkpoints every `checkpoint_every` steps and at the end
   through the port's `CheckpointManager` (atomic, async); SIGTERM / SIGINT
-  make it checkpoint and exit cleanly; it logs metrics as JSON lines;
+  make it checkpoint and exit cleanly; it logs metrics as JSON lines.
+  Given no manager (``ckpt=None``) it writes no checkpoint at all;
 * `resume_or_init` is the ``--auto-resume`` entry: the newest valid
   checkpoint (its leaves on the devices of the template's tensors) with its
   data cursor, or a fresh init;
@@ -57,7 +58,7 @@ class StragglerStats:
 
 
 class TrainDriver:
-    def __init__(self, cfg: DriverConfig, ckpt: CheckpointManager):
+    def __init__(self, cfg: DriverConfig, ckpt: CheckpointManager | None):
         self.cfg = cfg
         self.ckpt = ckpt
         self.straggler = StragglerStats()
@@ -90,6 +91,7 @@ class TrainDriver:
         cfg = self.cfg
         self._install_signals()
         to_ckpt = state_for_ckpt or (lambda s: s)
+        save = self.ckpt.save if self.ckpt is not None else (lambda *args, **kw: None)
         step = start_step
         flagged_steps = []
 
@@ -109,17 +111,18 @@ class TrainDriver:
                 self._log({"event": "train", "step": step, "dt": dt, **metrics})
 
             if step % cfg.checkpoint_every == 0:
-                self.ckpt.save(step, to_ckpt(state), extra={"data_cursor": step})
+                save(step, to_ckpt(state), extra={"data_cursor": step})
 
             if self._preempted:
-                self.ckpt.save(step, to_ckpt(state), extra={"data_cursor": step,
-                                                            "preempted": True}, block=True)
+                save(step, to_ckpt(state), extra={"data_cursor": step, "preempted": True},
+                     block=True)
                 self._log({"event": "preempt_exit", "step": step})
                 return state, {"step": step, "preempted": True, "stragglers": flagged_steps}
 
         if step % cfg.checkpoint_every != 0 or step == start_step:
-            self.ckpt.save(step, to_ckpt(state), extra={"data_cursor": step}, block=True)
-        self.ckpt.wait()     # (a step just saved periodically is not written twice)
+            save(step, to_ckpt(state), extra={"data_cursor": step}, block=True)
+        if self.ckpt is not None:
+            self.ckpt.wait()     # (a step just saved periodically is not written twice)
         return state, {"step": step, "preempted": False, "stragglers": flagged_steps}
 
 

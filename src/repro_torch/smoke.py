@@ -171,7 +171,20 @@ card and fails on anything wrong -- there is no CPU fallback.
    at 20 and a resume; serving 8 requests through `launch.serve.serve`
    (``lm_serve``), prefill and decode against a full forward; an f32
    forward on the card against the CPU's;
-13. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
+13. MLA + MoE (slice 17's main paths, `smoke_moe.moe_phase`): #7 and
+   `bum_sort` on deepseek-v2-lite's and deepseek-v3's embedding rows
+   (F = 2048 into 102,400 rows, F = 7168 into 129,280) exactly against
+   their plain versions; deepseek-v2-lite at full width with its depth cut
+   to 3 trained 30 steps with the default and the BUM-merged embedding
+   backward (``lm_moe_train``, ``lm_moe_train_dedup``: #7 and `bum_sort`
+   once a step), the merged runs byte-identical from one seed; prefill /
+   decode against a full forward and the card against the CPU at f32,
+   with the routing decisions that differ; deepseek-v3's smoke config
+   with its MTP head trained merged (``lm_mtp_train_dedup``: #7 twice a
+   step), stopped and resumed byte for byte; deepseek-v2-lite at full
+   width and depth (27 layers, 31.4 GB bf16) serving 8 requests
+   (``lm_moe_serve``);
+14. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
    summed over the main paths, and per path) and, last, the device line.
 """
 from __future__ import annotations
@@ -192,7 +205,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import kernels, smoke_lm
+from . import kernels, smoke_lm, smoke_moe
 from .core import encoding as enc
 from .core import occupancy
 from .core.field import Field, FieldConfig
@@ -3373,13 +3386,18 @@ def main() -> int:
     # this slice's main paths: each serving route captured against eager
     renders = _compiled_render_phase(device, card, {
         "train": run, "train_v3": v3["run"], f"train_{GRID_DTYPE}": half["run"]})
-    # slice 16's main paths: the LM substrate's dense decoder at full width
+    # slice 16's main paths: the LM substrate's dense decoders at full width
     clear_step_cache()
     clear_render_cache()
     gc.collect()
     torch.cuda.empty_cache()
     lm = smoke_lm.lm_phase(device, card)
     cases.extend(lm["cases"])
+    # slice 17's main paths: MLA + MoE and the MTP head
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = smoke_moe.moe_phase(device, card)
+    cases.extend(moe["cases"])
 
     paths = {"train": run["launches"], "train_ngp": ngp["launches"], "serve": serve_launches,
              "service": service["launches"], "train_v3": v3["train_launches"],
@@ -3392,7 +3410,7 @@ def main() -> int:
              **{f"compiled_{name}": res["captured"]["launches"]
                 for name, res in compiled["paths"].items()},
              **{f"compiled_serve_{route}": res["launches"] for route, res in renders.items()},
-             **lm["launches"]}
+             **lm["launches"], **moe["launches"]}
     report = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == name]

@@ -68,6 +68,9 @@ LM_LR = 1e-3
 # The held-out batches of the loss probe: the stream's steps from
 # PROBE_STEP on (training reads steps 0-29).
 PROBE_STEP, PROBE_BATCHES = 10_000, 8
+# The most rows of a held-out batch that one forward takes (the logits of
+# 16 x 128 tokens over a 102,400-word vocabulary are 0.8 GB in f32).
+PROBE_ROWS = 16
 SERVE_ARGS = {"batch": 4, "prompt_len": 16, "max_new": 24, "requests": 8}
 # The reference test's tolerance for prefill / decode against a full forward
 # (tests/test_models_smoke.py), here at bf16 and full width.
@@ -151,10 +154,11 @@ def _same_state(a, b) -> dict:
             "step": int(a[1].step) == int(b[1].step)}
 
 
-def train_run(device, ckpt_dir: str, arch: str = LM_ARCH, smoke: bool = False,
+def train_run(device, ckpt_dir: str | None, arch: str = LM_ARCH, smoke: bool = False,
               steps: int = LM_STEPS, batch: int = LM_BATCH, seq: int = LM_SEQ,
               lr: float = LM_LR, ckpt_every: int = LM_CKPT_EVERY,
-              stop_after: int | None = None, auto_resume: bool = False, **overrides) -> dict:
+              stop_after: int | None = None, auto_resume: bool = False,
+              checkpoints: bool = True, **overrides) -> dict:
     """`launch.train.train` on `device`, launch counters zeroed just before
     and read just after, the card's peak memory over the run."""
     on_card = torch.device(device).type == "cuda"
@@ -165,7 +169,8 @@ def train_run(device, ckpt_dir: str, arch: str = LM_ARCH, smoke: bool = False,
     t0 = time.perf_counter()
     out = train_lib.train(arch, smoke=smoke, steps=steps, batch=batch, seq=seq, lr=lr,
                           ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, auto_resume=auto_resume,
-                          device=device, stop_after=stop_after, **overrides)
+                          device=device, stop_after=stop_after, checkpoints=checkpoints,
+                          **overrides)
     if on_card:
         torch.cuda.synchronize()
     out["wall_s"] = time.perf_counter() - t0
@@ -181,28 +186,44 @@ def _median_ms(run: dict, skip: int = 2) -> float:
 
 @torch.no_grad()
 def probe_losses(device, params: dict, arch: str = LM_ARCH, smoke: bool = False,
-                 batch: int = LM_BATCH, seq: int = LM_SEQ, batches: int = 1) -> list[float]:
-    """`params`' loss on each of the first `batches` held-out batches."""
-    model = LM(_config(arch, smoke), device=device)
+                 batch: int = LM_BATCH, seq: int = LM_SEQ, batches: int = 1,
+                 **overrides) -> list[float]:
+    """`params`' loss on each of the first `batches` held-out batches, a
+    batch of more than PROBE_ROWS rows taken PROBE_ROWS rows at a time (its
+    loss the mean of theirs, weighted by rows)."""
+    model = LM(_config(arch, smoke, **overrides), device=device)
     stream = SyntheticLMStream(LMStreamConfig(model.cfg.vocab, seq, batch))
-    return [float(model.loss(params, {"tokens": torch.from_numpy(stream.batch(s)).to(
-        model.device)})) for s in range(PROBE_STEP, PROBE_STEP + batches)]
+
+    def loss(tokens: np.ndarray) -> float:
+        return float(model.loss(params, {"tokens": torch.from_numpy(tokens).to(model.device)}))
+
+    out = []
+    for s in range(PROBE_STEP, PROBE_STEP + batches):
+        toks = stream.batch(s)
+        if batch <= PROBE_ROWS:
+            out.append(loss(toks))
+        else:
+            parts = [(loss(toks[r: r + PROBE_ROWS]), len(toks[r: r + PROBE_ROWS]))
+                     for r in range(0, batch, PROBE_ROWS)]
+            out.append(sum(v * n for v, n in parts) / batch)
+    return out
 
 
 def probe_loss(device, params: dict, arch: str = LM_ARCH, smoke: bool = False,
-               batch: int = LM_BATCH, seq: int = LM_SEQ) -> float:
+               batch: int = LM_BATCH, seq: int = LM_SEQ, **overrides) -> float:
     """`params`' mean loss over the PROBE_BATCHES held-out batches."""
-    return float(np.mean(probe_losses(device, params, arch, smoke, batch, seq, PROBE_BATCHES)))
+    return float(np.mean(probe_losses(device, params, arch, smoke, batch, seq, PROBE_BATCHES,
+                                      **overrides)))
 
 
 def initial_probe(device, arch: str = LM_ARCH, smoke: bool = False, batch: int = LM_BATCH,
-                  seq: int = LM_SEQ) -> dict:
+                  seq: int = LM_SEQ, **overrides) -> dict:
     """The initial params' (`launch.train.train`'s init, seed 0) mean loss
     over the PROBE_BATCHES held-out batches, and its spread (max - min)
     between them."""
-    model = LM(_config(arch, smoke), device=device)
+    model = LM(_config(arch, smoke, **overrides), device=device)
     params = model.init(torch.Generator(device=model.device).manual_seed(0))
-    losses = probe_losses(device, params, arch, smoke, batch, seq, PROBE_BATCHES)
+    losses = probe_losses(device, params, arch, smoke, batch, seq, PROBE_BATCHES, **overrides)
     return {"before": float(np.mean(losses)), "spread": max(losses) - min(losses)}
 
 

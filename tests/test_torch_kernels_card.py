@@ -40,7 +40,12 @@ embedding backward, any F outside {1, 2, 4, 8}): `bum_sort` is torch.sort's
 stable permutation exactly and #7 the plain merge bit for bit at F = 3, 64,
 1024 and 4096, on heavily duplicated token streams with a run across the
 wide commit's tiles, each the same bytes on two launches; the 1-D windowed
-commit gives the plain version's bytes.
+commit gives the plain version's bytes.  The same at deepseek-v2-lite's and
+deepseek-v3's widths (F = 2048 into 102,400 rows, F = 7168 into 129,280,
+and a stream crossing the sort's 4096-entry tile).  The MoE router
+(`models.moe.route`) at f32 on the card against the CPU: expert ids exactly
+wherever the k-th to (k+1)-th selection margin exceeds `ROUTE_MARGIN`, the
+gates within 1e-6 where the ids agree.
 """
 import ctypes
 import threading
@@ -803,6 +808,47 @@ def test_bum_sort_and_commit_on_vocab_wide_rows(m, f, rows, card):
     commit = gu_ref.segment_commit(table, want[0], want[1])
     assert torch.equal(_bits(out.cpu()), _bits(commit))
     assert torch.equal(_bits(out), _bits(out2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,f,rows", [(512, 2048, 102_400), (1024, 7168, 129_280),
+                                      (5000, 2048, 102_400)])
+def test_bum_sort_and_commit_on_deepseek_vocab_rows(m, f, rows, card):
+    """The wide route at deepseek-v2-lite's (F = 2048) and deepseek-v3's
+    (F = 7168) embedding widths: the checks of the test above."""
+    test_bum_sort_and_commit_on_vocab_wide_rows(m, f, rows, card)
+
+
+# The least k-th to (k+1)-th selection margin at which the card's router
+# must pick the CPU's experts: f32 logits of 2048-term dot products differ
+# by ~1e-6 between the two summation orders.
+ROUTE_MARGIN = 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "deepseek-v3-671b"])
+def test_moe_route_on_the_card_matches_the_cpu(arch, card):
+    """`route` at full width (softmax over 64 experts, top-6; sigmoid over
+    256 with a selection bias, top-8) on 4096 tokens, card against CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(arch)
+    gen = torch.Generator().manual_seed(len(arch))
+    params = {"router": torch.randn((cfg.d_model, cfg.moe.n_routed), generator=gen) * 0.02,
+              "router_bias": torch.randn((cfg.moe.n_routed,), generator=gen) * 0.01}
+    x = torch.randn((4096, cfg.d_model), generator=gen)
+    want_g, want_i = moe.route(params, x, cfg.moe)
+    got_g, got_i = moe.route({k: v.to(card) for k, v in params.items()}, x.to(card), cfg.moe)
+    got_g, got_i = got_g.cpu(), got_i.cpu()
+    logits = x @ params["router"]
+    sel = torch.sigmoid(logits) + params["router_bias"] if cfg.moe.score == "sigmoid" \
+        else torch.softmax(logits, dim=-1)
+    top = torch.sort(sel, dim=-1, descending=True).values
+    clear = (top[:, cfg.moe.top_k - 1] - top[:, cfg.moe.top_k]) > ROUTE_MARGIN
+    assert clear.float().mean() > 0.99
+    assert torch.equal(got_i[clear], want_i[clear])
+    same = (got_i == want_i).all(dim=-1)
+    assert float((got_g[same] - want_g[same]).abs().max()) <= 1e-5
 
 
 @pytest.mark.gpu
