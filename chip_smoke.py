@@ -46,7 +46,12 @@ mixture-of-experts, the embedding backward through #7 and its sort on
 2048-wide rows) and deepseek-v3's smoke config with its multi-token-
 prediction head, serves deepseek-v2-lite at full width and depth, holds
 prefill / decode and the card against the CPU at f32 with the routing
-decisions that differ, and prints
+decisions that differ, then trains falcon-mamba-7b (Mamba-1) and zamba2-7b
+(Mamba-2 and its weight-shared attention block) at full width (depth cut
+to 3 and 7; the embedding backward through #7 and its sort on 4096- and
+3584-wide rows; zamba2 stopped and resumed byte for byte), holds their
+prefill / decode of 300 tokens and the card against the CPU at f32, serves
+both at full width and depth, and prints
 one JSON line with every kernel's report and, last, the device line.  It exits non-zero,
 with no result, on any failure, and when no CUDA card is present.  The phases live in ``src/repro_torch/smoke.py``.
 """

@@ -27,7 +27,9 @@ from ..optim.adamw import tree_paths
 
 def _reset_slot(caches: dict, fresh: dict, i: int) -> None:
     """Copy a one-sequence prefill's caches into slot i of the batch's
-    stacked caches (n_layers, B, ...), in place."""
+    stacked caches, in place: KV caches, SSM states and the shared
+    block's caches alike, batch being axis 1 of every leaf ((n_layers, B,
+    ...) or (n_groups, B, ...))."""
     fresh_leaves = dict(tree_paths(fresh))
     for path, c in tree_paths(caches):
         if c.ndim >= 2:

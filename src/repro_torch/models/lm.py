@@ -5,8 +5,11 @@ The port of `repro.models.lm` for the decoders whose blocks are attention
 yi-9b, chatglm3-6b, qwen2-vl-2b (its text path; the vision frontend is a
 stub that feeds `embeds`), deepseek-v2-lite and deepseek-v3 with its
 depth-1 multi-token-prediction head (`mtp`: `loss` adds 0.3 times its
-loss; its embedding call is a second `embed`).  SSM and hybrid stacks and
-whisper's encoder-decoder raise NotImplementedError naming their ROADMAP
+loss; its embedding call is a second `embed`); and for the SSM stacks:
+falcon-mamba-7b (Mamba-1) and zamba2-7b (Mamba-2 with the weight-shared
+attention block `params["shared_attn"]` every `hybrid_attn_every` layers,
+whose caches are `caches["shared_attn"]`, stacked (n_groups, ...)).
+Whisper's encoder-decoder raises NotImplementedError naming its ROADMAP
 item.
 
 `LM` holds the config and the device; params and caches are nested dicts
@@ -31,8 +34,6 @@ def unported(cfg: ModelConfig) -> str | None:
     port runs it."""
     if cfg.enc_dec:
         return tfm.NOT_PORTED["dec_attn"]
-    if cfg.hybrid_attn_every:
-        return tfm.NOT_PORTED["mamba2"]
     for kind, _ in segments(cfg):
         if kind in tfm.NOT_PORTED:
             return tfm.NOT_PORTED[kind]
@@ -66,6 +67,8 @@ class LM:
         }
         for i, (kind, n) in enumerate(self.segs):
             params[f"seg{i}_{kind}"] = tfm.init_segment(generator, cfg, kind, n, dtype, dev)
+        if cfg.hybrid_attn_every:
+            params["shared_attn"] = tfm.init_block(generator, cfg, "attn_dense", dtype, dev)
         if not cfg.tie_embeddings:
             params["lm_head"] = layers.normal_init(generator, (cfg.d_model, cfg.vocab),
                                                    dtype=dtype, device=dev)
@@ -112,7 +115,12 @@ class LM:
         if positions is None:
             positions = self.default_positions(b, s)
         for i, (kind, _) in enumerate(self.segs):
-            x = tfm.apply_segment(params[f"seg{i}_{kind}"], self.cfg, kind, x, positions)
+            seg = params[f"seg{i}_{kind}"]
+            if self._hybrid(kind):
+                x = tfm.apply_hybrid_segment(seg, self.cfg, kind, x, positions,
+                                             params["shared_attn"])
+            else:
+                x = tfm.apply_segment(seg, self.cfg, kind, x, positions)
         h = tfm.apply_norm(self.cfg, params["final_norm"], x)
         return self.logits(params, h), h
 
@@ -145,11 +153,19 @@ class LM:
 
     # ---- serving ----
 
+    def _hybrid(self, kind: str) -> bool:
+        return bool(self.cfg.hybrid_attn_every) and kind in tfm.SSM_KINDS
+
     def init_caches(self, batch: int, max_seq: int) -> dict:
+        cfg = self.cfg
         caches: dict[str, Any] = {}
         for i, (kind, n) in enumerate(self.segs):
-            one = tfm.init_block_cache(self.cfg, kind, batch, max_seq, self.dtype, self.device)
+            one = tfm.init_block_cache(cfg, kind, batch, max_seq, self.dtype, self.device)
             caches[f"seg{i}_{kind}"] = tfm.stack_trees([one] * n)
+        if cfg.hybrid_attn_every:
+            one = tfm.init_block_cache(cfg, "attn_dense", batch, max_seq, self.dtype, self.device)
+            caches["shared_attn"] = tfm.stack_trees(
+                [one] * (cfg.n_layers // cfg.hybrid_attn_every), one)
         return caches
 
     def prefill(self, params, tokens=None, embeds=None, positions=None,
@@ -164,8 +180,13 @@ class LM:
             positions = self.default_positions(b, s)
         caches: dict[str, Any] = {}
         for i, (kind, _) in enumerate(self.segs):
-            x, caches[f"seg{i}_{kind}"] = tfm.apply_segment_prefill(
-                params[f"seg{i}_{kind}"], self.cfg, kind, x, positions, max_seq)
+            key = f"seg{i}_{kind}"
+            if self._hybrid(kind):
+                x, caches[key], caches["shared_attn"] = tfm.apply_hybrid_segment_prefill(
+                    params[key], self.cfg, kind, x, positions, params["shared_attn"], max_seq)
+            else:
+                x, caches[key] = tfm.apply_segment_prefill(params[key], self.cfg, kind, x,
+                                                           positions, max_seq)
         h = tfm.apply_norm(self.cfg, params["final_norm"], x)
         return self.logits(params, h[:, -1:, :])[:, 0], caches, None
 
@@ -181,8 +202,13 @@ class LM:
         new_caches = {}
         for i, (kind, _) in enumerate(self.segs):
             key = f"seg{i}_{kind}"
-            x, new_caches[key] = tfm.apply_segment_decode(params[key], self.cfg, kind, x,
-                                                          caches[key], pos, rope_positions)
+            if self._hybrid(kind):
+                x, new_caches[key], new_caches["shared_attn"] = tfm.apply_hybrid_segment_decode(
+                    params[key], self.cfg, kind, x, caches[key], pos, params["shared_attn"],
+                    caches["shared_attn"])
+            else:
+                x, new_caches[key] = tfm.apply_segment_decode(params[key], self.cfg, kind, x,
+                                                              caches[key], pos, rope_positions)
         h = tfm.apply_norm(self.cfg, params["final_norm"], x)
         return self.logits(params, h)[:, 0], new_caches
 

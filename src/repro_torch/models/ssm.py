@@ -1,0 +1,264 @@
+"""State-space blocks: Mamba-1 (falcon-mamba) and Mamba-2/SSD (zamba2).
+
+The port of `repro.models.ssm`.  Both variants keep the reference's
+*chunked* forms, in its order of operations:
+
+* mamba1: a Python loop over chunks of `SSMConfig.chunk` tokens (the
+  reference's `lax.scan`), and within a chunk `associative_scan`, the
+  odd/even recursion of `jax.lax.associative_scan` in torch ops over the
+  chunk axis (about log2(Q) levels, the same combination tree); a
+  remainder chunk when the sequence is not a multiple of the chunk.
+* mamba2: the SSD block form -- intra-chunk decay products, the carried
+  state's contribution and the state update -- with each three-operand
+  einsum taken as the pairwise products JAX's contraction path picks (an
+  elementwise product, then a batched matmul keeping the reference's sum
+  axes), so no (B, Q, Q, P, hd) or (B, Q, P, hd, n) tensor is formed.
+
+Casts follow the reference: the causal conv sums in the input's dtype and
+activates in f32; `dt` is `logaddexp(x, 0)` (JAX's softplus) in f32; the
+scan, `D` and the gate run in f32; Mamba-2 casts to the model dtype before
+its gated RMS norm.  `A_log`, `D` and `dt_bias` are f32 leaves in any
+model dtype.  No library conv or scan kernel is used.
+
+The decode state is a dict ``{"h": f32 (B, di, n) | (B, P, hd, n),
+"conv_tail": (B, K-1, C) in the model dtype}`` -- the reference's
+`SSMState` NamedTuple as the dict its `_asdict()` gives, so the port's
+tree helpers (`tree_paths`, `stack_trees`, `_reset_slot`), which walk
+nested dicts, carry it like any cache.  A decode step is a call with S = 1.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import layers
+from .config import ModelConfig
+
+
+def _dt_rank(cfg: ModelConfig) -> int:
+    return cfg.ssm.dt_rank or max(cfg.d_model // 16, 1)
+
+
+def d_inner(cfg: ModelConfig) -> int:
+    return cfg.ssm.expand * cfg.d_model
+
+
+# --- params -------------------------------------------------------------------
+
+def init_ssm(generator, cfg: ModelConfig, dtype, device=None) -> dict:
+    s = cfg.ssm
+    d, di, n = cfg.d_model, d_inner(cfg), s.d_state
+    init = lambda shape, std=0.02: layers.normal_init(generator, shape, std=std,  # noqa: E731
+                                                      dtype=dtype, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    if s.kind == "mamba1":
+        r = _dt_rank(cfg)
+        return {
+            "in_proj": init((d, 2 * di)),
+            "conv_w": init((s.d_conv, di), 0.2),
+            "conv_b": torch.zeros((di,), dtype=dtype, device=device),
+            "x_proj": init((di, r + 2 * n)),
+            "dt_proj": init((r, di), r ** -0.5),
+            "dt_bias": torch.log(torch.expm1(torch.full((di,), 0.01, **f32))),
+            "A_log": torch.log(torch.arange(1, n + 1, **f32).tile((di, 1))),
+            "D": torch.ones((di,), **f32),
+            "out_proj": init((di, d)),
+        }
+    # mamba2: heads of size headdim, a scalar A per head, B / C shared (1 group)
+    p_heads = di // s.headdim
+    conv_ch = di + 2 * n    # the conv runs over x, B and C
+    return {
+        "in_proj": init((d, 2 * di + 2 * n + p_heads)),
+        "conv_w": init((s.d_conv, conv_ch), 0.2),
+        "conv_b": torch.zeros((conv_ch,), dtype=dtype, device=device),
+        "dt_bias": torch.log(torch.expm1(torch.full((p_heads,), 0.01, **f32))),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, p_heads, **f32)),
+        "D": torch.ones((p_heads,), **f32),
+        "norm": torch.ones((di,), dtype=dtype, device=device),
+        "out_proj": init((di, d)),
+    }
+
+
+# --- causal depthwise conv ------------------------------------------------------
+
+def causal_conv(x, w, b, tail=None):
+    """x (B, S, C), w (K, C), b (C,); tail (B, K-1, C): the previous tokens'
+    inputs.  The shifted sum ``sum_i xp[:, i:i+S] * w[i] + b`` in x's dtype,
+    then SiLU in f32.  Returns (y (B, S, C), new tail)."""
+    k = w.shape[0]
+    if tail is None:
+        tail = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    xp = torch.cat([tail, x], dim=1)                      # (B, S+K-1, C)
+    s = x.shape[1]
+    y = sum(xp[:, i: i + s, :] * w[i] for i in range(k)) + b
+    new_tail = xp[:, -(k - 1):, :] if k > 1 else tail
+    return F.silu(y.to(torch.float32)).to(x.dtype), new_tail
+
+
+def softplus(x):
+    """`jax.nn.softplus`: logaddexp(x, 0), with no threshold."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+# --- state --------------------------------------------------------------------
+
+def init_ssm_state(cfg: ModelConfig, batch: int, dtype, device=None) -> dict:
+    s = cfg.ssm
+    di = d_inner(cfg)
+    if s.kind == "mamba1":
+        h_shape, ch = (batch, di, s.d_state), di
+    else:
+        h_shape, ch = (batch, di // s.headdim, s.headdim, s.d_state), di + 2 * s.d_state
+    return {"h": torch.zeros(h_shape, dtype=torch.float32, device=device),
+            "conv_tail": torch.zeros((batch, s.d_conv - 1, ch), dtype=dtype, device=device)}
+
+
+# --- mamba1 ---------------------------------------------------------------------
+
+def _combine(left, right):
+    """The selective scan's operator: (a_l, b_l) then (a_r, b_r)."""
+    return left[0] * right[0], right[0] * left[1] + right[1]
+
+
+def _interleave(even, odd):
+    """even[0], odd[0], even[1], ... along axis 1 (len(even) is len(odd)
+    or one more)."""
+    n_odd = odd.shape[1]
+    pairs = torch.stack([even[:, :n_odd], odd], dim=2).flatten(1, 2)
+    if even.shape[1] == n_odd:
+        return pairs
+    return torch.cat([pairs, even[:, n_odd:]], dim=1)
+
+
+def associative_scan(a, bx):
+    """The inclusive scan of `_combine` over axis 1 of (a, bx), in
+    `jax.lax.associative_scan`'s recursion: adjacent pairs combined, the
+    half-length scan, then the even positions from the odd results."""
+    n = a.shape[1]
+    if n < 2:
+        return a, bx
+    odd = associative_scan(*_combine((a[:, 0:-1:2], bx[:, 0:-1:2]), (a[:, 1::2], bx[:, 1::2])))
+    if n % 2 == 0:
+        even = _combine((odd[0][:, :-1], odd[1][:, :-1]), (a[:, 2::2], bx[:, 2::2]))
+    else:
+        even = _combine(odd, (a[:, 2::2], bx[:, 2::2]))
+    even = [torch.cat([t[:, :1], e], dim=1) for t, e in zip((a, bx), even)]
+    return _interleave(even[0], odd[0]), _interleave(even[1], odd[1])
+
+
+def _mamba1_scan_chunk(h0, a, bx):
+    """h0 (B, d, n); a, bx (B, Q, d, n).  Returns (h (B, Q, d, n), h_end)."""
+    aa, bb = associative_scan(a, bx)
+    h = bb + aa * h0[:, None]
+    return h, h[:, -1]
+
+
+def mamba1(params, cfg: ModelConfig, x, state: dict | None = None):
+    """x (B, S, D) -> (y (B, S, D), new state).  Chunked selective scan."""
+    s = cfg.ssm
+    b, seq, _ = x.shape
+    di, n, r = d_inner(cfg), s.d_state, _dt_rank(cfg)
+    xz = x @ params["in_proj"]
+    xs, z = xz[..., :di], xz[..., di:]
+    tail = state["conv_tail"] if state is not None else None
+    xs, new_tail = causal_conv(xs, params["conv_w"], params["conv_b"], tail)
+
+    dbc = xs @ params["x_proj"]                                     # (B, S, r+2n)
+    dt = softplus((dbc[..., :r] @ params["dt_proj"]).to(torch.float32)
+                  + params["dt_bias"])                              # (B, S, di)
+    bmat = dbc[..., r: r + n].to(torch.float32)                     # (B, S, n)
+    cmat = dbc[..., r + n:].to(torch.float32)                       # (B, S, n)
+    a_cont = -torch.exp(params["A_log"])                            # (di, n)
+
+    q = min(s.chunk, seq)
+    h = state["h"] if state is not None else torch.zeros((b, di, n), dtype=torch.float32,
+                                                          device=x.device)
+    xf32 = xs.to(torch.float32)
+    ys = []
+    for start in range(0, seq, q):      # the chunks, then the remainder chunk
+        part = slice(start, start + q)
+        dt_q, x_q = dt[:, part], xf32[:, part]
+        a = torch.exp(dt_q[..., None] * a_cont)                     # (B, Q, di, n)
+        bx = (dt_q * x_q)[..., None] * bmat[:, part, None, :]       # (B, Q, di, n)
+        hs, h = _mamba1_scan_chunk(h, a, bx)
+        ys.append(torch.einsum("bqdn,bqn->bqd", hs, cmat[:, part]))
+    y = torch.cat(ys, dim=1) + params["D"] * xf32
+    y = (y * F.silu(z.to(torch.float32))).to(x.dtype)
+    return y @ params["out_proj"], {"h": h, "conv_tail": new_tail}
+
+
+def mamba1_decode(params, cfg: ModelConfig, x, state: dict):
+    """Single-token recurrent step. x (B, 1, D)."""
+    return mamba1(params, cfg, x, state)
+
+
+# --- mamba2 (SSD) ---------------------------------------------------------------
+
+def _ssd_chunk(h, dt_q, dta_q, b_q, c_q, x_q):
+    """One SSD chunk.  h (B, P, hd, n); dt_q, dta_q (B, Q, P); b_q, c_q
+    (B, Q, n); x_q (B, Q, P, hd).  Returns (h', y (B, Q, P, hd))."""
+    qq = dt_q.shape[1]
+    cum = torch.cumsum(dta_q, dim=1)                                # (B, Q, P)
+    # intra-chunk: Y_ij = C_i.B_j * exp(cum_i - cum_j) * dt_j  (i >= j); the
+    # exponent is formed before the mask, as in the reference
+    decay = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])      # (B, Q, Q, P)
+    tri = torch.tril(torch.ones((qq, qq), dtype=torch.bool, device=h.device))
+    cb = torch.einsum("bin,bjn->bij", c_q, b_q)                     # (B, Q, Q)
+    w = torch.where(tri[None, :, :, None], cb[..., None] * decay,
+                    torch.zeros((), dtype=decay.dtype, device=h.device))
+    # "bijp,bjp,bjpe->bipe": (x * dt) first, then the sum over j as a
+    # matmul batched over (b, p)
+    xdt = x_q * dt_q[..., None]                                     # (B, Q, P, hd)
+    y_intra = torch.matmul(w.permute(0, 3, 1, 2), xdt.permute(0, 2, 1, 3)).permute(0, 2, 1, 3)
+    # inter-chunk, "bin,bpen,bip->bipe": h . C over n first, then exp(cum)
+    b, p, e, n = h.shape
+    hc = torch.matmul(h.reshape(b, p * e, n), c_q.transpose(1, 2)).reshape(b, p, e, qq)
+    y_inter = hc.permute(0, 3, 1, 2) * torch.exp(cum)[..., None]
+    # state update: h' = exp(cum_Q) h + sum_j exp(cum_Q - cum_j) dt_j B_j x_j;
+    # "bjp,bjn,bjpe->bpen": the (j, n, p) outer product first, then the sum
+    # over j as a matmul batched over (b, p)
+    end = cum[:, -1:, :]                                            # (B, 1, P)
+    dec_j = torch.exp(end - cum)                                    # (B, Q, P)
+    bdt = b_q[..., :, None] * (dec_j * dt_q)[..., None, :]          # (B, Q, n, P)
+    upd = torch.matmul(bdt.permute(0, 3, 2, 1), x_q.permute(0, 2, 1, 3))   # (B, P, n, hd)
+    h_new = torch.exp(end[:, 0, :])[:, :, None, None] * h + upd.transpose(2, 3)
+    return h_new, y_intra + y_inter
+
+
+def mamba2(params, cfg: ModelConfig, x, state: dict | None = None):
+    """Chunked SSD. x (B, S, D) -> (y, new state)."""
+    s = cfg.ssm
+    b, seq, _ = x.shape
+    di, n, hd = d_inner(cfg), s.d_state, s.headdim
+    p = di // hd
+    proj = x @ params["in_proj"]                                    # (B, S, 2di+2n+P)
+    z, xbc, dt_raw = proj[..., :di], proj[..., di: 2 * di + 2 * n], proj[..., -p:]
+    tail = state["conv_tail"] if state is not None else None
+    xbc, new_tail = causal_conv(xbc, params["conv_w"], params["conv_b"], tail)
+    xs = xbc[..., :di]
+    bmat = xbc[..., di: di + n].to(torch.float32)                   # (B, S, n)
+    cmat = xbc[..., di + n:].to(torch.float32)                      # (B, S, n)
+    dt = softplus(dt_raw.to(torch.float32) + params["dt_bias"])     # (B, S, P)
+    a_head = -torch.exp(params["A_log"])                            # (P,)
+    dta = dt * a_head                                               # (B, S, P)
+
+    q = min(s.chunk, seq)
+    xh = xs.to(torch.float32).reshape(b, seq, p, hd)
+    h = state["h"] if state is not None else torch.zeros((b, p, hd, n), dtype=torch.float32,
+                                                          device=x.device)
+    ys = []
+    for start in range(0, seq, q):      # the chunks, then the remainder chunk
+        part = slice(start, start + q)
+        h, y_q = _ssd_chunk(h, dt[:, part], dta[:, part], bmat[:, part], cmat[:, part],
+                            xh[:, part])
+        ys.append(y_q)
+    y = torch.cat(ys, dim=1).reshape(b, seq, di)
+    y = y + (params["D"][:, None] * xh).reshape(b, seq, di)
+    y = y * F.silu(z.to(torch.float32))
+    y = layers.rms_norm(y.to(x.dtype), params["norm"])
+    return y @ params["out_proj"], {"h": h, "conv_tail": new_tail}
+
+
+def ssm_block(params, cfg: ModelConfig, x, state: dict | None = None):
+    fn = mamba1 if cfg.ssm.kind == "mamba1" else mamba2
+    return fn(params, cfg, x, state)

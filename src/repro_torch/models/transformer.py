@@ -11,15 +11,27 @@ layer axis:
     whisper          encoder [('enc_attn', n)] / decoder [('dec_attn', n)]
 
 `segments` gives every architecture's layout.  The `attn_dense`,
-`mla_dense`, `mla_moe` and `attn_moe` kinds are ported (the MoE blocks on
-the dense expert path, `moe.moe_layer` without a mesh; the leading dense
-layers of an MoE config take `moe.dense_d_ff`); any other kind raises
-NotImplementedError naming its ROADMAP item.  The reference scans a
+`mla_dense`, `mla_moe`, `attn_moe`, `mamba1` and `mamba2` kinds are
+ported (the MoE blocks on the dense expert path, `moe.moe_layer` without
+a mesh; the leading dense layers of an MoE config take `moe.dense_d_ff`;
+an SSM block is `ln1` and `ssm` only, and its decode cache is the SSM
+state itself, `{"h", "conv_tail"}`); whisper's kinds raise
+NotImplementedError naming their ROADMAP item.  The reference scans a
 segment with `lax.scan`; here each stacked leaf is unbound once a pass
 (`torch.unbind`, whose backward stacks the layers' gradients once) and the
 layers run in a Python loop, each under `torch.utils.checkpoint` when the
 config asks for remat.  Indexing a stacked leaf once per layer instead
 would make autograd write a zero tensor of the whole stack per layer.
+
+zamba2's hybrid stack (`apply_hybrid_segment*`) runs its SSM layers in
+groups of `hybrid_attn_every`, each group followed by one application of
+the weight-shared `attn_dense` block (under remat when configured, as the
+reference remats it), then the `n_layers % every` tail layers.  The
+segment's decode caches stay flat (n_layers, ...); the shared block's are
+stacked (n_groups, ...), one KV cache per application point.  Where the
+reference reshapes the stacked leaves into (n_groups, every, ...) and
+scans the groups, the port unbinds the layers once and walks them in the
+same order.
 """
 from __future__ import annotations
 
@@ -28,16 +40,15 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from . import attention, ffn, layers, moe
+from . import attention, ffn, layers, moe, ssm
 from .config import ModelConfig
 from ..optim.adamw import tree_from_paths, tree_paths
 
-PORTED = ("attn_dense", "mla_dense", "mla_moe", "attn_moe")
+SSM_KINDS = ("mamba1", "mamba2")
+PORTED = ("attn_dense", "mla_dense", "mla_moe", "attn_moe") + SSM_KINDS
 
 # the ROADMAP item that ports each block kind not ported yet
 NOT_PORTED = {
-    "mamba1": "ROADMAP Queue 1 item 2.2 (SSM and hybrid)",
-    "mamba2": "ROADMAP Queue 1 item 2.2 (SSM and hybrid)",
     "enc_attn": "ROADMAP Queue 1 item 2.3 (whisper's encoder-decoder)",
     "dec_attn": "ROADMAP Queue 1 item 2.3 (whisper's encoder-decoder)",
 }
@@ -86,6 +97,9 @@ def apply_norm(cfg: ModelConfig, p, x):
 def init_block(generator, cfg: ModelConfig, kind: str, dtype, device=None) -> dict:
     require_ported(kind)
     p: dict[str, Any] = {"ln1": _init_norm(cfg, dtype, device)}
+    if kind in SSM_KINDS:
+        p["ssm"] = ssm.init_ssm(generator, cfg, dtype, device)
+        return p
     if kind.startswith("mla"):
         p["attn"] = attention.init_mla(generator, cfg, dtype, device)
     else:
@@ -114,6 +128,8 @@ def apply_block(params, cfg: ModelConfig, kind: str, x, positions):
     """Full-sequence (train / prefill) block."""
     require_ported(kind)
     h = apply_norm(cfg, params["ln1"], x)
+    if kind in SSM_KINDS:
+        return x + ssm.ssm_block(params["ssm"], cfg, h)[0]
     if kind.startswith("mla"):
         x = x + attention.mla_attention(params["attn"], cfg, h, positions)
     else:
@@ -125,9 +141,13 @@ def apply_block(params, cfg: ModelConfig, kind: str, x, positions):
 def apply_block_decode(params, cfg: ModelConfig, kind: str, x, cache, pos,
                        rope_positions=None):
     """One-token decode: (x, the block's new cache).  pos (B, 1) is the
-    cache slot; rope_positions may carry M-RoPE streams."""
+    cache slot; rope_positions may carry M-RoPE streams.  An SSM block's
+    cache is its state."""
     require_ported(kind)
     h = apply_norm(cfg, params["ln1"], x)
+    if kind in SSM_KINDS:
+        y, state = ssm.ssm_block(params["ssm"], cfg, h, cache)
+        return x + y, state
     decode = attention.mla_decode_attention if kind.startswith("mla") \
         else attention.decode_attention
     y, cache_sa = decode(params["attn"], cfg, h, cache["self"], pos, rope_positions)
@@ -141,6 +161,9 @@ def apply_block_prefill(params, cfg: ModelConfig, kind: str, x, positions,
     """Full-prompt pass that also returns the block's decode cache."""
     require_ported(kind)
     h = apply_norm(cfg, params["ln1"], x)
+    if kind in SSM_KINDS:
+        y, state = ssm.ssm_block(params["ssm"], cfg, h)
+        return x + y, state
     if kind.startswith("mla"):
         y, c_kv, k_rope = attention.mla_attention_with_cache(params["attn"], cfg, h, positions)
         cache = {"self": {"c_kv": _pad_seq(c_kv, max_seq), "k_rope": _pad_seq(k_rope, max_seq)}}
@@ -164,6 +187,8 @@ def _pad_seq(t, max_seq):
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dtype,
                      device=None):
     require_ported(kind)
+    if kind in SSM_KINDS:
+        return ssm.init_ssm_state(cfg, batch, dtype, device)
     if kind.startswith("mla"):
         return {"self": attention.init_mla_cache(cfg, batch, max_seq, dtype, device)}
     return {"self": attention.init_kv_cache(cfg, batch, max_seq, dtype, device)}
@@ -171,9 +196,13 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dtyp
 
 # --- stacked segments ----------------------------------------------------------------
 
-def stack_trees(trees: list):
+def stack_trees(trees: list, like=None):
     """Nested dicts of equal structure -> one dict, each leaf stacked along a
-    new leading axis."""
+    new leading axis.  An empty list needs `like`, a tree of the stacked
+    structure's elements: its leaves stacked zero times."""
+    if not trees:
+        return tree_from_paths([(p, t.new_empty((0,) + tuple(t.shape)))
+                                for p, t in tree_paths(like)])
     paths = [p for p, _ in tree_paths(trees[0])]
     flat = [dict(tree_paths(t)) for t in trees]
     return tree_from_paths([(p, torch.stack([f[p] for f in flat])) for p in paths])
@@ -205,14 +234,19 @@ def init_segment(generator, cfg: ModelConfig, kind: str, n: int, dtype, device=N
     return tree_from_paths(stacked)
 
 
+def _apply_layer(layer, cfg: ModelConfig, kind: str, x, positions):
+    """One block, under `torch.utils.checkpoint` when the config asks for
+    remat and gradients are recorded."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(lambda p, h: apply_block(p, cfg, kind, h, positions), layer, x,
+                          use_reentrant=False)
+    return apply_block(layer, cfg, kind, x, positions)
+
+
 def apply_segment(params, cfg: ModelConfig, kind: str, x, positions):
     """Run a stacked segment layer by layer (remat per layer if configured)."""
     for layer in unstack_tree(params):
-        if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(lambda p, h: apply_block(p, cfg, kind, h, positions), layer, x,
-                           use_reentrant=False)
-        else:
-            x = apply_block(layer, cfg, kind, x, positions)
+        x = _apply_layer(layer, cfg, kind, x, positions)
     return x
 
 
@@ -234,3 +268,53 @@ def apply_segment_prefill(params, cfg: ModelConfig, kind: str, x, positions,
         x, cache = apply_block_prefill(layer, cfg, kind, x, positions, max_seq)
         outs.append(cache)
     return x, stack_trees(outs)
+
+
+# --- zamba2-style hybrid: SSM stack + a weight-shared attention block ---------------
+#
+# The shared block's weights are read at every application point (the
+# arch's parameter-saving trick; autograd sums their gradient over the
+# points), but each point has its own KV cache.  Layer i is followed by the
+# shared block when (i + 1) % every == 0: the reference's groups of `every`
+# SSM layers, then its n_layers % every tail layers.
+
+def _ends_group(i: int, cfg: ModelConfig) -> bool:
+    return (i + 1) % cfg.hybrid_attn_every == 0
+
+
+def apply_hybrid_segment(params, cfg: ModelConfig, kind: str, x, positions, shared_attn):
+    for i, layer in enumerate(unstack_tree(params)):
+        x = _apply_layer(layer, cfg, kind, x, positions)
+        if _ends_group(i, cfg):
+            x = _apply_layer(shared_attn, cfg, "attn_dense", x, positions)
+    return x
+
+
+def apply_hybrid_segment_prefill(params, cfg: ModelConfig, kind: str, x, positions,
+                                 shared_attn, max_seq: int | None = None):
+    """-> (x, the segment's flat (n_layers, ...) caches, the shared block's
+    (n_groups, ...) caches)."""
+    outs, shared = [], []
+    for i, layer in enumerate(unstack_tree(params)):
+        x, cache = apply_block_prefill(layer, cfg, kind, x, positions, max_seq)
+        outs.append(cache)
+        if _ends_group(i, cfg):
+            x, cache = apply_block_prefill(shared_attn, cfg, "attn_dense", x, positions, max_seq)
+            shared.append(cache)
+    like = None if shared else init_block_cache(cfg, "attn_dense", x.shape[0],
+                                                max_seq or x.shape[1], x.dtype, x.device)
+    return x, stack_trees(outs), stack_trees(shared, like)
+
+
+def apply_hybrid_segment_decode(params, cfg: ModelConfig, kind: str, x, caches, pos,
+                                shared_attn, shared_caches):
+    """shared_caches: the shared block's stacked (n_groups, ...) KV caches."""
+    outs, shared, points = [], [], unstack_tree(shared_caches)
+    for i, (layer, cache) in enumerate(zip(unstack_tree(params), unstack_tree(caches))):
+        x, nc = apply_block_decode(layer, cfg, kind, x, cache, pos)
+        outs.append(nc)
+        if _ends_group(i, cfg):
+            x, nc = apply_block_decode(shared_attn, cfg, "attn_dense", x, points[len(shared)],
+                                       pos)
+            shared.append(nc)
+    return x, stack_trees(outs), stack_trees(shared) if shared else shared_caches

@@ -184,7 +184,20 @@ card and fails on anything wrong -- there is no CPU fallback.
    step), stopped and resumed byte for byte; deepseek-v2-lite at full
    width and depth (27 layers, 31.4 GB bf16) serving 8 requests
    (``lm_moe_serve``);
-14. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
+14. SSM and hybrid (slice 18's main paths, `smoke_ssm.ssm_phase`): #7 and
+   `bum_sort` on zamba2-7b's and falcon-mamba-7b's embedding rows (F =
+   3584 into 32,000 rows, F = 4096 into 65,024) exactly against their
+   plain versions; falcon-mamba-7b (Mamba-1) with its depth cut to 3 and
+   zamba2-7b (Mamba-2 and the weight-shared attention block) cut to 7,
+   at full width, each trained 30 steps of 4 x 256 with the default and
+   the BUM-merged embedding backward (``lm_ssm_train``,
+   ``lm_ssm_train_dedup``, ``lm_hybrid_train``, ``lm_hybrid_train_dedup``:
+   #7 and `bum_sort` once a step), the merged runs byte-identical from one
+   seed and zamba2's across a stop at 20 and a resume; prefill / decode of
+   a 300-token prompt against a full forward and the card against the CPU
+   at f32; both served at full width and depth (``lm_ssm_serve``,
+   ``lm_hybrid_serve``);
+15. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
    summed over the main paths, and per path) and, last, the device line.
 """
 from __future__ import annotations
@@ -205,7 +218,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import kernels, smoke_lm, smoke_moe
+from . import kernels, smoke_lm, smoke_moe, smoke_ssm
 from .core import encoding as enc
 from .core import occupancy
 from .core.field import Field, FieldConfig
@@ -3398,6 +3411,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe = smoke_moe.moe_phase(device, card)
     cases.extend(moe["cases"])
+    # slice 18's main paths: the SSM and hybrid decoders
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm = smoke_ssm.ssm_phase(device, card)
+    cases.extend(ssm["cases"])
 
     paths = {"train": run["launches"], "train_ngp": ngp["launches"], "serve": serve_launches,
              "service": service["launches"], "train_v3": v3["train_launches"],
@@ -3410,7 +3428,7 @@ def main() -> int:
              **{f"compiled_{name}": res["captured"]["launches"]
                 for name, res in compiled["paths"].items()},
              **{f"compiled_serve_{route}": res["launches"] for route, res in renders.items()},
-             **lm["launches"], **moe["launches"]}
+             **lm["launches"], **moe["launches"], **ssm["launches"]}
     report = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == name]

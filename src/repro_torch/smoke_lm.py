@@ -332,27 +332,28 @@ def decode_parity(device, params: dict, arch: str = LM_ARCH, smoke: bool = False
 
 @torch.no_grad()
 def cpu_parity(device, arch: str = LM_ARCH, smoke: bool = False, tokens: int = CPU_TOKENS,
-               seed: int = 0) -> dict:
+               seed: int = 0, params: dict | None = None, **overrides) -> dict:
     """One f32 forward of `arch` on `device` and on the CPU with the same
-    params (drawn on the CPU, copied): the last token's logits' largest
-    |difference|."""
-    cfg = _config(arch, smoke, dtype="float32")
+    params (`params` cast to f32, or drawn on the CPU; copied to each
+    side): the last token's logits' largest |difference|."""
+    cfg = _config(arch, smoke, dtype="float32", **overrides)
     cpu = LM(cfg, device="cpu")
-    params = cpu.init(torch.Generator().manual_seed(seed))
+    if params is None:
+        params = cpu.init(torch.Generator().manual_seed(seed))
+    params = _to(params, "cpu", torch.float32)
     toks = torch.from_numpy(_tokens((1, tokens), cfg.vocab, step=2))
     want = cpu.forward(params, tokens=toks)[0][:, -1]
     card = LM(cfg, device=device)
-    got = card.forward({k: v for k, v in _to(params, device).items()},
-                       tokens=toks.to(card.device))[0][:, -1].cpu()
+    got = card.forward(_to(params, device), tokens=toks.to(card.device))[0][:, -1].cpu()
     return {"max_abs_err": float((got - want).abs().max()),
             "logit_scale": float(want.abs().max()), "tol": CPU_LOGITS_TOL,
             "ok": bool((got - want).abs().max() <= CPU_LOGITS_TOL)}
 
 
-def _to(tree, device):
+def _to(tree, device, dtype=None):
     if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+        return {k: _to(v, device, dtype) for k, v in tree.items()}
+    return tree.to(device=device, dtype=dtype)
 
 
 def serve_run(device, params: dict, arch: str = LM_ARCH, smoke: bool = False,

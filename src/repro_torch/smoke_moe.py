@@ -244,26 +244,18 @@ def decode_parity(device, params: dict, arch: str = MOE_ARCH, smoke: bool = Fals
     return dec
 
 
-@torch.no_grad()
 def cpu_parity(device, params: dict, arch: str = MOE_ARCH, smoke: bool = False,
                tokens: int = smoke_lm.CPU_TOKENS, **overrides) -> dict:
-    """One f32 forward on `device` and on the CPU from the same params
-    (`params` cast to f32, copied): the last token's logits' largest
-    |difference|, and the routing decisions that differ."""
+    """`smoke_lm.cpu_parity` from `params` (the CPU's forward, then the
+    card's), with the routing decisions that differ between the two."""
     if not smoke:
         overrides = {"n_layers": TRAIN_LAYERS, **overrides}
-    cfg = smoke_lm._config(arch, smoke, dtype="float32", **overrides)
-    toks = torch.from_numpy(smoke_lm._tokens((1, tokens), cfg.vocab, step=2))
-    card = LM(cfg, device=device)
-    with moe.record_routes() as got_routes:
-        got = card.forward(_f32(params), tokens=toks.to(card.device))[0][:, -1].cpu()
-    cpu = LM(cfg, device="cpu")
-    with moe.record_routes() as want_routes:
-        want = cpu.forward(_f32(smoke_lm._to(params, "cpu")), tokens=toks)[0][:, -1]
-    err = float((got - want).abs().max())
-    return {"max_abs_err": err, "logit_scale": float(want.abs().max()),
-            "tol": smoke_lm.CPU_LOGITS_TOL, "ok": err <= smoke_lm.CPU_LOGITS_TOL,
-            "routes": route_flips(want_routes, got_routes)}
+    with moe.record_routes() as log:
+        out = smoke_lm.cpu_parity(device, arch, smoke, tokens=tokens, params=params,
+                                  **overrides)
+    half = len(log) // 2
+    out["routes"] = route_flips(log[:half], log[half:])
+    return out
 
 
 @torch.no_grad()

@@ -42,7 +42,11 @@ stable permutation exactly and #7 the plain merge bit for bit at F = 3, 64,
 wide commit's tiles, each the same bytes on two launches; the 1-D windowed
 commit gives the plain version's bytes.  The same at deepseek-v2-lite's and
 deepseek-v3's widths (F = 2048 into 102,400 rows, F = 7168 into 129,280,
-and a stream crossing the sort's 4096-entry tile).  The MoE router
+and a stream crossing the sort's 4096-entry tile), and at zamba2-7b's
+(F = 3584 into 32,000 rows, 15 address bits).  One full-width Mamba-1
+(falcon-mamba-7b) and Mamba-2 (zamba2-7b) layer at f32 on the card against
+the CPU on 300 tokens (two chunks and a remainder), from an incoming state:
+outputs and states within `SSM_CARD_TOL` of the largest |value|.  The MoE router
 (`models.moe.route`) at f32 on the card against the CPU: expert ids exactly
 wherever the k-th to (k+1)-th selection margin exceeds `ROUTE_MARGIN`, the
 gates within 1e-6 where the ids agree.
@@ -817,6 +821,42 @@ def test_bum_sort_and_commit_on_deepseek_vocab_rows(m, f, rows, card):
     """The wide route at deepseek-v2-lite's (F = 2048) and deepseek-v3's
     (F = 7168) embedding widths: the checks of the test above."""
     test_bum_sort_and_commit_on_vocab_wide_rows(m, f, rows, card)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,f,rows", [(1024, 3584, 32_000), (5000, 3584, 32_000)])
+def test_bum_sort_and_commit_on_zamba2_vocab_rows(m, f, rows, card):
+    """The wide route at zamba2-7b's embedding width (F = 3584: 896 float4
+    vectors, seven of #7's 128-vector chunks) into its 32,000 rows (15
+    address bits): the checks of the test above."""
+    test_bum_sort_and_commit_on_vocab_wide_rows(m, f, rows, card)
+
+
+# f32 Mamba layer at full width, card (TF32 off) against the CPU: both sum
+# each product in f32 in their own orders (the 4096- / 3584-wide
+# projections, the scan's 128 steps), relative to the largest |value|.
+SSM_CARD_TOL = 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-7b"])
+def test_full_width_ssm_layer_on_the_card_matches_the_cpu(arch, card):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    gen = torch.Generator().manual_seed(len(arch))
+    params = ssm.init_ssm(gen, cfg, torch.float32)
+    x = torch.randn((2, 300, cfg.d_model), generator=gen)
+    state = {k: v + 0.5 * torch.randn(v.shape, generator=gen)
+             for k, v in ssm.init_ssm_state(cfg, 2, torch.float32).items()}
+    want_y, want_state = ssm.ssm_block(params, cfg, x, state)
+    with torch.no_grad():
+        got_y, got_state = ssm.ssm_block({k: v.to(card) for k, v in params.items()}, cfg,
+                                         x.to(card), {k: v.to(card) for k, v in state.items()})
+    for got, want in [(got_y, want_y)] + [(got_state[k], want_state[k]) for k in want_state]:
+        scale = float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= SSM_CARD_TOL * scale
 
 
 # The least k-th to (k+1)-th selection margin at which the card's router

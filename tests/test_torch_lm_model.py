@@ -18,8 +18,9 @@ bit for bit; `TrainDriver` runs, preempts and `resume_or_init` as
 `tests/test_substrate.py` holds the reference's; both CLIs on a smoke
 config with ``--device cpu`` (the train CLI's resume byte for byte);
 `param_count` of the five full configs equal to the reference's; the
-three archs not ported yet raise NotImplementedError naming their ROADMAP
-item (the deepseek archs: `tests/test_torch_lm_moe.py`).
+arch not ported yet raises NotImplementedError naming its ROADMAP item
+(the deepseek archs: `tests/test_torch_lm_moe.py`; the SSM archs:
+`tests/test_torch_lm_ssm.py`).
 """
 import dataclasses
 
@@ -52,7 +53,8 @@ from repro_torch.runtime import DriverConfig, StragglerStats, TrainDriver, resum
 
 DENSE = ["qwen1.5-0.5b", "qwen3-8b", "yi-9b", "chatglm3-6b", "qwen2-vl-2b"]
 MOE = ["deepseek-v2-lite-16b", "deepseek-v3-671b"]     # tests/test_torch_lm_moe.py
-OTHERS = {"falcon-mamba-7b": "2.2", "zamba2-7b": "2.2", "whisper-medium": "2.3"}
+SSM = ["falcon-mamba-7b", "zamba2-7b"]                 # tests/test_torch_lm_ssm.py
+OTHERS = {"whisper-medium": "2.3"}
 LOGITS_TOL, LOSS_TOL, GRAD_TOL = 2e-5, 2e-6, 1e-6
 
 
@@ -315,7 +317,7 @@ def test_param_counts_and_unported_archs():
         assert counting.param_count(get_config(arch)) == j_get_config(arch).param_count(), arch
     assert counting.param_count(get_config("qwen1.5-0.5b")) == 463_987_712
     names = lambda archs: sorted(get_config(a).name for a in archs)  # noqa: E731
-    assert names(DENSE + MOE + list(OTHERS)) == names(list_archs())
+    assert names(DENSE + MOE + SSM + list(OTHERS)) == names(list_archs())
     for arch, item in OTHERS.items():
         with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
             LM(get_smoke_config(arch), device="cpu")

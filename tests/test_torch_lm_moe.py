@@ -366,10 +366,13 @@ def test_bf16_router_leaves_stay_f32_through_the_bridge_a_step_and_a_checkpoint(
 
 
 def test_three_archs_still_raise_naming_their_roadmap_item():
-    for arch, item in {"falcon-mamba-7b": "2.2", "zamba2-7b": "2.2",
-                       "whisper-medium": "2.3"}.items():
-        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
-            LM(get_smoke_config(arch), device="cpu")
+    """Of the three archs not ported with MLA + MoE, the SSM two construct
+    since slice 18 (`tests/test_torch_lm_ssm.py`); whisper-medium still
+    raises, naming its item."""
+    for arch in ("falcon-mamba-7b", "zamba2-7b"):
+        assert LM(get_smoke_config(arch), device="cpu").segs
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2.3"):
+        LM(get_smoke_config("whisper-medium"), device="cpu")
 
 
 def test_phase_13_rehearsal_on_the_cpu(tmp_path, monkeypatch):
