@@ -51,7 +51,13 @@ decisions that differ, then trains falcon-mamba-7b (Mamba-1) and zamba2-7b
 to 3 and 7; the embedding backward through #7 and its sort on 4096- and
 3584-wide rows; zamba2 stopped and resumed byte for byte), holds their
 prefill / decode of 300 tokens and the card against the CPU at f32, serves
-both at full width and depth, and prints
+both at full width and depth, then trains whisper-medium's encoder-decoder
+at full width and depth (24 + 24 layers; 4 x 448 tokens beside 4 x 1500
+frame embeddings through ``launch.train.train_step`` under
+``runtime.TrainDriver``; the embedding backward through #7 and its sort on
+1024-wide rows into 51,865), holds its prefill / decode and the card
+against the CPU at f32 on 2 + 2 layers, serves it at full width and depth
+through ``launch.serve``, and prints
 one JSON line with every kernel's report and, last, the device line.  It exits non-zero,
 with no result, on any failure, and when no CUDA card is present.  The phases live in ``src/repro_torch/smoke.py``.
 """

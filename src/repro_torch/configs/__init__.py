@@ -1,6 +1,6 @@
 """Architecture registry: `get_config(name)`, `get_smoke_config(name)`,
-`list_archs()` -- the port's copy of `repro.configs`, pure data (its shape
-suites, `shapes.py`, are not ported yet: ROADMAP Queue 1 item 2.4)."""
+`list_archs()` -- the port's copy of `repro.configs`, pure data; the shape
+suites and their meta-device batches are `configs.shapes`."""
 from __future__ import annotations
 
 import importlib

@@ -10,6 +10,10 @@ request scheduler keeps the decode batch full: a sequence that reaches its
 budget is replaced by the next queued request, whose prompt is prefilled
 alone and copied into the finished sequence's slot of every layer's cache
 (axis 1 of the stacked caches).  The loop is `serve`, which `main` calls.
+An encoder-decoder (whisper's audio stub) is served as the reference
+serves it: `batch` rows of frame embeddings drawn from the numpy generator
+before the prompts, prefilled with them, each decode step handed the
+encoder output; a refilled slot is prefilled with the first row of frames.
 """
 from __future__ import annotations
 
@@ -27,9 +31,9 @@ from ..optim.adamw import tree_paths
 
 def _reset_slot(caches: dict, fresh: dict, i: int) -> None:
     """Copy a one-sequence prefill's caches into slot i of the batch's
-    stacked caches, in place: KV caches, SSM states and the shared
-    block's caches alike, batch being axis 1 of every leaf ((n_layers, B,
-    ...) or (n_groups, B, ...))."""
+    stacked caches, in place: KV caches, the encoder's cross keys and
+    values, SSM states and the shared block's caches alike, batch being
+    axis 1 of every leaf ((n_layers, B, ...) or (n_groups, B, ...))."""
     fresh_leaves = dict(tree_paths(fresh))
     for path, c in tree_paths(caches):
         if c.ndim >= 2:
@@ -55,13 +59,18 @@ def serve(arch: str = "qwen3-8b", smoke: bool = True, batch: int = 4, prompt_len
     max_seq = p + max_new + 1
     dev = model.device
 
+    kw = {}
+    if cfg.frontend == "audio_stub":
+        kw["encoder_embeds"] = torch.as_tensor(
+            rng.normal(size=(b, cfg.encoder_seq, cfg.d_model)), dtype=torch.float32).to(dev)
     queue = [torch.as_tensor(rng.integers(1, cfg.vocab, (p,)), dtype=torch.int32).to(dev)
              for _ in range(requests)]
     active = [queue.pop(0) for _ in range(min(b, len(queue)))]
     while len(active) < b:
         active.append(torch.zeros((p,), dtype=torch.int32, device=dev))
 
-    logits, caches, _ = model.prefill(params, tokens=torch.stack(active), max_seq=max_seq)
+    logits, caches, enc_out = model.prefill(params, tokens=torch.stack(active),
+                                            max_seq=max_seq, **kw)
     tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
     new_counts = [1] * b
     finite = torch.isfinite(logits).all()       # a device flag, read once at the end
@@ -70,7 +79,7 @@ def serve(arch: str = "qwen3-8b", smoke: bool = True, batch: int = 4, prompt_len
     steps = 0
     while completed < requests and steps < requests * max_new:
         pos = torch.tensor([[p + c - 1] for c in new_counts], dtype=torch.int32, device=dev)
-        logits, caches = model.decode_step(params, caches, tok, pos)
+        logits, caches = model.decode_step(params, caches, tok, pos, encoder_out=enc_out)
         finite &= torch.isfinite(logits).all()
         tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
         steps += 1
@@ -81,7 +90,8 @@ def serve(arch: str = "qwen3-8b", smoke: bool = True, batch: int = 4, prompt_len
                 new_counts[i] = 1
                 if queue:
                     _, fresh, _ = model.prefill(params, tokens=queue.pop(0)[None],
-                                                max_seq=max_seq)
+                                                max_seq=max_seq,
+                                                **{k: v[:1] for k, v in kw.items()})
                     _reset_slot(caches, fresh, i)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)

@@ -16,7 +16,11 @@ a resumed run ends on the uninterrupted run's bytes wherever every op is
 deterministic (on a card: with ``dedup_embed_grad=True``, the BUM-merged
 embedding backward, since the default `index_add_` uses float atomics).
 ``--compress-grads`` and ``--coordinator`` need `parallel/`, which is not
-ported yet (ROADMAP Queue 1 item 2.5): they raise.
+ported yet (ROADMAP Queue 1 item 2.5): they raise.  The step feeds tokens
+only, as the reference's does, so an encoder-decoder (whisper-medium)
+raises the model's ValueError naming `encoder_embeds` at its first step;
+it trains through `train_step` with a batch in `configs.shapes.
+input_specs`' train layout (chip_smoke's phase 15, `smoke_whisper`).
 """
 from __future__ import annotations
 

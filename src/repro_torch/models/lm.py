@@ -8,9 +8,16 @@ depth-1 multi-token-prediction head (`mtp`: `loss` adds 0.3 times its
 loss; its embedding call is a second `embed`); and for the SSM stacks:
 falcon-mamba-7b (Mamba-1) and zamba2-7b (Mamba-2 with the weight-shared
 attention block `params["shared_attn"]` every `hybrid_attn_every` layers,
-whose caches are `caches["shared_attn"]`, stacked (n_groups, ...)).
-Whisper's encoder-decoder raises NotImplementedError naming its ROADMAP
-item.
+whose caches are `caches["shared_attn"]`, stacked (n_groups, ...)); and
+whisper-medium's encoder-decoder: `encode` runs the `enc_attn` stack
+(`params["enc_segs"]`, `params["enc_norm"]`) over the frame embeddings the
+audio stub feeds (`encoder_embeds`, (B, encoder_seq, D)), and each
+`dec_attn` layer attends to its output.  Both stacks add sinusoidal
+positions (`sinusoidal`, `sinusoidal_at`), cast to the model's dtype
+before the add, as the reference adds them.  An encoder-decoder's
+`forward`, `loss` and `prefill` need `encoder_embeds` (a ValueError
+names it otherwise; the reference fails there on None), and `prefill`
+returns the encoder output as its third value.
 
 `LM` holds the config and the device; params and caches are nested dicts
 of tensors with the reference's keys, stacked (n_layers, ...) segment
@@ -29,22 +36,30 @@ from .config import ModelConfig
 from .transformer import segments
 
 
-def unported(cfg: ModelConfig) -> str | None:
-    """The ROADMAP item that ports `cfg`'s architecture, or None if the
-    port runs it."""
-    if cfg.enc_dec:
-        return tfm.NOT_PORTED["dec_attn"]
-    for kind, _ in segments(cfg):
-        if kind in tfm.NOT_PORTED:
-            return tfm.NOT_PORTED[kind]
-    return None
+def _sinusoid(pos: torch.Tensor, d: int, dtype) -> torch.Tensor:
+    """pos (..., 1) f32 -> (..., d): sin then cos of pos / 10000^(2i/d),
+    concatenated, computed in f32 and cast to `dtype`.  Each denominator is
+    the f32 rounding of the f64 power, as XLA's f32 `power` gives it
+    (torch's f32 `pow` is an ulp off at four of whisper's 512, which moves
+    an angle at position 1500 by up to 3e-5)."""
+    dim = torch.arange(d // 2, device=pos.device).to(torch.float32)
+    ang = pos / torch.pow(10000.0, (2 * dim / d).to(torch.float64)).to(torch.float32)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def sinusoidal(seq: int, d: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """The (seq, d) sinusoidal position table."""
+    return _sinusoid(torch.arange(seq, device=device).to(torch.float32)[:, None], d, dtype)
+
+
+def sinusoidal_at(pos: torch.Tensor, d: int, dtype) -> torch.Tensor:
+    """The table's rows at positions pos (B, 1) -> (B, 1, d): the bytes of
+    `sinusoidal(S, d, dtype)[pos]`."""
+    return _sinusoid(pos[..., None].to(torch.float32), d, dtype)
 
 
 class LM:
     def __init__(self, cfg: ModelConfig, device="cuda"):
-        item = unported(cfg)
-        if item is not None:
-            raise NotImplementedError(f"{cfg.name} is not ported yet: {item}")
         self.cfg = cfg
         self.device = torch.device(device)
         self.segs = segments(cfg)
@@ -72,6 +87,10 @@ class LM:
         if not cfg.tie_embeddings:
             params["lm_head"] = layers.normal_init(generator, (cfg.d_model, cfg.vocab),
                                                    dtype=dtype, device=dev)
+        if cfg.enc_dec:
+            params["enc_segs"] = tfm.init_segment(generator, cfg, "enc_attn",
+                                                  cfg.n_encoder_layers, dtype, dev)
+            params["enc_norm"] = tfm._init_norm(cfg, dtype, dev)
         if cfg.mtp_depth:
             params["mtp"] = {
                 "proj": layers.normal_init(generator, (2 * cfg.d_model, cfg.d_model),
@@ -100,18 +119,38 @@ class LM:
         head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
         return (x @ head).to(torch.float32)
 
+    # ---- encoder (whisper) ----
+
+    def encode(self, params, encoder_embeds):
+        """(B, S_enc, D) frame embeddings -> the encoder output (B, S_enc, D)."""
+        cfg = self.cfg
+        b, s, _ = encoder_embeds.shape
+        x = encoder_embeds.to(self.dtype) + sinusoidal(s, cfg.d_model, self.dtype,
+                                                       self.device)[None]
+        x = tfm.apply_segment(params["enc_segs"], cfg, "enc_attn", x,
+                              self.default_positions(b, s))
+        return tfm.apply_norm(cfg, params["enc_norm"], x)
+
     # ---- forward (train / prefill logits) ----
 
-    def _inputs(self, params, tokens, embeds):
+    def _inputs(self, params, tokens, embeds, encoder_embeds):
+        """(decoder input x, B, S, the encoder output or None)."""
         if embeds is not None:
             x = embeds.to(self.dtype)
         else:
             x = self.embed(params, tokens)
-        return x, x.shape[0], x.shape[1]
+        b, s = x.shape[0], x.shape[1]
+        if not self.cfg.enc_dec:
+            return x, b, s, None
+        if encoder_embeds is None:
+            raise ValueError(f"{self.cfg.name} is an encoder-decoder: pass encoder_embeds "
+                             f"(B, {self.cfg.encoder_seq}, {self.cfg.d_model})")
+        x = x + sinusoidal(s, self.cfg.d_model, self.dtype, self.device)[None]
+        return x, b, s, self.encode(params, encoder_embeds)
 
-    def forward(self, params, tokens=None, embeds=None, positions=None):
+    def forward(self, params, tokens=None, embeds=None, positions=None, encoder_embeds=None):
         """-> (logits (B, S, V) f32, final hidden states (B, S, D))."""
-        x, b, s = self._inputs(params, tokens, embeds)
+        x, b, s, enc_out = self._inputs(params, tokens, embeds, encoder_embeds)
         if positions is None:
             positions = self.default_positions(b, s)
         for i, (kind, _) in enumerate(self.segs):
@@ -120,19 +159,20 @@ class LM:
                 x = tfm.apply_hybrid_segment(seg, self.cfg, kind, x, positions,
                                              params["shared_attn"])
             else:
-                x = tfm.apply_segment(seg, self.cfg, kind, x, positions)
+                x = tfm.apply_segment(seg, self.cfg, kind, x, positions, enc_out)
         h = tfm.apply_norm(self.cfg, params["final_norm"], x)
         return self.logits(params, h), h
 
     # ---- loss ----
 
     def loss(self, params, batch: dict) -> torch.Tensor:
-        """batch: tokens (B, S), optionally embeds / positions.  Next-token
-        cross-entropy, in f32; the MTP head adds deepseek-v3's auxiliary
-        loss."""
+        """batch: tokens (B, S), optionally embeds / positions /
+        encoder_embeds.  Next-token cross-entropy, in f32; the MTP head adds
+        deepseek-v3's auxiliary loss."""
         tokens = batch["tokens"]
         logits, h = self.forward(params, tokens=None if "embeds" in batch else tokens,
-                                 embeds=batch.get("embeds"), positions=batch.get("positions"))
+                                 embeds=batch.get("embeds"), positions=batch.get("positions"),
+                                 encoder_embeds=batch.get("encoder_embeds"))
         loss = _nll(logits[:, :-1], tokens[:, 1:])
         if self.cfg.mtp_depth:
             loss = loss + 0.3 * self._mtp_loss(params, h, tokens)
@@ -168,14 +208,15 @@ class LM:
                 [one] * (cfg.n_layers // cfg.hybrid_attn_every), one)
         return caches
 
-    def prefill(self, params, tokens=None, embeds=None, positions=None,
+    def prefill(self, params, tokens=None, embeds=None, positions=None, encoder_embeds=None,
                 max_seq: int | None = None):
-        """Run the prompt: (last-token logits (B, V) f32, filled caches,
-        None -- the encoder output an encoder-decoder would return).  The
-        caches hold the prompt's keys and values as `decode_step` expects;
-        decoding goes on at pos = prompt length.  Pass `max_seq` > the
-        prompt length to leave room for generated tokens."""
-        x, b, s = self._inputs(params, tokens, embeds)
+        """Run the prompt: (last-token logits (B, V) f32, filled caches, the
+        encoder output of an encoder-decoder or None).  The caches hold the
+        prompt's keys and values (and the encoder's, per decoder layer) as
+        `decode_step` expects; decoding goes on at pos = prompt length.
+        Pass `max_seq` > the prompt length to leave room for generated
+        tokens."""
+        x, b, s, enc_out = self._inputs(params, tokens, embeds, encoder_embeds)
         if positions is None:
             positions = self.default_positions(b, s)
         caches: dict[str, Any] = {}
@@ -186,16 +227,18 @@ class LM:
                     params[key], self.cfg, kind, x, positions, params["shared_attn"], max_seq)
             else:
                 x, caches[key] = tfm.apply_segment_prefill(params[key], self.cfg, kind, x,
-                                                           positions, max_seq)
+                                                           positions, max_seq, enc_out)
         h = tfm.apply_norm(self.cfg, params["final_norm"], x)
-        return self.logits(params, h[:, -1:, :])[:, 0], caches, None
+        return self.logits(params, h[:, -1:, :])[:, 0], caches, enc_out
 
     def decode_step(self, params, caches, tokens, pos, encoder_out=None):
         """tokens (B, 1) int, pos (B, 1) absolute positions ->
-        (logits (B, V) f32, new caches)."""
-        if encoder_out is not None:
-            raise NotImplementedError(f"encoder outputs: {tfm.NOT_PORTED['dec_attn']}")
+        (logits (B, V) f32, new caches).  `encoder_out` is accepted as the
+        reference's is, and unread there too: the cross-attention reads the
+        encoder's keys and values that `prefill` cached."""
         x = self.embed(params, tokens)
+        if self.cfg.enc_dec:
+            x = x + sinusoidal_at(pos, self.cfg.d_model, self.dtype)
         rope_positions = None
         if self.cfg.rope == "mrope":
             rope_positions = pos[None].expand((3,) + tuple(pos.shape))

@@ -10,13 +10,17 @@ layer axis:
     zamba2           [('mamba2', n)] + a weight-shared attention block
     whisper          encoder [('enc_attn', n)] / decoder [('dec_attn', n)]
 
-`segments` gives every architecture's layout.  The `attn_dense`,
-`mla_dense`, `mla_moe`, `attn_moe`, `mamba1` and `mamba2` kinds are
-ported (the MoE blocks on the dense expert path, `moe.moe_layer` without
-a mesh; the leading dense layers of an MoE config take `moe.dense_d_ff`;
-an SSM block is `ln1` and `ssm` only, and its decode cache is the SSM
-state itself, `{"h", "conv_tail"}`); whisper's kinds raise
-NotImplementedError naming their ROADMAP item.  The reference scans a
+`segments` gives every architecture's layout; every kind is ported (the
+MoE blocks on the dense expert path, `moe.moe_layer` without a mesh; the
+leading dense layers of an MoE config take `moe.dense_d_ff`; an SSM block
+is `ln1` and `ssm` only, and its decode cache is the SSM state itself,
+`{"h", "conv_tail"}`).  Whisper's `enc_attn` is non-causal self-attention;
+its `dec_attn` adds `ln_x` and a cross-attention sublayer (`xattn`, no
+positional rotation, no mask) over the encoder output, skipped when
+`encoder_out` is None.  Its prefill projects the encoder output's keys and
+values once, with their biases, into the block's cache `cross` (the
+encoder's length, not padded to `max_seq`); its decode reads them there
+and never the encoder output.  The reference scans a
 segment with `lax.scan`; here each stacked leaf is unbound once a pass
 (`torch.unbind`, whose backward stacks the layers' gradients once) and the
 layers run in a Python loop, each under `torch.utils.checkpoint` when the
@@ -45,19 +49,6 @@ from .config import ModelConfig
 from ..optim.adamw import tree_from_paths, tree_paths
 
 SSM_KINDS = ("mamba1", "mamba2")
-PORTED = ("attn_dense", "mla_dense", "mla_moe", "attn_moe") + SSM_KINDS
-
-# the ROADMAP item that ports each block kind not ported yet
-NOT_PORTED = {
-    "enc_attn": "ROADMAP Queue 1 item 2.3 (whisper's encoder-decoder)",
-    "dec_attn": "ROADMAP Queue 1 item 2.3 (whisper's encoder-decoder)",
-}
-
-
-def require_ported(kind: str) -> None:
-    if kind not in PORTED:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet: {NOT_PORTED.get(kind, 'ROADMAP Queue 1')}")
 
 
 # --- segment layout -------------------------------------------------------------
@@ -95,7 +86,6 @@ def apply_norm(cfg: ModelConfig, p, x):
 
 
 def init_block(generator, cfg: ModelConfig, kind: str, dtype, device=None) -> dict:
-    require_ported(kind)
     p: dict[str, Any] = {"ln1": _init_norm(cfg, dtype, device)}
     if kind in SSM_KINDS:
         p["ssm"] = ssm.init_ssm(generator, cfg, dtype, device)
@@ -112,6 +102,9 @@ def init_block(generator, cfg: ModelConfig, kind: str, dtype, device=None) -> di
         if cfg.moe is not None and cfg.moe.dense_d_ff:
             d_ff = cfg.moe.dense_d_ff            # deepseek's leading dense layers are wider
         p["ffn"] = ffn.init_ffn(generator, cfg.d_model, d_ff, cfg.act, dtype, device)
+    if kind == "dec_attn":                   # whisper's decoder: the cross-attention sublayer
+        p["ln_x"] = _init_norm(cfg, dtype, device)
+        p["xattn"] = attention.init_attention(generator, cfg, dtype, device)
     return p
 
 
@@ -124,26 +117,48 @@ def _mlp(params, cfg: ModelConfig, kind: str, h):
     return ffn.ffn(params["ffn"], h, cfg.act)
 
 
-def apply_block(params, cfg: ModelConfig, kind: str, x, positions):
+def apply_block(params, cfg: ModelConfig, kind: str, x, positions, encoder_out=None):
     """Full-sequence (train / prefill) block."""
-    require_ported(kind)
     h = apply_norm(cfg, params["ln1"], x)
     if kind in SSM_KINDS:
         return x + ssm.ssm_block(params["ssm"], cfg, h)[0]
     if kind.startswith("mla"):
         x = x + attention.mla_attention(params["attn"], cfg, h, positions)
     else:
-        x = x + attention.attention(params["attn"], cfg, h, positions)
+        x = x + attention.attention(params["attn"], cfg, h, positions,
+                                    causal=kind != "enc_attn")
+    if kind == "dec_attn" and encoder_out is not None:
+        h = apply_norm(cfg, params["ln_x"], x)
+        x = x + _cross_attention(params["xattn"], cfg, h,
+                                 *_cross_kv(params["xattn"], cfg, encoder_out))
     h = apply_norm(cfg, params["ln2"], x)
     return x + _mlp(params, cfg, kind, h)
+
+
+def _cross_kv(params, cfg: ModelConfig, encoder_out):
+    k = torch.einsum("bsd,dke->bske", encoder_out, params["wk"])
+    v = torch.einsum("bsd,dke->bske", encoder_out, params["wv"])
+    if cfg.qkv_bias:
+        k, v = k + params["bk"], v + params["bv"]
+    return k, v
+
+
+def _cross_attention(params, cfg: ModelConfig, x, k, v):
+    """Decoder -> encoder attention against the encoder's keys and values:
+    no positional rotation, no causal mask."""
+    q = torch.einsum("bsd,dhe->bshe", x, params["wq"])
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+    out = attention._sdpa(q, k, v, causal=False)
+    return torch.einsum("bshe,hed->bsd", out, params["wo"])
 
 
 def apply_block_decode(params, cfg: ModelConfig, kind: str, x, cache, pos,
                        rope_positions=None):
     """One-token decode: (x, the block's new cache).  pos (B, 1) is the
     cache slot; rope_positions may carry M-RoPE streams.  An SSM block's
-    cache is its state."""
-    require_ported(kind)
+    cache is its state; a `dec_attn` block's cross-attention reads the
+    encoder's keys and values from `cache["cross"]`."""
     h = apply_norm(cfg, params["ln1"], x)
     if kind in SSM_KINDS:
         y, state = ssm.ssm_block(params["ssm"], cfg, h, cache)
@@ -152,14 +167,17 @@ def apply_block_decode(params, cfg: ModelConfig, kind: str, x, cache, pos,
         else attention.decode_attention
     y, cache_sa = decode(params["attn"], cfg, h, cache["self"], pos, rope_positions)
     x = x + y
+    if kind == "dec_attn":
+        h = apply_norm(cfg, params["ln_x"], x)
+        x = x + _cross_attention(params["xattn"], cfg, h, cache["cross"]["k"],
+                                 cache["cross"]["v"])
     h = apply_norm(cfg, params["ln2"], x)
     return x + _mlp(params, cfg, kind, h), {**cache, "self": cache_sa}
 
 
 def apply_block_prefill(params, cfg: ModelConfig, kind: str, x, positions,
-                        max_seq: int | None = None):
+                        max_seq: int | None = None, encoder_out=None):
     """Full-prompt pass that also returns the block's decode cache."""
-    require_ported(kind)
     h = apply_norm(cfg, params["ln1"], x)
     if kind in SSM_KINDS:
         y, state = ssm.ssm_block(params["ssm"], cfg, h)
@@ -168,9 +186,15 @@ def apply_block_prefill(params, cfg: ModelConfig, kind: str, x, positions,
         y, c_kv, k_rope = attention.mla_attention_with_cache(params["attn"], cfg, h, positions)
         cache = {"self": {"c_kv": _pad_seq(c_kv, max_seq), "k_rope": _pad_seq(k_rope, max_seq)}}
     else:
-        y, k, v = attention.attention_with_kv(params["attn"], cfg, h, positions)
+        y, k, v = attention.attention_with_kv(params["attn"], cfg, h, positions,
+                                              causal=kind != "enc_attn")
         cache = {"self": {"k": _pad_seq(k, max_seq), "v": _pad_seq(v, max_seq)}}
     x = x + y
+    if kind == "dec_attn":
+        h = apply_norm(cfg, params["ln_x"], x)
+        xk, xv = _cross_kv(params["xattn"], cfg, encoder_out)
+        cache["cross"] = {"k": xk, "v": xv}
+        x = x + _cross_attention(params["xattn"], cfg, h, xk, xv)
     h = apply_norm(cfg, params["ln2"], x)
     return x + _mlp(params, cfg, kind, h), cache
 
@@ -186,12 +210,14 @@ def _pad_seq(t, max_seq):
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dtype,
                      device=None):
-    require_ported(kind)
     if kind in SSM_KINDS:
         return ssm.init_ssm_state(cfg, batch, dtype, device)
     if kind.startswith("mla"):
         return {"self": attention.init_mla_cache(cfg, batch, max_seq, dtype, device)}
-    return {"self": attention.init_kv_cache(cfg, batch, max_seq, dtype, device)}
+    cache = {"self": attention.init_kv_cache(cfg, batch, max_seq, dtype, device)}
+    if kind == "dec_attn":                   # the encoder's keys and values, set by prefill
+        cache["cross"] = attention.init_kv_cache(cfg, batch, cfg.encoder_seq, dtype, device)
+    return cache
 
 
 # --- stacked segments ----------------------------------------------------------------
@@ -234,19 +260,20 @@ def init_segment(generator, cfg: ModelConfig, kind: str, n: int, dtype, device=N
     return tree_from_paths(stacked)
 
 
-def _apply_layer(layer, cfg: ModelConfig, kind: str, x, positions):
+def _apply_layer(layer, cfg: ModelConfig, kind: str, x, positions, encoder_out=None):
     """One block, under `torch.utils.checkpoint` when the config asks for
-    remat and gradients are recorded."""
+    remat and gradients are recorded (the encoder output an input of the
+    checkpoint, so the decoder's gradient reaches the encoder)."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(lambda p, h: apply_block(p, cfg, kind, h, positions), layer, x,
-                          use_reentrant=False)
-    return apply_block(layer, cfg, kind, x, positions)
+        return checkpoint(lambda p, h, e: apply_block(p, cfg, kind, h, positions, e), layer, x,
+                          encoder_out, use_reentrant=False)
+    return apply_block(layer, cfg, kind, x, positions, encoder_out)
 
 
-def apply_segment(params, cfg: ModelConfig, kind: str, x, positions):
+def apply_segment(params, cfg: ModelConfig, kind: str, x, positions, encoder_out=None):
     """Run a stacked segment layer by layer (remat per layer if configured)."""
     for layer in unstack_tree(params):
-        x = _apply_layer(layer, cfg, kind, x, positions)
+        x = _apply_layer(layer, cfg, kind, x, positions, encoder_out)
     return x
 
 
@@ -261,11 +288,11 @@ def apply_segment_decode(params, cfg: ModelConfig, kind: str, x, caches, pos,
 
 
 def apply_segment_prefill(params, cfg: ModelConfig, kind: str, x, positions,
-                          max_seq: int | None = None):
+                          max_seq: int | None = None, encoder_out=None):
     """Prefill through a segment: (x, stacked caches)."""
     outs = []
     for layer in unstack_tree(params):
-        x, cache = apply_block_prefill(layer, cfg, kind, x, positions, max_seq)
+        x, cache = apply_block_prefill(layer, cfg, kind, x, positions, max_seq, encoder_out)
         outs.append(cache)
     return x, stack_trees(outs)
 

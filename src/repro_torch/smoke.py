@@ -197,7 +197,18 @@ card and fails on anything wrong -- there is no CPU fallback.
    a 300-token prompt against a full forward and the card against the CPU
    at f32; both served at full width and depth (``lm_ssm_serve``,
    ``lm_hybrid_serve``);
-15. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
+15. whisper's encoder-decoder (slice 19's main paths,
+   `smoke_whisper.whisper_phase`): #7 and `bum_sort` on whisper-medium's
+   embedding rows (4 x 448 tokens at F = 1024 into 51,865 rows) exactly
+   against their plain versions; whisper-medium at full width and depth
+   (24 + 24 layers) trained 30 steps of 4 x 448 tokens beside 4 x 1500
+   frame embeddings through `launch.train.train_step` and `TrainDriver`,
+   with the default and the BUM-merged embedding backward
+   (``lm_encdec_train``, ``lm_encdec_train_dedup``: #7 and `bum_sort` once
+   a step), the merged runs byte-identical from one seed; prefill / decode
+   against a full forward and the card against the CPU at f32 on 2 + 2
+   layers; served at full width and depth (``lm_encdec_serve``);
+16. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
    summed over the main paths, and per path) and, last, the device line.
 """
 from __future__ import annotations
@@ -218,7 +229,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import kernels, smoke_lm, smoke_moe, smoke_ssm
+from . import kernels, smoke_lm, smoke_moe, smoke_ssm, smoke_whisper
 from .core import encoding as enc
 from .core import occupancy
 from .core.field import Field, FieldConfig
@@ -3416,6 +3427,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     ssm = smoke_ssm.ssm_phase(device, card)
     cases.extend(ssm["cases"])
+    # slice 19's main paths: whisper's encoder-decoder
+    gc.collect()
+    torch.cuda.empty_cache()
+    whisper = smoke_whisper.whisper_phase(device, card)
+    cases.extend(whisper["cases"])
 
     paths = {"train": run["launches"], "train_ngp": ngp["launches"], "serve": serve_launches,
              "service": service["launches"], "train_v3": v3["train_launches"],
@@ -3428,7 +3444,7 @@ def main() -> int:
              **{f"compiled_{name}": res["captured"]["launches"]
                 for name, res in compiled["paths"].items()},
              **{f"compiled_serve_{route}": res["launches"] for route, res in renders.items()},
-             **lm["launches"], **moe["launches"], **ssm["launches"]}
+             **lm["launches"], **moe["launches"], **ssm["launches"], **whisper["launches"]}
     report = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == name]

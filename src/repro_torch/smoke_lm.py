@@ -307,19 +307,21 @@ def decode_parity(device, params: dict, arch: str = LM_ARCH, smoke: bool = False
     """`prefill` of `prompt` tokens and `steps` decode steps (teacher-forced
     tokens) against one full `forward` over the same tokens, at the same
     positions: the largest |error| less the tolerance's allowance (<= 0
-    passes), per position."""
+    passes), per position.  An encoder-decoder takes frame embeddings
+    drawn after the tokens from the same seed."""
     model = LM(_config(arch, smoke, **overrides), device=device)
     rng = np.random.default_rng(seed)
     toks = torch.as_tensor(rng.integers(1, model.cfg.vocab, (batch, prompt + steps)),
                            dtype=torch.int32).to(model.device)
-    want, _ = model.forward(params, tokens=toks)
-    logits, caches, _ = model.prefill(params, tokens=toks[:, :prompt],
-                                      max_seq=prompt + steps + 1)
+    kw = _frames(model.cfg, rng, batch, model.device)
+    want, _ = model.forward(params, tokens=toks, **kw)
+    logits, caches, enc_out = model.prefill(params, tokens=toks[:, :prompt],
+                                            max_seq=prompt + steps + 1, **kw)
     got = [logits]
     for k in range(steps):
         pos = torch.full((batch, 1), prompt + k, dtype=torch.int32, device=model.device)
         logits, caches = model.decode_step(params, caches, toks[:, prompt + k: prompt + k + 1],
-                                           pos)
+                                           pos, encoder_out=enc_out)
         got.append(logits)
     rows = []
     for k, g in enumerate(got):
@@ -335,19 +337,31 @@ def cpu_parity(device, arch: str = LM_ARCH, smoke: bool = False, tokens: int = C
                seed: int = 0, params: dict | None = None, **overrides) -> dict:
     """One f32 forward of `arch` on `device` and on the CPU with the same
     params (`params` cast to f32, or drawn on the CPU; copied to each
-    side): the last token's logits' largest |difference|."""
+    side): the last token's logits' largest |difference|.  An
+    encoder-decoder takes one row of frame embeddings drawn from `seed`."""
     cfg = _config(arch, smoke, dtype="float32", **overrides)
     cpu = LM(cfg, device="cpu")
     if params is None:
         params = cpu.init(torch.Generator().manual_seed(seed))
     params = _to(params, "cpu", torch.float32)
     toks = torch.from_numpy(_tokens((1, tokens), cfg.vocab, step=2))
-    want = cpu.forward(params, tokens=toks)[0][:, -1]
+    kw = _frames(cfg, np.random.default_rng(seed), 1, "cpu")
+    want = cpu.forward(params, tokens=toks, **kw)[0][:, -1]
     card = LM(cfg, device=device)
-    got = card.forward(_to(params, device), tokens=toks.to(card.device))[0][:, -1].cpu()
+    got = card.forward(_to(params, device), tokens=toks.to(card.device),
+                       **_to(kw, card.device))[0][:, -1].cpu()
     return {"max_abs_err": float((got - want).abs().max()),
             "logit_scale": float(want.abs().max()), "tol": CPU_LOGITS_TOL,
             "ok": bool((got - want).abs().max() <= CPU_LOGITS_TOL)}
+
+
+def _frames(cfg, rng: np.random.Generator, batch: int, device) -> dict:
+    """An encoder-decoder's `encoder_embeds` (normal draws of the audio
+    stub's shape) as keyword arguments; none for a decoder."""
+    if not cfg.enc_dec:
+        return {}
+    return {"encoder_embeds": torch.as_tensor(
+        rng.normal(size=(batch, cfg.encoder_seq, cfg.d_model)), dtype=torch.float32).to(device)}
 
 
 def _to(tree, device, dtype=None):

@@ -42,11 +42,15 @@ stable permutation exactly and #7 the plain merge bit for bit at F = 3, 64,
 wide commit's tiles, each the same bytes on two launches; the 1-D windowed
 commit gives the plain version's bytes.  The same at deepseek-v2-lite's and
 deepseek-v3's widths (F = 2048 into 102,400 rows, F = 7168 into 129,280,
-and a stream crossing the sort's 4096-entry tile), and at zamba2-7b's
-(F = 3584 into 32,000 rows, 15 address bits).  One full-width Mamba-1
+and a stream crossing the sort's 4096-entry tile), at zamba2-7b's
+(F = 3584 into 32,000 rows, 15 address bits) and at whisper-medium's
+(F = 1024 into 51,865 rows, 16 bits).  One full-width Mamba-1
 (falcon-mamba-7b) and Mamba-2 (zamba2-7b) layer at f32 on the card against
 the CPU on 300 tokens (two chunks and a remainder), from an incoming state:
-outputs and states within `SSM_CARD_TOL` of the largest |value|.  The MoE router
+outputs and states within `SSM_CARD_TOL` of the largest |value|.  One
+full-width whisper-medium `enc_attn` layer (1500 frames) and `dec_attn`
+layer (448 tokens attending to them) at f32 on the card against the CPU:
+outputs within `WHISPER_CARD_TOL` of the largest |value|.  The MoE router
 (`models.moe.route`) at f32 on the card against the CPU: expert ids exactly
 wherever the k-th to (k+1)-th selection margin exceeds `ROUTE_MARGIN`, the
 gates within 1e-6 where the ids agree.
@@ -830,6 +834,47 @@ def test_bum_sort_and_commit_on_zamba2_vocab_rows(m, f, rows, card):
     vectors, seven of #7's 128-vector chunks) into its 32,000 rows (15
     address bits): the checks of the test above."""
     test_bum_sort_and_commit_on_vocab_wide_rows(m, f, rows, card)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,f,rows", [(1792, 1024, 51_865), (5000, 1024, 51_865)])
+def test_bum_sort_and_commit_on_whisper_vocab_rows(m, f, rows, card):
+    """The wide route at whisper-medium's embedding width (F = 1024) into
+    its 51,865 rows (16 address bits), 4 x 448 tokens and a stream crossing
+    the sort's 4096-entry tile: the checks of the test above."""
+    test_bum_sort_and_commit_on_vocab_wide_rows(m, f, rows, card)
+
+
+# f32 whisper layer at full width, card (TF32 off) against the CPU: both sum
+# the 1024- / 4096-wide products and the 1500-term attention sums in f32 in
+# their own orders, relative to the largest |value|.
+WHISPER_CARD_TOL = 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["enc_attn", "dec_attn"])
+def test_full_width_whisper_layer_on_the_card_matches_the_cpu(kind, card):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adamw import tree_from_paths, tree_paths
+    cfg = dataclasses.replace(get_config("whisper-medium"), dtype="float32")
+    gen = torch.Generator().manual_seed(len(kind))
+    params = tree_from_paths([(p, t + 0.02 * torch.randn(t.shape, generator=gen))
+                              for p, t in tree_paths(tfm.init_block(gen, cfg, kind,
+                                                                    torch.float32))])
+    seq = 1500 if kind == "enc_attn" else 448
+    x = torch.randn((2, seq, cfg.d_model), generator=gen)
+    enc = torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=gen) \
+        if kind == "dec_attn" else None
+    pos = torch.arange(seq, dtype=torch.int32)[None].repeat(2, 1)
+    want = tfm.apply_block(params, cfg, kind, x, pos, enc)
+    with torch.no_grad():
+        got = tfm.apply_block(tree_from_paths([(p, t.to(card)) for p, t in tree_paths(params)]),
+                              cfg, kind, x.to(card), pos.to(card),
+                              None if enc is None else enc.to(card))
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want.detach()).abs().max()) <= WHISPER_CARD_TOL * scale
 
 
 # f32 Mamba layer at full width, card (TF32 off) against the CPU: both sum

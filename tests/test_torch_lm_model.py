@@ -17,10 +17,10 @@ within 1e-6 of JAX's (params and moments); `SyntheticLMStream`'s tokens
 bit for bit; `TrainDriver` runs, preempts and `resume_or_init` as
 `tests/test_substrate.py` holds the reference's; both CLIs on a smoke
 config with ``--device cpu`` (the train CLI's resume byte for byte);
-`param_count` of the five full configs equal to the reference's; the
-arch not ported yet raises NotImplementedError naming its ROADMAP item
-(the deepseek archs: `tests/test_torch_lm_moe.py`; the SSM archs:
-`tests/test_torch_lm_ssm.py`).
+`param_count` of the five full configs and of whisper-medium equal to the
+reference's, and every arch constructs (the deepseek archs:
+`tests/test_torch_lm_moe.py`; the SSM archs: `tests/test_torch_lm_ssm.py`;
+whisper-medium: `tests/test_torch_lm_whisper.py`).
 """
 import dataclasses
 
@@ -54,7 +54,7 @@ from repro_torch.runtime import DriverConfig, StragglerStats, TrainDriver, resum
 DENSE = ["qwen1.5-0.5b", "qwen3-8b", "yi-9b", "chatglm3-6b", "qwen2-vl-2b"]
 MOE = ["deepseek-v2-lite-16b", "deepseek-v3-671b"]     # tests/test_torch_lm_moe.py
 SSM = ["falcon-mamba-7b", "zamba2-7b"]                 # tests/test_torch_lm_ssm.py
-OTHERS = {"whisper-medium": "2.3"}
+OTHERS = ["whisper-medium"]                        # tests/test_torch_lm_whisper.py
 LOGITS_TOL, LOSS_TOL, GRAD_TOL = 2e-5, 2e-6, 1e-6
 
 
@@ -312,15 +312,14 @@ def test_train_cli_resumes_byte_for_byte_and_serve_cli_completes(tmp_path, capsy
     assert "served" in capsys.readouterr().out
 
 
-def test_param_counts_and_unported_archs():
-    for arch in DENSE:
+def test_param_counts_and_every_arch_constructs():
+    for arch in DENSE + OTHERS:
         assert counting.param_count(get_config(arch)) == j_get_config(arch).param_count(), arch
     assert counting.param_count(get_config("qwen1.5-0.5b")) == 463_987_712
     names = lambda archs: sorted(get_config(a).name for a in archs)  # noqa: E731
-    assert names(DENSE + MOE + SSM + list(OTHERS)) == names(list_archs())
-    for arch, item in OTHERS.items():
-        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
-            LM(get_smoke_config(arch), device="cpu")
+    assert names(DENSE + MOE + SSM + OTHERS) == names(list_archs())
+    for arch in list_archs():
+        assert LM(get_smoke_config(arch), device="cpu").segs, arch
 
 
 def test_phase_12_rehearsal_on_the_cpu(tmp_path):

@@ -365,14 +365,14 @@ def test_bf16_router_leaves_stay_f32_through_the_bridge_a_step_and_a_checkpoint(
     assert [(p, t.dtype) for p, t in tree_paths(restored[0])] == dtypes
 
 
-def test_three_archs_still_raise_naming_their_roadmap_item():
+def test_the_three_archs_beyond_mla_and_moe_construct():
     """Of the three archs not ported with MLA + MoE, the SSM two construct
-    since slice 18 (`tests/test_torch_lm_ssm.py`); whisper-medium still
-    raises, naming its item."""
-    for arch in ("falcon-mamba-7b", "zamba2-7b"):
+    since slice 18 (`tests/test_torch_lm_ssm.py`) and whisper-medium since
+    slice 19 (`tests/test_torch_lm_whisper.py`), its count JAX's."""
+    for arch in ("falcon-mamba-7b", "zamba2-7b", "whisper-medium"):
         assert LM(get_smoke_config(arch), device="cpu").segs
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2.3"):
-        LM(get_smoke_config("whisper-medium"), device="cpu")
+    assert counting.param_count(get_config("whisper-medium")) == \
+        j_get_config("whisper-medium").param_count() == 811_579_392
 
 
 def test_phase_13_rehearsal_on_the_cpu(tmp_path, monkeypatch):

@@ -346,7 +346,7 @@ def test_param_counts_of_both_ssm_configs_and_their_depth_cuts():
         assert counting.active_param_count(cfg) == total, arch
         assert counting.param_count(dataclasses.replace(cfg, n_layers=layers)) == cut, arch
         assert LM(cfg, device="meta").segs == [(cfg.ssm.kind, cfg.n_layers)]
-    assert sorted(t_tfm.NOT_PORTED) == ["dec_attn", "enc_attn"]
+    assert not hasattr(t_tfm, "NOT_PORTED")     # whisper's kinds, the last, ported too
 
 
 def _state_bytes(state):
