@@ -49,7 +49,7 @@ prefill / decode and the card against the CPU at f32 with the routing
 decisions that differ, then trains falcon-mamba-7b (Mamba-1) and zamba2-7b
 (Mamba-2 and its weight-shared attention block) at full width (depth cut
 to 3 and 7; the embedding backward through #7 and its sort on 4096- and
-3584-wide rows; zamba2 stopped and resumed byte for byte), holds their
+3584-wide rows; zamba2 stopped and resumed byte for byte at one layer), holds their
 prefill / decode of 300 tokens and the card against the CPU at f32, serves
 both at full width and depth, then trains whisper-medium's encoder-decoder
 at full width and depth (24 + 24 layers; 4 x 448 tokens beside 4 x 1500
@@ -57,7 +57,12 @@ frame embeddings through ``launch.train.train_step`` under
 ``runtime.TrainDriver``; the embedding backward through #7 and its sort on
 1024-wide rows into 51,865), holds its prefill / decode and the card
 against the CPU at f32 on 2 + 2 layers, serves it at full width and depth
-through ``launch.serve``, and prints
+through ``launch.serve``, then runs the parallel substrate over world-1
+NCCL groups (``moe_ep`` on one deepseek-v2-lite MoE layer at full width
+against ``moe_dense`` and the CPU, the int8 error-feedback gradient sync
+on a depth-3 step's gradients against the CPU's payloads, the training CLI
+with ``--compress-grads --coordinator`` stopped and resumed byte for byte,
+serving on the host mesh), and prints
 one JSON line with every kernel's report and, last, the device line.  It exits non-zero,
 with no result, on any failure, and when no CUDA card is present.  The phases live in ``src/repro_torch/smoke.py``.
 """

@@ -14,6 +14,9 @@ An encoder-decoder (whisper's audio stub) is served as the reference
 serves it: `batch` rows of frame embeddings drawn from the numpy generator
 before the prompts, prefilled with them, each decode step handed the
 encoder output; a refilled slot is prefilled with the first row of frames.
+The model runs on `launch.mesh.make_host_mesh()`, as the reference's does
+(`serve(..., mesh=None)` runs it without one; on a one-rank mesh the MoE
+layers take the dense path either way).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 from ..configs import get_config, get_smoke_config, list_archs
 from ..models.lm import LM
 from ..optim.adamw import tree_paths
+from .mesh import make_host_mesh
 
 
 def _reset_slot(caches: dict, fresh: dict, i: int) -> None:
@@ -43,15 +47,19 @@ def _reset_slot(caches: dict, fresh: dict, i: int) -> None:
 @torch.no_grad()
 def serve(arch: str = "qwen3-8b", smoke: bool = True, batch: int = 4, prompt_len: int = 16,
           max_new: int = 24, requests: int = 8, device="cuda", params: dict | None = None,
-          **overrides) -> dict:
+          mesh="host", **overrides) -> dict:
     """Serve `requests` random prompts of `prompt_len` tokens, `max_new`
     tokens each, `batch` at a time.  params: the model's params (default: a
-    fresh init, seed 0).  Returns the counts, the wall and the decode
-    rate, and whether every decode step's logits were finite."""
+    fresh init, seed 0); mesh: the model's ("host": `make_host_mesh` on
+    `device`; None: none).  Returns the counts, the wall and the decode
+    rate, whether every decode step's logits were finite, and the answers:
+    each decode step's greedy tokens, (steps, batch) int32 on the host."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    model = LM(cfg, device=device)
+    if isinstance(mesh, str):
+        mesh = make_host_mesh(device=device)
+    model = LM(cfg, mesh=mesh, device=device)
     if params is None:
         params = model.init(torch.Generator(device=model.device).manual_seed(0))
     rng = np.random.default_rng(0)
@@ -74,6 +82,7 @@ def serve(arch: str = "qwen3-8b", smoke: bool = True, batch: int = 4, prompt_len
     tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
     new_counts = [1] * b
     finite = torch.isfinite(logits).all()       # a device flag, read once at the end
+    answers = []
     completed = 0
     t0 = time.perf_counter()
     steps = 0
@@ -82,6 +91,7 @@ def serve(arch: str = "qwen3-8b", smoke: bool = True, batch: int = 4, prompt_len
         logits, caches = model.decode_step(params, caches, tok, pos, encoder_out=enc_out)
         finite &= torch.isfinite(logits).all()
         tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        answers.append(tok[:, 0])
         steps += 1
         for i in range(b):
             new_counts[i] += 1
@@ -97,7 +107,8 @@ def serve(arch: str = "qwen3-8b", smoke: bool = True, batch: int = 4, prompt_len
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     out = {"name": cfg.name, "completed": completed, "requests": requests, "steps": steps,
-           "batch": b, "wall_s": dt, "tok_s": steps * b / dt, "finite": bool(finite)}
+           "batch": b, "wall_s": dt, "tok_s": steps * b / dt, "finite": bool(finite),
+           "answers": torch.stack(answers).cpu() if answers else None}
     print(f"[{cfg.name}] served {completed} requests, {steps} decode steps, "
           f"{out['tok_s']:.1f} tok/s aggregate")
     return out

@@ -19,7 +19,13 @@ before the add, as the reference adds them.  An encoder-decoder's
 names it otherwise; the reference fails there on None), and `prefill`
 returns the encoder output as its third value.
 
-`LM` holds the config and the device; params and caches are nested dicts
+`LM` holds the config, the mesh and the device.  `mesh` (a
+`launch.mesh.Mesh`, default None) reaches every block's `moe.moe_layer`,
+as in the reference: on a mesh with more than one EP rank the MoE layers
+run `moe.moe_ep`, every rank holding the whole batch and params and
+getting the global gradients.  The reference's `tp_logits` / `act_spec`
+are layout constraints for its compiled steps and have no counterpart
+here.  Params and caches are nested dicts
 of tensors with the reference's keys, stacked (n_layers, ...) segment
 leaves and its (d_in, ..., d_out) layouts, so `repro_torch.bridge` carries
 a reference LM's params and AdamW state across unchanged.  Positions:
@@ -59,8 +65,9 @@ def sinusoidal_at(pos: torch.Tensor, d: int, dtype) -> torch.Tensor:
 
 
 class LM:
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, mesh=None, device="cuda"):
         self.cfg = cfg
+        self.mesh = mesh
         self.device = torch.device(device)
         self.segs = segments(cfg)
         self.dtype = getattr(torch, cfg.dtype)
@@ -128,7 +135,7 @@ class LM:
         x = encoder_embeds.to(self.dtype) + sinusoidal(s, cfg.d_model, self.dtype,
                                                        self.device)[None]
         x = tfm.apply_segment(params["enc_segs"], cfg, "enc_attn", x,
-                              self.default_positions(b, s))
+                              self.default_positions(b, s), mesh=self.mesh)
         return tfm.apply_norm(cfg, params["enc_norm"], x)
 
     # ---- forward (train / prefill logits) ----
@@ -157,9 +164,9 @@ class LM:
             seg = params[f"seg{i}_{kind}"]
             if self._hybrid(kind):
                 x = tfm.apply_hybrid_segment(seg, self.cfg, kind, x, positions,
-                                             params["shared_attn"])
+                                             params["shared_attn"], self.mesh)
             else:
-                x = tfm.apply_segment(seg, self.cfg, kind, x, positions, enc_out)
+                x = tfm.apply_segment(seg, self.cfg, kind, x, positions, enc_out, self.mesh)
         h = tfm.apply_norm(self.cfg, params["final_norm"], x)
         return self.logits(params, h), h
 
@@ -187,7 +194,7 @@ class LM:
         z = torch.cat([tfm.apply_norm(cfg, mtp["norm_h"], h[:, :-1]),
                        tfm.apply_norm(cfg, mtp["norm_e"], emb_next)], dim=-1) @ mtp["proj"]
         pos = self.default_positions(z.shape[0], z.shape[1])
-        z = tfm.apply_block(mtp["block"], cfg, self.segs[-1][0], z, pos)
+        z = tfm.apply_block(mtp["block"], cfg, self.segs[-1][0], z, pos, mesh=self.mesh)
         logits = self.logits(params, tfm.apply_norm(cfg, params["final_norm"], z))
         return _nll(logits[:, :-1], tokens[:, 2:])
 
@@ -224,10 +231,11 @@ class LM:
             key = f"seg{i}_{kind}"
             if self._hybrid(kind):
                 x, caches[key], caches["shared_attn"] = tfm.apply_hybrid_segment_prefill(
-                    params[key], self.cfg, kind, x, positions, params["shared_attn"], max_seq)
+                    params[key], self.cfg, kind, x, positions, params["shared_attn"], max_seq,
+                    self.mesh)
             else:
                 x, caches[key] = tfm.apply_segment_prefill(params[key], self.cfg, kind, x,
-                                                           positions, max_seq, enc_out)
+                                                           positions, max_seq, enc_out, self.mesh)
         h = tfm.apply_norm(self.cfg, params["final_norm"], x)
         return self.logits(params, h[:, -1:, :])[:, 0], caches, enc_out
 
@@ -248,10 +256,11 @@ class LM:
             if self._hybrid(kind):
                 x, new_caches[key], new_caches["shared_attn"] = tfm.apply_hybrid_segment_decode(
                     params[key], self.cfg, kind, x, caches[key], pos, params["shared_attn"],
-                    caches["shared_attn"])
+                    caches["shared_attn"], self.mesh)
             else:
                 x, new_caches[key] = tfm.apply_segment_decode(params[key], self.cfg, kind, x,
-                                                              caches[key], pos, rope_positions)
+                                                              caches[key], pos, rope_positions,
+                                                              self.mesh)
         h = tfm.apply_norm(self.cfg, params["final_norm"], x)
         return self.logits(params, h)[:, 0], new_caches
 

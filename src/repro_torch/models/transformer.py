@@ -10,11 +10,13 @@ layer axis:
     zamba2           [('mamba2', n)] + a weight-shared attention block
     whisper          encoder [('enc_attn', n)] / decoder [('dec_attn', n)]
 
-`segments` gives every architecture's layout; every kind is ported (the
-MoE blocks on the dense expert path, `moe.moe_layer` without a mesh; the
-leading dense layers of an MoE config take `moe.dense_d_ff`; an SSM block
-is `ln1` and `ssm` only, and its decode cache is the SSM state itself,
-`{"h", "conv_tail"}`).  Whisper's `enc_attn` is non-causal self-attention;
+`segments` gives every architecture's layout; every kind is ported.
+`mesh` (a `launch.mesh.Mesh`, None by default) goes through every
+`apply_block*` / `apply_segment*` down to `moe.moe_layer`, which runs the
+expert-parallel path on a mesh with more than one EP rank, the dense
+expert path otherwise.  The leading dense layers of an MoE config take
+`moe.dense_d_ff`; an SSM block is `ln1` and `ssm` only, and its decode
+cache is the SSM state itself, `{"h", "conv_tail"}`.  Whisper's `enc_attn` is non-causal self-attention;
 its `dec_attn` adds `ln_x` and a cross-attention sublayer (`xattn`, no
 positional rotation, no mask) over the encoder output, skipped when
 `encoder_out` is None.  Its prefill projects the encoder output's keys and
@@ -110,14 +112,16 @@ def init_block(generator, cfg: ModelConfig, kind: str, dtype, device=None) -> di
 
 # --- per-block application ----------------------------------------------------------
 
-def _mlp(params, cfg: ModelConfig, kind: str, h):
-    """The block's second sublayer: the MoE layer or the dense FFN."""
+def _mlp(params, cfg: ModelConfig, kind: str, h, mesh=None):
+    """The block's second sublayer: the MoE layer (expert-parallel over
+    `mesh`'s EP axes when it has them) or the dense FFN."""
     if kind.endswith("moe"):
-        return moe.moe_layer(params["moe"], h, cfg)
+        return moe.moe_layer(params["moe"], h, cfg, mesh)
     return ffn.ffn(params["ffn"], h, cfg.act)
 
 
-def apply_block(params, cfg: ModelConfig, kind: str, x, positions, encoder_out=None):
+def apply_block(params, cfg: ModelConfig, kind: str, x, positions, encoder_out=None,
+                mesh=None):
     """Full-sequence (train / prefill) block."""
     h = apply_norm(cfg, params["ln1"], x)
     if kind in SSM_KINDS:
@@ -132,7 +136,7 @@ def apply_block(params, cfg: ModelConfig, kind: str, x, positions, encoder_out=N
         x = x + _cross_attention(params["xattn"], cfg, h,
                                  *_cross_kv(params["xattn"], cfg, encoder_out))
     h = apply_norm(cfg, params["ln2"], x)
-    return x + _mlp(params, cfg, kind, h)
+    return x + _mlp(params, cfg, kind, h, mesh)
 
 
 def _cross_kv(params, cfg: ModelConfig, encoder_out):
@@ -154,7 +158,7 @@ def _cross_attention(params, cfg: ModelConfig, x, k, v):
 
 
 def apply_block_decode(params, cfg: ModelConfig, kind: str, x, cache, pos,
-                       rope_positions=None):
+                       rope_positions=None, mesh=None):
     """One-token decode: (x, the block's new cache).  pos (B, 1) is the
     cache slot; rope_positions may carry M-RoPE streams.  An SSM block's
     cache is its state; a `dec_attn` block's cross-attention reads the
@@ -172,11 +176,11 @@ def apply_block_decode(params, cfg: ModelConfig, kind: str, x, cache, pos,
         x = x + _cross_attention(params["xattn"], cfg, h, cache["cross"]["k"],
                                  cache["cross"]["v"])
     h = apply_norm(cfg, params["ln2"], x)
-    return x + _mlp(params, cfg, kind, h), {**cache, "self": cache_sa}
+    return x + _mlp(params, cfg, kind, h, mesh), {**cache, "self": cache_sa}
 
 
 def apply_block_prefill(params, cfg: ModelConfig, kind: str, x, positions,
-                        max_seq: int | None = None, encoder_out=None):
+                        max_seq: int | None = None, encoder_out=None, mesh=None):
     """Full-prompt pass that also returns the block's decode cache."""
     h = apply_norm(cfg, params["ln1"], x)
     if kind in SSM_KINDS:
@@ -196,7 +200,7 @@ def apply_block_prefill(params, cfg: ModelConfig, kind: str, x, positions,
         cache["cross"] = {"k": xk, "v": xv}
         x = x + _cross_attention(params["xattn"], cfg, h, xk, xv)
     h = apply_norm(cfg, params["ln2"], x)
-    return x + _mlp(params, cfg, kind, h), cache
+    return x + _mlp(params, cfg, kind, h, mesh), cache
 
 
 def _pad_seq(t, max_seq):
@@ -260,39 +264,42 @@ def init_segment(generator, cfg: ModelConfig, kind: str, n: int, dtype, device=N
     return tree_from_paths(stacked)
 
 
-def _apply_layer(layer, cfg: ModelConfig, kind: str, x, positions, encoder_out=None):
+def _apply_layer(layer, cfg: ModelConfig, kind: str, x, positions, encoder_out=None,
+                 mesh=None):
     """One block, under `torch.utils.checkpoint` when the config asks for
     remat and gradients are recorded (the encoder output an input of the
     checkpoint, so the decoder's gradient reaches the encoder)."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(lambda p, h, e: apply_block(p, cfg, kind, h, positions, e), layer, x,
-                          encoder_out, use_reentrant=False)
-    return apply_block(layer, cfg, kind, x, positions, encoder_out)
+        return checkpoint(lambda p, h, e: apply_block(p, cfg, kind, h, positions, e, mesh),
+                          layer, x, encoder_out, use_reentrant=False)
+    return apply_block(layer, cfg, kind, x, positions, encoder_out, mesh)
 
 
-def apply_segment(params, cfg: ModelConfig, kind: str, x, positions, encoder_out=None):
+def apply_segment(params, cfg: ModelConfig, kind: str, x, positions, encoder_out=None,
+                  mesh=None):
     """Run a stacked segment layer by layer (remat per layer if configured)."""
     for layer in unstack_tree(params):
-        x = _apply_layer(layer, cfg, kind, x, positions, encoder_out)
+        x = _apply_layer(layer, cfg, kind, x, positions, encoder_out, mesh)
     return x
 
 
 def apply_segment_decode(params, cfg: ModelConfig, kind: str, x, caches, pos,
-                         rope_positions=None):
+                         rope_positions=None, mesh=None):
     """Decode through a segment; caches are stacked along the layer axis too."""
     outs = []
     for layer, cache in zip(unstack_tree(params), unstack_tree(caches)):
-        x, nc = apply_block_decode(layer, cfg, kind, x, cache, pos, rope_positions)
+        x, nc = apply_block_decode(layer, cfg, kind, x, cache, pos, rope_positions, mesh)
         outs.append(nc)
     return x, stack_trees(outs)
 
 
 def apply_segment_prefill(params, cfg: ModelConfig, kind: str, x, positions,
-                          max_seq: int | None = None, encoder_out=None):
+                          max_seq: int | None = None, encoder_out=None, mesh=None):
     """Prefill through a segment: (x, stacked caches)."""
     outs = []
     for layer in unstack_tree(params):
-        x, cache = apply_block_prefill(layer, cfg, kind, x, positions, max_seq, encoder_out)
+        x, cache = apply_block_prefill(layer, cfg, kind, x, positions, max_seq, encoder_out,
+                                       mesh)
         outs.append(cache)
     return x, stack_trees(outs)
 
@@ -309,24 +316,26 @@ def _ends_group(i: int, cfg: ModelConfig) -> bool:
     return (i + 1) % cfg.hybrid_attn_every == 0
 
 
-def apply_hybrid_segment(params, cfg: ModelConfig, kind: str, x, positions, shared_attn):
+def apply_hybrid_segment(params, cfg: ModelConfig, kind: str, x, positions, shared_attn,
+                         mesh=None):
     for i, layer in enumerate(unstack_tree(params)):
-        x = _apply_layer(layer, cfg, kind, x, positions)
+        x = _apply_layer(layer, cfg, kind, x, positions, mesh=mesh)
         if _ends_group(i, cfg):
-            x = _apply_layer(shared_attn, cfg, "attn_dense", x, positions)
+            x = _apply_layer(shared_attn, cfg, "attn_dense", x, positions, mesh=mesh)
     return x
 
 
 def apply_hybrid_segment_prefill(params, cfg: ModelConfig, kind: str, x, positions,
-                                 shared_attn, max_seq: int | None = None):
+                                 shared_attn, max_seq: int | None = None, mesh=None):
     """-> (x, the segment's flat (n_layers, ...) caches, the shared block's
     (n_groups, ...) caches)."""
     outs, shared = [], []
     for i, layer in enumerate(unstack_tree(params)):
-        x, cache = apply_block_prefill(layer, cfg, kind, x, positions, max_seq)
+        x, cache = apply_block_prefill(layer, cfg, kind, x, positions, max_seq, mesh=mesh)
         outs.append(cache)
         if _ends_group(i, cfg):
-            x, cache = apply_block_prefill(shared_attn, cfg, "attn_dense", x, positions, max_seq)
+            x, cache = apply_block_prefill(shared_attn, cfg, "attn_dense", x, positions, max_seq,
+                                           mesh=mesh)
             shared.append(cache)
     like = None if shared else init_block_cache(cfg, "attn_dense", x.shape[0],
                                                 max_seq or x.shape[1], x.dtype, x.device)
@@ -334,14 +343,14 @@ def apply_hybrid_segment_prefill(params, cfg: ModelConfig, kind: str, x, positio
 
 
 def apply_hybrid_segment_decode(params, cfg: ModelConfig, kind: str, x, caches, pos,
-                                shared_attn, shared_caches):
+                                shared_attn, shared_caches, mesh=None):
     """shared_caches: the shared block's stacked (n_groups, ...) KV caches."""
     outs, shared, points = [], [], unstack_tree(shared_caches)
     for i, (layer, cache) in enumerate(zip(unstack_tree(params), unstack_tree(caches))):
-        x, nc = apply_block_decode(layer, cfg, kind, x, cache, pos)
+        x, nc = apply_block_decode(layer, cfg, kind, x, cache, pos, mesh=mesh)
         outs.append(nc)
         if _ends_group(i, cfg):
             x, nc = apply_block_decode(shared_attn, cfg, "attn_dense", x, points[len(shared)],
-                                       pos)
+                                       pos, mesh=mesh)
             shared.append(nc)
     return x, stack_trees(outs), stack_trees(shared) if shared else shared_caches

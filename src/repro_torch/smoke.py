@@ -2,7 +2,8 @@
 and the Instant-NGP baseline), serve, the reconstruction service, stage 2b
 v3, the async serving plane and the entry points, sessions over two slots
 of the card, the field's last two options, half-width hash-grid tables,
-compiled (CUDA-graph) steps and compiled renders.
+compiled (CUDA-graph) steps and compiled renders, the LM substrate's
+decoders and its parallel substrate.
 
 Each phase takes an explicit device, so the CPU tests can rehearse the
 paths at a tiny size with ``device="cpu"``; `main` runs them all on the
@@ -193,7 +194,8 @@ card and fails on anything wrong -- there is no CPU fallback.
    the BUM-merged embedding backward (``lm_ssm_train``,
    ``lm_ssm_train_dedup``, ``lm_hybrid_train``, ``lm_hybrid_train_dedup``:
    #7 and `bum_sort` once a step), the merged runs byte-identical from one
-   seed and zamba2's across a stop at 20 and a resume; prefill / decode of
+   seed; zamba2 stopped at 20 and resumed at one layer, against an
+   uninterrupted run of that depth; prefill / decode of
    a 300-token prompt against a full forward and the card against the CPU
    at f32; both served at full width and depth (``lm_ssm_serve``,
    ``lm_hybrid_serve``);
@@ -208,7 +210,17 @@ card and fails on anything wrong -- there is no CPU fallback.
    a step), the merged runs byte-identical from one seed; prefill / decode
    against a full forward and the card against the CPU at f32 on 2 + 2
    layers; served at full width and depth (``lm_encdec_serve``);
-16. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
+16. the parallel substrate (slice 20's main paths,
+   `smoke_parallel.parallel_phase`) over world-1 NCCL groups: `moe_ep` on
+   one deepseek-v2-lite MoE layer at full width against `moe_dense`
+   (values and gradients), the CPU (drops exactly) and on decode;
+   `compressed_grad_sync` on a depth-3 step's gradients, its int8
+   payloads the CPU's bit for bit, and the error-feedback loop; the
+   training CLI with ``--compress-grads --coordinator`` stopped and
+   resumed byte for byte; `launch.serve` on the host mesh against
+   mesh=None (``parallel_moe_ep``, ``parallel_sync``,
+   ``parallel_train_cli``, ``parallel_serve``);
+17. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
    summed over the main paths, and per path) and, last, the device line.
 """
 from __future__ import annotations
@@ -229,7 +241,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import kernels, smoke_lm, smoke_moe, smoke_ssm, smoke_whisper
+from . import kernels, smoke_lm, smoke_moe, smoke_parallel, smoke_ssm, smoke_whisper
 from .core import encoding as enc
 from .core import occupancy
 from .core.field import Field, FieldConfig
@@ -3432,6 +3444,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     whisper = smoke_whisper.whisper_phase(device, card)
     cases.extend(whisper["cases"])
+    # slice 20's main paths: the parallel substrate over a world-1 NCCL group
+    gc.collect()
+    torch.cuda.empty_cache()
+    par = smoke_parallel.parallel_phase(device, card)
 
     paths = {"train": run["launches"], "train_ngp": ngp["launches"], "serve": serve_launches,
              "service": service["launches"], "train_v3": v3["train_launches"],
@@ -3444,7 +3460,8 @@ def main() -> int:
              **{f"compiled_{name}": res["captured"]["launches"]
                 for name, res in compiled["paths"].items()},
              **{f"compiled_serve_{route}": res["launches"] for route, res in renders.items()},
-             **lm["launches"], **moe["launches"], **ssm["launches"], **whisper["launches"]}
+             **lm["launches"], **moe["launches"], **ssm["launches"], **whisper["launches"],
+             **par["launches"]}
     report = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == name]

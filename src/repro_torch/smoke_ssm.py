@@ -22,7 +22,9 @@ calls (`launch.train.train`, `launch.serve.serve`):
    and the first merged run, the merged runs the same bytes (params and
    both moments); no checkpoint is written.  zamba2's merged run is also
    stopped at `STOP` (checkpointed there) and resumed through
-   `resume_or_init`: the uninterrupted run's bytes;
+   `resume_or_init`, at `RESUME_LAYERS` (one Mamba-2 layer; the shared
+   block's weights ride along unread): the bytes of an uninterrupted merged
+   run of that depth;
 3. parity at f32 on the depth-cut models, from the first merged run's
    params cast to f32, on prompts of `PARITY_PROMPT` = 300 tokens (two
    chunks of 128 and a remainder of 44): `prefill` and three
@@ -55,6 +57,10 @@ HYBRID_ARCH = "zamba2-7b"
 # 848,617,472 params (~10.2 GB of training state), zamba2 at 7 layers
 # 980,754,096 (~11.8 GB); the full depths would need ~87 / ~81 GB.
 TRAIN_LAYERS = {SSM_ARCH: 3, HYBRID_ARCH: 7}
+# zamba2's stop-and-resume pair runs at one layer (512,885,712 params, ~5.1
+# GB a checkpoint): at 7 its two ~9.8 GB writes and one read took 104.9-122.8
+# s of the phase (NVIDIA H100 80GB HBM3, 700 W).
+RESUME_LAYERS = 1
 # Path names of the `kernels` line, per arch.
 PATHS = {SSM_ARCH: "lm_ssm", HYBRID_ARCH: "lm_hybrid"}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, STOP = 4, 256, 30, 20
@@ -86,12 +92,15 @@ def _size(arch: str) -> dict:
     return {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": TRAIN_LR[arch]}
 
 
-def resume_run(device, want_state, arch: str, smoke: bool = False) -> dict:
-    """A merged run stopped at `STOP` (checkpointed there) and one resumed
-    from its checkpoint to `TRAIN_STEPS`: where they stopped and started,
-    the resumed losses, and whether the resumed state is `want_state`'s
-    bytes (the uninterrupted merged run's)."""
-    common = dict(**_size(arch), ckpt_every=STOP, dedup_embed_grad=True, **_depth(arch, smoke))
+def resume_run(device, arch: str, smoke: bool = False) -> dict:
+    """At `RESUME_LAYERS` (the smoke config's own depth when `smoke`): an
+    uninterrupted merged run, one stopped at `STOP` (checkpointed there) and
+    one resumed from its checkpoint to `TRAIN_STEPS`: where they stopped and
+    started, both runs' losses, and whether the resumed state is the
+    uninterrupted run's bytes."""
+    common = dict(**_size(arch), ckpt_every=STOP, dedup_embed_grad=True,
+                  **({} if smoke else {"n_layers": RESUME_LAYERS}))
+    want = smoke_lm.train_run(device, None, arch, smoke, checkpoints=False, **common)
     with tempfile.TemporaryDirectory() as tmp:
         stopped = smoke_lm.train_run(device, f"{tmp}/part", arch, smoke, stop_after=STOP,
                                      **common)
@@ -99,8 +108,9 @@ def resume_run(device, want_state, arch: str, smoke: bool = False) -> dict:
         resumed = smoke_lm.train_run(device, f"{tmp}/part", arch, smoke, auto_resume=True,
                                      **common)
     return {"stopped_at": stopped["summary"]["step"], "start": resumed["start"],
-            "loss": resumed["loss"], "median_step_ms": smoke_lm._median_ms(resumed),
-            "same": smoke_lm._same_state(want_state, resumed["state"])}
+            "loss": resumed["loss"], "want_loss": want["loss"],
+            "layers": want["cfg"].n_layers, "median_step_ms": smoke_lm._median_ms(resumed),
+            "same": smoke_lm._same_state(want["state"], resumed["state"])}
 
 
 def check_resume(res: dict, want_loss: list) -> list[str]:
@@ -168,12 +178,13 @@ def train_and_check(device, arch: str, card: str, smoke: bool = False) -> dict:
     smoke_moe._free(device)
     if arch == HYBRID_ARCH:
         t0 = time.perf_counter()
-        res = out["resume"] = resume_run(device, dedup["state"], arch, smoke)
+        res = out["resume"] = resume_run(device, arch, smoke)
         print(f"{name} train stopped at {res['stopped_at']} (checkpointed) and resumed to "
-              f"{TRAIN_STEPS} through resume_or_init in {time.perf_counter() - t0:.1f} s, median "
-              f"step {res['median_step_ms']:.2f} ms, same bytes as the uninterrupted run: "
+              f"{TRAIN_STEPS} through resume_or_init at {res['layers']} layer(s), the three "
+              f"runs in {time.perf_counter() - t0:.1f} s, median resumed step "
+              f"{res['median_step_ms']:.2f} ms, same bytes as the uninterrupted run: "
               f"{json.dumps(res['same'])} [{card}]", flush=True)
-        problems = check_resume(res, dedup["loss"])
+        problems = check_resume(res, res["want_loss"])
         if problems:
             raise RuntimeError(f"{name} resume gate failed: {problems}")
     params = dedup["state"][0]

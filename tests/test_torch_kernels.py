@@ -285,6 +285,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     report = __import__("json").loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.serve3d.render" in report["imported"]
     assert "repro_torch.smoke" in report["imported"]
+    assert {"repro_torch.parallel.sharding", "repro_torch.parallel.collectives",
+            "repro_torch.smoke_parallel"} <= set(report["imported"])
     assert report["bad"] == []
 
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]

@@ -20,6 +20,7 @@ chip_smoke's phase 13 (`smoke_moe`).
 """
 import dataclasses
 import functools
+import tempfile
 import types
 
 import jax
@@ -28,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_ranks
 from repro.configs import get_config as j_get_config
 from repro.configs import get_smoke_config as j_get_smoke
 from repro.models import attention as j_attention
@@ -139,11 +141,33 @@ def test_moe_dense_matches_jax(n_shared, rng):
     want = _jit(lambda p, v: j_moe.moe_layer(p, v, jc), jp, jnp.asarray(x))
     got = t_moe.moe_layer(tp, torch.from_numpy(x), tc)
     np.testing.assert_allclose(got.numpy(), _np(want), atol=MOE_TOL, rtol=0)
-    # a one-device EP mesh takes the dense path; an EP mesh of two raises
-    one, two = types.SimpleNamespace(shape={"model": 1}), types.SimpleNamespace(shape={"model": 2})
+    # a one-device EP mesh takes the dense path; on a mesh of two gloo ranks
+    # moe_layer is moe_ep, on both ranks
+    one = types.SimpleNamespace(shape={"model": 1})
     assert torch.equal(t_moe.moe_layer(tp, torch.from_numpy(x), tc, one), got)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2.5"):
-        t_moe.moe_layer(tp, torch.from_numpy(x), tc, two)
+    ranks = _two_rank_moe_layer()[n_shared]
+    assert len(ranks) == 2
+    for res in ranks:
+        assert res["mesh"] == {"data": 1, "model": 2}
+        assert np.array_equal(res["layer"], res["ep"]) and np.isfinite(res["ep"]).all()
+    assert np.array_equal(ranks[0]["layer"], ranks[1]["layer"])
+
+
+@functools.lru_cache(maxsize=None)
+def _two_rank_moe_layer():
+    """`moe_layer` and `moe_ep` of the first MoE layer's params (without and
+    with the shared experts) on x = the `rng` fixture's first (2, 7, d)
+    draw, on a (1, 2) mesh of two gloo ranks: {n_shared: [rank 0, rank 1]}."""
+    flat = {"x": np.random.default_rng(0).normal(
+        size=(2, 7, j_get_smoke("deepseek-v2-lite-16b").d_model)).astype(np.float32)}
+    for n_shared in (0, 2):
+        _, tp = _moe_params("deepseek-v2-lite-16b", n_shared)
+        flat.update({f"p{n_shared}/" + "/".join(p): t.numpy() for p, t in tree_paths(tp)})
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(f"{tmp}/inputs.npz", **flat)
+        ranks = _torch_ranks.start_ranks("moe_layer_vs_moe_ep", 2, f"{tmp}/inputs.npz",
+                                         (0, 2)).result()
+    return {n: [r[n] for r in ranks] for n in (0, 2)}
 
 
 @pytest.mark.parametrize("arch", DEEPSEEK)     # a direct q projection; q_lora
