@@ -231,3 +231,7 @@ def stream_handle(device: torch.device) -> ctypes.c_void_p:
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+# the reference's package-level kernel modules (importing them builds nothing)
+from . import hash_encode, grid_update, fused_mlp, volume_render, fused_path  # noqa: F401,E402

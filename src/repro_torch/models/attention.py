@@ -81,11 +81,41 @@ def _sqrt_hd(hd: int) -> float:
     return float(np.float32(math.sqrt(hd)))
 
 
+def _as_dtensor(t, mesh):
+    """t as a DTensor on `mesh`: a plain tensor counts as replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+    return t if isinstance(t, DTensor) else DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def _heads_dividing(q, kh: int):
+    """q (B, S, H, hd); a DTensor q whose heads are split in more blocks
+    than there are kv heads gathered over the head dim (a block would cut
+    a group of query heads)."""
+    from torch.distributed.tensor import Replicate, Shard
+    placements = getattr(q, "placements", None)
+    if placements is None:
+        return q
+    split = math.prod(q.device_mesh.size(i) for i, p in enumerate(placements)
+                      if isinstance(p, Shard) and p.dim == 2)
+    if kh % split == 0:
+        return q
+    return q.redistribute(q.device_mesh, [Replicate() if isinstance(p, Shard) and p.dim == 2
+                                          else p for p in placements])
+
+
+def _group_heads(q, kh: int, rep: int):
+    """q (B, S, H, hd) -> (B, S, K, r, hd), the query heads grouped by their
+    kv head."""
+    q = _heads_dividing(q, kh)
+    return q.reshape(q.shape[0], q.shape[1], kh, rep, q.shape[-1])
+
+
 def _sdpa_dense(q, k, v, causal: bool, q_offset=0):
     b, sq, h, hd = q.shape
     sk, kh, hd_v = v.shape[1], v.shape[2], v.shape[3]
     rep = h // kh
-    q = q.reshape(b, sq, kh, rep, hd)
+    q = _group_heads(q, kh, rep)
     scores = torch.einsum("bqkre,bske->bkrqs", q, k).to(torch.float32)
     scores = scores / _sqrt_hd(hd)
     if causal:
@@ -155,13 +185,50 @@ def _sdpa_chunked(q, k, v, causal: bool, q_offset=0):
     return out.to(v.dtype)
 
 
-def _sdpa(q, k, v, causal: bool, q_offset=0):
+def _sdpa(q, k, v, causal: bool, q_offset=0, chunked: bool | None = None):
     """q, k (B, S, ., hd), v (B, Sk, K, hd_v) with GQA head repetition; long
-    sequences take the chunked online softmax."""
+    sequences take the chunked online softmax (`chunked` decides it for a
+    block of a longer sequence).  DTensor operands run on each rank's
+    block (`_sdpa_on_shards`)."""
+    if getattr(q, "device_mesh", None) is not None:
+        return _sdpa_on_shards(q, k, v, causal)
     sq, sk = q.shape[1], v.shape[1]
-    if sq * sk > _CHUNKED_THRESHOLD and sq > 1:
+    if chunked is None:
+        chunked = sq * sk > _CHUNKED_THRESHOLD and sq > 1
+    if chunked:
         return _sdpa_chunked(q, k, v, causal, q_offset)
     return _sdpa_dense(q, k, v, causal, q_offset)
+
+
+def _sdpa_on_shards(q, k, v, causal: bool):
+    """`_sdpa` of DTensors on each rank's block: q keeps its split of the
+    batch, the query positions and the heads (the heads only where the kv
+    heads divide as finely); k and v follow its batch and head splits and
+    are gathered whole along the sequence.  A rank's block needs no other
+    rank's queries, so the only collectives are that gather and, in the
+    backward, the reduction of k's and v's gradients, partial sums over
+    the mesh dims that split the queries.  The chunked softmax is chosen
+    by the whole sequence, as unplaced."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = q.device_mesh
+    q = _heads_dividing(q, v.shape[2])
+    q_pl = [p if isinstance(p, Shard) and p.dim in (0, 1, 2) else Replicate()
+            for p in q.placements]
+    kv_pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate() for p in q_pl]
+    kv_grad = [Partial() if isinstance(p, Shard) and p.dim == 1 else p for p in q_pl]
+    q = q.redistribute(mesh, q_pl)
+    k_l = _as_dtensor(k, mesh).redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad)
+    v_l = _as_dtensor(v, mesh).redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad)
+    q_l = q.to_local()
+    block = 0           # this rank's block of the query positions (an even split)
+    for i, p in enumerate(q_pl):
+        if isinstance(p, Shard) and p.dim == 1:
+            block = block * mesh.size(i) + mesh.get_local_rank(i)
+    offset = block * q_l.shape[1]
+    sq, sk = q.shape[1], v.shape[1]
+    out = _sdpa(q_l, k_l, v_l, causal, offset,
+                chunked=sq * sk > _CHUNKED_THRESHOLD and sq > 1)
+    return DTensor.from_local(out, mesh, q_pl, run_check=False)
 
 
 def attention(params, cfg: ModelConfig, x, positions, causal=True):
@@ -196,14 +263,57 @@ def decode_attention(params, cfg: ModelConfig, x, cache: dict, pos: torch.Tensor
     valid = torch.arange(sk, device=x.device)[None, :] <= pos               # (B, S_max)
     kh = cfg.n_kv_heads
     rep = cfg.n_heads // kh
-    qr = q.reshape(b, 1, kh, rep, cfg.hd)
+    qr = _group_heads(q, kh, rep)
+    new_cache = {"k": k_cache, "v": v_cache}
+    if _batch_head_sharded(k_cache):
+        return _decode_on_shards(qr, k_cache, v_cache, valid, params["wo"]), new_cache
+    out = _decode_core(qr, k_cache, v_cache, valid, cfg.hd).reshape(b, 1, cfg.n_heads, cfg.hd)
+    return torch.einsum("bshe,hed->bsd", out, params["wo"]), new_cache
+
+
+def _decode_core(qr, k_cache, v_cache, valid, hd: int):
+    """qr (B, 1, K, r, hd) against the caches (B, S, K, hd) where `valid`
+    (B, S) -> (B, 1, K, r, hd)."""
     scores = torch.einsum("bqkre,bske->bkrqs", qr, k_cache).to(torch.float32)
-    scores = scores / _sqrt_hd(cfg.hd)
+    scores = scores / _sqrt_hd(hd)
     scores = torch.where(valid[:, None, None, None, :], scores,
-                         torch.full((), -1e30, device=x.device))
+                         torch.full((), -1e30, device=qr.device))
     probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
-    out = torch.einsum("bkrqs,bske->bqkre", probs, v_cache).reshape(b, 1, cfg.n_heads, cfg.hd)
-    return torch.einsum("bshe,hed->bsd", out, params["wo"]), {"k": k_cache, "v": v_cache}
+    return torch.einsum("bkrqs,bske->bqkre", probs, v_cache)
+
+
+def _batch_head_sharded(cache) -> bool:
+    """A DTensor cache (B, S, K, hd) split over nothing but its batch and
+    kv-head dims (a placed decode step's, `parallel.sharding._cache_spec`)."""
+    from torch.distributed.tensor import Replicate, Shard
+    placements = getattr(cache, "placements", None)
+    return placements is not None and all(
+        isinstance(p, Replicate) or (isinstance(p, Shard) and p.dim in (0, 2))
+        for p in placements)
+
+
+def _decode_on_shards(qr, k_cache, v_cache, valid, wo):
+    """`_decode_core` and the output projection of a batch / head split
+    cache, run on each rank's block: no score or output term crosses a
+    batch row or a kv head, and the projection's sum over the heads is one
+    all-reduce over the mesh dims that split them (Megatron's), where
+    DTensor's own propagation would flatten the split dims into one and
+    search its layouts.  -> (B, 1, D), split as the batch rows are."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = k_cache.device_mesh
+
+    def block(t, placements):
+        return _as_dtensor(t, mesh).redistribute(mesh, placements).to_local()
+    heads = list(k_cache.placements)
+    rows = [p if p == Shard(0) else Replicate() for p in heads]
+    out = _decode_core(block(qr, heads), k_cache.to_local(), block(v_cache, heads),
+                       block(valid, rows), qr.shape[-1])
+    b, _, kh, rep, hd = out.shape
+    w = block(wo, [Shard(0) if p == Shard(2) else Replicate() for p in heads])
+    y = torch.einsum("bshe,hed->bsd", out.reshape(b, 1, kh * rep, hd), w)
+    y = DTensor.from_local(y, mesh, [Partial() if p == Shard(2) else p for p in heads],
+                           run_check=False)
+    return y.redistribute(mesh, rows)
 
 
 # --- DeepSeek MLA (multi-head latent attention) --------------------------------

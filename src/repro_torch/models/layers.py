@@ -52,18 +52,94 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 # --- embedding with optional BUM-merged gradient ------------------------------
 
+@torch.library.custom_op("repro_torch::embed_table_grad", mutates_args=())
+def embed_table_grad(ids: torch.Tensor, g: torch.Tensor, vocab: int, mode: str) -> torch.Tensor:
+    """The f32 (vocab, D) gradient table of a lookup at ids (...,) whose
+    output gradient is g (..., D), committed as `mode` says.  An op of its
+    own so that a fake tensor (a dry run's trace) takes its shape from
+    `_embed_table_grad_fake` and never reaches a kernel or a ctypes call."""
+    flat_ids = ids.reshape(-1).to(torch.int64)
+    flat_g = g.reshape(-1, g.shape[-1]).to(torch.float32)
+    zero = torch.zeros((vocab, g.shape[-1]), dtype=torch.float32, device=g.device)
+    if mode == "merged":
+        return gu_ops.merged_scatter_add(zero, flat_ids, flat_g)
+    if mode == "windowed":
+        return gu_ops.windowed_scatter_add(zero, flat_ids, flat_g)
+    return zero.index_add_(0, flat_ids, flat_g)
+
+
+@embed_table_grad.register_fake
+def _embed_table_grad_fake(ids, g, vocab, mode):
+    return g.new_empty((vocab, g.shape[-1]), dtype=torch.float32)
+
+
+def _embed_table_grad_dtensor(ids, g, vocab: int, mode: str, table_placements):
+    """The table gradient of DTensor operands: each rank commits its block
+    of (ids, g) into a full (vocab, D) table, a partial sum over the mesh
+    dims that split the tokens, then laid out as the table is (a
+    reduce-scatter or an all-reduce).  A plain `ids` counts as replicated."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = g.device_mesh
+    if not isinstance(ids, DTensor):
+        ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    token_dims = ids.ndim
+    g_pl = [p if (isinstance(p, Shard) and p.dim < token_dims) or isinstance(p, Partial)
+            else Replicate() for p in g.placements]
+    ids_pl = [p if isinstance(p, Shard) else Replicate() for p in g_pl]
+    g, ids = g.redistribute(mesh, g_pl), ids.redistribute(mesh, ids_pl)
+    out = embed_table_grad(ids.to_local(), g.to_local(), vocab, mode)
+    out_pl = [Partial() if isinstance(p, (Shard, Partial)) else Replicate() for p in g_pl]
+    gt = DTensor.from_local(out, mesh, out_pl, run_check=False)
+    return gt.redistribute(mesh, table_placements)
+
+
+def _lookup_dtensor(table, ids):
+    """table[ids] of a DTensor table, the rows laid out as the ids are (a
+    plain `ids` counts as replicated).  Where the mesh dims that split the
+    vocab split no ids, the lookup is vocab-parallel: each rank looks its
+    ids up in its own rows, zero elsewhere, and the rows are summed over
+    those dims (an all-reduce of the looked-up rows).  Otherwise the table
+    is gathered whole first, as FSDP gathers a param before its use."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = table.device_mesh
+    if not isinstance(ids, DTensor):
+        ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    vocab_dims = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    if any(isinstance(ids.placements[i], Shard) for i in vocab_dims):
+        whole = table.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+        return DTensor.from_local(whole[ids.to_local()], mesh, ids.placements, run_check=False)
+    rows = table.redistribute(mesh, [p if i in vocab_dims else Replicate()
+                                     for i, p in enumerate(table.placements)]).to_local()
+    lo, n = 0, table.shape[0]     # this rank's first row: torch.chunk's, split in mesh order
+    for i in vocab_dims:
+        c = -(-n // mesh.size(i))
+        start = min(mesh.get_local_rank(i) * c, n)
+        lo, n = lo + start, min(c, n - start)
+    local = ids.to_local().to(torch.int64) - lo
+    mine = (local >= 0) & (local < rows.shape[0])
+    out = rows[torch.where(mine, local, 0)] * mine[..., None].to(rows.dtype)
+    out = DTensor.from_local(out, mesh, [Partial() if i in vocab_dims else p
+                                         for i, p in enumerate(ids.placements)], run_check=False)
+    return out.redistribute(mesh, ids.placements)
+
+
 class _EmbedLookup(torch.autograd.Function):
     """table[ids] whose table gradient is committed as `mode` says: 'naive'
     (`index_add_`, the reference's XLA scatter; float atomics on a card, so
     not reproducible run to run there), 'merged' (the global BUM sort-merge)
     or 'windowed' (the sliding-window merge, 4096 entries a window).  Each
-    builds the f32 (V, D) gradient table and casts it to the table's dtype,
-    as the reference does."""
+    builds the f32 (V, D) gradient table (`embed_table_grad`) and casts it
+    to the table's dtype, as the reference does.  A DTensor table (a placed
+    step of `launch.steps`) gets its gradient as a DTensor of its own
+    placements."""
 
     @staticmethod
     def forward(ctx, table, ids, mode):
         ctx.save_for_backward(ids)
         ctx.vocab, ctx.dtype, ctx.mode = table.shape[0], table.dtype, mode
+        ctx.placements = getattr(table, "placements", None)
+        if ctx.placements is not None:
+            return _lookup_dtensor(table, ids)
         return table[ids]
 
     @staticmethod
@@ -71,15 +147,10 @@ class _EmbedLookup(torch.autograd.Function):
         (ids,) = ctx.saved_tensors
         if not ctx.needs_input_grad[0]:
             return None, None, None
-        flat_ids = ids.reshape(-1).to(torch.int64)
-        flat_g = g.reshape(-1, g.shape[-1]).to(torch.float32)
-        zero = torch.zeros((ctx.vocab, g.shape[-1]), dtype=torch.float32, device=g.device)
-        if ctx.mode == "merged":
-            gt = gu_ops.merged_scatter_add(zero, flat_ids, flat_g)
-        elif ctx.mode == "windowed":
-            gt = gu_ops.windowed_scatter_add(zero, flat_ids, flat_g)
+        if ctx.placements is not None:
+            gt = _embed_table_grad_dtensor(ids, g, ctx.vocab, ctx.mode, ctx.placements)
         else:
-            gt = zero.index_add_(0, flat_ids, flat_g)
+            gt = embed_table_grad(ids, g, ctx.vocab, ctx.mode)
         return gt.to(ctx.dtype), None, None
 
 

@@ -23,9 +23,20 @@ returns the encoder output as its third value.
 `launch.mesh.Mesh`, default None) reaches every block's `moe.moe_layer`,
 as in the reference: on a mesh with more than one EP rank the MoE layers
 run `moe.moe_ep`, every rank holding the whole batch and params and
-getting the global gradients.  The reference's `tp_logits` / `act_spec`
-are layout constraints for its compiled steps and have no counterpart
-here.  Params and caches are nested dicts
+getting the global gradients.  `tp_logits` and `act_spec` are the
+reference's layout constraints, which `launch.steps` sets: on DTensor
+activations (a placed step) `act_spec` (a `parallel.sharding.P` over the
+(B, S, D) residual stream) re-lays x out after the embedding, after every
+layer and after every segment of `forward` / `prefill` (without it a
+DTensor stream goes back to its entering layout after every layer:
+`_keeper`), and `tp_logits`
+lays the logits out as P(dp, None, "model") when the vocab divides over
+'model'.  Both are off by default, and on plain tensors neither does
+anything.  `fsdp_axes` (mesh axes that split params for storage only,
+the policy's FSDP axes) gathers each block's DTensor params over them
+before the block runs, inside its remat, and the head before the logits
+(ZeRO-3; `_gather_param`).
+Params and caches are nested dicts
 of tensors with the reference's keys, stacked (n_layers, ...) segment
 leaves and its (d_in, ..., d_out) layouts, so `repro_torch.bridge` carries
 a reference LM's params and AdamW state across unchanged.  Positions:
@@ -65,14 +76,64 @@ def sinusoidal_at(pos: torch.Tensor, d: int, dtype) -> torch.Tensor:
 
 
 class LM:
-    def __init__(self, cfg: ModelConfig, mesh=None, device="cuda"):
+    def __init__(self, cfg: ModelConfig, mesh=None, device="cuda", tp_logits: bool = False,
+                 act_spec=None, fsdp_axes=()):
         self.cfg = cfg
         self.mesh = mesh
         self.device = torch.device(device)
+        self.tp_logits = tp_logits
+        self.act_spec = act_spec
+        self.fsdp_axes = tuple(fsdp_axes)
+        self._gather = self._gather_block if self.fsdp_axes else None
         self.segs = segments(cfg)
         self.dtype = getattr(torch, cfg.dtype)
         self._embed_lookup = (layers.embed_lookup_merged if cfg.dedup_embed_grad
                               else layers.embed_lookup_naive)
+
+    def _relay(self, x, spec):
+        """x laid out as `spec` says, when x is a DTensor on the mesh."""
+        if self.mesh is None or getattr(x, "device_mesh", None) is None:
+            return x
+        from ..parallel.sharding import to_named
+        return x.redistribute(x.device_mesh, to_named({"x": spec}, self.mesh)["x"])
+
+    def _constrain(self, x):
+        if self.act_spec is None or x.ndim != 3:
+            return x
+        return self._relay(x, self.act_spec)
+
+    def _keeper(self, x):
+        """What re-lays the residual stream out at each layer's end:
+        `_constrain` under `act_spec`; a DTensor stream otherwise back to its
+        layout entering the stack (a partial sum summed), so every layer
+        runs the same program, as the reference's scan body does; the
+        identity on plain tensors."""
+        if self.act_spec is not None:
+            return self._constrain
+        if getattr(x, "device_mesh", None) is None:
+            return tfm.identity
+        from torch.distributed.tensor import Replicate
+        placements = [Replicate() if p.is_partial() else p for p in x.placements]
+        return lambda h: h.redistribute(h.device_mesh, placements)
+
+    def _gather_param(self, t):
+        """A DTensor param gathered over `fsdp_axes` (ZeRO-3's gather before
+        its use), the other mesh axes' splits kept."""
+        if not self.fsdp_axes or getattr(t, "device_mesh", None) is None:
+            return t
+        from torch.distributed.tensor import Replicate
+        names = tuple(self.mesh.shape)
+        pl = [Replicate() if names[i] in self.fsdp_axes else p for i, p in enumerate(t.placements)]
+        return t if pl == list(t.placements) else t.redistribute(t.device_mesh, pl)
+
+    def _gather_block(self, params):
+        """A block's params through `_gather_param`; the routed experts are
+        left to the MoE layer, which gathers them over the axes that do not
+        hold its experts."""
+        from ..optim.adamw import tree_from_paths, tree_paths
+        return tree_from_paths([
+            (path, t if "moe" in path and path[-1] in ("w_gate", "w_up", "w_down")
+             else self._gather_param(t)) for path, t in tree_paths(params)])
 
     # ---- params ----
 
@@ -124,7 +185,14 @@ class LM:
 
     def logits(self, params, x):
         head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
-        return (x @ head).to(torch.float32)
+        out = (x @ self._gather_param(head)).to(torch.float32)
+        mesh = self.mesh
+        if self.tp_logits and mesh is not None and "model" in mesh.shape \
+                and self.cfg.vocab % mesh.shape["model"] == 0:
+            from ..parallel.sharding import P
+            dp = tuple(a for a in ("pod", "data") if a in mesh.shape)
+            out = self._relay(out, P(dp, None, "model"))
+        return out
 
     # ---- encoder (whisper) ----
 
@@ -135,7 +203,7 @@ class LM:
         x = encoder_embeds.to(self.dtype) + sinusoidal(s, cfg.d_model, self.dtype,
                                                        self.device)[None]
         x = tfm.apply_segment(params["enc_segs"], cfg, "enc_attn", x,
-                              self.default_positions(b, s), mesh=self.mesh)
+                              self.default_positions(b, s), mesh=self.mesh, gather=self._gather)
         return tfm.apply_norm(cfg, params["enc_norm"], x)
 
     # ---- forward (train / prefill logits) ----
@@ -160,13 +228,18 @@ class LM:
         x, b, s, enc_out = self._inputs(params, tokens, embeds, encoder_embeds)
         if positions is None:
             positions = self.default_positions(b, s)
+        keep = self._keeper(x)
+        x = keep(x)
         for i, (kind, _) in enumerate(self.segs):
             seg = params[f"seg{i}_{kind}"]
             if self._hybrid(kind):
                 x = tfm.apply_hybrid_segment(seg, self.cfg, kind, x, positions,
-                                             params["shared_attn"], self.mesh)
+                                             params["shared_attn"], self.mesh, keep,
+                                             self._gather)
             else:
-                x = tfm.apply_segment(seg, self.cfg, kind, x, positions, enc_out, self.mesh)
+                x = tfm.apply_segment(seg, self.cfg, kind, x, positions, enc_out, self.mesh,
+                                      keep, self._gather)
+            x = keep(x)
         h = tfm.apply_norm(self.cfg, params["final_norm"], x)
         return self.logits(params, h), h
 
@@ -180,7 +253,7 @@ class LM:
         logits, h = self.forward(params, tokens=None if "embeds" in batch else tokens,
                                  embeds=batch.get("embeds"), positions=batch.get("positions"),
                                  encoder_embeds=batch.get("encoder_embeds"))
-        loss = _nll(logits[:, :-1], tokens[:, 1:])
+        loss = _next_token_nll(logits, tokens)
         if self.cfg.mtp_depth:
             loss = loss + 0.3 * self._mtp_loss(params, h, tokens)
         return loss
@@ -194,9 +267,10 @@ class LM:
         z = torch.cat([tfm.apply_norm(cfg, mtp["norm_h"], h[:, :-1]),
                        tfm.apply_norm(cfg, mtp["norm_e"], emb_next)], dim=-1) @ mtp["proj"]
         pos = self.default_positions(z.shape[0], z.shape[1])
-        z = tfm.apply_block(mtp["block"], cfg, self.segs[-1][0], z, pos, mesh=self.mesh)
+        z = tfm.apply_block(mtp["block"], cfg, self.segs[-1][0], z, pos, mesh=self.mesh,
+                            gather=self._gather)
         logits = self.logits(params, tfm.apply_norm(cfg, params["final_norm"], z))
-        return _nll(logits[:, :-1], tokens[:, 2:])
+        return _next_token_nll(logits, tokens[:, 1:])
 
     # ---- serving ----
 
@@ -227,15 +301,17 @@ class LM:
         if positions is None:
             positions = self.default_positions(b, s)
         caches: dict[str, Any] = {}
+        keep = self._keeper(x)
         for i, (kind, _) in enumerate(self.segs):
             key = f"seg{i}_{kind}"
             if self._hybrid(kind):
                 x, caches[key], caches["shared_attn"] = tfm.apply_hybrid_segment_prefill(
                     params[key], self.cfg, kind, x, positions, params["shared_attn"], max_seq,
-                    self.mesh)
+                    self.mesh, self._gather, keep)
             else:
                 x, caches[key] = tfm.apply_segment_prefill(params[key], self.cfg, kind, x,
-                                                           positions, max_seq, enc_out, self.mesh)
+                                                           positions, max_seq, enc_out, self.mesh,
+                                                           keep, self._gather)
         h = tfm.apply_norm(self.cfg, params["final_norm"], x)
         return self.logits(params, h[:, -1:, :])[:, 0], caches, enc_out
 
@@ -251,18 +327,42 @@ class LM:
         if self.cfg.rope == "mrope":
             rope_positions = pos[None].expand((3,) + tuple(pos.shape))
         new_caches = {}
+        keep = self._keeper(x)
         for i, (kind, _) in enumerate(self.segs):
             key = f"seg{i}_{kind}"
             if self._hybrid(kind):
                 x, new_caches[key], new_caches["shared_attn"] = tfm.apply_hybrid_segment_decode(
                     params[key], self.cfg, kind, x, caches[key], pos, params["shared_attn"],
-                    caches["shared_attn"], self.mesh)
+                    caches["shared_attn"], self.mesh, self._gather, keep)
             else:
                 x, new_caches[key] = tfm.apply_segment_decode(params[key], self.cfg, kind, x,
                                                               caches[key], pos, rope_positions,
-                                                              self.mesh)
+                                                              self.mesh, self._gather, keep)
         h = tfm.apply_norm(self.cfg, params["final_norm"], x)
         return self.logits(params, h)[:, 0], new_caches
+
+
+def _next_token_nll(logits, tokens):
+    """Mean cross-entropy of logits[:, :-1] (B, S, V) against tokens[:, 1:],
+    in f32.  DTensor logits split over nothing but the batch are scored on
+    each rank's rows, each block's mean weighted by its share of the rows
+    (sliced as DTensors, the slice's backward would build the whole
+    batch's logits gradient on every rank)."""
+    placements = getattr(logits, "placements", None)
+    if placements is None or not all(p.is_replicate() or p.is_shard(0) for p in placements):
+        return _nll(logits[:, :-1], tokens[:, 1:])
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = logits.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    rows = tokens.redistribute(mesh, placements).to_local()
+    local = logits.to_local()
+    loss = _nll(local[:, :-1], rows[:, 1:])
+    if local.shape[0] != logits.shape[0]:
+        loss = loss * (local.shape[0] / logits.shape[0])
+    loss = DTensor.from_local(loss, mesh, [Partial() if p.is_shard() else p for p in placements],
+                              run_check=False)
+    return loss.redistribute(mesh, [Replicate()] * mesh.ndim)
 
 
 def _nll(logits, targets):

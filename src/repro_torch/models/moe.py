@@ -160,7 +160,7 @@ def _expert_ffn(w_gate, w_up, w_down, x):
 
 def moe_dense(params, x, cfg: ModelConfig):
     """Every routed expert on every token, combined by the gates; plus the
-    shared experts.  x (B, S, D) -> (B, S, D)."""
+    shared experts (where `params` holds them).  x (B, S, D) -> (B, S, D)."""
     m = cfg.moe
     b, s, d = x.shape
     xf = x.reshape(-1, d)
@@ -169,7 +169,7 @@ def moe_dense(params, x, cfg: ModelConfig):
     onehot = F.one_hot(ids.to(torch.int64), m.n_routed).to(torch.float32)       # (N, k, E)
     combine = torch.einsum("nk,nke->ne", gates, onehot)                          # (N, E)
     y = torch.einsum("ne,end->nd", combine.to(outs.dtype), outs).reshape(b, s, d)
-    if m.n_shared:
+    if m.n_shared and "shared" in params:
         y = y + ffn(params["shared"], x, "swiglu")
     return y
 
@@ -376,7 +376,7 @@ def _moe_decode_local(params, x, m: MoEConfig, n_model: int, ep_index: int, grou
 
 
 def moe_ep(params, x, cfg: ModelConfig, mesh, dp_axes=("pod", "data"),
-           capacity_factor: float = 1.3):
+           capacity_factor: float = 1.3, experts=None):
     """Expert-parallel MoE. x (B, S, D) -> (B, S, D), the whole of both on
     every rank.
 
@@ -385,7 +385,11 @@ def moe_ep(params, x, cfg: ModelConfig, mesh, dp_axes=("pod", "data"),
     of x -- batch over the dp axes other than 'model', sequence over
     'model' after padding it to a multiple of the 'model' size (decode,
     S == 1: the whole sequence) -- and its experts, the `n_routed / n_ep`
-    at its EP index; runs the shard body; and gathers every block."""
+    at its EP index; runs the shard body; and gathers every block.
+    `experts` ({"w_gate", "w_up", "w_down"}: this rank's own `n_routed /
+    n_ep`, each a complete gradient's leaf) replaces the slice of the whole
+    ones, and the shared experts are then left to the caller
+    (`_moe_layer_dtensor`)."""
     m = cfg.moe
     ep_axes = mesh.ordered(a for a in m.ep_axes if a in mesh.shape)
     n_ep = 1
@@ -406,9 +410,12 @@ def moe_ep(params, x, cfg: ModelConfig, mesh, dp_axes=("pod", "data"),
 
     e_loc = m.n_routed // n_ep
     lo = mesh.index(ep_axes) * e_loc
+    weights = ("w_gate", "w_up", "w_down")
     routed = {key: _EnterShard.apply(params[key], whole)
-              for key in ("router", "router_bias", "w_gate", "w_up", "w_down")}
-    local = {**routed, **{key: routed[key][lo:lo + e_loc] for key in ("w_gate", "w_up", "w_down")}}
+              for key in ("router", "router_bias") + (weights if experts is None else ())}
+    if experts is None:
+        experts = {key: routed[key][lo:lo + e_loc] for key in weights}
+    local = {**routed, **experts}
 
     s = x.shape[1]
     pad = 0 if decode else (-s) % n_seq
@@ -432,6 +439,41 @@ def moe_ep(params, x, cfg: ModelConfig, mesh, dp_axes=("pod", "data"),
             n_b, n_s, bl, sl, m.top_k).permute(0, 2, 1, 3, 4).reshape(n_b * bl, n_s * sl, m.top_k)
         _DROPS.append(flags[:, :s] != 0)
 
+    if m.n_shared and "shared" in params:
+        y = y + ffn(params["shared"], x, "swiglu")
+    return y
+
+
+def _moe_layer_dtensor(params, x, cfg: ModelConfig, mesh, n_ep: int):
+    """`moe_layer` of DTensor params and x (a placed step of
+    `launch.steps`): the routed experts run on plain tensors, as `moe_ep`
+    (each rank's own experts, gathered only over the axes that do not
+    split them) or `moe_dense` (whole), and their output is laid out as x
+    is (summed where x is a partial sum); the shared experts stay
+    DTensors."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    m, dm = cfg.moe, x.device_mesh
+    whole = lambda t: t.full_tensor() if isinstance(t, DTensor) else t  # noqa: E731
+    plain = {k: whole(v) for k, v in params.items() if k in ("router", "router_bias")}
+    weights = ("w_gate", "w_up", "w_down")
+    if n_ep > 1:
+        ep = [a in m.ep_axes for a in mesh.axis_names]
+        experts = {}
+        for k in weights:
+            w = params[k]
+            if not isinstance(w, DTensor):
+                experts[k] = w
+                continue
+            pl = [Shard(w.ndim - 3) if on else Replicate() for on in ep]
+            # a rank's expert gradient covers the tokens of its own block of
+            # the axes that do not split the experts: a partial sum there
+            experts[k] = w.redistribute(dm, pl).to_local(
+                grad_placements=[p if on else Partial() for p, on in zip(pl, ep)])
+        y = moe_ep(plain, whole(x), cfg, mesh, experts=experts)
+    else:
+        y = moe_dense({**plain, **{k: whole(params[k]) for k in weights}}, whole(x), cfg)
+    y = DTensor.from_local(y, dm, [Replicate()] * dm.ndim, run_check=False)
+    y = y.redistribute(dm, [Replicate() if p.is_partial() else p for p in x.placements])
     if m.n_shared:
         y = y + ffn(params["shared"], x, "swiglu")
     return y
@@ -449,5 +491,9 @@ def moe_layer(params, x, cfg: ModelConfig, mesh=None):
     for a in m.ep_axes:
         n_ep *= dict(mesh.shape).get(a, 1)
     if n_ep == 1 or m.n_routed % n_ep != 0:
+        n_ep = 1
+    if getattr(x, "device_mesh", None) is not None:
+        return _moe_layer_dtensor(params, x, cfg, mesh, n_ep)
+    if n_ep == 1:
         return moe_dense(params, x, cfg)
     return moe_ep(params, x, cfg, mesh)

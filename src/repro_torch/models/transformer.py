@@ -121,8 +121,12 @@ def _mlp(params, cfg: ModelConfig, kind: str, h, mesh=None):
 
 
 def apply_block(params, cfg: ModelConfig, kind: str, x, positions, encoder_out=None,
-                mesh=None):
-    """Full-sequence (train / prefill) block."""
+                mesh=None, gather=None):
+    """Full-sequence (train / prefill) block.  `gather` (a callable, `LM`'s
+    under an FSDP layout) takes the block's params to the layout it runs
+    on: every block function calls it first (inside the remat, so the
+    backward gathers again)."""
+    params = gather(params) if gather is not None else params
     h = apply_norm(cfg, params["ln1"], x)
     if kind in SSM_KINDS:
         return x + ssm.ssm_block(params["ssm"], cfg, h)[0]
@@ -158,11 +162,12 @@ def _cross_attention(params, cfg: ModelConfig, x, k, v):
 
 
 def apply_block_decode(params, cfg: ModelConfig, kind: str, x, cache, pos,
-                       rope_positions=None, mesh=None):
+                       rope_positions=None, mesh=None, gather=None):
     """One-token decode: (x, the block's new cache).  pos (B, 1) is the
     cache slot; rope_positions may carry M-RoPE streams.  An SSM block's
     cache is its state; a `dec_attn` block's cross-attention reads the
     encoder's keys and values from `cache["cross"]`."""
+    params = gather(params) if gather is not None else params
     h = apply_norm(cfg, params["ln1"], x)
     if kind in SSM_KINDS:
         y, state = ssm.ssm_block(params["ssm"], cfg, h, cache)
@@ -180,8 +185,9 @@ def apply_block_decode(params, cfg: ModelConfig, kind: str, x, cache, pos,
 
 
 def apply_block_prefill(params, cfg: ModelConfig, kind: str, x, positions,
-                        max_seq: int | None = None, encoder_out=None, mesh=None):
+                        max_seq: int | None = None, encoder_out=None, mesh=None, gather=None):
     """Full-prompt pass that also returns the block's decode cache."""
+    params = gather(params) if gather is not None else params
     h = apply_norm(cfg, params["ln1"], x)
     if kind in SSM_KINDS:
         y, state = ssm.ssm_block(params["ssm"], cfg, h)
@@ -265,41 +271,55 @@ def init_segment(generator, cfg: ModelConfig, kind: str, n: int, dtype, device=N
 
 
 def _apply_layer(layer, cfg: ModelConfig, kind: str, x, positions, encoder_out=None,
-                 mesh=None):
+                 mesh=None, gather=None):
     """One block, under `torch.utils.checkpoint` when the config asks for
     remat and gradients are recorded (the encoder output an input of the
     checkpoint, so the decoder's gradient reaches the encoder)."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(lambda p, h, e: apply_block(p, cfg, kind, h, positions, e, mesh),
+        return checkpoint(lambda p, h, e: apply_block(p, cfg, kind, h, positions, e, mesh,
+                                                      gather),
                           layer, x, encoder_out, use_reentrant=False)
-    return apply_block(layer, cfg, kind, x, positions, encoder_out, mesh)
+    return apply_block(layer, cfg, kind, x, positions, encoder_out, mesh, gather)
+
+
+def identity(h):
+    return h
 
 
 def apply_segment(params, cfg: ModelConfig, kind: str, x, positions, encoder_out=None,
-                  mesh=None):
-    """Run a stacked segment layer by layer (remat per layer if configured)."""
+                  mesh=None, constrain=None, gather=None):
+    """Run a stacked segment layer by layer (remat per layer if configured).
+    `constrain` (a callable, `LM`'s activation layout) re-lays each layer's
+    output out, as the reference pins its scan's carry."""
+    keep = constrain or identity
     for layer in unstack_tree(params):
-        x = _apply_layer(layer, cfg, kind, x, positions, encoder_out, mesh)
+        x = keep(_apply_layer(layer, cfg, kind, x, positions, encoder_out, mesh, gather))
     return x
 
 
 def apply_segment_decode(params, cfg: ModelConfig, kind: str, x, caches, pos,
-                         rope_positions=None, mesh=None):
+                         rope_positions=None, mesh=None, gather=None, constrain=None):
     """Decode through a segment; caches are stacked along the layer axis too."""
+    keep = constrain or identity
     outs = []
     for layer, cache in zip(unstack_tree(params), unstack_tree(caches)):
-        x, nc = apply_block_decode(layer, cfg, kind, x, cache, pos, rope_positions, mesh)
+        x, nc = apply_block_decode(layer, cfg, kind, x, cache, pos, rope_positions, mesh,
+                                   gather)
+        x = keep(x)
         outs.append(nc)
     return x, stack_trees(outs)
 
 
 def apply_segment_prefill(params, cfg: ModelConfig, kind: str, x, positions,
-                          max_seq: int | None = None, encoder_out=None, mesh=None):
+                          max_seq: int | None = None, encoder_out=None, mesh=None,
+                          constrain=None, gather=None):
     """Prefill through a segment: (x, stacked caches)."""
+    keep = constrain or identity
     outs = []
     for layer in unstack_tree(params):
         x, cache = apply_block_prefill(layer, cfg, kind, x, positions, max_seq, encoder_out,
-                                       mesh)
+                                       mesh, gather)
+        x = keep(x)
         outs.append(cache)
     return x, stack_trees(outs)
 
@@ -317,25 +337,32 @@ def _ends_group(i: int, cfg: ModelConfig) -> bool:
 
 
 def apply_hybrid_segment(params, cfg: ModelConfig, kind: str, x, positions, shared_attn,
-                         mesh=None):
+                         mesh=None, constrain=None, gather=None):
+    keep = constrain or identity
     for i, layer in enumerate(unstack_tree(params)):
-        x = _apply_layer(layer, cfg, kind, x, positions, mesh=mesh)
+        x = keep(_apply_layer(layer, cfg, kind, x, positions, mesh=mesh, gather=gather))
         if _ends_group(i, cfg):
-            x = _apply_layer(shared_attn, cfg, "attn_dense", x, positions, mesh=mesh)
+            x = keep(_apply_layer(shared_attn, cfg, "attn_dense", x, positions, mesh=mesh,
+                                  gather=gather))
     return x
 
 
 def apply_hybrid_segment_prefill(params, cfg: ModelConfig, kind: str, x, positions,
-                                 shared_attn, max_seq: int | None = None, mesh=None):
+                                 shared_attn, max_seq: int | None = None, mesh=None,
+                                 gather=None, constrain=None):
     """-> (x, the segment's flat (n_layers, ...) caches, the shared block's
     (n_groups, ...) caches)."""
+    keep = constrain or identity
     outs, shared = [], []
     for i, layer in enumerate(unstack_tree(params)):
-        x, cache = apply_block_prefill(layer, cfg, kind, x, positions, max_seq, mesh=mesh)
+        x, cache = apply_block_prefill(layer, cfg, kind, x, positions, max_seq, mesh=mesh,
+                                       gather=gather)
+        x = keep(x)
         outs.append(cache)
         if _ends_group(i, cfg):
             x, cache = apply_block_prefill(shared_attn, cfg, "attn_dense", x, positions, max_seq,
-                                           mesh=mesh)
+                                           mesh=mesh, gather=gather)
+            x = keep(x)
             shared.append(cache)
     like = None if shared else init_block_cache(cfg, "attn_dense", x.shape[0],
                                                 max_seq or x.shape[1], x.dtype, x.device)
@@ -343,14 +370,18 @@ def apply_hybrid_segment_prefill(params, cfg: ModelConfig, kind: str, x, positio
 
 
 def apply_hybrid_segment_decode(params, cfg: ModelConfig, kind: str, x, caches, pos,
-                                shared_attn, shared_caches, mesh=None):
+                                shared_attn, shared_caches, mesh=None, gather=None,
+                                constrain=None):
     """shared_caches: the shared block's stacked (n_groups, ...) KV caches."""
+    keep = constrain or identity
     outs, shared, points = [], [], unstack_tree(shared_caches)
     for i, (layer, cache) in enumerate(zip(unstack_tree(params), unstack_tree(caches))):
-        x, nc = apply_block_decode(layer, cfg, kind, x, cache, pos, mesh=mesh)
+        x, nc = apply_block_decode(layer, cfg, kind, x, cache, pos, mesh=mesh, gather=gather)
+        x = keep(x)
         outs.append(nc)
         if _ends_group(i, cfg):
             x, nc = apply_block_decode(shared_attn, cfg, "attn_dense", x, points[len(shared)],
-                                       pos, mesh=mesh)
+                                       pos, mesh=mesh, gather=gather)
+            x = keep(x)
             shared.append(nc)
     return x, stack_trees(outs), stack_trees(shared) if shared else shared_caches

@@ -220,7 +220,17 @@ card and fails on anything wrong -- there is no CPU fallback.
    resumed byte for byte; `launch.serve` on the host mesh against
    mesh=None (``parallel_moe_ep``, ``parallel_sync``,
    ``parallel_train_cli``, ``parallel_serve``);
-17. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
+17. the LM dry-run launchers (slice 21's main paths,
+   `smoke_dryrun.dryrun_phase`): qwen1.5-0.5b's train step at full width
+   and 4 x 1024 tokens traced on a fake world of 1 (fake tensors on the
+   card, the H100 roofline), then run for real through
+   `launch.steps.build_train_step` on a world-1 NCCL mesh, params placed
+   as DTensors (first loss == `LM.loss` bit for bit, the args' bytes on
+   the card == the dry run's within 512 B a tensor; ``dryrun_step``: #7
+   and `bum_sort` through the merged embedding backward), and the
+   production cell qwen1.5-0.5b x decode_32k on a fake world of 256 in a
+   subprocess;
+18. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
    summed over the main paths, and per path) and, last, the device line.
 """
 from __future__ import annotations
@@ -241,7 +251,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import kernels, smoke_lm, smoke_moe, smoke_parallel, smoke_ssm, smoke_whisper
+from . import (kernels, smoke_dryrun, smoke_lm, smoke_moe, smoke_parallel, smoke_ssm,
+               smoke_whisper)
 from .core import encoding as enc
 from .core import occupancy
 from .core.field import Field, FieldConfig
@@ -3448,6 +3459,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     par = smoke_parallel.parallel_phase(device, card)
+    # slice 21's main paths: the dry-run launchers, a placed step, a production cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = smoke_dryrun.dryrun_phase(device, card)
 
     paths = {"train": run["launches"], "train_ngp": ngp["launches"], "serve": serve_launches,
              "service": service["launches"], "train_v3": v3["train_launches"],
@@ -3461,7 +3476,7 @@ def main() -> int:
                 for name, res in compiled["paths"].items()},
              **{f"compiled_serve_{route}": res["launches"] for route, res in renders.items()},
              **lm["launches"], **moe["launches"], **ssm["launches"], **whisper["launches"],
-             **par["launches"]}
+             **par["launches"], **dry["launches"]}
     report = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == name]

@@ -1,0 +1,234 @@
+"""Phase 17 of ``chip_smoke.py``: the LM dry-run launchers on one card.
+
+1. The dry run of a real cell: qwen1.5-0.5b at full width and depth (24
+   layers, d 1024, vocab 151,936, bf16) with the merged embedding backward
+   (``dedup_embed_grad=True``: #7 `bum_scatter` and `bum_sort`, the exact
+   route on a card), trained at a `Shape` of its own, 4 x 1024 tokens,
+   traced by `launch.dryrun._compile_cell` on a fake world of 1 with its
+   fake tensors on the card (no kernel, no ctypes call, nothing
+   allocated): per-device memory, flops and the H100 roofline.
+2. The same cell for real: `launch.steps.build_train_step` over a world-1
+   NCCL mesh ('data', 'model') = (1, 1), params, AdamW state and batch
+   placed as DTensors, two steps.  Gates: the first step's loss equals
+   `LM.loss` on the same params and batch bit for bit; the params stay
+   finite; the bytes the placed params, optimizer state and batch hold on
+   the card (their local storages, each rounded up to the caching
+   allocator's 512-byte block) equal the dry run's
+   `argument_bytes_per_device` within that rounding a tensor.  The
+   allocator's own count around making and placing them
+   (`torch.cuda.memory_allocated`) is printed beside it, not gated: it
+   also counts any other block made meanwhile.  The second step's wall time is printed
+   beside the dry run's predicted step (the largest roofline term, H100
+   constants) and their ratio, not gated.  The kernels' launches in the
+   steps are this path's (``dryrun_step``).
+3. One production cell: qwen1.5-0.5b x decode_32k on a fake world of 256
+   (``python -m repro_torch.launch.dryrun --device cuda --no-probes``), in
+   a subprocess started before part 1 (a process of its own: this one's
+   process groups come and go), its JSON row's summary and wall time
+   printed.
+
+`dryrun_phase(device, card, smoke=True)` runs the same on the smoke config
+at a small shape (gloo on the CPU), which the CPU tests rehearse.
+"""
+from __future__ import annotations
+
+import dataclasses
+import gc
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+from . import kernels
+from .configs import get_config, get_smoke_config
+from .configs.shapes import Shape
+from .launch import dryrun, steps
+from .launch.mesh import Mesh
+from .launch.roofline import model_flops_for, roofline
+from .models.lm import LM
+from .optim.adamw import tree_paths
+from .smoke_parallel import world_of_one
+
+ARCH = "qwen1_5-0_5b"
+STEP_SHAPE = Shape("phase17", 1024, 4, "train")
+SMOKE_SHAPE = Shape("phase17_smoke", 16, 2, "train")
+PRODUCTION_CELL = ("decode_32k", 600)     # (shape, subprocess timeout s)
+ALLOC_ROUND = 512                         # the CUDA caching allocator's rounding
+
+
+def _cfg(smoke: bool):
+    cfg = get_smoke_config(ARCH) if smoke else get_config(ARCH)
+    return dataclasses.replace(cfg, dedup_embed_grad=True)
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _allocated(device) -> int:
+    if torch.device(device).type != "cuda":
+        return 0
+    gc.collect()
+    torch.cuda.synchronize(device)
+    return torch.cuda.memory_allocated(device)
+
+
+def start_production_cell(device, out_dir: str) -> subprocess.Popen:
+    """The dry-run CLI on the production cell, in the background."""
+    src = str(Path(__file__).resolve().parent.parent)
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH,
+         "--shape", PRODUCTION_CELL[0], "--device", torch.device(device).type,
+         "--no-probes", "--out", out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def finish_production_cell(proc: subprocess.Popen, out_dir: str, t0: float) -> dict:
+    try:
+        _, stderr = proc.communicate(timeout=PRODUCTION_CELL[1])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise RuntimeError(f"the production cell's dry run failed:\n{stderr[-3000:]}")
+    row = json.loads((Path(out_dir) / f"{ARCH}__{PRODUCTION_CELL[0]}__pod1.json").read_text())
+    return {"row": row, "wall_s": time.perf_counter() - t0}
+
+
+def dry_cell(device, smoke: bool) -> dict:
+    """Part 1: the traced cell at world 1, fake tensors on `device`."""
+    cfg, shape = _cfg(smoke), SMOKE_SHAPE if smoke else STEP_SHAPE
+    t0 = time.perf_counter()
+    with dryrun.fake_world(1):
+        mesh = Mesh((1, 1), ("data", "model"), device=device)
+        mem, raw, coll, _ = dryrun._compile_cell(cfg, shape, mesh)
+    min_bytes = float(mem.argument_size_in_bytes + mem.output_size_in_bytes
+                      - mem.alias_size_in_bytes)
+    rl = roofline({"flops": raw["flops"], "bytes accessed": raw["bytes"]}, coll, 1,
+                  model_flops_for(cfg, shape), min_bytes).to_dict()
+    return {"memory": dataclasses.asdict(mem), "raw": raw, "roofline": rl,
+            "trace_s": time.perf_counter() - t0}
+
+
+def real_step(device, smoke: bool) -> dict:
+    """Part 2: two placed train steps over a world-1 group."""
+    cfg, shape = _cfg(smoke), SMOKE_SHAPE if smoke else STEP_SHAPE
+    gen = torch.Generator(device=device).manual_seed(0)
+    with world_of_one(device):
+        mesh = Mesh((1, 1), ("data", "model"), device=device)
+        fn, (abstract_params, _, abstract_batch) = steps.build_train_step(cfg, mesh, shape)
+        opt = steps.make_optimizer(cfg)
+        torch.randn((1,), generator=gen, device=device)    # the generator's own state first
+        m0 = _allocated(device)
+        params = LM(cfg, device=device).init(gen)
+        tokens = torch.randint(0, cfg.vocab, tuple(abstract_batch["tokens"].shape),
+                               generator=gen, device=device, dtype=torch.int32)
+        placed = fn.place(params, opt.init(params), {"tokens": tokens})
+        del params, tokens
+        held = _allocated(device) - m0
+        n_tensors = sum(len(steps._state_items(t)) for t in placed)
+        local = [steps._local_tree(t) for t in placed]
+        storages = {id(t.untyped_storage()): t.untyped_storage().nbytes()
+                    for tree in local for _, t in steps._state_items(tree)}
+        rounded = sum(-(-n // ALLOC_ROUND) * ALLOC_ROUND for n in storages.values())
+        loss_ref = LM(cfg, device=device).loss(local[0], local[2])
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        _, _, loss1 = fn(*placed)
+        _sync(device)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        _, _, loss2 = fn(*placed)
+        _sync(device)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(kernels.LAUNCHES)
+        finite = all(bool(torch.isfinite(t).all()) for _, t in tree_paths(local[0]))
+        loss1, loss2 = loss1.full_tensor(), loss2.full_tensor()
+        out = {"loss_ref": float(loss_ref), "loss1": float(loss1), "loss2": float(loss2),
+               "bit_identical": bool(torch.equal(loss1, loss_ref)), "finite": finite,
+               "held_bytes": held, "storage_bytes": rounded, "n_tensors": n_tensors,
+               "first_ms": first_ms,
+               "step_ms": step_ms, "launches": launches,
+               "dtensor": type(placed[0]["embed"]).__name__}
+        del placed, local
+    return out
+
+
+def dryrun_phase(device, card: str, smoke: bool = False) -> dict:
+    """Phase 17, with its gates."""
+    t_phase = time.perf_counter()
+    device = torch.device(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        t_cell = time.perf_counter()
+        proc = start_production_cell(device, tmp)
+        try:
+            dry = dry_cell(device, smoke)
+            real = real_step(device, smoke)
+        except BaseException:
+            proc.kill()
+            proc.wait()
+            raise
+        cell = finish_production_cell(proc, tmp, t_cell)
+    mem, rl = dry["memory"], dry["roofline"]
+    shape = SMOKE_SHAPE if smoke else STEP_SHAPE
+    predicted_s = max(rl["compute_s"], rl["memory_s"], rl["collective_s"])
+    print(f"dryrun cell {ARCH} train {shape.global_batch} x {shape.seq} at world 1 (traced in "
+          f"{dry['trace_s']:.2f} s): args {mem['argument_size_in_bytes']} B, temp "
+          f"{mem['temp_size_in_bytes']} B, flops/dev {rl['flops_per_device']:.6g}; roofline "
+          f"(H100 989.4 TFLOP/s bf16, 3.35 TB/s): compute {rl['compute_s'] * 1e3:.3f} ms, "
+          f"memory {rl['memory_s'] * 1e3:.3f} ms, collective {rl['collective_s'] * 1e3:.3f} ms "
+          f"-> {rl['bound']}-bound [{card}]", flush=True)
+    print(f"dryrun real step ({real['dtensor']} params, world-1 group): loss "
+          f"{real['loss1']:.6f} (LM.loss {real['loss_ref']:.6f}, bit identical "
+          f"{real['bit_identical']}), step 2 loss {real['loss2']:.6f}; args on the card "
+          f"{real['storage_bytes']} B (storages, each rounded to 512 B; the allocator's "
+          f"count {real['held_bytes']} B) vs dry run {mem['argument_size_in_bytes']} B over "
+          f"{real['n_tensors']} tensors; step {real['step_ms']:.2f} ms (first "
+          f"{real['first_ms']:.2f} ms) vs predicted {predicted_s * 1e3:.3f} ms: measured / "
+          f"predicted {real['step_ms'] / 1e3 / max(predicted_s, 1e-30):.3f} [{card}]",
+          flush=True)
+    row = cell["row"]
+    summary = {k: row[k] for k in ("arch", "shape", "n_devices", "status", "compile_s")}
+    summary.update(memory=row["memory"], collectives=row["collectives"],
+                   roofline=row["roofline_raw"])
+    print(f"dryrun production cell {ARCH} x {PRODUCTION_CELL[0]} on a fake world of 256 "
+          f"(subprocess wall {cell['wall_s']:.2f} s): {json.dumps(summary)} [{card}]",
+          flush=True)
+    problems = check(real, mem, device.type == "cuda")
+    if row["status"] != "ok" or row["n_devices"] != 256:
+        problems.append(f"production cell: {summary}")
+    if problems:
+        raise RuntimeError(f"dry-run phase: {problems}")
+    print(f"dryrun_step-path launches: {json.dumps(real['launches'])}", flush=True)
+    seconds = {"trace": dry["trace_s"], "production_cell": cell["wall_s"],
+               "phase": time.perf_counter() - t_phase}
+    print(f"dryrun phase: {json.dumps(seconds)} [{card}]", flush=True)
+    return {"dry": dry, "real": real, "cell": cell, "seconds": seconds,
+            "launches": {"dryrun_step": real["launches"]}}
+
+
+def check(real: dict, mem: dict, on_card: bool) -> list[str]:
+    problems = []
+    if not real["bit_identical"]:
+        problems.append(f"first loss {real['loss1']!r} != LM.loss {real['loss_ref']!r}")
+    if not real["finite"]:
+        problems.append("params not finite after two steps")
+    if real["dtensor"] != "DTensor":
+        problems.append(f"the step's params are {real['dtensor']}, not placed")
+    if on_card:
+        slack = ALLOC_ROUND * real["n_tensors"]
+        if not 0 <= real["storage_bytes"] - mem["argument_size_in_bytes"] <= slack:
+            problems.append(f"args on the card {real['storage_bytes']} B vs dry run "
+                            f"{mem['argument_size_in_bytes']} B (slack {slack})")
+        missing = [k for k in ("bum_sort", "bum_scatter") if real["launches"].get(k, 0) == 0]
+        if missing:
+            problems.append(f"the step never launched {missing}")
+    return problems

@@ -238,3 +238,49 @@ def error_feedback_steps(rank, steps: int) -> float:
         out, err = col.compressed_psum_mean(g, err, mesh.group("pod"))
         total, exact = total + out, exact + exact_mean
     return float(torch.linalg.norm(total - exact) / torch.linalg.norm(exact))
+
+
+# ---- the placed steps of launch.steps (tests/test_torch_launch_ranks.py) --------
+
+def placed_step(rank, inputs: str, arch: str, overrides: dict, kind: str, seq: int,
+                batch: int, mesh_shape: tuple, names: tuple) -> dict:
+    """`launch.steps`' step of `kind` on a mesh over the whole world, its
+    params and batch placed as DTensors, and the same step unplaced on
+    the same mesh (every rank the whole params and batch, the port's
+    SPMD convention: `LM(cfg, mesh)` as the training CLI runs it): the
+    loss, the whole params and moments after one step (train), or the
+    logits and the new caches (decode), of both."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adamw import tree_paths
+
+    cfg = dataclasses.replace(get_smoke_config(arch), **overrides)
+    mesh = Mesh(mesh_shape, names, "cpu")
+    (fn, _), _, _ = steps.build_step_cfg(cfg, Shape("t", seq, batch, kind), mesh)
+    opt = steps.make_optimizer(cfg)
+    model = LM(cfg, mesh=mesh, device="cpu")
+    whole = lambda tree: {"/".join(p): _np(getattr(t, "full_tensor", lambda: t)())  # noqa: E731
+                          for p, t in tree_paths(tree)}
+    out = {}
+    for route in ("placed", "plain"):
+        flat = _load(inputs)      # afresh: the placed step updates its arguments in place
+        params, b = _tree(flat, "params"), _tree(flat, "batch")
+        if kind == "train":
+            if route == "placed":
+                new_p, state, loss = fn(params, opt.init(params), b)
+                loss = loss.full_tensor()
+            else:
+                new_p, state, loss = train.train_step(model, opt, params, opt.init(params), b)
+            out[route] = {"loss": _np(loss), "params": whole(new_p), "m": whole(state.m)}
+        elif route == "placed":
+            logits, caches = fn(params, b)
+            out[route] = {"logits": _np(logits.full_tensor()), "caches": whole(caches)}
+        else:
+            with torch.no_grad():
+                logits, caches = model.decode_step(params, b["caches"], b["tokens"], b["pos"])
+            out[route] = {"logits": _np(logits), "caches": whole(caches)}
+    return out

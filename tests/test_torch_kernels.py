@@ -287,9 +287,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "repro_torch.smoke" in report["imported"]
     assert {"repro_torch.parallel.sharding", "repro_torch.parallel.collectives",
             "repro_torch.smoke_parallel"} <= set(report["imported"])
+    assert {"repro_torch.launch.steps", "repro_torch.launch.dryrun",
+            "repro_torch.launch.roofline", "repro_torch.launch.report",
+            "repro_torch.smoke_dryrun"} <= set(report["imported"])
     assert report["bad"] == []
 
-    files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"] \
+        + sorted((REPO / "tools").glob("torch_*.py"))
     assert len(files) > 10
     for path in files:
         assert not _FORBIDDEN.search(path.read_text()), path
