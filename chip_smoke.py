@@ -60,7 +60,7 @@ against the CPU at f32 on 2 + 2 layers, serves it at full width and depth
 through ``launch.serve``, then runs the parallel substrate over world-1
 NCCL groups (``moe_ep`` on one deepseek-v2-lite MoE layer at full width
 against ``moe_dense`` and the CPU, the int8 error-feedback gradient sync
-on a depth-3 step's gradients against the CPU's payloads, the training CLI
+on a depth-2 step's gradients against the CPU's payloads, the training CLI
 with ``--compress-grads --coordinator`` stopped and resumed byte for byte,
 serving on the host mesh), then traces qwen1.5-0.5b's train step at full
 width on a fake world of 1 (``launch.dryrun``: fake tensors on the card,
@@ -68,7 +68,10 @@ the H100 roofline), runs it for real through ``launch.steps`` with its
 params placed as DTensors over a world-1 NCCL mesh (first loss ==
 ``LM.loss`` bit for bit, the arguments' bytes on the card == the dry
 run's), and dry-runs the production cell qwen1.5-0.5b x decode_32k on a
-fake world of 256 in a subprocess, and prints
+fake world of 256 and seven mini cells on fake (2, 2, 2) worlds (the
+SSM, hybrid and MLA-decode cells among them) in subprocesses, runs the
+example scripts ``lm_pretrain`` and ``serve_lm`` (qwen3-8b and
+whisper-medium), and prints
 one JSON line with every kernel's report and, last, the device line.  It exits non-zero,
 with no result, on any failure, and when no CUDA card is present.  The phases live in ``src/repro_torch/smoke.py``.
 """

@@ -210,7 +210,10 @@ class StepTrace(TorchDispatchMode):
         if not any(isinstance(t, FakeTensor) and t.fake_mode is self.fake_mode
                    for t in flat_in + flat_out):
             return out     # DTensor's bookkeeping: no step's work
-        self._read.update(id(t.untyped_storage()) for t in flat_in)
+        # a view or a metadata query (`prim.device`) reads and writes nothing
+        moves = not func.is_view and bool(flat_out)
+        if moves:
+            self._read.update(id(t.untyped_storage()) for t in flat_in)
         packet = func._overloadpacket
         if func.namespace in _COLLECTIVE_NAMESPACES:
             if packet.__name__ in KINDS:
@@ -222,7 +225,7 @@ class StepTrace(TorchDispatchMode):
             return out
         if packet in self._flops:
             self.flops += int(self._flops[packet](*args, **kwargs, out_val=out))
-        if not func.is_view:
+        if moves:
             self.bytes += sum(_nbytes(t) for t in flat_in + flat_out)
             for t in flat_out:
                 self._track(t)

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from . import layers
+from . import layers, shards
 from .config import MLAConfig, ModelConfig
 
 
@@ -79,13 +79,6 @@ def _sqrt_hd(hd: int) -> float:
     a Python float holding that f32 value (an operand of an f32 tensor op,
     so no host-to-device copy, which would wait on the device)."""
     return float(np.float32(math.sqrt(hd)))
-
-
-def _as_dtensor(t, mesh):
-    """t as a DTensor on `mesh`: a plain tensor counts as replicated."""
-    from torch.distributed.tensor import DTensor, Replicate
-    return t if isinstance(t, DTensor) else DTensor.from_local(
-        t, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
 
 def _heads_dividing(q, kh: int):
@@ -217,8 +210,8 @@ def _sdpa_on_shards(q, k, v, causal: bool):
     kv_pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate() for p in q_pl]
     kv_grad = [Partial() if isinstance(p, Shard) and p.dim == 1 else p for p in q_pl]
     q = q.redistribute(mesh, q_pl)
-    k_l = _as_dtensor(k, mesh).redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad)
-    v_l = _as_dtensor(v, mesh).redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad)
+    k_l = shards.as_dtensor(k, mesh).redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad)
+    v_l = shards.as_dtensor(v, mesh).redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad)
     q_l = q.to_local()
     block = 0           # this rank's block of the query positions (an even split)
     for i, p in enumerate(q_pl):
@@ -303,7 +296,7 @@ def _decode_on_shards(qr, k_cache, v_cache, valid, wo):
     mesh = k_cache.device_mesh
 
     def block(t, placements):
-        return _as_dtensor(t, mesh).redistribute(mesh, placements).to_local()
+        return shards.as_dtensor(t, mesh).redistribute(mesh, placements).to_local()
     heads = list(k_cache.placements)
     rows = [p if p == Shard(0) else Replicate() for p in heads]
     out = _decode_core(block(qr, heads), k_cache.to_local(), block(v_cache, heads),
@@ -395,23 +388,75 @@ def mla_decode_attention(params, cfg: ModelConfig, x, cache: dict, pos: torch.Te
     """Absorbed MLA decode: attention runs in the kv_lora-wide latent space
     (a token's cache is kv_lora + d_rope values); `wkv_b`'s key half is
     absorbed into the query, its value half into the output.  Returns
-    (out (B, 1, D), new cache)."""
+    (out (B, 1, D), new cache).
+
+    A DTensor cache runs on each rank's local rows (`shards.Ranks`; a
+    decode step, so no gradient): the heads on the block `wkv_b` splits
+    them in, the latent cache on the block of the sequence it holds.  The
+    query's latent and rotary parts are gathered over the heads, each
+    sequence block's scores gathered for the softmax, each block's share
+    of the output latent all-reduced, and the output projection's sum over
+    the heads all-reduced (Megatron's), where DTensor's own propagation
+    would flatten a split head dim.  The new cache keeps the cache's
+    layout.  On plain tensors every `shards` call is the identity."""
     m = cfg.mla
-    rp = pos if rope_positions is None else rope_positions
-    q_nope, q_rope = _mla_q(params, cfg, x, rp)                # (B, 1, H, .)
-    c_new, r_new = _mla_kv_latent(params, cfg, x, rp)          # (B, 1, L), (B, 1, R)
+    ranks = shards.Ranks(x) if getattr(cache["c_kv"], "device_mesh", None) is not None else None
+    lay = _mla_decode_layouts(ranks, params, cache)
+    p = {k: shards.local(ranks, params[k], lay["heads"]) for k in ("wq", "wq_b", "wkv_b")
+         if k in params}
+    p.update({k: shards.param(ranks, params[k]) for k in ("wq_a", "q_a_norm", "wkv_a", "kv_a_norm")
+              if k in params})
+    x, pos = shards.enter(ranks, x), shards.enter(ranks, pos)
+    rp = pos if rope_positions is None else shards.enter(ranks, rope_positions)
+    q_nope, q_rope = _mla_q(p, cfg, x, rp)                     # (B, 1, H, .)
+    c_new, r_new = _mla_kv_latent(p, cfg, x, rp)               # (B, 1, L), (B, 1, R)
+    c_kv, k_rope = (shards.enter(ranks, cache[k], lay["seq"]) for k in ("c_kv", "k_rope"))
     sk = cache["c_kv"].shape[1]
-    oh = F.one_hot(pos[:, 0].to(torch.int64), sk).to(cache["c_kv"].dtype)   # (B, S_max)
-    c_cache = cache["c_kv"] + oh[:, :, None] * c_new
-    r_cache = cache["k_rope"] + oh[:, :, None] * r_new
-    wk_b, wv_b = params["wkv_b"][..., : m.d_nope], params["wkv_b"][..., m.d_nope:]
-    q_lat = torch.einsum("bqhe,lhe->bqhl", q_nope, wk_b)        # (B, 1, H, L)
+    oh = shards.relayout(ranks, F.one_hot(pos[:, 0].to(torch.int64), sk).to(c_kv.dtype),
+                         lay["rows"], lay["seq"])              # (B, S_max)
+    c_cache = c_kv + oh[:, :, None] * c_new
+    r_cache = k_rope + oh[:, :, None] * r_new
+    wk_b, wv_b = p["wkv_b"][..., : m.d_nope], p["wkv_b"][..., m.d_nope:]
+    q_lat = shards.relayout(ranks, torch.einsum("bqhe,lhe->bqhl", q_nope, wk_b),
+                            lay["on_heads"], lay["rows"])      # (B, 1, H, L)
+    q_rope = shards.relayout(ranks, q_rope, lay["on_heads"], lay["rows"])
     scores = (torch.einsum("bqhl,bsl->bhqs", q_lat, c_cache)
               + torch.einsum("bqhe,bse->bhqs", q_rope, r_cache)).to(torch.float32)
-    scores = scores / _sqrt_hd(m.d_nope + m.d_rope)
+    scores = shards.relayout(ranks, scores, lay["on_seq"], lay["rows"]) \
+        / _sqrt_hd(m.d_nope + m.d_rope)
     valid = torch.arange(sk, device=x.device)[None, :] <= pos  # (B, S_max)
     scores = torch.where(valid[:, None, None, :], scores, torch.full((), -1e30, device=x.device))
-    probs = torch.softmax(scores, dim=-1).to(c_cache.dtype)
-    o_lat = torch.einsum("bhqs,bsl->bqhl", probs, c_cache)     # (B, 1, H, L)
-    o = torch.einsum("bqhl,lhe->bqhe", o_lat, wv_b)            # (B, 1, H, d_v)
-    return torch.einsum("bshe,hed->bsd", o, params["wo"]), {"c_kv": c_cache, "k_rope": r_cache}
+    probs = shards.relayout(ranks, torch.softmax(scores, dim=-1).to(c_cache.dtype),
+                            lay["rows"], lay["on_seq"])
+    o_lat = shards.reduce(ranks, torch.einsum("bhqs,bsl->bqhl", probs, c_cache),
+                          lay["o_lat"])                        # (B, 1, H, L)
+    o = torch.einsum("bqhl,lhe->bqhe", shards.relayout(ranks, o_lat, lay["rows"], lay["on_heads"]),
+                     wv_b)                                     # (B, 1, H, d_v)
+    y = shards.reduce(ranks, torch.einsum("bshe,hed->bsd", o,
+                                          shards.local(ranks, params["wo"], lay["wo"])), lay["y"])
+    return shards.leave(ranks, y), {k: shards.leave(ranks, t, lay["seq"], lay[k])
+                                    for k, t in (("c_kv", c_cache), ("k_rope", r_cache))}
+
+
+def _mla_decode_layouts(ranks, params, cache: dict) -> dict:
+    """The placements of `mla_decode_attention`'s local blocks (None each
+    on plain tensors): the batch rows; the heads as `wkv_b` splits them;
+    the cache's sequence split; (B, 1, H, .) on the heads and (B, H, 1, S)
+    on the sequence; `wo` on its heads; the partial sums of the output
+    latent and of the output; the caches' own layouts."""
+    names = ("rows", "heads", "seq", "on_heads", "on_seq", "wo", "o_lat", "y", "c_kv", "k_rope")
+    if ranks is None:
+        return dict.fromkeys(names)
+    from torch.distributed.tensor import Partial, Shard
+    rows = ranks.rows
+    heads = ranks.layout(params["wkv_b"], 1, batch=False)      # (L, H, e) split by heads
+    seq = ranks.layout(cache["c_kv"], 1)                       # (B, S, L) split by positions
+    on_heads = [Shard(2) if h == Shard(1) else r for r, h in zip(rows, heads)]
+    on_seq = [Shard(3) if p == Shard(1) and r != Shard(0) else r for r, p in zip(rows, seq)]
+    return dict(zip(names, (
+        rows, heads, seq, on_heads, on_seq,
+        [Shard(0) if h == Shard(1) else h for h in heads],
+        [Partial() if p == Shard(3) else p for p in on_seq],
+        [Partial() if p == Shard(2) else p for p in on_heads],
+        shards.as_dtensor(cache["c_kv"], ranks.mesh).placements,
+        shards.as_dtensor(cache["k_rope"], ranks.mesh).placements)))

@@ -1,0 +1,173 @@
+"""A block's ops on each rank's local tensors, for DTensor operands.
+
+Where DTensor's own sharding propagation would pick a layout change that
+not every torch version supports (a Shard to Partial redistribute, the
+flatten of a split dim, an op with no strategy such as the `flip` in
+`cumsum`'s backward), a block runs on plain local tensors instead, and
+every layout change is an explicit `redistribute` among Shard, Replicate
+and Partial(sum) -> Replicate, which every version supports, as
+`attention._sdpa_on_shards` does.
+
+`Ranks(x)` reads the block's input x (B, ...): its *row* dims are the mesh
+dims that split the batch (Shard(0)), the others its *split* dims, over
+which weights, caches and states may be split.  Between its matmuls an
+activation is whole on every rank of a split dim (each rank's batch rows),
+so elementwise ops run as unplaced; a gradient of such an activation is
+the same on those ranks.  A weight's local block enters a matmul (`mm`):
+a row-parallel weight (Shard(0)) takes the activation's matching block and
+its partial products are all-reduced, a column-parallel one (Shard(1))
+has its output columns all-gathered (Megatron's f / g), and the gradients
+follow (the activation's is all-reduced where the weight's columns were
+split; a weight's is a partial sum over the row dims).
+"""
+from __future__ import annotations
+
+
+def as_dtensor(t, mesh):
+    """t as a DTensor on `mesh`: a plain tensor counts as replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+    return t if isinstance(t, DTensor) else DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def redistributed(t, mesh, placements):
+    """t laid out by `placements`; t itself when it is (a redistribute to
+    the same layout would still all-reduce a partial gradient in its
+    backward)."""
+    if list(t.placements) == list(placements):
+        return t
+    return t.redistribute(mesh, list(placements))
+
+
+class Ranks:
+    """The layouts of one block's run on local tensors; see the module."""
+
+    def __init__(self, x):
+        from torch.distributed.tensor import Replicate, Shard
+        self.mesh = x.device_mesh
+        self.rows = [p if p == Shard(0) else Replicate() for p in x.placements]
+
+    def wrap(self, t, placements):
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(t, self.mesh, list(placements), run_check=False)
+
+    def enter(self, x, placements=None):
+        """x's local block laid out by `placements` (default: its rows,
+        whole over the split dims)."""
+        return redistributed(as_dtensor(x, self.mesh), self.mesh,
+                             placements or self.rows).to_local()
+
+    def leave(self, t, src=None, dst=None):
+        """A local block laid out by `src` (default: whole rows) -> a
+        DTensor laid out by `dst` (default: `src`)."""
+        src = src or self.rows
+        return redistributed(self.wrap(t, src), self.mesh, dst or src)
+
+    def layout(self, t, dim: int, batch: bool = True) -> list:
+        """Placements of a local block of t: Shard(0) on the row dims (for a
+        batch-leading t), Shard(dim) on the split dims that split t's dim
+        `dim`, Replicate elsewhere."""
+        from torch.distributed.tensor import Replicate, Shard
+        return [r if r == Shard(0) and batch else Shard(dim) if p == Shard(dim) and r != Shard(0)
+                else Replicate() for r, p in zip(self.rows, t.placements)]
+
+    def local(self, t, placements):
+        """A weight's block laid out by `placements` (Replicate on the row
+        dims); its gradient a partial sum over the row dims."""
+        from torch.distributed.tensor import Partial, Shard
+        grad = [Partial() if r == Shard(0) else p for r, p in zip(self.rows, placements)]
+        return redistributed(as_dtensor(t, self.mesh), self.mesh, placements).to_local(
+            grad_placements=grad)
+
+    def param(self, t):
+        """A weight whole on every rank."""
+        from torch.distributed.tensor import Replicate
+        return self.local(t, [Replicate()] * self.mesh.ndim)
+
+    def relayout(self, t, src, dst):
+        """A local block laid out by `src` -> its block laid out by `dst`."""
+        if list(src) == list(dst):
+            return t
+        return redistributed(self.wrap(t, src), self.mesh, dst).to_local()
+
+    def reduce(self, t, placements):
+        """A local block laid out by `placements` (Partial: partial sums)
+        -> whole rows."""
+        return redistributed(self.wrap(t, placements), self.mesh, self.rows).to_local()
+
+    def mm(self, a, w):
+        """a (..., K) whole rows @ w (K, N), a DTensor split over the split
+        dims by rows (Shard(0)) or columns (Shard(1)) -> (..., N) whole."""
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        w = as_dtensor(w, self.mesh)
+        last = a.ndim - 1
+        a_pl, a_grad, w_pl, out_pl = [], [], [], []
+        for r, p in zip(self.rows, w.placements):
+            if r == Shard(0):                 # a row dim: w whole
+                a_pl.append(r), a_grad.append(r), w_pl.append(Replicate()), out_pl.append(r)
+            elif p == Shard(0):               # row-parallel
+                a_pl.append(Shard(last)), a_grad.append(Shard(last))
+                w_pl.append(p), out_pl.append(Partial())
+            elif p == Shard(1):               # column-parallel
+                a_pl.append(Replicate()), a_grad.append(Partial())
+                w_pl.append(p), out_pl.append(Shard(last))
+            else:
+                a_pl.append(Replicate()), a_grad.append(Replicate())
+                w_pl.append(Replicate()), out_pl.append(Replicate())
+        a_l = redistributed(self.wrap(a, self.rows), self.mesh, a_pl).to_local(
+            grad_placements=a_grad)
+        return self.reduce(a_l @ self.local(w, w_pl), out_pl)
+
+
+# One body for plain tensors and for each rank's local blocks: each function
+# below is `Ranks`' method of its name, and the identity (a plain matmul for
+# `mm`) without `ranks`.
+
+def enter(ranks: Ranks | None, t, placements=None):
+    return t if ranks is None else ranks.enter(t, placements)
+
+
+def leave(ranks: Ranks | None, t, src=None, dst=None):
+    return t if ranks is None else ranks.leave(t, src, dst)
+
+
+def local(ranks: Ranks | None, t, placements):
+    return t if ranks is None else ranks.local(t, placements)
+
+
+def param(ranks: Ranks | None, t):
+    return t if ranks is None else ranks.param(t)
+
+
+def relayout(ranks: Ranks | None, t, src, dst):
+    return t if ranks is None else ranks.relayout(t, src, dst)
+
+
+def reduce(ranks: Ranks | None, t, placements):
+    return t if ranks is None else ranks.reduce(t, placements)
+
+
+def mm(ranks: Ranks | None, a, w):
+    return a @ w if ranks is None else ranks.mm(a, w)
+
+
+def block(ranks: Ranks | None, t, layout, dims: dict):
+    """t (whole rows) -> its block in `layout`, the placements of a state
+    whose dim d is t's dim dims[d] (a state dim t lacks is whole in t).
+    Without `ranks` (plain tensors), t."""
+    if ranks is None:
+        return t
+    return ranks.relayout(t, _translate(ranks.rows, dims), _translate(layout, dims))
+
+
+def gather(ranks: Ranks | None, t, layout, dims: dict):
+    """The inverse of `block`: a block in `layout` -> whole rows."""
+    if ranks is None:
+        return t
+    return ranks.relayout(t, _translate(layout, dims), _translate(ranks.rows, dims))
+
+
+def _translate(placements, dims: dict) -> list:
+    from torch.distributed.tensor import Replicate, Shard
+    return [Shard(dims[p.dim]) if isinstance(p, Shard) and p.dim in dims else Replicate()
+            for p in placements]

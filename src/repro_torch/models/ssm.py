@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import layers
+from . import layers, shards
 from .config import ModelConfig
 
 
@@ -153,38 +153,45 @@ def _mamba1_scan_chunk(h0, a, bx):
     return h, h[:, -1]
 
 
-def mamba1(params, cfg: ModelConfig, x, state: dict | None = None):
-    """x (B, S, D) -> (y (B, S, D), new state).  Chunked selective scan."""
+def mamba1(params, cfg: ModelConfig, x, state: dict | None = None, ranks=None, layout=None):
+    """x (B, S, D) -> (y (B, S, D), new state).  Chunked selective scan.
+    With `ranks` (`_ssm_on_shards`), x is a rank's local rows and the
+    state its block in `layout`, over which the scan runs."""
     s = cfg.ssm
     b, seq, _ = x.shape
     di, n, r = d_inner(cfg), s.d_state, _dt_rank(cfg)
-    xz = x @ params["in_proj"]
+    xz = shards.mm(ranks, x, params["in_proj"])
     xs, z = xz[..., :di], xz[..., di:]
     tail = state["conv_tail"] if state is not None else None
-    xs, new_tail = causal_conv(xs, params["conv_w"], params["conv_b"], tail)
+    xs, new_tail = causal_conv(xs, shards.param(ranks, params["conv_w"]),
+                               shards.param(ranks, params["conv_b"]), tail)
 
-    dbc = xs @ params["x_proj"]                                     # (B, S, r+2n)
-    dt = softplus((dbc[..., :r] @ params["dt_proj"]).to(torch.float32)
-                  + params["dt_bias"])                              # (B, S, di)
+    dbc = shards.mm(ranks, xs, params["x_proj"])                    # (B, S, r+2n)
+    dt = softplus(shards.mm(ranks, dbc[..., :r], params["dt_proj"]).to(torch.float32)
+                  + shards.param(ranks, params["dt_bias"]))         # (B, S, di)
     bmat = dbc[..., r: r + n].to(torch.float32)                     # (B, S, n)
     cmat = dbc[..., r + n:].to(torch.float32)                       # (B, S, n)
-    a_cont = -torch.exp(params["A_log"])                            # (di, n)
+    a_cont = -torch.exp(shards.param(ranks, params["A_log"]))       # (di, n)
 
     q = min(s.chunk, seq)
     h = state["h"] if state is not None else torch.zeros((b, di, n), dtype=torch.float32,
                                                           device=x.device)
     xf32 = xs.to(torch.float32)
+    dims = {0: 0, 1: 2}         # the state (B, di, n)'s dims in (B, S, di)
+    dt_h, x_h = shards.block(ranks, dt, layout, dims), shards.block(ranks, xf32, layout, dims)
+    a_h = shards.block(ranks, a_cont, layout, {1: 0})
     ys = []
     for start in range(0, seq, q):      # the chunks, then the remainder chunk
         part = slice(start, start + q)
-        dt_q, x_q = dt[:, part], xf32[:, part]
-        a = torch.exp(dt_q[..., None] * a_cont)                     # (B, Q, di, n)
+        dt_q, x_q = dt_h[:, part], x_h[:, part]
+        a = torch.exp(dt_q[..., None] * a_h)                        # (B, Q, di, n)
         bx = (dt_q * x_q)[..., None] * bmat[:, part, None, :]       # (B, Q, di, n)
         hs, h = _mamba1_scan_chunk(h, a, bx)
         ys.append(torch.einsum("bqdn,bqn->bqd", hs, cmat[:, part]))
-    y = torch.cat(ys, dim=1) + params["D"] * xf32
+    y = shards.gather(ranks, torch.cat(ys, dim=1), layout, dims) \
+        + shards.param(ranks, params["D"]) * xf32
     y = (y * F.silu(z.to(torch.float32))).to(x.dtype)
-    return y @ params["out_proj"], {"h": h, "conv_tail": new_tail}
+    return shards.mm(ranks, y, params["out_proj"]), {"h": h, "conv_tail": new_tail}
 
 
 def mamba1_decode(params, cfg: ModelConfig, x, state: dict):
@@ -225,40 +232,72 @@ def _ssd_chunk(h, dt_q, dta_q, b_q, c_q, x_q):
     return h_new, y_intra + y_inter
 
 
-def mamba2(params, cfg: ModelConfig, x, state: dict | None = None):
-    """Chunked SSD. x (B, S, D) -> (y, new state)."""
+def mamba2(params, cfg: ModelConfig, x, state: dict | None = None, ranks=None, layout=None):
+    """Chunked SSD. x (B, S, D) -> (y, new state); `ranks` and `layout`
+    as in `mamba1`."""
     s = cfg.ssm
     b, seq, _ = x.shape
     di, n, hd = d_inner(cfg), s.d_state, s.headdim
     p = di // hd
-    proj = x @ params["in_proj"]                                    # (B, S, 2di+2n+P)
+    proj = shards.mm(ranks, x, params["in_proj"])                   # (B, S, 2di+2n+P)
     z, xbc, dt_raw = proj[..., :di], proj[..., di: 2 * di + 2 * n], proj[..., -p:]
     tail = state["conv_tail"] if state is not None else None
-    xbc, new_tail = causal_conv(xbc, params["conv_w"], params["conv_b"], tail)
+    xbc, new_tail = causal_conv(xbc, shards.param(ranks, params["conv_w"]),
+                                shards.param(ranks, params["conv_b"]), tail)
     xs = xbc[..., :di]
     bmat = xbc[..., di: di + n].to(torch.float32)                   # (B, S, n)
     cmat = xbc[..., di + n:].to(torch.float32)                      # (B, S, n)
-    dt = softplus(dt_raw.to(torch.float32) + params["dt_bias"])     # (B, S, P)
-    a_head = -torch.exp(params["A_log"])                            # (P,)
+    dt = softplus(dt_raw.to(torch.float32) + shards.param(ranks, params["dt_bias"]))  # (B, S, P)
+    a_head = -torch.exp(shards.param(ranks, params["A_log"]))       # (P,)
     dta = dt * a_head                                               # (B, S, P)
 
     q = min(s.chunk, seq)
     xh = xs.to(torch.float32).reshape(b, seq, p, hd)
     h = state["h"] if state is not None else torch.zeros((b, p, hd, n), dtype=torch.float32,
                                                           device=x.device)
+    heads, chans = {0: 0, 1: 2}, {0: 0, 1: 2, 2: 3}   # the state (B, P, hd, n)'s dims
+    dt_h, dta_h = (shards.block(ranks, t, layout, heads) for t in (dt, dta))
+    xh_h = shards.block(ranks, xh, layout, chans)
     ys = []
     for start in range(0, seq, q):      # the chunks, then the remainder chunk
         part = slice(start, start + q)
-        h, y_q = _ssd_chunk(h, dt[:, part], dta[:, part], bmat[:, part], cmat[:, part],
-                            xh[:, part])
+        h, y_q = _ssd_chunk(h, dt_h[:, part], dta_h[:, part], bmat[:, part], cmat[:, part],
+                            xh_h[:, part])
         ys.append(y_q)
-    y = torch.cat(ys, dim=1).reshape(b, seq, di)
-    y = y + (params["D"][:, None] * xh).reshape(b, seq, di)
+    y = shards.gather(ranks, torch.cat(ys, dim=1), layout, chans).reshape(b, seq, di)
+    y = y + (shards.param(ranks, params["D"])[:, None] * xh).reshape(b, seq, di)
     y = y * F.silu(z.to(torch.float32))
-    y = layers.rms_norm(y.to(x.dtype), params["norm"])
-    return y @ params["out_proj"], {"h": h, "conv_tail": new_tail}
+    y = layers.rms_norm(y.to(x.dtype), shards.param(ranks, params["norm"]))
+    return shards.mm(ranks, y, params["out_proj"]), {"h": h, "conv_tail": new_tail}
 
 
 def ssm_block(params, cfg: ModelConfig, x, state: dict | None = None):
+    if getattr(x, "device_mesh", None) is not None:
+        return _ssm_on_shards(params, cfg, x, state)
     fn = mamba1 if cfg.ssm.kind == "mamba1" else mamba2
     return fn(params, cfg, x, state)
+
+
+def _ssm_on_shards(params, cfg: ModelConfig, x, state: dict | None):
+    """`ssm_block` of a DTensor x on each rank's local rows
+    (`shards.Ranks`): the projections on the weights' local blocks, the
+    conv, gates and norm on whole rows, and the scan on the state's block
+    of channels (Mamba-1's di, Mamba-2's heads or head dims; a state split
+    over another dim is gathered for it), so a state never moves whole.
+    Without a state (training, prefill) the scan runs on whole rows.  The
+    new state keeps the given state's layout."""
+    from torch.distributed.tensor import Replicate, Shard
+    fn = mamba1 if cfg.ssm.kind == "mamba1" else mamba2
+    ranks = shards.Ranks(x)
+    mesh = ranks.mesh
+    if state is None:
+        y, new = fn(params, cfg, ranks.enter(x), None, ranks, ranks.rows)
+        return ranks.leave(y), {k: ranks.leave(t) for k, t in new.items()}
+    h, tail = (shards.as_dtensor(state[k], mesh) for k in ("h", "conv_tail"))
+    chans = (1,) if cfg.ssm.kind == "mamba1" else (1, 2)
+    layout = [r if r == Shard(0) else p if isinstance(p, Shard) and p.dim in chans
+              else Replicate() for r, p in zip(ranks.rows, h.placements)]
+    local = {"h": ranks.enter(h, layout), "conv_tail": ranks.enter(tail)}
+    y, new = fn(params, cfg, ranks.enter(x), local, ranks, layout)
+    return ranks.leave(y), {"h": ranks.leave(new["h"], layout, h.placements),
+                            "conv_tail": ranks.leave(new["conv_tail"], dst=tail.placements)}

@@ -3,7 +3,8 @@ and the Instant-NGP baseline), serve, the reconstruction service, stage 2b
 v3, the async serving plane and the entry points, sessions over two slots
 of the card, the field's last two options, half-width hash-grid tables,
 compiled (CUDA-graph) steps and compiled renders, the LM substrate's
-decoders and its parallel substrate.
+decoders, its parallel substrate, its dry-run launchers and its example
+scripts.
 
 Each phase takes an explicit device, so the CPU tests can rehearse the
 paths at a tiny size with ``device="cpu"``; `main` runs them all on the
@@ -229,8 +230,17 @@ card and fails on anything wrong -- there is no CPU fallback.
    the card == the dry run's within 512 B a tensor; ``dryrun_step``: #7
    and `bum_sort` through the merged embedding backward), and the
    production cell qwen1.5-0.5b x decode_32k on a fake world of 256 in a
-   subprocess;
-18. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
+   subprocess, and seven mini cells on fake (2, 2, 2) worlds in
+   subprocesses beside it (the reference's three, Mamba-1's training, the
+   absorbed MLA decode and zamba2's hybrid training and decode: each
+   traces, shows the collective kind the reference asserts, and holds
+   JAX's argument bytes a device);
+18. the LM example scripts (slice 22's entry points,
+   `smoke_examples.examples_phase`): `examples.lm_pretrain` at its
+   defaults (its loss falls) and `examples.serve_lm` at its defaults and
+   with whisper-medium (every logit finite, tok/s printed)
+   (``example_lm_pretrain``, ``example_serve_lm``);
+19. report: one JSON line ``{"kernels": [...]}`` (each kernel's launches
    summed over the main paths, and per path) and, last, the device line.
 """
 from __future__ import annotations
@@ -251,8 +261,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import (kernels, smoke_dryrun, smoke_lm, smoke_moe, smoke_parallel, smoke_ssm,
-               smoke_whisper)
+from . import (kernels, smoke_dryrun, smoke_examples, smoke_lm, smoke_moe, smoke_parallel,
+               smoke_ssm, smoke_whisper)
 from .core import encoding as enc
 from .core import occupancy
 from .core.field import Field, FieldConfig
@@ -990,10 +1000,18 @@ def _bum_scatter_stream_case(idx_s, vals_s, rows: int, label: str):
     }
 
 
+def sort_rows_library(addr, vals):
+    """The library calls that compute `bum_sort`'s function: a stable
+    `torch.sort` of the keys, then `index_select` of the rows."""
+    keys, order = torch.sort(addr, stable=True)
+    return keys, vals.index_select(0, order)
+
+
 def _bum_sort_case(addr, vals, key_bits: int, label: str):
     """The table-gradient sort on one stream against torch.sort's stable
-    permutation (exact); the plain radix passes and torch.sort (the library
-    call, keys only) timed beside it."""
+    permutation (exact); the plain radix passes and the library calls
+    (`sort_rows_library`: the keys sorted, the rows gathered) timed beside
+    it."""
     got = gu_kernel.bum_sort(addr, vals, key_bits)
     order = torch.sort(addr, stable=True).indices
     want = (addr[order], vals[order])
@@ -1006,7 +1024,7 @@ def _bum_sort_case(addr, vals, key_bits: int, label: str):
         "ms": cuda_ms(lambda: gu_kernel.bum_sort(addr, vals, key_bits), iters=20),
         "plain_ms": cuda_ms(lambda: gu_ref.stable_key_sort(addr, vals, key_bits),
                             iters=2, warmup=1),
-        "library_ms": cuda_ms(lambda: torch.sort(addr, stable=True), iters=20),
+        "library_ms": cuda_ms(lambda: sort_rows_library(addr, vals), iters=20),
         # the stream read once and written once, sorted
         "bound": bound(2 * m * (8 + 4 * f), 0),
     }
@@ -3463,6 +3481,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dry = smoke_dryrun.dryrun_phase(device, card)
+    # slice 22's main paths: the LM example scripts
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples = smoke_examples.examples_phase(device, card)
 
     paths = {"train": run["launches"], "train_ngp": ngp["launches"], "serve": serve_launches,
              "service": service["launches"], "train_v3": v3["train_launches"],
@@ -3476,7 +3498,7 @@ def main() -> int:
                 for name, res in compiled["paths"].items()},
              **{f"compiled_serve_{route}": res["launches"] for route, res in renders.items()},
              **lm["launches"], **moe["launches"], **ssm["launches"], **whisper["launches"],
-             **par["launches"], **dry["launches"]}
+             **par["launches"], **dry["launches"], **examples["launches"]}
     report = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == name]

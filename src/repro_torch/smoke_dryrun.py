@@ -26,12 +26,24 @@
    a subprocess started before part 1 (a process of its own: this one's
    process groups come and go), its JSON row's summary and wall time
    printed.
+4. The mini cells (`MINI_CELLS`): smoke configs at Shape("t", 32, 8,
+   kind) on fake (2, 2, 2) ('pod', 'data', 'model') worlds, fake tensors
+   on the CPU (as the CPU tests trace them; no CUDA context a process),
+   one subprocess a cell (``python -m repro_torch.smoke_dryrun ARCH KIND
+   --device cpu``) started beside the production cell: the reference's
+   three (qwen3-8b and deepseek-v2-lite training, falcon-mamba-7b's
+   decode) and falcon-mamba-7b's training, the absorbed MLA decode and
+   zamba2-7b's hybrid training and decode.  Gates: each traces; the
+   collective kind the reference asserts is in its trace; its argument
+   bytes a device equal JAX's.  Flops, wire bytes (each collective kind's
+   too) and seconds printed.
 
 `dryrun_phase(device, card, smoke=True)` runs the same on the smoke config
 at a small shape (gloo on the CPU), which the CPU tests rehearse.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import gc
 import json
@@ -59,6 +71,21 @@ STEP_SHAPE = Shape("phase17", 1024, 4, "train")
 SMOKE_SHAPE = Shape("phase17_smoke", 16, 2, "train")
 PRODUCTION_CELL = ("decode_32k", 600)     # (shape, subprocess timeout s)
 ALLOC_ROUND = 512                         # the CUDA caching allocator's rounding
+# (arch, kind, the collective kind the reference's test asserts or None,
+# JAX's `argument_size_in_bytes` a device); those bytes are checked against
+# JAX on the CPU by tests/test_torch_launch_dryrun.py::test_mini_cells_record_jax_bytes
+MINI_CELLS = (
+    ("qwen3-8b", "train", "all-reduce", 938628),
+    ("deepseek-v2-lite-16b", "train", "all-to-all", 3920580),
+    ("falcon-mamba-7b", "decode", None, 260872),
+    ("falcon-mamba-7b", "train", None, 1116804),
+    ("deepseek-v2-lite-16b", "decode", None, 1039504),
+    ("zamba2-7b", "train", None, 1237668),
+    ("zamba2-7b", "decode", None, 513808),
+)
+MINI_MESH = ((2, 2, 2), ("pod", "data", "model"))
+MINI_SHAPE = (32, 8)                      # (seq, global batch)
+MINI_TIMEOUT = 300                        # s, a cell's subprocess
 
 
 def _cfg(smoke: bool):
@@ -101,6 +128,71 @@ def finish_production_cell(proc: subprocess.Popen, out_dir: str, t0: float) -> d
         raise RuntimeError(f"the production cell's dry run failed:\n{stderr[-3000:]}")
     row = json.loads((Path(out_dir) / f"{ARCH}__{PRODUCTION_CELL[0]}__pod1.json").read_text())
     return {"row": row, "wall_s": time.perf_counter() - t0}
+
+
+def mini_cell(arch: str, kind: str, device) -> dict:
+    """One mini cell traced on a fake world of 8 in this process: its
+    collective kinds, per-device flops, bytes and wire bytes, memory, and
+    the seconds the trace took."""
+    t0 = time.perf_counter()
+    with dryrun.fake_world(8):
+        mesh = Mesh(*MINI_MESH, device=device)
+        mem, m, coll, _ = dryrun._compile_cell(get_smoke_config(arch),
+                                               Shape("t", *MINI_SHAPE, kind), mesh)
+    return {"arch": arch, "kind": kind, "kinds": sorted(coll["ops"]),
+            "wire_by_kind": {k: v["wire_bytes"] for k, v in sorted(coll["ops"].items())}, **m,
+            **dataclasses.asdict(mem), "trace_s": time.perf_counter() - t0}
+
+
+def start_mini_cells() -> list:
+    """Each mini cell in a subprocess of its own, in the background, its
+    fake tensors on the CPU."""
+    src = str(Path(__file__).resolve().parent.parent)
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               OMP_NUM_THREADS="1")
+    return [(cell, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.smoke_dryrun", cell[0], cell[1], "--device", "cpu"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env))
+        for cell in MINI_CELLS]
+
+
+def finish_mini_cells(procs: list, t0: float) -> list[dict]:
+    """Each cell's row: its `mini_cell` result and status "ok", or status
+    "failed" and the end of its errors; with the wall time since `t0`."""
+    rows = []
+    try:
+        for (arch, kind, _, _), proc in procs:
+            try:
+                stdout, stderr = proc.communicate(timeout=MINI_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                stdout, stderr = proc.communicate()
+            if proc.returncode == 0:
+                row = {**json.loads(stdout.strip().splitlines()[-1]), "status": "ok"}
+            else:
+                row = {"arch": arch, "kind": kind, "status": "failed",
+                       "error": stderr[-2000:]}
+            rows.append({**row, "wall_s": time.perf_counter() - t0})
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return rows
+
+
+def check_mini(rows: list[dict]) -> list[str]:
+    problems = []
+    for (arch, kind, coll, jax_bytes), row in zip(MINI_CELLS, rows):
+        if row["status"] != "ok":
+            problems.append(f"mini cell {arch} {kind} failed: {row['error']}")
+            continue
+        if coll is not None and coll not in row["kinds"]:
+            problems.append(f"mini cell {arch} {kind}: no {coll} in {row['kinds']}")
+        if row["argument_size_in_bytes"] != jax_bytes:
+            problems.append(f"mini cell {arch} {kind}: args {row['argument_size_in_bytes']} B "
+                            f"!= JAX's {jax_bytes} B")
+    return problems
 
 
 def dry_cell(device, smoke: bool) -> dict:
@@ -169,13 +261,16 @@ def dryrun_phase(device, card: str, smoke: bool = False) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         t_cell = time.perf_counter()
         proc = start_production_cell(device, tmp)
+        minis = start_mini_cells()
         try:
             dry = dry_cell(device, smoke)
             real = real_step(device, smoke)
         except BaseException:
-            proc.kill()
-            proc.wait()
+            for p in [proc] + [p for _, p in minis]:
+                p.kill()
+                p.wait()
             raise
+        mini = finish_mini_cells(minis, t_cell)
         cell = finish_production_cell(proc, tmp, t_cell)
     mem, rl = dry["memory"], dry["roofline"]
     shape = SMOKE_SHAPE if smoke else STEP_SHAPE
@@ -202,16 +297,25 @@ def dryrun_phase(device, card: str, smoke: bool = False) -> dict:
     print(f"dryrun production cell {ARCH} x {PRODUCTION_CELL[0]} on a fake world of 256 "
           f"(subprocess wall {cell['wall_s']:.2f} s): {json.dumps(summary)} [{card}]",
           flush=True)
-    problems = check(real, mem, device.type == "cuda")
+    for (_, _, _, jax_bytes), r in zip(MINI_CELLS, mini):
+        if r["status"] != "ok":
+            continue        # its error is in the phase's problems
+        print(f"dryrun mini cell {r['arch']} {r['kind']} on a fake (2, 2, 2) world (torch "
+              f"{torch.__version__}, subprocess wall {r['wall_s']:.2f} s, traced in "
+              f"{r['trace_s']:.2f} s): ok, args {r['argument_size_in_bytes']} B (JAX "
+              f"{jax_bytes} B), flops/dev {r['flops']:.0f}, wire/dev {r['wire']:.0f} B "
+              f"{json.dumps(r['wire_by_kind'])}, bytes/dev {r['bytes']:.0f} [{card}]", flush=True)
+    problems = check(real, mem, device.type == "cuda") + check_mini(mini)
     if row["status"] != "ok" or row["n_devices"] != 256:
         problems.append(f"production cell: {summary}")
     if problems:
         raise RuntimeError(f"dry-run phase: {problems}")
     print(f"dryrun_step-path launches: {json.dumps(real['launches'])}", flush=True)
     seconds = {"trace": dry["trace_s"], "production_cell": cell["wall_s"],
+               "mini_cells": max(r["wall_s"] for r in mini),
                "phase": time.perf_counter() - t_phase}
     print(f"dryrun phase: {json.dumps(seconds)} [{card}]", flush=True)
-    return {"dry": dry, "real": real, "cell": cell, "seconds": seconds,
+    return {"dry": dry, "real": real, "cell": cell, "mini": mini, "seconds": seconds,
             "launches": {"dryrun_step": real["launches"]}}
 
 
@@ -232,3 +336,19 @@ def check(real: dict, mem: dict, on_card: bool) -> list[str]:
         if missing:
             problems.append(f"the step never launched {missing}")
     return problems
+
+
+def main(argv=None) -> None:
+    """``python -m repro_torch.smoke_dryrun ARCH KIND [--device cuda]``: one
+    mini cell; its JSON row printed last."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("arch")
+    ap.add_argument("kind")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    torch.set_num_threads(1)
+    print(json.dumps(mini_cell(args.arch, args.kind, args.device)))
+
+
+if __name__ == "__main__":
+    main()

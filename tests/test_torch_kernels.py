@@ -290,6 +290,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"repro_torch.launch.steps", "repro_torch.launch.dryrun",
             "repro_torch.launch.roofline", "repro_torch.launch.report",
             "repro_torch.smoke_dryrun"} <= set(report["imported"])
+    assert {"repro_torch.models.shards", "repro_torch.examples.lm_pretrain",
+            "repro_torch.examples.serve_lm",
+            "repro_torch.smoke_examples"} <= set(report["imported"])
     assert report["bad"] == []
 
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"] \

@@ -1,17 +1,21 @@
 """The port's dry run (`repro_torch.launch.dryrun`) against the JAX
 package's on the CPU.
 
-The reference's mini dry-run cells (`tests/test_sharding_and_dryrun.py`:
+The mini dry-run cells of phase 17 (`repro_torch.smoke_dryrun.MINI_CELLS`,
+smoke configs at Shape("t", 32, 8, kind)) on a (2, 2, 2) ('pod', 'data',
+'model') mesh: the reference's (`tests/test_sharding_and_dryrun.py`:
 qwen3-8b's train step, deepseek-v2-lite's train step and falcon-mamba-7b's
-decode step, smoke configs at Shape("t", 32, 8, kind)) on a (2, 2, 2)
-('pod', 'data', 'model') mesh: the port traces each on a fake world of 8
-under `FakeTensorMode` (one subprocess a cell), JAX compiles all three in
-one subprocess with eight host devices; the four run at once.  The
-collective kind the reference asserts appears in the port's trace (the
-all-to-all is `moe_ep`'s own), and the per-device argument bytes equal
-JAX's `argument_size_in_bytes` exactly.  The flops and wire bytes are
-printed beside JAX's, not gated: XLA counts every op before fusion and a
-scan body once, the trace counts matmuls on the local shards.
+decode step) and falcon-mamba-7b's train step, deepseek-v2-lite's absorbed
+MLA decode and zamba2-7b's hybrid train and decode steps.  The port traces
+each on a fake world of 8 under `FakeTensorMode` (one subprocess a cell,
+`smoke_dryrun.mini_cell`), JAX compiles all seven in one subprocess with
+eight host devices; all run at once.  The collective kind the reference
+asserts appears in the port's trace (the all-to-all is `moe_ep`'s own),
+and the per-device argument bytes equal JAX's `argument_size_in_bytes`
+exactly, as do the JAX bytes `MINI_CELLS` records for phase 17 on the
+card.  The flops and wire bytes are printed beside JAX's, not gated: XLA
+counts every op before fusion and a scan body once, the trace counts
+matmuls on the local shards.
 
 The per-device flops of a one-layer smoke cell (qwen1.5-0.5b's prefill,
 2 x 16 tokens, world 1) equal a hand count of its matmuls exactly; on a
@@ -35,12 +39,11 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.configs.shapes import Shape
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import Mesh
+from repro_torch.smoke_dryrun import MINI_CELLS
 
 ROOT = Path(__file__).resolve().parent.parent
 SRC = str(ROOT / "src")
-CELLS = [("qwen3-8b", "train", "all-reduce"),
-         ("deepseek-v2-lite-16b", "train", "all-to-all"),
-         ("falcon-mamba-7b", "decode", None)]
+CELLS = [cell[:3] for cell in MINI_CELLS]
 
 _JAX_CELLS = textwrap.dedent("""
     import os
@@ -65,7 +68,8 @@ _JAX_CELLS = textwrap.dedent("""
             coll = collective_stats(compiled.as_text(), default_group=2)
             mem = compiled.memory_analysis()
             cost = compiled.cost_analysis() or {{}}
-        out[arch] = {{"kinds": sorted(coll["ops"]), "wire": coll["wire_bytes_per_device"],
+        out[arch + " " + kind] = {{"kinds": sorted(coll["ops"]),
+                                  "wire": coll["wire_bytes_per_device"],
                      "args_bytes": int(mem.argument_size_in_bytes),
                      "flops": float(cost.get("flops", 0.0))}}
     print(json.dumps(out))
@@ -76,19 +80,13 @@ _TORCH_CELL = textwrap.dedent("""
     sys.path.insert(0, {src!r})
     import torch
     torch.set_num_threads(1)
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.configs.shapes import Shape
-    from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import Mesh
+    from repro_torch.smoke_dryrun import mini_cell
 
-    with dryrun.fake_world(8):
-        mesh = Mesh((2, 2, 2), ("pod", "data", "model"), device="cpu")
-        mem, m, coll, _ = dryrun._compile_cell(get_smoke_config({arch!r}),
-                                               Shape("t", 32, 8, {kind!r}), mesh)
-    print(json.dumps({{"kinds": sorted(coll["ops"]), "wire": m["wire"], "flops": m["flops"],
-                      "args_bytes": mem.argument_size_in_bytes,
-                      "alias_bytes": mem.alias_size_in_bytes,
-                      "temp_bytes": mem.temp_size_in_bytes}}))
+    r = mini_cell({arch!r}, {kind!r}, "cpu")
+    print(json.dumps({{"kinds": r["kinds"], "wire": r["wire"], "flops": r["flops"],
+                      "args_bytes": r["argument_size_in_bytes"],
+                      "alias_bytes": r["alias_size_in_bytes"],
+                      "temp_bytes": r["temp_size_in_bytes"]}}))
 """)
 
 
@@ -99,14 +97,14 @@ def _one_thread():
 
 @pytest.fixture(scope="module")
 def mini_cells():
-    """Both sides of the three cells, run at once: {"jax": {arch: ...},
-    arch: the port's result}."""
+    """Both sides of the seven cells, run at once: {"jax": {"arch kind": ...},
+    "arch kind": the port's result}."""
     env = dict(os.environ, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
     procs = {"jax": subprocess.Popen(
         [sys.executable, "-c", _JAX_CELLS.format(src=SRC, cells=[c[:2] for c in CELLS])],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)}
     for arch, kind, _ in CELLS:
-        procs[arch] = subprocess.Popen(
+        procs[f"{arch} {kind}"] = subprocess.Popen(
             [sys.executable, "-c", _TORCH_CELL.format(src=SRC, arch=arch, kind=kind)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
     out = {}
@@ -125,7 +123,7 @@ def mini_cells():
 
 @pytest.mark.parametrize("arch,kind,expect_coll", CELLS)
 def test_mini_dryrun_multipod(arch, kind, expect_coll, mini_cells):
-    mine, ref = mini_cells[arch], mini_cells["jax"][arch]
+    mine, ref = mini_cells[f"{arch} {kind}"], mini_cells["jax"][f"{arch} {kind}"]
     print(f"{arch} {kind}: port flops/dev {mine['flops']:.6g} wire/dev {mine['wire']:.6g} "
           f"kinds {mine['kinds']}; JAX flops/dev {ref['flops']:.6g} wire/dev "
           f"{ref['wire']:.6g} kinds {ref['kinds']}")
@@ -135,6 +133,12 @@ def test_mini_dryrun_multipod(arch, kind, expect_coll, mini_cells):
     assert mine["args_bytes"] == ref["args_bytes"]
     assert 0 < mine["alias_bytes"] <= mine["args_bytes"]
     assert mine["temp_bytes"] > 0 and mine["flops"] > 0
+
+
+@pytest.mark.parametrize("arch,kind,jax_bytes", [(c[0], c[1], c[3]) for c in MINI_CELLS])
+def test_mini_cells_record_jax_bytes(arch, kind, jax_bytes, mini_cells):
+    """Phase 17 gates the card's trace against these recorded bytes."""
+    assert jax_bytes == mini_cells["jax"][f"{arch} {kind}"]["args_bytes"]
 
 
 def test_one_layer_flops_equal_a_hand_count():

@@ -17,6 +17,17 @@ On four ranks, a ('data', 'model') = (2, 2) mesh:
 * qwen3-8b's smoke config decoding one token under the TP policy (heads
   over 'model', the batch over 'data': `attention._decode_on_shards`),
   its caches random.
+* the routes that run on each rank's local tensors (`models/shards.py`):
+  falcon-mamba-7b's and zamba2-7b's smoke configs decoding one token
+  under the TP policy (`ssm._ssm_on_shards`: the projections on the
+  weights' blocks over 'model', the scan on the state's block of
+  channels; zamba2's shared attention block beside it), deepseek-v2-lite's
+  absorbed MLA decode (`attention.mla_decode_attention` on a DTensor
+  cache: the heads and the latent cache's sequence over 'model'), and
+  falcon-mamba-7b's and zamba2-7b's smoke configs widened (as qwen3-8b's,
+  so the projections and zamba2's shared block split over both axes)
+  trained one step under the FSDP-pure policy (Mamba-1's scan and SSD's
+  chunks on each rank's rows, the weights' gradients partial sums).
 
 The oracle is the port's unplaced SPMD step on the same mesh, on each
 rank (every rank the whole params and batch: `LM(cfg, mesh)` and
@@ -47,6 +58,11 @@ CASES = {   # name: (arch, config overrides, kind, batch)
     "fsdp_train_seq": ("qwen3-8b", WIDE, "train", 2),
     "moe_train": ("deepseek-v2-lite-16b", {}, "train", 4),
     "tp_decode": ("qwen3-8b", {}, "decode", 4),
+    "mamba1_tp_decode": ("falcon-mamba-7b", {}, "decode", 4),
+    "mla_tp_decode": ("deepseek-v2-lite-16b", {}, "decode", 4),
+    "mamba1_train": ("falcon-mamba-7b", WIDE, "train", 4),
+    "ssd_train": ("zamba2-7b", WIDE, "train", 4),
+    "hybrid_tp_decode": ("zamba2-7b", {}, "decode", 4),
 }
 
 
@@ -80,21 +96,19 @@ def _close(got, want, what):
     assert float(np.max(np.abs(np.asarray(got, np.float32) - want))) <= RANK_TOL * scale, what
 
 
-def test_placed_steps_on_four_ranks_equal_the_unplaced_ones(tmp_path):
-    rng = np.random.default_rng(0)
-    jobs = []
-    for name, (arch, overrides, kind, n_batch) in CASES.items():
-        _, params, batch = _inputs(arch, overrides, kind, n_batch, rng)
-        path = tmp_path / f"{name}.npz"
-        np.savez(path, **_flat("params", params), **_flat("batch", batch))
-        jobs.append(("placed_step", (str(path), arch, overrides, kind, SEQ, n_batch, (2, 2),
-                                     ("data", "model"))))
-    for rank, results in enumerate(_torch_ranks.start_ranks("run_jobs", 4, jobs,
-                                                            timeout=420.0).result()):
-        for name, got in zip(CASES, results):
-            for key, want in got["plain"].items():
-                if isinstance(want, dict):
-                    for p, w in want.items():
-                        _close(got["placed"][key][p], w, (rank, name, key, p))
-                else:
-                    _close(got["placed"][key], want, (rank, name, key))
+@pytest.mark.parametrize("name", list(CASES))
+def test_placed_steps_on_four_ranks_equal_the_unplaced_ones(name, tmp_path):
+    arch, overrides, kind, n_batch = CASES[name]
+    _, params, batch = _inputs(arch, overrides, kind, n_batch, np.random.default_rng(0))
+    path = tmp_path / f"{name}.npz"
+    np.savez(path, **_flat("params", params), **_flat("batch", batch))
+    job = ("placed_step", (str(path), arch, overrides, kind, SEQ, n_batch, (2, 2),
+                           ("data", "model")))
+    for rank, (got,) in enumerate(_torch_ranks.start_ranks("run_jobs", 4, [job],
+                                                           timeout=240.0).result()):
+        for key, want in got["plain"].items():
+            if isinstance(want, dict):
+                for p, w in want.items():
+                    _close(got["placed"][key][p], w, (rank, name, key, p))
+            else:
+                _close(got["placed"][key], want, (rank, name, key))
