@@ -5,7 +5,13 @@ memory, flops and collectives for the roofline table.
 The port of `repro.launch.dryrun`:
 
     python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k [--multi-pod]
-    python -m repro_torch.launch.dryrun --all [--out results/dryrun_torch]
+    python -m repro_torch.launch.dryrun --all [--out results/dryrun_torch] [--jobs 8]
+        [--arch a,b] [--shape s,t] [--pods 1,2]
+
+`--all` runs each cell in a subprocess, `--jobs` of them at once, and
+skips a cell whose row is written already (`--force` runs it again);
+`--arch` / `--shape` / `--pods` narrow it to those cells.  The rows'
+names do not carry the policy: give `--policy baseline` its own `--out`.
 
 Where the reference lowers and compiles each cell for 256 / 512 host
 devices, the port runs the step once (`steps.build_step_cfg`) on a fake
@@ -35,11 +41,12 @@ local shards:
 The layer loop is Python, so a full-depth trace counts every layer:
 `corrected_metrics` (the reference's probe-and-extrapolate, which undoes
 its scan's count-once) agrees with the direct count and is kept for the
-reference's JSON.  `--all` runs each cell in a subprocess.
+reference's JSON.
 """
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -382,12 +389,48 @@ def all_cells():
                 yield arch, shape, multi_pod
 
 
+def _run_subprocess(arch: str, shape: str, multi_pod: bool, out_dir: Path, args) -> None:
+    """One cell of `--all` in a subprocess of its own; its row written by
+    the subprocess, or an "error" / "timeout" row here."""
+    tag = f"{arch}__{shape}__{'pod2' if multi_pod else 'pod1'}"
+    path = out_dir / f"{tag}.json"
+    if path.exists() and not args.force:
+        print(f"[skip-cached] {tag}", flush=True)
+        return
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+           "--arch", arch, "--shape", shape, "--out", str(out_dir),
+           "--policy", args.policy, "--device", args.device]
+    if multi_pod:
+        cmd.append("--multi-pod")
+    if args.no_probes:
+        cmd.append("--no-probes")
+    print(f"[run] {tag}", flush=True)
+    t0 = time.time()
+    try:
+        r = subprocess.run(cmd, timeout=args.timeout, capture_output=True, text=True)
+        if r.returncode != 0:
+            err = (r.stderr or "")[-2000:]
+            path.write_text(json.dumps({
+                "arch": arch, "shape": shape, "multi_pod": multi_pod,
+                "status": "error", "stderr_tail": err}, indent=2))
+            print(f"[FAIL] {tag}: {err.splitlines()[-1] if err else '?'}", flush=True)
+        else:
+            print(f"[ok] {tag} {time.time() - t0:.1f} s", flush=True)
+    except subprocess.TimeoutExpired:
+        path.write_text(json.dumps({
+            "arch": arch, "shape": shape, "multi_pod": multi_pod,
+            "status": "timeout"}, indent=2))
+        print(f"[TIMEOUT] {tag}", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch")
-    ap.add_argument("--shape")
+    ap.add_argument("--arch", help="the cell's arch (with --all: a comma list to run)")
+    ap.add_argument("--shape", help="the cell's shape (with --all: a comma list to run)")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--pods", help="with --all: the pods to run, a comma list of 1 and 2")
+    ap.add_argument("--jobs", type=int, default=1, help="with --all: cells run at once")
     ap.add_argument("--out", default="results/dryrun_torch")
     ap.add_argument("--timeout", type=int, default=2400)
     ap.add_argument("--force", action="store_true")
@@ -402,35 +445,13 @@ def main(argv=None):
     out_dir.mkdir(parents=True, exist_ok=True)
 
     if args.all:
-        for arch, shape, multi_pod in all_cells():
-            tag = f"{arch}__{shape}__{'pod2' if multi_pod else 'pod1'}"
-            path = out_dir / f"{tag}.json"
-            if path.exists() and not args.force:
-                print(f"[skip-cached] {tag}", flush=True)
-                continue
-            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                   "--arch", arch, "--shape", shape, "--out", str(out_dir),
-                   "--policy", args.policy, "--device", args.device]
-            if multi_pod:
-                cmd.append("--multi-pod")
-            if args.no_probes:
-                cmd.append("--no-probes")
-            print(f"[run] {tag}", flush=True)
-            try:
-                r = subprocess.run(cmd, timeout=args.timeout, capture_output=True, text=True)
-                if r.returncode != 0:
-                    err = (r.stderr or "")[-2000:]
-                    path.write_text(json.dumps({
-                        "arch": arch, "shape": shape, "multi_pod": multi_pod,
-                        "status": "error", "stderr_tail": err}, indent=2))
-                    print(f"[FAIL] {tag}: {err.splitlines()[-1] if err else '?'}", flush=True)
-            except subprocess.TimeoutExpired:
-                path.write_text(json.dumps({
-                    "arch": arch, "shape": shape, "multi_pod": multi_pod,
-                    "status": "timeout"}, indent=2))
-                print(f"[TIMEOUT] {tag}", flush=True)
+        keep = [set(v.split(",")) if v else None for v in (args.arch, args.shape, args.pods)]
+        cells = [(arch, shape, multi_pod) for arch, shape, multi_pod in all_cells()
+                 if all(k is None or v in k for k, v in
+                        zip(keep, (arch, shape, "2" if multi_pod else "1")))]
+        with concurrent.futures.ThreadPoolExecutor(max(1, args.jobs)) as pool:
+            list(pool.map(lambda cell: _run_subprocess(*cell, out_dir, args), cells))
         return
-
     result = run_cell(args.arch, args.shape, args.multi_pod, probes=not args.no_probes,
                       variant=args.policy, device=args.device)
     tag = f"{args.arch}__{args.shape}__{'pod2' if args.multi_pod else 'pod1'}"

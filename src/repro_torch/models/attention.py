@@ -55,16 +55,26 @@ def init_attention(generator, cfg: ModelConfig, dtype, device=None) -> dict:
     return p
 
 
-def _qkv(params, cfg: ModelConfig, x, positions):
-    q = torch.einsum("bsd,dhe->bshe", x, params["wq"])
-    k = torch.einsum("bsd,dke->bske", x, params["wk"])
-    v = torch.einsum("bsd,dke->bske", x, params["wv"])
+def _qkv(params, cfg: ModelConfig, x, positions, ranks=None):
+    """q, k, v of x; with `ranks` (`shards.tokens`), of each rank's local
+    tokens x at their local positions."""
+    q = shards.einsum(ranks, "bsd,dhe->bshe", x, params["wq"])
+    k = shards.einsum(ranks, "bsd,dke->bske", x, params["wk"])
+    v = shards.einsum(ranks, "bsd,dke->bske", x, params["wv"])
     if cfg.qkv_bias:
-        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+        q, k, v = (t + shards.param(ranks, params[n]) for t, n in ((q, "bq"), (k, "bk"), (v, "bv")))
     if cfg.qk_norm:
-        q = layers.rms_norm(q, params["q_norm"])
-        k = layers.rms_norm(k, params["k_norm"])
+        q = layers.rms_norm(q, shards.param(ranks, params["q_norm"]))
+        k = layers.rms_norm(k, shards.param(ranks, params["k_norm"]))
     return _apply_positional(cfg, q, positions), _apply_positional(cfg, k, positions), v
+
+
+def _token_positions(ranks, positions):
+    """Positions (B, S) or the (3, B, S) M-RoPE streams at each rank's
+    local tokens (`ranks` from `shards.tokens`); without `ranks`, as given."""
+    if ranks is None:
+        return positions
+    return ranks.enter(positions, ranks.rows_at(positions.ndim - 2))
 
 
 # above this many score elements per head group, the chunked online softmax:
@@ -196,12 +206,12 @@ def _sdpa(q, k, v, causal: bool, q_offset=0, chunked: bool | None = None):
 def _sdpa_on_shards(q, k, v, causal: bool):
     """`_sdpa` of DTensors on each rank's block: q keeps its split of the
     batch, the query positions and the heads (the heads only where the kv
-    heads divide as finely); k and v follow its batch and head splits and
-    are gathered whole along the sequence.  A rank's block needs no other
-    rank's queries, so the only collectives are that gather and, in the
-    backward, the reduction of k's and v's gradients, partial sums over
-    the mesh dims that split the queries.  The chunked softmax is chosen
-    by the whole sequence, as unplaced."""
+    heads divide as finely); k and v (in any layout) follow its batch and
+    head splits and are gathered whole along the sequence.  A rank's block
+    needs no other rank's queries, so the only collectives are that gather
+    and, in the backward, the reduction of k's and v's gradients, partial
+    sums over the mesh dims that split the queries.  The chunked softmax is
+    chosen by the whole sequence, as unplaced."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = q.device_mesh
     q = _heads_dividing(q, v.shape[2])
@@ -224,16 +234,41 @@ def _sdpa_on_shards(q, k, v, causal: bool):
     return DTensor.from_local(out, mesh, q_pl, run_check=False)
 
 
+def _out_proj(out, wo):
+    """einsum("bshe,hed->bsd", out, wo).  A DTensor out projects on each
+    rank's block: out's local block (its batch, sequence and head splits;
+    partial sums kept), wo's rows of the heads the block holds, the
+    products a partial sum over the head dims (and wherever out is one),
+    all-reduced (Megatron's g) -> (B, S, D) split as out's tokens, where
+    DTensor's own propagation would flatten a split head dim."""
+    if getattr(out, "device_mesh", None) is None:
+        return torch.einsum("bshe,hed->bsd", out, wo)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    ranks = shards.Ranks(out, tokens=True)
+    w = ranks.local(wo, [Shard(0) if p == Shard(2) else Replicate() for p in out.placements])
+    y = torch.einsum("bshe,hed->bsd", out.to_local(), w)
+    return ranks.leave(y, [Partial() if p == Shard(2) or p.is_partial() else r
+                           for p, r in zip(out.placements, ranks.rows)], ranks.rows)
+
+
 def attention(params, cfg: ModelConfig, x, positions, causal=True):
     """Full-sequence attention (training / prefill)."""
-    q, k, v = _qkv(params, cfg, x, positions)
-    return torch.einsum("bshe,hed->bsd", _sdpa(q, k, v, causal), params["wo"])
+    return attention_with_kv(params, cfg, x, positions, causal)[0]
 
 
 def attention_with_kv(params, cfg: ModelConfig, x, positions, causal=True):
-    """Prefill variant: also returns the (k, v) tensors for the cache."""
-    q, k, v = _qkv(params, cfg, x, positions)
-    return torch.einsum("bshe,hed->bsd", _sdpa(q, k, v, causal), params["wo"]), k, v
+    """Prefill variant: also returns the (k, v) tensors for the cache.
+
+    A DTensor x split along its sequence runs on each rank's tokens
+    (`shards.tokens`): the projections on the local tokens, then
+    `_sdpa_on_shards` (each rank's queries at their causal offset against
+    the keys and values gathered along the sequence); k and v leave in x's
+    layout.  A DTensor output projects on each rank's block (`_out_proj`)."""
+    ranks = shards.tokens(x)
+    q, k, v = _qkv(params, cfg, shards.enter(ranks, x), _token_positions(ranks, positions),
+                   ranks)
+    q, k, v = (shards.leave(ranks, t) for t in (q, k, v))
+    return _out_proj(_sdpa(q, k, v, causal), params["wo"]), k, v
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, device=None) -> dict:
@@ -258,54 +293,72 @@ def decode_attention(params, cfg: ModelConfig, x, cache: dict, pos: torch.Tensor
     rep = cfg.n_heads // kh
     qr = _group_heads(q, kh, rep)
     new_cache = {"k": k_cache, "v": v_cache}
-    if _batch_head_sharded(k_cache):
+    if _sharded_cache(k_cache):
         return _decode_on_shards(qr, k_cache, v_cache, valid, params["wo"]), new_cache
     out = _decode_core(qr, k_cache, v_cache, valid, cfg.hd).reshape(b, 1, cfg.n_heads, cfg.hd)
-    return torch.einsum("bshe,hed->bsd", out, params["wo"]), new_cache
+    return _out_proj(out, params["wo"]), new_cache
 
 
-def _decode_core(qr, k_cache, v_cache, valid, hd: int):
+def _decode_core(qr, k_cache, v_cache, valid, hd: int, whole=None):
     """qr (B, 1, K, r, hd) against the caches (B, S, K, hd) where `valid`
-    (B, S) -> (B, 1, K, r, hd)."""
+    (B, S) -> (B, 1, K, r, hd).  `whole` (a function of the scores and
+    their inverse, or None) takes a block of the scores along the sequence
+    to the whole sequence for the softmax and back."""
     scores = torch.einsum("bqkre,bske->bkrqs", qr, k_cache).to(torch.float32)
     scores = scores / _sqrt_hd(hd)
     scores = torch.where(valid[:, None, None, None, :], scores,
                          torch.full((), -1e30, device=qr.device))
-    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    if whole is None:
+        probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    else:
+        probs = whole[1](torch.softmax(whole[0](scores), dim=-1).to(v_cache.dtype))
     return torch.einsum("bkrqs,bske->bqkre", probs, v_cache)
 
 
-def _batch_head_sharded(cache) -> bool:
-    """A DTensor cache (B, S, K, hd) split over nothing but its batch and
-    kv-head dims (a placed decode step's, `parallel.sharding._cache_spec`)."""
+def _sharded_cache(cache) -> bool:
+    """A DTensor cache (B, S, K, hd) split over nothing but its batch,
+    sequence and kv-head dims (a placed decode step's,
+    `parallel.sharding._cache_spec`)."""
     from torch.distributed.tensor import Replicate, Shard
     placements = getattr(cache, "placements", None)
     return placements is not None and all(
-        isinstance(p, Replicate) or (isinstance(p, Shard) and p.dim in (0, 2))
+        isinstance(p, Replicate) or (isinstance(p, Shard) and p.dim in (0, 1, 2))
         for p in placements)
 
 
 def _decode_on_shards(qr, k_cache, v_cache, valid, wo):
-    """`_decode_core` and the output projection of a batch / head split
-    cache, run on each rank's block: no score or output term crosses a
-    batch row or a kv head, and the projection's sum over the heads is one
-    all-reduce over the mesh dims that split them (Megatron's), where
-    DTensor's own propagation would flatten the split dims into one and
-    search its layouts.  -> (B, 1, D), split as the batch rows are."""
+    """`_decode_core` and the output projection of a batch / sequence /
+    head split cache, run on each rank's block: no score or output term
+    crosses a batch row or a kv head; a block of the sequence scores its
+    own positions, the scores are gathered along the sequence for the
+    softmax and each block's share of the output is a partial sum; the
+    projection's sum over the heads and those partial sums are one
+    all-reduce (Megatron's), where DTensor's own propagation would flatten
+    the split dims into one and search its layouts.  -> (B, 1, D), split
+    as the batch rows are."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = k_cache.device_mesh
 
     def block(t, placements):
-        return shards.as_dtensor(t, mesh).redistribute(mesh, placements).to_local()
-    heads = list(k_cache.placements)
-    rows = [p if p == Shard(0) else Replicate() for p in heads]
-    out = _decode_core(block(qr, heads), k_cache.to_local(), block(v_cache, heads),
-                       block(valid, rows), qr.shape[-1])
+        return shards.redistributed(shards.as_dtensor(t, mesh), mesh, placements).to_local()
+    cache = list(k_cache.placements)
+    rows = [p if p == Shard(0) else Replicate() for p in cache]
+    heads = [Replicate() if p == Shard(1) else p for p in cache]      # qr's batch and heads
+    whole = None
+    if Shard(1) in cache:     # (B, K, r, 1, S) scores: a block of the positions <-> all
+        on_seq = [Shard(4) if p == Shard(1) else Shard(1) if p == Shard(2) else p
+                  for p in cache]
+        gathered = [Replicate() if p == Shard(4) else p for p in on_seq]
+        whole = (lambda t: block(DTensor.from_local(t, mesh, on_seq, run_check=False), gathered),
+                 lambda t: block(DTensor.from_local(t, mesh, gathered, run_check=False), on_seq))
+    out = _decode_core(block(qr, heads), k_cache.to_local(), block(v_cache, cache),
+                       block(valid, [p if p in (Shard(0), Shard(1)) else Replicate()
+                                     for p in cache]), qr.shape[-1], whole)
     b, _, kh, rep, hd = out.shape
-    w = block(wo, [Shard(0) if p == Shard(2) else Replicate() for p in heads])
+    w = block(wo, [Shard(0) if p == Shard(2) else Replicate() for p in cache])
     y = torch.einsum("bshe,hed->bsd", out.reshape(b, 1, kh * rep, hd), w)
-    y = DTensor.from_local(y, mesh, [Partial() if p == Shard(2) else p for p in heads],
-                           run_check=False)
+    y = DTensor.from_local(y, mesh, [Partial() if p in (Shard(1), Shard(2)) else p
+                                     for p in cache], run_check=False)
     return y.redistribute(mesh, rows)
 
 
@@ -330,25 +383,27 @@ def init_mla(generator, cfg: ModelConfig, dtype, device=None) -> dict:
     return p
 
 
-def _mla_q(params, cfg: ModelConfig, x, positions):
+def _mla_q(params, cfg: ModelConfig, x, positions, ranks=None):
     """(q_nope (B, S, H, d_nope), q_rope (B, S, H, d_rope) rotated): a direct
-    projection, or the low-rank wq_a -> rms_norm -> wq_b when q_lora."""
+    projection, or the low-rank wq_a -> rms_norm -> wq_b when q_lora; with
+    `ranks`, of each rank's local tokens."""
     m = cfg.mla
     if m.q_lora:
-        qa = layers.rms_norm(x @ params["wq_a"], params["q_a_norm"])
-        q = torch.einsum("bsl,lhe->bshe", qa, params["wq_b"])
+        qa = layers.rms_norm(shards.mm(ranks, x, params["wq_a"]),
+                             shards.param(ranks, params["q_a_norm"]))
+        q = shards.einsum(ranks, "bsl,lhe->bshe", qa, params["wq_b"])
     else:
-        q = torch.einsum("bsd,dhe->bshe", x, params["wq"])
+        q = shards.einsum(ranks, "bsd,dhe->bshe", x, params["wq"])
     q_nope, q_rope = q[..., : m.d_nope], q[..., m.d_nope:]
     return q_nope, layers.apply_rope(q_rope, positions, cfg.rope_theta)
 
 
-def _mla_kv_latent(params, cfg: ModelConfig, x, positions):
+def _mla_kv_latent(params, cfg: ModelConfig, x, positions, ranks=None):
     """The compressed latent (B, S, kv_lora) and the shared rotary key
-    (B, S, d_rope)."""
+    (B, S, d_rope); with `ranks`, of each rank's local tokens."""
     m = cfg.mla
-    kv = x @ params["wkv_a"]                                   # (B, S, kv_lora + d_rope)
-    c_kv = layers.rms_norm(kv[..., : m.kv_lora], params["kv_a_norm"])
+    kv = shards.mm(ranks, x, params["wkv_a"])                  # (B, S, kv_lora + d_rope)
+    c_kv = layers.rms_norm(kv[..., : m.kv_lora], shards.param(ranks, params["kv_a_norm"]))
     k_rope = layers.apply_rope(kv[..., m.kv_lora:][:, :, None, :], positions,
                                cfg.rope_theta)[:, :, 0, :]
     return c_kv, k_rope
@@ -358,18 +413,21 @@ def mla_attention_with_cache(params, cfg: ModelConfig, x, positions, causal=True
     """Training / prefill MLA: the latent expanded to per-head keys and
     values, then `_sdpa` (q and k d_nope + d_rope wide, v d_v wide; the
     rotary key is one head, broadcast to all).  Returns (out (B, S, D),
-    c_kv, k_rope): the latents for the cache."""
+    c_kv, k_rope): the latents for the cache.  A DTensor x split along its
+    sequence runs on each rank's tokens, as `attention_with_kv` does."""
     m = cfg.mla
+    ranks = shards.tokens(x)
+    x, positions = shards.enter(ranks, x), _token_positions(ranks, positions)
     b, s, _ = x.shape
-    q_nope, q_rope = _mla_q(params, cfg, x, positions)
-    c_kv, k_rope = _mla_kv_latent(params, cfg, x, positions)
-    kv = torch.einsum("bsl,lhe->bshe", c_kv, params["wkv_b"])  # (B, S, H, nope + v)
+    q_nope, q_rope = _mla_q(params, cfg, x, positions, ranks)
+    c_kv, k_rope = _mla_kv_latent(params, cfg, x, positions, ranks)
+    kv = shards.einsum(ranks, "bsl,lhe->bshe", c_kv, params["wkv_b"])  # (B, S, H, nope + v)
     k_nope, v = kv[..., : m.d_nope], kv[..., m.d_nope:]
     k_rope_h = k_rope[:, :, None, :].expand(b, s, cfg.n_heads, m.d_rope)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope_h], dim=-1)
-    out = _sdpa(q, k, v, causal)
-    return torch.einsum("bshe,hed->bsd", out, params["wo"]), c_kv, k_rope
+    out = _sdpa(*(shards.leave(ranks, t) for t in (q, k, v)), causal)
+    return (_out_proj(out, params["wo"]),) + tuple(shards.leave(ranks, t) for t in (c_kv, k_rope))
 
 
 def mla_attention(params, cfg: ModelConfig, x, positions, causal=True):

@@ -48,7 +48,7 @@ from typing import Any
 
 import torch
 
-from . import layers, transformer as tfm
+from . import layers, shards, transformer as tfm
 from .config import ModelConfig
 from .transformer import segments
 
@@ -184,8 +184,12 @@ class LM:
         return self._embed_lookup(params["embed"], tokens).to(self.dtype)
 
     def logits(self, params, x):
+        """x @ the head, f32; a DTensor x split along its sequence on each
+        rank's tokens (`shards.tokens`)."""
         head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
-        out = (x @ self._gather_param(head)).to(torch.float32)
+        ranks = shards.tokens(x)
+        out = shards.leave(ranks, shards.mm(ranks, shards.enter(ranks, x),
+                                            self._gather_param(head)).to(torch.float32))
         mesh = self.mesh
         if self.tp_logits and mesh is not None and "model" in mesh.shape \
                 and self.cfg.vocab % mesh.shape["model"] == 0:
@@ -313,7 +317,7 @@ class LM:
                                                            positions, max_seq, enc_out, self.mesh,
                                                            keep, self._gather)
         h = tfm.apply_norm(self.cfg, params["final_norm"], x)
-        return self.logits(params, h[:, -1:, :])[:, 0], caches, enc_out
+        return self.logits(params, _last_token(h))[:, 0], caches, enc_out
 
     def decode_step(self, params, caches, tokens, pos, encoder_out=None):
         """tokens (B, 1) int, pos (B, 1) absolute positions ->
@@ -342,34 +346,69 @@ class LM:
         return self.logits(params, h)[:, 0], new_caches
 
 
+def _last_token(x):
+    """x[:, -1:] of (B, S, D).  A DTensor x split along its sequence gives
+    it from the block that holds the last position: every other block
+    gives zeros, and the blocks are summed over the mesh dims that split
+    the sequence (an all-reduce of (B, 1, D), where slicing the DTensor
+    would gather the whole sequence first)."""
+    ranks = shards.tokens(x)
+    if ranks is None:
+        return x[:, -1:]
+    from torch.distributed.tensor import Partial, Replicate
+    local = ranks.enter(x)
+    last = local[:, -1:]
+    if ranks.seq_offset(x.shape[1]) + local.shape[1] < x.shape[1]:
+        last = torch.zeros_like(last)
+    return ranks.leave(last, [Partial() if p.is_shard(1) else p for p in ranks.rows],
+                       [Replicate() if p.is_shard(1) else p for p in ranks.rows])
+
+
 def _next_token_nll(logits, tokens):
     """Mean cross-entropy of logits[:, :-1] (B, S, V) against tokens[:, 1:],
-    in f32.  DTensor logits split over nothing but the batch are scored on
-    each rank's rows, each block's mean weighted by its share of the rows
-    (sliced as DTensors, the slice's backward would build the whole
-    batch's logits gradient on every rank)."""
+    in f32.  DTensor logits split over nothing but the batch and the
+    sequence are scored on each rank's block (sliced as DTensors, the
+    slice's backward would build the whole batch's logits gradient on every
+    rank): split over the batch only, each block's mean weighted by its
+    share of the rows; split along the sequence too, each block's sum over
+    its positions that have a next token (their targets from the rows'
+    whole token sequence) over the count of all of them.  The blocks' terms
+    are summed over the mesh."""
     placements = getattr(logits, "placements", None)
-    if placements is None or not all(p.is_replicate() or p.is_shard(0) for p in placements):
+    if placements is None or not all(p.is_replicate() or p.is_shard(0) or p.is_shard(1)
+                                     for p in placements):
         return _nll(logits[:, :-1], tokens[:, 1:])
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = logits.device_mesh
-    if not isinstance(tokens, DTensor):
-        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
-    rows = tokens.redistribute(mesh, placements).to_local()
+    tokens = shards.as_dtensor(tokens, mesh)
     local = logits.to_local()
-    loss = _nll(local[:, :-1], rows[:, 1:])
-    if local.shape[0] != logits.shape[0]:
-        loss = loss * (local.shape[0] / logits.shape[0])
+    b, s = logits.shape[0], logits.shape[1]
+    if Shard(1) not in placements:
+        rows = tokens.redistribute(mesh, placements).to_local()
+        loss = _nll(local[:, :-1], rows[:, 1:])
+        if local.shape[0] != b:
+            loss = loss * (local.shape[0] / b)
+    else:
+        ranks = shards.Ranks(logits, tokens=True)
+        rows = tokens.redistribute(mesh, [Replicate() if p.is_shard(1) else p
+                                          for p in placements]).to_local()
+        start = ranks.seq_offset(s)
+        n = max(0, min(local.shape[1], s - 1 - start))
+        loss = _token_nll(local[:, :n], rows[:, start + 1:start + 1 + n]).sum() / (b * (s - 1))
     loss = DTensor.from_local(loss, mesh, [Partial() if p.is_shard() else p for p in placements],
                               run_check=False)
     return loss.redistribute(mesh, [Replicate()] * mesh.ndim)
 
 
+def _token_nll(logits, targets):
+    """Each token's cross-entropy of (B, S, V) logits against targets, f32."""
+    lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -torch.take_along_dim(lp, targets[..., None].to(torch.int64), dim=-1)[..., 0]
+
+
 def _nll(logits, targets):
     """Mean next-token cross-entropy of (B, S, V) logits, in f32."""
-    lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    nll = -torch.take_along_dim(lp, targets[..., None].to(torch.int64), dim=-1)[..., 0]
-    return nll.mean()
+    return _token_nll(logits, targets).mean()
 
 
 def _to(tree, device):

@@ -10,8 +10,12 @@ and Partial(sum) -> Replicate, which every version supports, as
 
 `Ranks(x)` reads the block's input x (B, ...): its *row* dims are the mesh
 dims that split the batch (Shard(0)), the others its *split* dims, over
-which weights, caches and states may be split.  Between its matmuls an
-activation is whole on every rank of a split dim (each rank's batch rows),
+which weights, caches and states may be split.  `Ranks(x, tokens=True)`
+(`tokens(x)`: a residual stream (B, S, D) split along its sequence) counts
+the dims that split the sequence (Shard(1)) as row dims too, so a block's
+per-token work (projections, norms, the FFN) runs on each rank's own
+(B, S) block of tokens.  Between its matmuls an activation is whole on
+every rank of a split dim (each rank's rows),
 so elementwise ops run as unplaced; a gradient of such an activation is
 the same on those ranks.  A weight's local block enters a matmul (`mm`):
 a row-parallel weight (Shard(0)) takes the activation's matching block and
@@ -21,6 +25,8 @@ follow (the activation's is all-reduced where the weight's columns were
 split; a weight's is a partial sum over the row dims).
 """
 from __future__ import annotations
+
+import torch
 
 
 def as_dtensor(t, mesh):
@@ -39,13 +45,42 @@ def redistributed(t, mesh, placements):
     return t.redistribute(mesh, list(placements))
 
 
+def tokens(x) -> "Ranks | None":
+    """`Ranks(x, tokens=True)` for a DTensor x (B, S, ...) split along its
+    sequence; None otherwise (a plain tensor, or a DTensor whose every
+    token block holds whole sequences, which DTensor's own propagation
+    runs)."""
+    from torch.distributed.tensor import Shard
+    if getattr(x, "device_mesh", None) is None or Shard(1) not in x.placements:
+        return None
+    return Ranks(x, tokens=True)
+
+
 class Ranks:
     """The layouts of one block's run on local tensors; see the module."""
 
-    def __init__(self, x):
+    def __init__(self, x, tokens: bool = False):
         from torch.distributed.tensor import Replicate, Shard
         self.mesh = x.device_mesh
-        self.rows = [p if p == Shard(0) else Replicate() for p in x.placements]
+        kept = (Shard(0), Shard(1)) if tokens else (Shard(0),)
+        self.rows = [p if p in kept else Replicate() for p in x.placements]
+
+    def rows_at(self, lead: int) -> list:
+        """The rows' placements of a tensor whose batch dim is `lead` (the
+        (3, B, S) M-RoPE positions: 1)."""
+        from torch.distributed.tensor import Shard
+        return [Shard(p.dim + lead) if p.is_shard() else p for p in self.rows]
+
+    def seq_offset(self, seq: int) -> int:
+        """The first position of this rank's block of a sequence of `seq`
+        split by the rows (the mesh dims that split it, in mesh order:
+        DTensor's nested blocks)."""
+        block, n = 0, 1
+        for i, p in enumerate(self.rows):
+            if p.is_shard(1):
+                block, n = block * self.mesh.size(i) + self.mesh.get_local_rank(i), \
+                    n * self.mesh.size(i)
+        return block * (-(-seq // n))
 
     def wrap(self, t, placements):
         from torch.distributed.tensor import DTensor
@@ -68,14 +103,14 @@ class Ranks:
         batch-leading t), Shard(dim) on the split dims that split t's dim
         `dim`, Replicate elsewhere."""
         from torch.distributed.tensor import Replicate, Shard
-        return [r if r == Shard(0) and batch else Shard(dim) if p == Shard(dim) and r != Shard(0)
+        return [r if r.is_shard() and batch else Shard(dim) if p == Shard(dim) and not r.is_shard()
                 else Replicate() for r, p in zip(self.rows, t.placements)]
 
     def local(self, t, placements):
         """A weight's block laid out by `placements` (Replicate on the row
         dims); its gradient a partial sum over the row dims."""
-        from torch.distributed.tensor import Partial, Shard
-        grad = [Partial() if r == Shard(0) else p for r, p in zip(self.rows, placements)]
+        from torch.distributed.tensor import Partial
+        grad = [Partial() if r.is_shard() else p for r, p in zip(self.rows, placements)]
         return redistributed(as_dtensor(t, self.mesh), self.mesh, placements).to_local(
             grad_placements=grad)
 
@@ -96,14 +131,16 @@ class Ranks:
         return redistributed(self.wrap(t, placements), self.mesh, self.rows).to_local()
 
     def mm(self, a, w):
-        """a (..., K) whole rows @ w (K, N), a DTensor split over the split
-        dims by rows (Shard(0)) or columns (Shard(1)) -> (..., N) whole."""
+        """a (..., K) whole rows @ w (K, N1, ...), a DTensor split over the
+        split dims by its rows (Shard(0), row-parallel) or its first output
+        dim (Shard(1), column-parallel) -> (..., N1, ...) whole.  A weight
+        split along another dim raises."""
         from torch.distributed.tensor import Partial, Replicate, Shard
         w = as_dtensor(w, self.mesh)
         last = a.ndim - 1
         a_pl, a_grad, w_pl, out_pl = [], [], [], []
         for r, p in zip(self.rows, w.placements):
-            if r == Shard(0):                 # a row dim: w whole
+            if r.is_shard():                  # a row dim: w whole
                 a_pl.append(r), a_grad.append(r), w_pl.append(Replicate()), out_pl.append(r)
             elif p == Shard(0):               # row-parallel
                 a_pl.append(Shard(last)), a_grad.append(Shard(last))
@@ -111,12 +148,17 @@ class Ranks:
             elif p == Shard(1):               # column-parallel
                 a_pl.append(Replicate()), a_grad.append(Partial())
                 w_pl.append(p), out_pl.append(Shard(last))
+            elif p.is_shard():
+                raise ValueError(f"mm: no route for a weight {tuple(w.shape)} split along "
+                                 f"its dim {p.dim}")
             else:
                 a_pl.append(Replicate()), a_grad.append(Replicate())
                 w_pl.append(Replicate()), out_pl.append(Replicate())
         a_l = redistributed(self.wrap(a, self.rows), self.mesh, a_pl).to_local(
             grad_placements=a_grad)
-        return self.reduce(a_l @ self.local(w, w_pl), out_pl)
+        w_l = self.local(w, w_pl)
+        out = self.reduce(a_l @ w_l.reshape(w_l.shape[0], -1), out_pl)
+        return out.reshape(tuple(a.shape[:-1]) + tuple(w.shape[1:]))
 
 
 # One body for plain tensors and for each rank's local blocks: each function
@@ -149,6 +191,12 @@ def reduce(ranks: Ranks | None, t, placements):
 
 def mm(ranks: Ranks | None, a, w):
     return a @ w if ranks is None else ranks.mm(a, w)
+
+
+def einsum(ranks: Ranks | None, eq: str, a, w):
+    """`torch.einsum(eq, a, w)` for an `eq` that contracts a's last dim
+    with w's first ("bsd,dhe->bshe"); with `ranks`, `Ranks.mm`."""
+    return torch.einsum(eq, a, w) if ranks is None else ranks.mm(a, w)
 
 
 def block(ranks: Ranks | None, t, layout, dims: dict):

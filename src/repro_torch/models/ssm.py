@@ -7,7 +7,13 @@ The port of `repro.models.ssm`.  Both variants keep the reference's
   reference's `lax.scan`), and within a chunk `associative_scan`, the
   odd/even recursion of `jax.lax.associative_scan` in torch ops over the
   chunk axis (about log2(Q) levels, the same combination tree); a
-  remainder chunk when the sequence is not a multiple of the chunk.
+  remainder chunk when the sequence is not a multiple of the chunk.  A
+  chunk's scan does not read the carried state, so the scans of
+  `SCAN_GROUP` whole chunks run as one batch of ops (the same elementwise
+  ops on the same values: the same bits), and only the carry's
+  combination and the output product walk the chunks one at a time; a
+  long sequence dispatches a fraction of the ops (what a dry run's trace
+  pays by the op).
 * mamba2: the SSD block form -- intra-chunk decay products, the carried
   state's contribution and the state update -- with each three-operand
   einsum taken as the pairwise products JAX's contraction path picks (an
@@ -146,11 +152,26 @@ def associative_scan(a, bx):
     return _interleave(even[0], odd[0]), _interleave(even[1], odd[1])
 
 
-def _mamba1_scan_chunk(h0, a, bx):
-    """h0 (B, d, n); a, bx (B, Q, d, n).  Returns (h (B, Q, d, n), h_end)."""
-    aa, bb = associative_scan(a, bx)
-    h = bb + aa * h0[:, None]
-    return h, h[:, -1]
+# whole chunks whose scans run as one batch of ops
+SCAN_GROUP = 4
+
+
+def _mamba1_scan_chunks(h0, a, bx, q: int):
+    """The selective scan of the g chunks of q tokens in a, bx (B, g*q, d,
+    n) from the state h0 (B, d, n): each chunk's `associative_scan` (all g
+    as one batch (B*g, q, d, n)), then its states from the carried one.
+    Returns the chunks' states [(B, q, d, n)] and the last one's end."""
+    b, gq = a.shape[0], a.shape[1]
+    g = gq // q
+    aa, bb = (t.reshape((b, g, q) + tuple(t.shape[2:]))
+              for t in associative_scan(*(t.reshape((b * g, q) + tuple(t.shape[2:]))
+                                          for t in (a, bx))))
+    hs = []
+    for j in range(g):
+        h = bb[:, j] + aa[:, j] * h0[:, None]
+        h0 = h[:, -1]
+        hs.append(h)
+    return hs, h0
 
 
 def mamba1(params, cfg: ModelConfig, x, state: dict | None = None, ranks=None, layout=None):
@@ -181,13 +202,18 @@ def mamba1(params, cfg: ModelConfig, x, state: dict | None = None, ranks=None, l
     dt_h, x_h = shards.block(ranks, dt, layout, dims), shards.block(ranks, xf32, layout, dims)
     a_h = shards.block(ranks, a_cont, layout, {1: 0})
     ys = []
-    for start in range(0, seq, q):      # the chunks, then the remainder chunk
-        part = slice(start, start + q)
+    whole, step = seq - seq % q, q * SCAN_GROUP
+    # the chunks, SCAN_GROUP at a time, then the remainder chunk
+    for start in list(range(0, whole, step)) + ([whole] if whole < seq else []):
+        stop = min(start + step, whole) if start < whole else seq
+        part = slice(start, stop)
         dt_q, x_q = dt_h[:, part], x_h[:, part]
-        a = torch.exp(dt_q[..., None] * a_h)                        # (B, Q, di, n)
-        bx = (dt_q * x_q)[..., None] * bmat[:, part, None, :]       # (B, Q, di, n)
-        hs, h = _mamba1_scan_chunk(h, a, bx)
-        ys.append(torch.einsum("bqdn,bqn->bqd", hs, cmat[:, part]))
+        a = torch.exp(dt_q[..., None] * a_h)                        # (B, g*Q, di, n)
+        bx = (dt_q * x_q)[..., None] * bmat[:, part, None, :]       # (B, g*Q, di, n)
+        hs, h = _mamba1_scan_chunks(h, a, bx, min(q, stop - start))
+        for j, hs_q in enumerate(hs):
+            ys.append(torch.einsum("bqdn,bqn->bqd", hs_q,
+                                   cmat[:, start + j * q: start + (j + 1) * q]))
     y = shards.gather(ranks, torch.cat(ys, dim=1), layout, dims) \
         + shards.param(ranks, params["D"]) * xf32
     y = (y * F.silu(z.to(torch.float32))).to(x.dtype)

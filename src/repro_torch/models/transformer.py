@@ -46,7 +46,7 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from . import attention, ffn, layers, moe, ssm
+from . import attention, ffn, layers, moe, shards, ssm
 from .config import ModelConfig
 from ..optim.adamw import tree_from_paths, tree_paths
 
@@ -144,21 +144,30 @@ def apply_block(params, cfg: ModelConfig, kind: str, x, positions, encoder_out=N
 
 
 def _cross_kv(params, cfg: ModelConfig, encoder_out):
-    k = torch.einsum("bsd,dke->bske", encoder_out, params["wk"])
-    v = torch.einsum("bsd,dke->bske", encoder_out, params["wv"])
+    """The encoder output's keys and values; of a DTensor split along its
+    sequence, projected on each rank's frames (`shards.tokens`) and left in
+    its layout."""
+    ranks = shards.tokens(encoder_out)
+    e = shards.enter(ranks, encoder_out)
+    k = shards.einsum(ranks, "bsd,dke->bske", e, params["wk"])
+    v = shards.einsum(ranks, "bsd,dke->bske", e, params["wv"])
     if cfg.qkv_bias:
-        k, v = k + params["bk"], v + params["bv"]
-    return k, v
+        k, v = k + shards.param(ranks, params["bk"]), v + shards.param(ranks, params["bv"])
+    return shards.leave(ranks, k), shards.leave(ranks, v)
 
 
 def _cross_attention(params, cfg: ModelConfig, x, k, v):
     """Decoder -> encoder attention against the encoder's keys and values:
-    no positional rotation, no causal mask."""
-    q = torch.einsum("bsd,dhe->bshe", x, params["wq"])
+    no positional rotation, no causal mask.  A DTensor x split along its
+    sequence projects each rank's tokens, whose queries meet the keys and
+    values gathered along the encoder's sequence (`_sdpa_on_shards`); a
+    DTensor output projects on each rank's block (`attention._out_proj`)."""
+    ranks = shards.tokens(x)
+    q = shards.einsum(ranks, "bsd,dhe->bshe", shards.enter(ranks, x), params["wq"])
     if cfg.qkv_bias:
-        q = q + params["bq"]
-    out = attention._sdpa(q, k, v, causal=False)
-    return torch.einsum("bshe,hed->bsd", out, params["wo"])
+        q = q + shards.param(ranks, params["bq"])
+    return attention._out_proj(attention._sdpa(shards.leave(ranks, q), k, v, causal=False),
+                               params["wo"])
 
 
 def apply_block_decode(params, cfg: ModelConfig, kind: str, x, cache, pos,
@@ -245,10 +254,24 @@ def stack_trees(trees: list, like=None):
 
 
 def unstack_tree(tree) -> list:
-    """A dict of stacked leaves -> one dict per layer, each leaf unbound once."""
-    items = [(p, torch.unbind(t)) for p, t in tree_paths(tree)]
+    """A dict of stacked leaves -> one dict per layer, each leaf unbound once.
+    A DTensor leaf split along its layer axis (an FSDP rule's pick for a
+    small leaf with many layers) is gathered along it first: DTensor cannot
+    unbind a split dim on every torch version."""
+    items = [(p, torch.unbind(_whole_layers(t))) for p, t in tree_paths(tree)]
     n = len(items[0][1])
     return [tree_from_paths([(p, parts[i]) for p, parts in items]) for i in range(n)]
+
+
+def _whole_layers(t):
+    """t, whole along its dim 0 (a Shard(0) DTensor gathered over the mesh
+    dims that split it)."""
+    from torch.distributed.tensor import Replicate, Shard
+    placements = getattr(t, "placements", None)
+    if placements is None or Shard(0) not in placements:
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if p == Shard(0) else p
+                                          for p in placements])
 
 
 def init_segment(generator, cfg: ModelConfig, kind: str, n: int, dtype, device=None):

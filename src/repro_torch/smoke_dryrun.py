@@ -26,17 +26,24 @@
    a subprocess started before part 1 (a process of its own: this one's
    process groups come and go), its JSON row's summary and wall time
    printed.
-4. The mini cells (`MINI_CELLS`): smoke configs at Shape("t", 32, 8,
-   kind) on fake (2, 2, 2) ('pod', 'data', 'model') worlds, fake tensors
-   on the CPU (as the CPU tests trace them; no CUDA context a process),
-   one subprocess a cell (``python -m repro_torch.smoke_dryrun ARCH KIND
-   --device cpu``) started beside the production cell: the reference's
-   three (qwen3-8b and deepseek-v2-lite training, falcon-mamba-7b's
-   decode) and falcon-mamba-7b's training, the absorbed MLA decode and
-   zamba2-7b's hybrid training and decode.  Gates: each traces; the
-   collective kind the reference asserts is in its trace; its argument
-   bytes a device equal JAX's.  Flops, wire bytes (each collective kind's
-   too) and seconds printed.
+4. The mini cells (`MINI_CELLS`): smoke configs at a shape of their own
+   (Shape("t", 32, 8, kind), or a smaller batch) on fake (2, 2, 2)
+   ('pod', 'data', 'model') worlds, fake tensors on the CPU (as the CPU
+   tests trace them; no CUDA context a process), one subprocess a cell
+   (``python -m repro_torch.smoke_dryrun ARCH KIND --batch N --device
+   cpu``) started beside the production cell: the reference's three
+   (qwen3-8b and deepseek-v2-lite training, falcon-mamba-7b's decode) and
+   falcon-mamba-7b's training, the absorbed MLA decode and zamba2-7b's
+   hybrid training and decode at batch 8; and three whose residual stream
+   splits along its sequence, as the production `prefill_32k` cells' and
+   the two-pod `train_4k` cells' do: qwen3-8b's training and zamba2-7b's
+   prefill at batch 2 (the batch on 'pod', the sequence on ('data',
+   'model')) and deepseek-v2-lite's prefill at batch 4 (the batch on
+   ('pod', 'data'), the sequence on 'model'; the reference's `moe_ep`
+   needs the batch to divide over ('pod', 'data')).  Gates: each traces;
+   the collective kind named is in its trace; its argument bytes a device
+   equal JAX's.  Flops, wire bytes (each collective kind's too) and
+   seconds printed.
 
 `dryrun_phase(device, card, smoke=True)` runs the same on the smoke config
 at a small shape (gloo on the CPU), which the CPU tests rehearse.
@@ -53,6 +60,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -71,21 +79,44 @@ STEP_SHAPE = Shape("phase17", 1024, 4, "train")
 SMOKE_SHAPE = Shape("phase17_smoke", 16, 2, "train")
 PRODUCTION_CELL = ("decode_32k", 600)     # (shape, subprocess timeout s)
 ALLOC_ROUND = 512                         # the CUDA caching allocator's rounding
-# (arch, kind, the collective kind the reference's test asserts or None,
-# JAX's `argument_size_in_bytes` a device); those bytes are checked against
-# JAX on the CPU by tests/test_torch_launch_dryrun.py::test_mini_cells_record_jax_bytes
-MINI_CELLS = (
-    ("qwen3-8b", "train", "all-reduce", 938628),
-    ("deepseek-v2-lite-16b", "train", "all-to-all", 3920580),
-    ("falcon-mamba-7b", "decode", None, 260872),
-    ("falcon-mamba-7b", "train", None, 1116804),
-    ("deepseek-v2-lite-16b", "decode", None, 1039504),
-    ("zamba2-7b", "train", None, 1237668),
-    ("zamba2-7b", "decode", None, 513808),
-)
 MINI_MESH = ((2, 2, 2), ("pod", "data", "model"))
-MINI_SHAPE = (32, 8)                      # (seq, global batch)
+MINI_SEQ = 32
 MINI_TIMEOUT = 300                        # s, a cell's subprocess
+
+
+class MiniCell(NamedTuple):
+    """A mini cell: the arch's smoke config at `shape`; `coll` a collective
+    kind its trace must show (the reference's test asserts the first
+    three's) or None; `jax_bytes` JAX's `argument_size_in_bytes` a device,
+    checked against JAX on the CPU by
+    tests/test_torch_launch_dryrun.py::test_mini_cells_record_jax_bytes."""
+    arch: str
+    shape: Shape
+    coll: str | None
+    jax_bytes: int
+
+    @property
+    def name(self) -> str:
+        return f"{self.arch} {self.shape.kind} {self.shape.global_batch}"
+
+
+def _mini(arch: str, kind: str, batch: int, coll, jax_bytes: int) -> MiniCell:
+    return MiniCell(arch, Shape("t", MINI_SEQ, batch, kind), coll, jax_bytes)
+
+
+MINI_CELLS = (
+    _mini("qwen3-8b", "train", 8, "all-reduce", 938628),
+    _mini("deepseek-v2-lite-16b", "train", 8, "all-to-all", 3920580),
+    _mini("falcon-mamba-7b", "decode", 8, None, 260872),
+    _mini("falcon-mamba-7b", "train", 8, None, 1116804),
+    _mini("deepseek-v2-lite-16b", "decode", 8, None, 1039504),
+    _mini("zamba2-7b", "train", 8, None, 1237668),
+    _mini("zamba2-7b", "decode", 8, None, 513808),
+    # the residual stream split along its sequence
+    _mini("qwen3-8b", "train", 2, "all-gather", 938532),
+    _mini("deepseek-v2-lite-16b", "prefill", 4, "all-to-all", 1306816),
+    _mini("zamba2-7b", "prefill", 2, "all-gather", 412544),
+)
 
 
 def _cfg(smoke: bool):
@@ -130,16 +161,16 @@ def finish_production_cell(proc: subprocess.Popen, out_dir: str, t0: float) -> d
     return {"row": row, "wall_s": time.perf_counter() - t0}
 
 
-def mini_cell(arch: str, kind: str, device) -> dict:
+def mini_cell(arch: str, shape: Shape, device) -> dict:
     """One mini cell traced on a fake world of 8 in this process: its
     collective kinds, per-device flops, bytes and wire bytes, memory, and
     the seconds the trace took."""
     t0 = time.perf_counter()
     with dryrun.fake_world(8):
         mesh = Mesh(*MINI_MESH, device=device)
-        mem, m, coll, _ = dryrun._compile_cell(get_smoke_config(arch),
-                                               Shape("t", *MINI_SHAPE, kind), mesh)
-    return {"arch": arch, "kind": kind, "kinds": sorted(coll["ops"]),
+        mem, m, coll, _ = dryrun._compile_cell(get_smoke_config(arch), shape, mesh)
+    return {"arch": arch, "kind": shape.kind, "batch": shape.global_batch,
+            "kinds": sorted(coll["ops"]),
             "wire_by_kind": {k: v["wire_bytes"] for k, v in sorted(coll["ops"].items())}, **m,
             **dataclasses.asdict(mem), "trace_s": time.perf_counter() - t0}
 
@@ -151,7 +182,8 @@ def start_mini_cells() -> list:
     env = dict(os.environ, PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""),
                OMP_NUM_THREADS="1")
     return [(cell, subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.smoke_dryrun", cell[0], cell[1], "--device", "cpu"],
+        [sys.executable, "-m", "repro_torch.smoke_dryrun", cell.arch, cell.shape.kind,
+         "--batch", str(cell.shape.global_batch), "--device", "cpu"],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env))
         for cell in MINI_CELLS]
 
@@ -161,7 +193,7 @@ def finish_mini_cells(procs: list, t0: float) -> list[dict]:
     "failed" and the end of its errors; with the wall time since `t0`."""
     rows = []
     try:
-        for (arch, kind, _, _), proc in procs:
+        for cell, proc in procs:
             try:
                 stdout, stderr = proc.communicate(timeout=MINI_TIMEOUT)
             except subprocess.TimeoutExpired:
@@ -170,7 +202,8 @@ def finish_mini_cells(procs: list, t0: float) -> list[dict]:
             if proc.returncode == 0:
                 row = {**json.loads(stdout.strip().splitlines()[-1]), "status": "ok"}
             else:
-                row = {"arch": arch, "kind": kind, "status": "failed",
+                row = {"arch": cell.arch, "kind": cell.shape.kind,
+                       "batch": cell.shape.global_batch, "status": "failed",
                        "error": stderr[-2000:]}
             rows.append({**row, "wall_s": time.perf_counter() - t0})
     finally:
@@ -183,15 +216,15 @@ def finish_mini_cells(procs: list, t0: float) -> list[dict]:
 
 def check_mini(rows: list[dict]) -> list[str]:
     problems = []
-    for (arch, kind, coll, jax_bytes), row in zip(MINI_CELLS, rows):
+    for cell, row in zip(MINI_CELLS, rows):
         if row["status"] != "ok":
-            problems.append(f"mini cell {arch} {kind} failed: {row['error']}")
+            problems.append(f"mini cell {cell.name} failed: {row['error']}")
             continue
-        if coll is not None and coll not in row["kinds"]:
-            problems.append(f"mini cell {arch} {kind}: no {coll} in {row['kinds']}")
-        if row["argument_size_in_bytes"] != jax_bytes:
-            problems.append(f"mini cell {arch} {kind}: args {row['argument_size_in_bytes']} B "
-                            f"!= JAX's {jax_bytes} B")
+        if cell.coll is not None and cell.coll not in row["kinds"]:
+            problems.append(f"mini cell {cell.name}: no {cell.coll} in {row['kinds']}")
+        if row["argument_size_in_bytes"] != cell.jax_bytes:
+            problems.append(f"mini cell {cell.name}: args {row['argument_size_in_bytes']} B "
+                            f"!= JAX's {cell.jax_bytes} B")
     return problems
 
 
@@ -297,13 +330,13 @@ def dryrun_phase(device, card: str, smoke: bool = False) -> dict:
     print(f"dryrun production cell {ARCH} x {PRODUCTION_CELL[0]} on a fake world of 256 "
           f"(subprocess wall {cell['wall_s']:.2f} s): {json.dumps(summary)} [{card}]",
           flush=True)
-    for (_, _, _, jax_bytes), r in zip(MINI_CELLS, mini):
+    for mc, r in zip(MINI_CELLS, mini):
         if r["status"] != "ok":
             continue        # its error is in the phase's problems
-        print(f"dryrun mini cell {r['arch']} {r['kind']} on a fake (2, 2, 2) world (torch "
+        print(f"dryrun mini cell {mc.name} on a fake (2, 2, 2) world (torch "
               f"{torch.__version__}, subprocess wall {r['wall_s']:.2f} s, traced in "
               f"{r['trace_s']:.2f} s): ok, args {r['argument_size_in_bytes']} B (JAX "
-              f"{jax_bytes} B), flops/dev {r['flops']:.0f}, wire/dev {r['wire']:.0f} B "
+              f"{mc.jax_bytes} B), flops/dev {r['flops']:.0f}, wire/dev {r['wire']:.0f} B "
               f"{json.dumps(r['wire_by_kind'])}, bytes/dev {r['bytes']:.0f} [{card}]", flush=True)
     problems = check(real, mem, device.type == "cuda") + check_mini(mini)
     if row["status"] != "ok" or row["n_devices"] != 256:
@@ -339,15 +372,17 @@ def check(real: dict, mem: dict, on_card: bool) -> list[str]:
 
 
 def main(argv=None) -> None:
-    """``python -m repro_torch.smoke_dryrun ARCH KIND [--device cuda]``: one
-    mini cell; its JSON row printed last."""
+    """``python -m repro_torch.smoke_dryrun ARCH KIND [--batch 8] [--device
+    cuda]``: one mini cell; its JSON row printed last."""
     ap = argparse.ArgumentParser()
     ap.add_argument("arch")
     ap.add_argument("kind")
+    ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     torch.set_num_threads(1)
-    print(json.dumps(mini_cell(args.arch, args.kind, args.device)))
+    print(json.dumps(mini_cell(args.arch, Shape("t", MINI_SEQ, args.batch, args.kind),
+                               args.device)))
 
 
 if __name__ == "__main__":

@@ -243,12 +243,13 @@ def error_feedback_steps(rank, steps: int) -> float:
 # ---- the placed steps of launch.steps (tests/test_torch_launch_ranks.py) --------
 
 def placed_step(rank, inputs: str, arch: str, overrides: dict, kind: str, seq: int,
-                batch: int, mesh_shape: tuple, names: tuple) -> dict:
-    """`launch.steps`' step of `kind` on a mesh over the whole world, its
-    params and batch placed as DTensors, and the same step unplaced on
-    the same mesh (every rank the whole params and batch, the port's
-    SPMD convention: `LM(cfg, mesh)` as the training CLI runs it): the
-    loss, the whole params and moments after one step (train), or the
+                batch: int, mesh_shape: tuple, names: tuple, variant: str = "optimized") -> dict:
+    """`launch.steps`' step of `kind` under the policy `variant` on a mesh
+    over the whole world, its params and batch placed as DTensors, and the
+    same step unplaced on the same mesh (every rank the whole params and
+    batch, the port's SPMD convention: `LM(cfg, mesh)` as the training CLI
+    runs it): the loss, the whole params and moments after one step
+    (train), the last token's logits and the caches (prefill), or the
     logits and the new caches (decode), of both."""
     import dataclasses
     from repro_torch.configs import get_smoke_config
@@ -260,7 +261,7 @@ def placed_step(rank, inputs: str, arch: str, overrides: dict, kind: str, seq: i
 
     cfg = dataclasses.replace(get_smoke_config(arch), **overrides)
     mesh = Mesh(mesh_shape, names, "cpu")
-    (fn, _), _, _ = steps.build_step_cfg(cfg, Shape("t", seq, batch, kind), mesh)
+    (fn, _), _, _ = steps.build_step_cfg(cfg, Shape("t", seq, batch, kind), mesh, variant)
     opt = steps.make_optimizer(cfg)
     model = LM(cfg, mesh=mesh, device="cpu")
     whole = lambda tree: {"/".join(p): _np(getattr(t, "full_tensor", lambda: t)())  # noqa: E731
@@ -279,6 +280,13 @@ def placed_step(rank, inputs: str, arch: str, overrides: dict, kind: str, seq: i
         elif route == "placed":
             logits, caches = fn(params, b)
             out[route] = {"logits": _np(logits.full_tensor()), "caches": whole(caches)}
+        elif kind == "prefill":
+            with torch.no_grad():
+                logits, caches, _ = model.prefill(params, tokens=b.get("tokens"),
+                                                  embeds=b.get("embeds"),
+                                                  positions=b.get("positions"),
+                                                  encoder_embeds=b.get("encoder_embeds"))
+            out[route] = {"logits": _np(logits), "caches": whole(caches)}
         else:
             with torch.no_grad():
                 logits, caches = model.decode_step(params, b["caches"], b["tokens"], b["pos"])

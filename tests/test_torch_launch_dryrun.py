@@ -2,18 +2,21 @@
 package's on the CPU.
 
 The mini dry-run cells of phase 17 (`repro_torch.smoke_dryrun.MINI_CELLS`,
-smoke configs at Shape("t", 32, 8, kind)) on a (2, 2, 2) ('pod', 'data',
-'model') mesh: the reference's (`tests/test_sharding_and_dryrun.py`:
-qwen3-8b's train step, deepseek-v2-lite's train step and falcon-mamba-7b's
-decode step) and falcon-mamba-7b's train step, deepseek-v2-lite's absorbed
-MLA decode and zamba2-7b's hybrid train and decode steps.  The port traces
-each on a fake world of 8 under `FakeTensorMode` (one subprocess a cell,
-`smoke_dryrun.mini_cell`), JAX compiles all seven in one subprocess with
-eight host devices; all run at once.  The collective kind the reference
-asserts appears in the port's trace (the all-to-all is `moe_ep`'s own),
-and the per-device argument bytes equal JAX's `argument_size_in_bytes`
-exactly, as do the JAX bytes `MINI_CELLS` records for phase 17 on the
-card.  The flops and wire bytes are printed beside JAX's, not gated: XLA
+smoke configs at a shape of their own) on a (2, 2, 2) ('pod', 'data',
+'model') mesh: at Shape("t", 32, 8, kind) the reference's
+(`tests/test_sharding_and_dryrun.py`: qwen3-8b's train step,
+deepseek-v2-lite's train step and falcon-mamba-7b's decode step) and
+falcon-mamba-7b's train step, deepseek-v2-lite's absorbed MLA decode and
+zamba2-7b's hybrid train and decode steps; and three whose residual stream
+splits along its sequence (qwen3-8b's train step and zamba2-7b's prefill
+at batch 2, deepseek-v2-lite's prefill at batch 4).  The port traces each
+on a fake world of 8 under `FakeTensorMode` (one subprocess a cell,
+`smoke_dryrun.mini_cell`), JAX compiles all ten in one subprocess with
+eight host devices; all run at once.  The collective kind a cell names
+appears in the port's trace and in JAX's (the all-to-all is `moe_ep`'s
+own), and the per-device argument bytes equal JAX's
+`argument_size_in_bytes` exactly, as do the JAX bytes `MINI_CELLS`
+records for phase 17 on the card.  The flops and wire bytes are printed beside JAX's, not gated: XLA
 counts every op before fusion and a scan body once, the trace counts
 matmuls on the local shards.
 
@@ -43,7 +46,12 @@ from repro_torch.smoke_dryrun import MINI_CELLS
 
 ROOT = Path(__file__).resolve().parent.parent
 SRC = str(ROOT / "src")
-CELLS = [cell[:3] for cell in MINI_CELLS]
+
+
+def _id(cell, last) -> str:
+    """A cell's test id: arch-kind-`last`, and -b<batch> off batch 8."""
+    b = cell.shape.global_batch
+    return f"{cell.arch}-{cell.shape.kind}-{last}" + ("" if b == 8 else f"-b{b}")
 
 _JAX_CELLS = textwrap.dedent("""
     import os
@@ -60,15 +68,15 @@ _JAX_CELLS = textwrap.dedent("""
     mesh = jax.make_mesh((2, 2, 2), ("pod", "data", "model"),
                          axis_types=(jax.sharding.AxisType.Auto,) * 3)
     out = {{}}
-    for arch, kind in {cells!r}:
-        shp.SHAPES["t"] = Shape("t", 32, 8, kind)
+    for arch, kind, seq, batch in {cells!r}:
+        shp.SHAPES["t"] = Shape("t", seq, batch, kind)
         with jax.set_mesh(mesh):
             (fn, args), cfg, shape = build_step_cfg(get_smoke_config(arch), "t", mesh)
             compiled = fn.lower(*args).compile()
             coll = collective_stats(compiled.as_text(), default_group=2)
             mem = compiled.memory_analysis()
             cost = compiled.cost_analysis() or {{}}
-        out[arch + " " + kind] = {{"kinds": sorted(coll["ops"]),
+        out[f"{{arch}} {{kind}} {{batch}}"] = {{"kinds": sorted(coll["ops"]),
                                   "wire": coll["wire_bytes_per_device"],
                      "args_bytes": int(mem.argument_size_in_bytes),
                      "flops": float(cost.get("flops", 0.0))}}
@@ -80,9 +88,10 @@ _TORCH_CELL = textwrap.dedent("""
     sys.path.insert(0, {src!r})
     import torch
     torch.set_num_threads(1)
+    from repro_torch.configs.shapes import Shape
     from repro_torch.smoke_dryrun import mini_cell
 
-    r = mini_cell({arch!r}, {kind!r}, "cpu")
+    r = mini_cell({arch!r}, Shape("t", {seq!r}, {batch!r}, {kind!r}), "cpu")
     print(json.dumps({{"kinds": r["kinds"], "wire": r["wire"], "flops": r["flops"],
                       "args_bytes": r["argument_size_in_bytes"],
                       "alias_bytes": r["alias_size_in_bytes"],
@@ -97,15 +106,18 @@ def _one_thread():
 
 @pytest.fixture(scope="module")
 def mini_cells():
-    """Both sides of the seven cells, run at once: {"jax": {"arch kind": ...},
-    "arch kind": the port's result}."""
+    """Both sides of the ten cells, run at once: {"jax": {cell name: ...},
+    cell name: the port's result} (`MiniCell.name`)."""
     env = dict(os.environ, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
+    cells = [(c.arch, c.shape.kind, c.shape.seq, c.shape.global_batch) for c in MINI_CELLS]
     procs = {"jax": subprocess.Popen(
-        [sys.executable, "-c", _JAX_CELLS.format(src=SRC, cells=[c[:2] for c in CELLS])],
+        [sys.executable, "-c", _JAX_CELLS.format(src=SRC, cells=cells)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)}
-    for arch, kind, _ in CELLS:
-        procs[f"{arch} {kind}"] = subprocess.Popen(
-            [sys.executable, "-c", _TORCH_CELL.format(src=SRC, arch=arch, kind=kind)],
+    for c in MINI_CELLS:
+        procs[c.name] = subprocess.Popen(
+            [sys.executable, "-c", _TORCH_CELL.format(src=SRC, arch=c.arch, kind=c.shape.kind,
+                                                      seq=c.shape.seq,
+                                                      batch=c.shape.global_batch)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
     out = {}
     try:
@@ -121,24 +133,28 @@ def mini_cells():
     return out
 
 
-@pytest.mark.parametrize("arch,kind,expect_coll", CELLS)
-def test_mini_dryrun_multipod(arch, kind, expect_coll, mini_cells):
-    mine, ref = mini_cells[f"{arch} {kind}"], mini_cells["jax"][f"{arch} {kind}"]
-    print(f"{arch} {kind}: port flops/dev {mine['flops']:.6g} wire/dev {mine['wire']:.6g} "
+@pytest.mark.parametrize("cell", [pytest.param(c, id=_id(c, c.coll)) for c in MINI_CELLS])
+def test_mini_dryrun_multipod(cell, mini_cells):
+    mine, ref = mini_cells[cell.name], mini_cells["jax"][cell.name]
+    expect_coll = cell.coll
+    print(f"{cell.name}: port flops/dev {mine['flops']:.6g} wire/dev {mine['wire']:.6g} "
           f"kinds {mine['kinds']}; JAX flops/dev {ref['flops']:.6g} wire/dev "
           f"{ref['wire']:.6g} kinds {ref['kinds']}")
     if expect_coll is not None:
         assert expect_coll in ref["kinds"]
         assert expect_coll in mine["kinds"], mine
     assert mine["args_bytes"] == ref["args_bytes"]
-    assert 0 < mine["alias_bytes"] <= mine["args_bytes"]
+    if cell.shape.kind == "prefill":
+        assert mine["alias_bytes"] == 0            # prefill donates nothing
+    else:
+        assert 0 < mine["alias_bytes"] <= mine["args_bytes"]
     assert mine["temp_bytes"] > 0 and mine["flops"] > 0
 
 
-@pytest.mark.parametrize("arch,kind,jax_bytes", [(c[0], c[1], c[3]) for c in MINI_CELLS])
-def test_mini_cells_record_jax_bytes(arch, kind, jax_bytes, mini_cells):
+@pytest.mark.parametrize("cell", [pytest.param(c, id=_id(c, c.jax_bytes)) for c in MINI_CELLS])
+def test_mini_cells_record_jax_bytes(cell, mini_cells):
     """Phase 17 gates the card's trace against these recorded bytes."""
-    assert jax_bytes == mini_cells["jax"][f"{arch} {kind}"]["args_bytes"]
+    assert cell.jax_bytes == mini_cells["jax"][cell.name]["args_bytes"]
 
 
 def test_one_layer_flops_equal_a_hand_count():
