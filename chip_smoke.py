@@ -68,8 +68,9 @@ the H100 roofline), runs it for real through ``launch.steps`` with its
 params placed as DTensors over a world-1 NCCL mesh (first loss ==
 ``LM.loss`` bit for bit, the arguments' bytes on the card == the dry
 run's), and dry-runs the production cell qwen1.5-0.5b x decode_32k on a
-fake world of 256 and ten mini cells on fake (2, 2, 2) worlds (the
-SSM, hybrid, MLA-decode and sequence-split cells among them) in
+fake world of 256 and twelve mini cells on fake (2, 2, 2) worlds (the
+SSM, hybrid, MLA-decode and sequence-split cells among them, and two at
+a vocab of 32768 whose temp bytes are held to JAX's) in
 subprocesses, runs the
 example scripts ``lm_pretrain`` and ``serve_lm`` (qwen3-8b and
 whisper-medium), and prints

@@ -153,9 +153,13 @@ class StepTrace(TorchDispatchMode):
     nothing).  Only ops on the fake tensors of `fake_mode`, the step's,
     count: DTensor infers each op's global shape on fake tensors of a mode
     of its own.  An op on DTensors is let through so that DTensor runs it
-    as local ops and collectives, which this mode then sees."""
+    as local ops and collectives, which this mode then sees.  `largest` is
+    the largest storage made; with `attribute` > 0, `at_peak()` lists the
+    `attribute` largest storages live at the peak, each with the op that
+    made it and the innermost lines of the port's source on its stack (a
+    frame walk an op: the trace runs slower)."""
 
-    def __init__(self, fake_mode, known=()):
+    def __init__(self, fake_mode, known=(), attribute: int = 0):
         super().__init__()
         self.fake_mode = fake_mode
         from torch.utils.flop_counter import flop_registry
@@ -165,6 +169,10 @@ class StepTrace(TorchDispatchMode):
         self.collectives: list[tuple[str, int, int | None]] = []
         self.live = 0
         self.peak = 0
+        self.largest = 0
+        self.attribute = attribute
+        self._where: dict[int, tuple] = {}
+        self._at_peak: list[tuple] = []
         self._seen: set[int] = {id(_local(t).untyped_storage()) for t in known}
         self._made: dict[int, int] = {}
         self._read: set[int] = set()
@@ -173,9 +181,10 @@ class StepTrace(TorchDispatchMode):
     def _free(self, key: int, nbytes: int) -> None:
         self._seen.discard(key)
         self._made.pop(key, None)
+        self._where.pop(key, None)
         self.live -= nbytes
 
-    def _track(self, t: torch.Tensor) -> None:
+    def _track(self, t: torch.Tensor, func) -> None:
         st = t.untyped_storage()
         key = id(st)
         if key in self._seen:
@@ -184,8 +193,19 @@ class StepTrace(TorchDispatchMode):
         self._seen.add(key)
         self._made[key] = n
         self.live += n
+        self.largest = max(self.largest, n)
+        if self.attribute:
+            self._where[key] = (n, str(func), tuple(t.shape), str(t.dtype), _source_lines())
+            if self.live > self.peak:
+                self._at_peak = sorted(self._where.values(), key=lambda w: -w[0])[
+                    :self.attribute]
         self.peak = max(self.peak, self.live)
         weakref.finalize(st, self._free, key, n)
+
+    def at_peak(self) -> list[dict]:
+        """The largest storages live at the peak (`attribute` > 0)."""
+        return [{"bytes": n, "op": op, "shape": list(shape), "dtype": dtype, "source": src}
+                for n, op, shape, dtype, src in self._at_peak]
 
     def made_bytes(self, tensors) -> int:
         """Bytes of the storages among `tensors` that the step made."""
@@ -235,8 +255,23 @@ class StepTrace(TorchDispatchMode):
         if moves:
             self.bytes += sum(_nbytes(t) for t in flat_in + flat_out)
             for t in flat_out:
-                self._track(t)
+                self._track(t, func)
         return out
+
+
+_PORT = str(Path(__file__).resolve().parent.parent)
+
+
+def _source_lines(depth: int = 3) -> list[str]:
+    """The innermost `depth` frames of the port's own source on the stack
+    (this module's left out), as "models/lm.py:380 _nll"."""
+    out, frame = [], sys._getframe(1)
+    while frame is not None and len(out) < depth:
+        path = frame.f_code.co_filename
+        if path.startswith(_PORT) and path != __file__:
+            out.append(f"{path[len(_PORT) + 1:]}:{frame.f_lineno} {frame.f_code.co_name}")
+        frame = frame.f_back
+    return out
 
 
 @dataclasses.dataclass
@@ -274,6 +309,12 @@ def _compile_cell(cfg, shape_name, mesh, variant="optimized"):
     """Trace one step of one config on fake tensors on the mesh's device;
     returns (memory analysis, metrics dict, collective stats, shape).  The
     mesh's world must be up (a `fake_world` of its size)."""
+    return trace_cell(cfg, shape_name, mesh, variant)[:4]
+
+
+def trace_cell(cfg, shape_name, mesh, variant="optimized", attribute: int = 0):
+    """`_compile_cell`'s four results and the `StepTrace` itself (its
+    `attribute` as given)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     # DTensor's own index tensors (an uneven or strided shard's) are real
@@ -281,7 +322,7 @@ def _compile_cell(cfg, shape_name, mesh, variant="optimized"):
         (fn, abstract_args), cfg, shape = build_step_cfg(cfg, shape_name, mesh, variant)
         placed = fn.place(*(materialize(a, mesh.device) for a in abstract_args))
         donated = {id(_local(t).untyped_storage()) for t in _donated(shape, placed)}
-        trace = StepTrace(fake_mode, known=_leaves(placed))
+        trace = StepTrace(fake_mode, known=_leaves(placed), attribute=attribute)
         with trace:
             out = fn(*placed)
             out_leaves = _leaves(out)
@@ -296,7 +337,7 @@ def _compile_cell(cfg, shape_name, mesh, variant="optimized"):
     coll = collective_stats(trace.collectives, default_group=mesh.shape.get("model", 1))
     metrics = {"flops": float(trace.flops), "bytes": float(trace.bytes),
                "wire": float(coll["wire_bytes_per_device"])}
-    return mem, metrics, coll, shape
+    return mem, metrics, coll, shape, trace
 
 
 def corrected_metrics(cfg, shape_name, mesh, variant="optimized"):

@@ -135,26 +135,33 @@ def _local_tree(tree):
                            for p, t in _state_items(tree)])
 
 
-def _apply_on_shards(opt: AdamW, params, grads, opt_state):
-    """`opt.apply` of DTensor trees: the gradients laid out as their params
+def _step_on_shards(model, opt: AdamW, params, opt_state, batch):
+    """(loss, new params, new state): `lm_train.loss_and_grads`, then
+    `opt.apply` of DTensor trees: the gradients laid out as their params
     (a reduce-scatter of a partial sum), the clip's global norm over the
     DTensors, then the elementwise update on each rank's local shards, as
     a sharded optimizer runs it; the same operations in the same order as
-    `opt.apply`, so the same bits."""
+    `opt.apply`, so the same bits.  Each gradient tree is let go once the
+    next is made (no frame holds it on), as XLA frees a buffer after its
+    last use."""
     from torch.distributed.tensor import DTensor
-    grads = _rebuild(grads, [(p, g.redistribute(t.device_mesh, t.placements))
-                             for (p, g), (_, t) in zip(_state_items(grads), _state_items(params))])
-    if opt.clip_norm is not None:
-        grads, _ = clip_by_global_norm(grads, opt.clip_norm)
-    shard_opt = AdamW(opt.lr, opt.b1, opt.b2, opt.eps, opt.weight_decay, None, opt.lr_scale_fn)
-    new_p, new_s = shard_opt.apply(_local_tree(params), _local_tree(grads),
-                                   _local_tree(opt_state))
+    loss, grads = lm_train.loss_and_grads(model, params, batch)
+    with torch.no_grad():
+        grads = _rebuild(grads, [(p, g.redistribute(t.device_mesh, t.placements))
+                                 for (p, g), (_, t) in zip(_state_items(grads),
+                                                           _state_items(params))])
+        if opt.clip_norm is not None:
+            grads, _ = clip_by_global_norm(grads, opt.clip_norm)
+        shard_opt = AdamW(opt.lr, opt.b1, opt.b2, opt.eps, opt.weight_decay, None,
+                          opt.lr_scale_fn)
+        new_p, new_s = shard_opt.apply(_local_tree(params), _local_tree(grads),
+                                       _local_tree(opt_state))
 
     def placed_as(new, like):
         return _rebuild(new, [(p, DTensor.from_local(t, o.device_mesh, o.placements,
                                                      run_check=False))
                               for (p, t), (_, o) in zip(_state_items(new), _state_items(like))])
-    return placed_as(new_p, params), placed_as(new_s, opt_state)
+    return loss, placed_as(new_p, params), placed_as(new_s, opt_state)
 
 
 def _context(mesh):
@@ -199,9 +206,7 @@ def build_train_step(cfg: ModelConfig, mesh, shape: Shape, variant: str = "optim
             if mesh.device_mesh is None:
                 new_p, new_s, loss = lm_train.train_step(model, opt, params, opt_state, b)
             else:
-                loss, grads = lm_train.loss_and_grads(model, params, b)
-                with torch.no_grad():
-                    new_p, new_s = _apply_on_shards(opt, params, grads, opt_state)
+                loss, new_p, new_s = _step_on_shards(model, opt, params, opt_state, b)
                 loss = place({"l": loss}, {"l": P()}, mesh)["l"]
             _write_into(params, new_p)
             _write_into(opt_state, new_s)

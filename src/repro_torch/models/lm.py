@@ -184,12 +184,18 @@ class LM:
         return self._embed_lookup(params["embed"], tokens).to(self.dtype)
 
     def logits(self, params, x):
-        """x @ the head, f32; a DTensor x split along its sequence on each
-        rank's tokens (`shards.tokens`)."""
+        """x (B, S, D) @ the head, f32; a DTensor x split along its sequence
+        on each rank's tokens (`shards.tokens`).  One position (the last
+        token's: `prefill`, `decode_step`) is a (B, D) product (matmul would
+        expand the head to (B, D, V) for a strided x), on the head's own
+        vocab split (`_head_rows`)."""
         head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
         ranks = shards.tokens(x)
-        out = shards.leave(ranks, shards.mm(ranks, shards.enter(ranks, x),
-                                            self._gather_param(head)).to(torch.float32))
+        if ranks is None and x.shape[1] == 1:
+            out = self._head_rows(x[:, 0], head).to(torch.float32)[:, None]
+        else:
+            out = shards.leave(ranks, shards.mm(ranks, shards.enter(ranks, x),
+                                                self._gather_param(head)).to(torch.float32))
         mesh = self.mesh
         if self.tp_logits and mesh is not None and "model" in mesh.shape \
                 and self.cfg.vocab % mesh.shape["model"] == 0:
@@ -197,6 +203,19 @@ class LM:
             dp = tuple(a for a in ("pod", "data") if a in mesh.shape)
             out = self._relay(out, P(dp, None, "model"))
         return out
+
+    def _head_rows(self, x, head):
+        """x (B, D) @ the head (D, V).  A DTensor x is gathered over the mesh
+        dims that split the head's vocab and meets the head's block there
+        (B x D bytes moved where `_gather_param` would gather the D x V head:
+        the head's FSDP split is its vocab's, `sharding.param_specs`)."""
+        if getattr(x, "device_mesh", None) is None:
+            return x @ head
+        from torch.distributed.tensor import Replicate
+        head = shards.as_dtensor(head, x.device_mesh)
+        return shards.redistributed(x, x.device_mesh, [
+            Replicate() if h.is_shard(1) else p for p, h in zip(x.placements, head.placements)
+        ]) @ head
 
     # ---- encoder (whisper) ----
 
@@ -265,11 +284,15 @@ class LM:
     def _mtp_loss(self, params, h, tokens):
         """Depth-1 multi-token prediction: from h_t and emb(t+1), predict
         t+2.  One block of the last segment's kind, without remat, at
-        positions restarting from 0."""
+        positions restarting from 0.  The projection is gathered over the
+        FSDP axes as a block's params are (split along its contracted dim,
+        it would leave z a partial sum, which the block's first norm sums
+        into the whole batch on every rank)."""
         cfg, mtp = self.cfg, params["mtp"]
         emb_next = self.embed(params, tokens[:, 1:])               # (B, S-1, D)
         z = torch.cat([tfm.apply_norm(cfg, mtp["norm_h"], h[:, :-1]),
-                       tfm.apply_norm(cfg, mtp["norm_e"], emb_next)], dim=-1) @ mtp["proj"]
+                       tfm.apply_norm(cfg, mtp["norm_e"], emb_next)], dim=-1) \
+            @ self._gather_param(mtp["proj"])
         pos = self.default_positions(z.shape[0], z.shape[1])
         z = tfm.apply_block(mtp["block"], cfg, self.segs[-1][0], z, pos, mesh=self.mesh,
                             gather=self._gather)
@@ -373,8 +396,12 @@ def _next_token_nll(logits, tokens):
     share of the rows; split along the sequence too, each block's sum over
     its positions that have a next token (their targets from the rows'
     whole token sequence) over the count of all of them.  The blocks' terms
-    are summed over the mesh."""
+    are summed over the mesh.  Logits split along the vocab too (the TP
+    policy's, `tp_logits`) take `_vocab_parallel_nll`."""
     placements = getattr(logits, "placements", None)
+    if placements is not None and any(p.is_shard(2) for p in placements) \
+            and all(p.is_replicate() or p.is_shard() for p in placements):
+        return _vocab_parallel_nll(logits, tokens)
     if placements is None or not all(p.is_replicate() or p.is_shard(0) or p.is_shard(1)
                                      for p in placements):
         return _nll(logits[:, :-1], tokens[:, 1:])
@@ -398,6 +425,83 @@ def _next_token_nll(logits, tokens):
     loss = DTensor.from_local(loss, mesh, [Partial() if p.is_shard() else p for p in placements],
                               run_check=False)
     return loss.redistribute(mesh, [Replicate()] * mesh.ndim)
+
+
+def _block(n: int, mesh, placements, dim: int) -> tuple[int, int]:
+    """(first index, length) of this rank's block of a dim of length n
+    split by `placements` (DTensor's nested `torch.chunk` blocks, in mesh
+    order)."""
+    start = 0
+    for i, p in enumerate(placements):
+        if p.is_shard(dim):
+            size = mesh.size(i)
+            chunk = -(-n // size)
+            at = min(mesh.get_local_rank(i) * chunk, n)
+            start, n = start + at, min(chunk, n - at)
+    return start, n
+
+
+def _vocab_parallel_nll(logits, tokens):
+    """`_next_token_nll` of DTensor logits split along the vocab (Shard(2)),
+    and along the batch and the sequence or not, on each rank's block
+    (B_l, S_l, V_l) as Megatron's cross-entropy computes it: each position's
+    max, sum of exponentials and target logit all-reduced over the mesh dims
+    that split the vocab (`_VocabParallelNLL`), so no rank holds more than
+    its block of the logits or of their gradient.  Each block's sum over
+    its positions that have a next token over the count of all of them;
+    summed over the batch and sequence dims."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh, placements = logits.device_mesh, list(logits.placements)
+    b, s, v = logits.shape
+    rows = shards.as_dtensor(tokens, mesh).redistribute(
+        mesh, [p if p.is_shard(0) else Replicate() for p in placements]).to_local()
+    s0, sl = _block(s, mesh, placements, 1)
+    v0, _ = _block(v, mesh, placements, 2)
+    targets = torch.roll(rows, -1, 1)[:, s0:s0 + sl].to(torch.int64) - v0
+    groups = [mesh.get_group(i) for i, p in enumerate(placements) if p.is_shard(2)]
+    nll = _VocabParallelNLL.apply(logits.to_local(), targets, groups)
+    n = max(0, min(sl, s - 1 - s0))
+    loss = DTensor.from_local(nll[:, :n].sum() / (b * (s - 1)), mesh,
+                              [Replicate() if p.is_shard(2) or p.is_replicate() else Partial()
+                               for p in placements], run_check=False)
+    return loss.redistribute(mesh, [Replicate()] * mesh.ndim)
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Each position's cross-entropy (B, S) of a vocab block (B, S, V_l) of
+    logits against targets offset to the block (outside [0, V_l): another
+    block's), the block's max, sum of exponentials and target logit
+    all-reduced over `groups`; the backward (softmax - onehot) x the
+    gradient on the block alone."""
+
+    @staticmethod
+    def forward(ctx, block, targets, groups):
+        import torch.distributed._functional_collectives as funcol
+
+        def over_vocab(t, op):
+            for g in groups:
+                t = funcol.all_reduce(t, op, g)
+                if isinstance(t, funcol.AsyncCollectiveTensor):     # eager: wait for it
+                    t = t.wait()
+            return t
+
+        x = block.to(torch.float32)
+        top = over_vocab(x.amax(dim=-1), "max")
+        e = (x - top[..., None]).exp_()
+        total = over_vocab(e.sum(dim=-1), "sum")
+        inside = (targets >= 0) & (targets < x.shape[-1])
+        at = targets.clamp(0, x.shape[-1] - 1)[..., None]
+        hit = over_vocab(torch.where(inside, torch.take_along_dim(x, at, dim=-1)[..., 0], 0.0),
+                         "sum")
+        ctx.save_for_backward(e, total, at, inside)
+        return total.log() + top - hit
+
+    @staticmethod
+    def backward(ctx, grad):
+        e, total, at, inside = ctx.saved_tensors
+        d = e * (grad / total)[..., None]
+        d.scatter_add_(-1, at, -torch.where(inside, grad, 0.0)[..., None])
+        return d, None, None
 
 
 def _token_nll(logits, targets):

@@ -230,11 +230,13 @@ card and fails on anything wrong -- there is no CPU fallback.
    the card == the dry run's within 512 B a tensor; ``dryrun_step``: #7
    and `bum_sort` through the merged embedding backward), and the
    production cell qwen1.5-0.5b x decode_32k on a fake world of 256 in a
-   subprocess, and ten mini cells on fake (2, 2, 2) worlds in
+   subprocess, and twelve mini cells on fake (2, 2, 2) worlds in
    subprocesses beside it (the reference's three, Mamba-1's training, the
-   absorbed MLA decode, zamba2's hybrid training and decode, and three
-   whose residual stream splits along its sequence: each traces, shows
-   the collective kind named, and holds JAX's argument bytes a device);
+   absorbed MLA decode, zamba2's hybrid training and decode, three
+   whose residual stream splits along its sequence, and qwen3-8b's TP
+   training and prefill at a vocab of 32768: each traces, shows the
+   collective kind named, and holds JAX's argument bytes a device; the
+   last two hold their temp bytes to JAX's);
 18. the LM example scripts (slice 22's entry points,
    `smoke_examples.examples_phase`): `examples.lm_pretrain` at its
    defaults (its loss falls) and `examples.serve_lm` at its defaults and

@@ -40,10 +40,17 @@
    prefill at batch 2 (the batch on 'pod', the sequence on ('data',
    'model')) and deepseek-v2-lite's prefill at batch 4 (the batch on
    ('pod', 'data'), the sequence on 'model'; the reference's `moe_ep`
-   needs the batch to divide over ('pod', 'data')).  Gates: each traces;
-   the collective kind named is in its trace; its argument bytes a device
-   equal JAX's.  Flops, wire bytes (each collective kind's too) and
-   seconds printed.
+   needs the batch to divide over ('pod', 'data')); and two of qwen3-8b
+   at batch 8 and a vocab of 32768, where the logits take most of the
+   memory as at production: the TP (baseline) policy's training (its
+   logits split along the vocab, scored by `lm._vocab_parallel_nll`) and
+   the prefill (the last token's head product, `LM._head_rows`).  Gates:
+   each traces; the collective kind named is in its trace; its argument
+   bytes a device equal JAX's; the two vocab cells' temp bytes at most
+   `MiniCell.max_temp` (twice JAX's recorded temp for the training, 1.5
+   times the whole head in f32 for the prefill).  Temp bytes, the largest
+   storage, flops, wire bytes (each collective kind's too) and seconds
+   printed.
 
 `dryrun_phase(device, card, smoke=True)` runs the same on the smoke config
 at a small shape (gloo on the CPU), which the CPU tests rehearse.
@@ -85,25 +92,41 @@ MINI_TIMEOUT = 300                        # s, a cell's subprocess
 
 
 class MiniCell(NamedTuple):
-    """A mini cell: the arch's smoke config at `shape`; `coll` a collective
-    kind its trace must show (the reference's test asserts the first
-    three's) or None; `jax_bytes` JAX's `argument_size_in_bytes` a device,
-    checked against JAX on the CPU by
-    tests/test_torch_launch_dryrun.py::test_mini_cells_record_jax_bytes."""
+    """A mini cell: the arch's smoke config at `shape`, its vocab replaced by
+    `vocab` where given (the logits then take most of the memory, as at
+    production), under the policy `policy`; `coll` a collective kind its
+    trace must show (the reference's test asserts the first three's) or
+    None; `jax_bytes` JAX's `argument_size_in_bytes` a device and
+    `jax_temp` its `temp_size_in_bytes` (recorded for the cells whose
+    memory is gated), checked against JAX on the CPU by
+    tests/test_torch_launch_dryrun.py::test_mini_cells_record_jax_bytes;
+    `max_temp` the most temp bytes a device the port's trace may show, or
+    None."""
     arch: str
     shape: Shape
     coll: str | None
     jax_bytes: int
+    vocab: int | None = None
+    policy: str = "optimized"
+    jax_temp: int | None = None
+    max_temp: int | None = None
 
     @property
     def name(self) -> str:
-        return f"{self.arch} {self.shape.kind} {self.shape.global_batch}"
+        return " ".join([self.arch, self.shape.kind, str(self.shape.global_batch)]
+                        + ([self.policy] if self.policy != "optimized" else [])
+                        + ([f"v{self.vocab}"] if self.vocab else []))
+
+    def config(self):
+        cfg = get_smoke_config(self.arch)
+        return cfg if self.vocab is None else dataclasses.replace(cfg, vocab=self.vocab)
 
 
-def _mini(arch: str, kind: str, batch: int, coll, jax_bytes: int) -> MiniCell:
-    return MiniCell(arch, Shape("t", MINI_SEQ, batch, kind), coll, jax_bytes)
+def _mini(arch: str, kind: str, batch: int, coll, jax_bytes: int, **kw) -> MiniCell:
+    return MiniCell(arch, Shape("t", MINI_SEQ, batch, kind), coll, jax_bytes, **kw)
 
 
+BIG_VOCAB = 32768
 MINI_CELLS = (
     _mini("qwen3-8b", "train", 8, "all-reduce", 938628),
     _mini("deepseek-v2-lite-16b", "train", 8, "all-to-all", 3920580),
@@ -116,6 +139,13 @@ MINI_CELLS = (
     _mini("qwen3-8b", "train", 2, "all-gather", 938532),
     _mini("deepseek-v2-lite-16b", "prefill", 4, "all-to-all", 1306816),
     _mini("zamba2-7b", "prefill", 2, "all-gather", 412544),
+    # the logits at a vocab of 32768: the TP policy's vocab-split loss (its
+    # temp at most twice JAX's) and the last token's head product (at most
+    # 1.5 times the whole head in f32, 64 x 32768 x 4 B)
+    _mini("qwen3-8b", "train", 8, "all-reduce", 25613060, vocab=BIG_VOCAB,
+          policy="baseline", jax_temp=21557752, max_temp=2 * 21557752),
+    _mini("qwen3-8b", "prefill", 8, None, 2393728, vocab=BIG_VOCAB, jax_temp=138560,
+          max_temp=3 * 64 * BIG_VOCAB * 4 // 2),
 )
 
 
@@ -161,18 +191,29 @@ def finish_production_cell(proc: subprocess.Popen, out_dir: str, t0: float) -> d
     return {"row": row, "wall_s": time.perf_counter() - t0}
 
 
-def mini_cell(arch: str, shape: Shape, device) -> dict:
+def mini_cell(cell: MiniCell, device, attribute: int = 0) -> dict:
     """One mini cell traced on a fake world of 8 in this process: its
-    collective kinds, per-device flops, bytes and wire bytes, memory, and
-    the seconds the trace took."""
+    collective kinds, per-device flops, bytes and wire bytes, memory, the
+    largest storage the step made, and the seconds the trace took; with
+    `attribute` > 0, the largest storages live at the peak
+    (`dryrun.StepTrace`)."""
     t0 = time.perf_counter()
     with dryrun.fake_world(8):
         mesh = Mesh(*MINI_MESH, device=device)
-        mem, m, coll, _ = dryrun._compile_cell(get_smoke_config(arch), shape, mesh)
-    return {"arch": arch, "kind": shape.kind, "batch": shape.global_batch,
-            "kinds": sorted(coll["ops"]),
-            "wire_by_kind": {k: v["wire_bytes"] for k, v in sorted(coll["ops"].items())}, **m,
-            **dataclasses.asdict(mem), "trace_s": time.perf_counter() - t0}
+        mem, m, coll, _, trace = dryrun.trace_cell(cell.config(), cell.shape, mesh, cell.policy,
+                                                   attribute)
+    out = {"arch": cell.arch, "kind": cell.shape.kind, "batch": cell.shape.global_batch,
+           "kinds": sorted(coll["ops"]),
+           "wire_by_kind": {k: v["wire_bytes"] for k, v in sorted(coll["ops"].items())}, **m,
+           **dataclasses.asdict(mem), "largest_storage": trace.largest,
+           "trace_s": time.perf_counter() - t0}
+    return {**out, "at_peak": trace.at_peak()} if attribute else out
+
+
+def _cli(cell: MiniCell) -> list[str]:
+    """`main`'s arguments for `cell`."""
+    return [cell.arch, cell.shape.kind, "--batch", str(cell.shape.global_batch),
+            "--policy", cell.policy] + (["--vocab", str(cell.vocab)] if cell.vocab else [])
 
 
 def start_mini_cells() -> list:
@@ -182,8 +223,7 @@ def start_mini_cells() -> list:
     env = dict(os.environ, PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""),
                OMP_NUM_THREADS="1")
     return [(cell, subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.smoke_dryrun", cell.arch, cell.shape.kind,
-         "--batch", str(cell.shape.global_batch), "--device", "cpu"],
+        [sys.executable, "-m", "repro_torch.smoke_dryrun", *_cli(cell), "--device", "cpu"],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env))
         for cell in MINI_CELLS]
 
@@ -225,6 +265,9 @@ def check_mini(rows: list[dict]) -> list[str]:
         if row["argument_size_in_bytes"] != cell.jax_bytes:
             problems.append(f"mini cell {cell.name}: args {row['argument_size_in_bytes']} B "
                             f"!= JAX's {cell.jax_bytes} B")
+        if cell.max_temp is not None and row["temp_size_in_bytes"] > cell.max_temp:
+            problems.append(f"mini cell {cell.name}: temp {row['temp_size_in_bytes']} B > "
+                            f"{cell.max_temp} B (JAX's {cell.jax_temp} B)")
     return problems
 
 
@@ -336,8 +379,11 @@ def dryrun_phase(device, card: str, smoke: bool = False) -> dict:
         print(f"dryrun mini cell {mc.name} on a fake (2, 2, 2) world (torch "
               f"{torch.__version__}, subprocess wall {r['wall_s']:.2f} s, traced in "
               f"{r['trace_s']:.2f} s): ok, args {r['argument_size_in_bytes']} B (JAX "
-              f"{mc.jax_bytes} B), flops/dev {r['flops']:.0f}, wire/dev {r['wire']:.0f} B "
-              f"{json.dumps(r['wire_by_kind'])}, bytes/dev {r['bytes']:.0f} [{card}]", flush=True)
+              f"{mc.jax_bytes} B), temp {r['temp_size_in_bytes']} B"
+              + (f" (JAX {mc.jax_temp} B, limit {mc.max_temp} B)" if mc.max_temp else "")
+              + f", largest storage {r['largest_storage']} B, flops/dev {r['flops']:.0f}, "
+              f"wire/dev {r['wire']:.0f} B {json.dumps(r['wire_by_kind'])}, bytes/dev "
+              f"{r['bytes']:.0f} [{card}]", flush=True)
     problems = check(real, mem, device.type == "cuda") + check_mini(mini)
     if row["status"] != "ok" or row["n_devices"] != 256:
         problems.append(f"production cell: {summary}")
@@ -372,17 +418,23 @@ def check(real: dict, mem: dict, on_card: bool) -> list[str]:
 
 
 def main(argv=None) -> None:
-    """``python -m repro_torch.smoke_dryrun ARCH KIND [--batch 8] [--device
-    cuda]``: one mini cell; its JSON row printed last."""
+    """``python -m repro_torch.smoke_dryrun ARCH KIND [--batch 8] [--policy
+    optimized] [--vocab V] [--device cuda] [--attribute K]``: one mini
+    cell; its JSON row printed last (with `--attribute`, the K largest
+    storages live at its peak, each with its op and source lines)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("arch")
     ap.add_argument("kind")
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--policy", default="optimized", choices=["baseline", "optimized"])
+    ap.add_argument("--vocab", type=int)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--attribute", type=int, default=0)
     args = ap.parse_args(argv)
     torch.set_num_threads(1)
-    print(json.dumps(mini_cell(args.arch, Shape("t", MINI_SEQ, args.batch, args.kind),
-                               args.device)))
+    cell = _mini(args.arch, args.kind, args.batch, None, 0, vocab=args.vocab,
+                 policy=args.policy)
+    print(json.dumps(mini_cell(cell, args.device, args.attribute)))
 
 
 if __name__ == "__main__":

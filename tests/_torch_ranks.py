@@ -292,3 +292,28 @@ def placed_step(rank, inputs: str, arch: str, overrides: dict, kind: str, seq: i
                 logits, caches = model.decode_step(params, b["caches"], b["tokens"], b["pos"])
             out[route] = {"logits": _np(logits), "caches": whole(caches)}
     return out
+
+
+# ---- the vocab-parallel loss (tests/test_torch_vocab_parallel_loss.py) ----------
+
+def vocab_parallel_nll(rank, inputs: str, cases: list) -> dict:
+    """Each case (name, mesh shape, mesh names, placements as (kind, dim)
+    pairs) on this rank: `lm._next_token_nll` of the logits of `inputs`
+    laid out by the placements as a DTensor, and the whole gradient of the
+    loss with respect to them."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.lm import _next_token_nll
+
+    flat = _load(inputs)
+    out = {}
+    for name, mesh_shape, names, placements in cases:
+        mesh = Mesh(mesh_shape, names, "cpu")
+        pl = [Shard(d) if kind == "shard" else Replicate() for kind, d in placements]
+        logits = distribute_tensor(torch.from_numpy(flat[f"{name}/logits"]), mesh.device_mesh,
+                                   pl).requires_grad_()
+        loss = _next_token_nll(logits, torch.from_numpy(flat[f"{name}/tokens"]))
+        loss.backward()
+        out[name] = {"loss": _np(loss.full_tensor()), "grad": _np(logits.grad.full_tensor()),
+                     "replicated": all(p.is_replicate() for p in loss.placements)}
+    return out

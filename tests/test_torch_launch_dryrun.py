@@ -9,16 +9,21 @@ deepseek-v2-lite's train step and falcon-mamba-7b's decode step) and
 falcon-mamba-7b's train step, deepseek-v2-lite's absorbed MLA decode and
 zamba2-7b's hybrid train and decode steps; and three whose residual stream
 splits along its sequence (qwen3-8b's train step and zamba2-7b's prefill
-at batch 2, deepseek-v2-lite's prefill at batch 4).  The port traces each
-on a fake world of 8 under `FakeTensorMode` (one subprocess a cell,
-`smoke_dryrun.mini_cell`), JAX compiles all ten in one subprocess with
-eight host devices; all run at once.  The collective kind a cell names
-appears in the port's trace and in JAX's (the all-to-all is `moe_ep`'s
-own), and the per-device argument bytes equal JAX's
-`argument_size_in_bytes` exactly, as do the JAX bytes `MINI_CELLS`
-records for phase 17 on the card.  The flops and wire bytes are printed beside JAX's, not gated: XLA
-counts every op before fusion and a scan body once, the trace counts
-matmuls on the local shards.
+at batch 2, deepseek-v2-lite's prefill at batch 4); and two whose logits
+take most of the memory (qwen3-8b at a vocab of 32768, batch 8: the TP
+policy's training, whose logits split along the vocab, and the prefill's
+last-token head product).  The port traces each on a fake world of 8
+under `FakeTensorMode` (one subprocess a cell, `smoke_dryrun.mini_cell`),
+JAX compiles all of them in one subprocess with eight host devices; all
+run at once.  The collective kind a cell names appears in the port's
+trace and in JAX's (the all-to-all is `moe_ep`'s own), and the
+per-device argument bytes equal JAX's `argument_size_in_bytes` exactly,
+as do the JAX bytes `MINI_CELLS` records for phase 17 on the card (and
+JAX's temp bytes, where recorded).  The two vocab cells' temp bytes are
+held to JAX's (`MiniCell.max_temp`).  The flops, wire bytes and the
+other memory fields are printed beside JAX's, not gated: XLA counts
+every op before fusion and a scan body once, the trace counts matmuls on
+the local shards.
 
 The per-device flops of a one-layer smoke cell (qwen1.5-0.5b's prefill,
 2 x 16 tokens, world 1) equal a hand count of its matmuls exactly; on a
@@ -49,14 +54,17 @@ SRC = str(ROOT / "src")
 
 
 def _id(cell, last) -> str:
-    """A cell's test id: arch-kind-`last`, and -b<batch> off batch 8."""
+    """A cell's test id: arch-kind-`last`, and -b<batch> off batch 8, the
+    policy off the optimized one, -v<vocab> where the vocab is replaced."""
     b = cell.shape.global_batch
-    return f"{cell.arch}-{cell.shape.kind}-{last}" + ("" if b == 8 else f"-b{b}")
+    return f"{cell.arch}-{cell.shape.kind}-{last}" + ("" if b == 8 else f"-b{b}") \
+        + ("" if cell.policy == "optimized" else f"-{cell.policy}") \
+        + ("" if cell.vocab is None else f"-v{cell.vocab}")
 
 _JAX_CELLS = textwrap.dedent("""
     import os
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-    import sys, json
+    import dataclasses, sys, json
     sys.path.insert(0, {src!r})
     import jax
     from repro.launch.steps import build_step_cfg
@@ -68,17 +76,22 @@ _JAX_CELLS = textwrap.dedent("""
     mesh = jax.make_mesh((2, 2, 2), ("pod", "data", "model"),
                          axis_types=(jax.sharding.AxisType.Auto,) * 3)
     out = {{}}
-    for arch, kind, seq, batch in {cells!r}:
+    for name, arch, kind, seq, batch, policy, vocab in {cells!r}:
         shp.SHAPES["t"] = Shape("t", seq, batch, kind)
+        cfg = get_smoke_config(arch)
+        if vocab is not None:
+            cfg = dataclasses.replace(cfg, vocab=vocab)
         with jax.set_mesh(mesh):
-            (fn, args), cfg, shape = build_step_cfg(get_smoke_config(arch), "t", mesh)
+            (fn, args), cfg, shape = build_step_cfg(cfg, "t", mesh, policy)
             compiled = fn.lower(*args).compile()
             coll = collective_stats(compiled.as_text(), default_group=2)
             mem = compiled.memory_analysis()
             cost = compiled.cost_analysis() or {{}}
-        out[f"{{arch}} {{kind}} {{batch}}"] = {{"kinds": sorted(coll["ops"]),
-                                  "wire": coll["wire_bytes_per_device"],
+        out[name] = {{"kinds": sorted(coll["ops"]), "wire": coll["wire_bytes_per_device"],
                      "args_bytes": int(mem.argument_size_in_bytes),
+                     "temp_bytes": int(mem.temp_size_in_bytes),
+                     "out_bytes": int(mem.output_size_in_bytes),
+                     "alias_bytes": int(mem.alias_size_in_bytes),
                      "flops": float(cost.get("flops", 0.0))}}
     print(json.dumps(out))
 """)
@@ -88,14 +101,15 @@ _TORCH_CELL = textwrap.dedent("""
     sys.path.insert(0, {src!r})
     import torch
     torch.set_num_threads(1)
-    from repro_torch.configs.shapes import Shape
-    from repro_torch.smoke_dryrun import mini_cell
+    from repro_torch.smoke_dryrun import MINI_CELLS, mini_cell
 
-    r = mini_cell({arch!r}, Shape("t", {seq!r}, {batch!r}, {kind!r}), "cpu")
+    r = mini_cell(MINI_CELLS[{index!r}], "cpu")
     print(json.dumps({{"kinds": r["kinds"], "wire": r["wire"], "flops": r["flops"],
                       "args_bytes": r["argument_size_in_bytes"],
                       "alias_bytes": r["alias_size_in_bytes"],
-                      "temp_bytes": r["temp_size_in_bytes"]}}))
+                      "out_bytes": r["output_size_in_bytes"],
+                      "temp_bytes": r["temp_size_in_bytes"],
+                      "largest_storage": r["largest_storage"]}}))
 """)
 
 
@@ -106,18 +120,17 @@ def _one_thread():
 
 @pytest.fixture(scope="module")
 def mini_cells():
-    """Both sides of the ten cells, run at once: {"jax": {cell name: ...},
+    """Both sides of the cells, run at once: {"jax": {cell name: ...},
     cell name: the port's result} (`MiniCell.name`)."""
     env = dict(os.environ, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
-    cells = [(c.arch, c.shape.kind, c.shape.seq, c.shape.global_batch) for c in MINI_CELLS]
+    cells = [(c.name, c.arch, c.shape.kind, c.shape.seq, c.shape.global_batch, c.policy,
+              c.vocab) for c in MINI_CELLS]
     procs = {"jax": subprocess.Popen(
         [sys.executable, "-c", _JAX_CELLS.format(src=SRC, cells=cells)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)}
-    for c in MINI_CELLS:
+    for i, c in enumerate(MINI_CELLS):
         procs[c.name] = subprocess.Popen(
-            [sys.executable, "-c", _TORCH_CELL.format(src=SRC, arch=c.arch, kind=c.shape.kind,
-                                                      seq=c.shape.seq,
-                                                      batch=c.shape.global_batch)],
+            [sys.executable, "-c", _TORCH_CELL.format(src=SRC, index=i)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
     out = {}
     try:
@@ -139,7 +152,10 @@ def test_mini_dryrun_multipod(cell, mini_cells):
     expect_coll = cell.coll
     print(f"{cell.name}: port flops/dev {mine['flops']:.6g} wire/dev {mine['wire']:.6g} "
           f"kinds {mine['kinds']}; JAX flops/dev {ref['flops']:.6g} wire/dev "
-          f"{ref['wire']:.6g} kinds {ref['kinds']}")
+          f"{ref['wire']:.6g} kinds {ref['kinds']}; bytes/dev args / temp / out / alias: port "
+          f"{mine['args_bytes']} / {mine['temp_bytes']} / {mine['out_bytes']} / "
+          f"{mine['alias_bytes']}, JAX {ref['args_bytes']} / {ref['temp_bytes']} / "
+          f"{ref['out_bytes']} / {ref['alias_bytes']}")
     if expect_coll is not None:
         assert expect_coll in ref["kinds"]
         assert expect_coll in mine["kinds"], mine
@@ -155,6 +171,56 @@ def test_mini_dryrun_multipod(cell, mini_cells):
 def test_mini_cells_record_jax_bytes(cell, mini_cells):
     """Phase 17 gates the card's trace against these recorded bytes."""
     assert cell.jax_bytes == mini_cells["jax"][cell.name]["args_bytes"]
+    if cell.jax_temp is not None:
+        assert cell.jax_temp == mini_cells["jax"][cell.name]["temp_bytes"]
+
+
+@pytest.mark.parametrize("cell", [pytest.param(c, id=_id(c, "memory")) for c in MINI_CELLS
+                                  if c.max_temp is not None])
+def test_mini_cells_hold_the_logits_memory_to_jax(cell, mini_cells):
+    """At a vocab of 32768 the logits dominate.  The TP policy's training
+    scores its vocab-split logits on each rank's block (no whole-batch
+    gradient of them): its temp bytes a device at most twice JAX's.  The
+    prefill's last-token head product makes no copy of the head per row:
+    no storage larger than the whole head in f32, its temp bytes at most
+    1.5 times that.  Both limits are `MiniCell.max_temp`, which phase 17
+    gates on the card."""
+    mine, ref = mini_cells[cell.name], mini_cells["jax"][cell.name]
+    head = cell.config().d_model * cell.vocab * 4
+    print(f"{cell.name}: temp {mine['temp_bytes']} B (limit {cell.max_temp}, JAX "
+          f"{ref['temp_bytes']}), largest storage {mine['largest_storage']} B (head {head})")
+    assert mine["temp_bytes"] <= cell.max_temp
+    assert mine["args_bytes"] == ref["args_bytes"]
+    if cell.shape.kind == "prefill":
+        assert mine["largest_storage"] <= head
+        assert cell.max_temp == 3 * head // 2
+    else:
+        assert cell.max_temp == 2 * ref["temp_bytes"]
+
+
+def test_the_mtp_head_scores_each_ranks_rows(monkeypatch):
+    """deepseek-v3's smoke config widened (d_model 256: the MTP head's
+    projection splits over the FSDP axes along its contracted dim) traced
+    under the FSDP-pure policy at batch 2 on a fake ('data', 'model') =
+    (2, 2) world, the main stream's sequence split over 'model' as two
+    pods' `train_4k` splits it: both losses score logits laid out by the
+    batch (and the sequence), none a partial sum, which would sum the whole
+    batch's logits on every rank (deepseek-v3 `train_4k` at two pods)."""
+    from repro_torch.models import lm
+    seen, score = [], lm._next_token_nll
+
+    def spy(logits, tokens):
+        seen.append(list(logits.placements))
+        return score(logits, tokens)
+
+    monkeypatch.setattr(lm, "_next_token_nll", spy)
+    cfg = dataclasses.replace(get_smoke_config("deepseek-v3-671b"), d_model=256)
+    with dryrun.fake_world(4):
+        mesh = Mesh((2, 2), ("data", "model"), device="cpu")
+        dryrun._compile_cell(cfg, Shape("t", 16, 2, "train"), mesh)
+    assert len(seen) == 2, seen                      # the main loss, then the MTP head's
+    assert [p.is_shard(0) for p in seen[1]] == [True, False], seen
+    assert not any(p.is_partial() for pl in seen for p in pl), seen
 
 
 def test_one_layer_flops_equal_a_hand_count():

@@ -24,6 +24,15 @@ the loss on the local positions):
   'model' (Megatron's f), and the params gathered over 'data' (FSDP);
   qwen3-8b's likewise, its attention heads over 'model' and their output
   projected on each rank's heads (`attention._out_proj`, Megatron's g);
+  both score their logits, split along the vocab over 'model', on each
+  rank's vocab block (`lm._vocab_parallel_nll`), as does deepseek-v3's
+  smoke config trained likewise at batch 4, its multi-token-prediction
+  head's loss too;
+* deepseek-v3's smoke config widened (d_model 256, so the MTP head's
+  projection splits over the FSDP axes along its contracted dim) trained
+  one step under the FSDP-pure policy at batch 2: the main stack's stream
+  split along its sequence, the MTP head's block on each rank's batch rows
+  with its projection gathered (`LM._mtp_loss`);
 * qwen3-8b's smoke config decoding one token under the TP policy from a
   cache split along its sequence (`attention._decode_on_shards`: each
   block's scores gathered for the softmax, its share of the output a
@@ -48,6 +57,8 @@ CASES = {   # name: (arch, config overrides, kind, batch, policy)
     "whisper_prefill_seq": ("whisper-medium", {}, "prefill", 2, "optimized"),
     "mamba1_tp_train": ("falcon-mamba-7b", WIDE, "train", 4, "baseline"),
     "tp_train": ("qwen3-8b", WIDE, "train", 4, "baseline"),
+    "mtp_tp_train": ("deepseek-v3-671b", {}, "train", 4, "baseline"),
+    "mtp_fsdp_train_seq": ("deepseek-v3-671b", {"d_model": 256}, "train", 2, "optimized"),
     "seq_tp_decode": ("qwen3-8b", {"n_kv_heads": 1}, "decode", 4, "optimized"),
     "long_tp_decode": ("qwen3-8b", {}, "decode", 1, "optimized"),
 }

@@ -10,7 +10,7 @@ package-level names.
   caches within `_torch_steps.STEP_TOL` times the largest magnitude of
   JAX's (f32; the weights cross through `repro_torch.bridge`, the batch is
   drawn from a numpy seed), both unplaced (no process group) and placed as
-  DTensors over a world-1 gloo group (`steps._apply_on_shards`).  Each JAX
+  DTensors over a world-1 gloo group (`steps._step_on_shards`).  Each JAX
   step is computed once for both routes (`jax_steps`).  The MoE's train
   step is `test_torch_launch_moe_step.py`'s.
 * Every package-level name the reference's ``__init__`` files import
