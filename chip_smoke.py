@@ -68,10 +68,11 @@ the H100 roofline), runs it for real through ``launch.steps`` with its
 params placed as DTensors over a world-1 NCCL mesh (first loss ==
 ``LM.loss`` bit for bit, the arguments' bytes on the card == the dry
 run's), and dry-runs the production cell qwen1.5-0.5b x decode_32k on a
-fake world of 256 and twelve mini cells on fake (2, 2, 2) worlds (the
-SSM, hybrid, MLA-decode and sequence-split cells among them, and two at
-a vocab of 32768 whose temp bytes are held to JAX's) in
-subprocesses, runs the
+fake world of 256 and sixteen mini cells on fake (2, 2, 2) worlds (the
+SSM, hybrid, MLA-decode and sequence-split cells among them, two at a
+vocab of 32768 whose temp bytes are held to JAX's, and four of the TP
+policy's SSM scans and MLA attention and the MTP head's uneven blocks,
+whose temp bytes and largest storage are held) in subprocesses, runs the
 example scripts ``lm_pretrain`` and ``serve_lm`` (qwen3-8b and
 whisper-medium), and prints
 one JSON line with every kernel's report and, last, the device line.  It exits non-zero,

@@ -180,9 +180,18 @@ class StepTrace(TorchDispatchMode):
 
     def _free(self, key: int, nbytes: int) -> None:
         self._seen.discard(key)
-        self._made.pop(key, None)
         self._where.pop(key, None)
-        self.live -= nbytes
+        if self._made.pop(key, None) is not None:
+            self.live -= nbytes
+
+    def _hand_over(self, src, dst) -> None:
+        """`wait_tensor` hands back its argument's storage; a fake one is a
+        new storage of its own, so the argument's count moves to it (the
+        result is counted once, for as long as it lives)."""
+        key = id(src.untyped_storage())
+        if key != id(dst.untyped_storage()) and key in self._made:
+            self.live -= self._made.pop(key)
+            self._where.pop(key, None)
 
     def _track(self, t: torch.Tensor, func) -> None:
         st = t.untyped_storage()
@@ -249,6 +258,13 @@ class StepTrace(TorchDispatchMode):
                     args[0][0] if isinstance(args[0], (list, tuple)) else args[0]
                 self.collectives.append((packet.__name__, _nbytes(result),
                                          _group_size(args, kwargs)))
+            # a functional collective's result is a storage the step made; a
+            # c10d op writes into its argument, known already
+            if func.namespace == "_c10d_functional":
+                if packet.__name__ == "wait_tensor":
+                    self._hand_over(args[0], out)
+                for t in flat_out:
+                    self._track(t, func)
             return out
         if packet in self._flops:
             self.flops += int(self._flops[packet](*args, **kwargs, out_val=out))

@@ -153,7 +153,7 @@ def _sdpa_chunked(q, k, v, causal: bool, q_offset=0):
     kr = k.reshape(b, nk, kc, kh, hd)
     vr = v.reshape(b, nk, kc, kh, hd_v)
 
-    def q_block(q_blk, qi: int):
+    def q_block(q_blk, kr, vr, qi: int):
         m = torch.full((b, kh, rep, qc), float("-inf"), dtype=torch.float32, device=q.device)
         l = torch.zeros((b, kh, rep, qc), dtype=torch.float32, device=q.device)  # noqa: E741
         acc = torch.zeros((b, kh, rep, qc, hd_v), dtype=torch.float32, device=q.device)
@@ -179,9 +179,11 @@ def _sdpa_chunked(q, k, v, causal: bool, q_offset=0):
     outs = []
     for qi in range(nq):
         if torch.is_grad_enabled():
-            outs.append(checkpoint(q_block, qr[:, qi], qi, use_reentrant=False))
+            # k and v passed, not closed over: a closure would hold them as
+            # long as the graph does, past an enclosing remat
+            outs.append(checkpoint(q_block, qr[:, qi], kr, vr, qi, use_reentrant=False))
         else:
-            outs.append(q_block(qr[:, qi], qi))
+            outs.append(q_block(qr[:, qi], kr, vr, qi))
     out = torch.stack(outs, dim=1).reshape(b, sq, h, hd_v)
     if pad_q:
         out = out[:, :sq0]
@@ -212,7 +214,7 @@ def _sdpa_on_shards(q, k, v, causal: bool):
     and, in the backward, the reduction of k's and v's gradients, partial
     sums over the mesh dims that split the queries.  The chunked softmax is
     chosen by the whole sequence, as unplaced."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
     mesh = q.device_mesh
     q = _heads_dividing(q, v.shape[2])
     q_pl = [p if isinstance(p, Shard) and p.dim in (0, 1, 2) else Replicate()
@@ -223,15 +225,13 @@ def _sdpa_on_shards(q, k, v, causal: bool):
     k_l = shards.as_dtensor(k, mesh).redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad)
     v_l = shards.as_dtensor(v, mesh).redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad)
     q_l = q.to_local()
-    block = 0           # this rank's block of the query positions (an even split)
-    for i, p in enumerate(q_pl):
-        if isinstance(p, Shard) and p.dim == 1:
-            block = block * mesh.size(i) + mesh.get_local_rank(i)
-    offset = block * q_l.shape[1]
     sq, sk = q.shape[1], v.shape[1]
+    # this rank's first query position: DTensor's nested blocks of the
+    # sequence, ceil-sized (the last one shorter where they do not divide)
+    offset = shards.Ranks(q, tokens=True).seq_offset(sq)
     out = _sdpa(q_l, k_l, v_l, causal, offset,
                 chunked=sq * sk > _CHUNKED_THRESHOLD and sq > 1)
-    return DTensor.from_local(out, mesh, q_pl, run_check=False)
+    return shards.from_local(out, mesh, q_pl, tuple(q.shape[:3]) + (v.shape[3],))
 
 
 def _out_proj(out, wo):

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.grid_update import ops as gu_ops
+from . import shards
 
 EMBED_MODES = ("naive", "merged", "windowed")
 
@@ -35,9 +36,14 @@ def normal_init(generator: torch.Generator | None, shape, std=0.02, dtype=torch.
 
 # --- norms -------------------------------------------------------------------
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+             mean_sq=None) -> torch.Tensor:
+    """The RMS norm over x's last dim.  Where x holds a block of that dim
+    (`scale` the block's), `mean_sq(x32)` gives the whole dim's mean of
+    squares from the block's f32 values (`ssm._mamba2_channels`)."""
     x32 = x.to(torch.float32)
-    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True) if mean_sq is None \
+        else mean_sq(x32)
     return (x32 * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(x.dtype)
 
 
@@ -105,21 +111,18 @@ def _lookup_dtensor(table, ids):
     if not isinstance(ids, DTensor):
         ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim, run_check=False)
     vocab_dims = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    shape = tuple(ids.shape) + tuple(table.shape[1:])      # the rows' global shape
     if any(isinstance(ids.placements[i], Shard) for i in vocab_dims):
         whole = table.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
-        return DTensor.from_local(whole[ids.to_local()], mesh, ids.placements, run_check=False)
+        return shards.from_local(whole[ids.to_local()], mesh, ids.placements, shape)
     rows = table.redistribute(mesh, [p if i in vocab_dims else Replicate()
                                      for i, p in enumerate(table.placements)]).to_local()
-    lo, n = 0, table.shape[0]     # this rank's first row: torch.chunk's, split in mesh order
-    for i in vocab_dims:
-        c = -(-n // mesh.size(i))
-        start = min(mesh.get_local_rank(i) * c, n)
-        lo, n = lo + start, min(c, n - start)
+    lo, _ = shards.chunk(table.shape[0], mesh, table.placements, 0)     # this rank's first row
     local = ids.to_local().to(torch.int64) - lo
     mine = (local >= 0) & (local < rows.shape[0])
     out = rows[torch.where(mine, local, 0)] * mine[..., None].to(rows.dtype)
-    out = DTensor.from_local(out, mesh, [Partial() if i in vocab_dims else p
-                                         for i, p in enumerate(ids.placements)], run_check=False)
+    out = shards.from_local(out, mesh, [Partial() if i in vocab_dims else p
+                                        for i, p in enumerate(ids.placements)], shape)
     return out.redistribute(mesh, ids.placements)
 
 

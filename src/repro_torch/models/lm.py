@@ -284,20 +284,28 @@ class LM:
     def _mtp_loss(self, params, h, tokens):
         """Depth-1 multi-token prediction: from h_t and emb(t+1), predict
         t+2.  One block of the last segment's kind, without remat, at
-        positions restarting from 0.  The projection is gathered over the
-        FSDP axes as a block's params are (split along its contracted dim,
-        it would leave z a partial sum, which the block's first norm sums
-        into the whole batch on every rank)."""
+        positions restarting from 0, on z (B, S - 1, D) laid out as the
+        residual stream h is (`_mtp_inputs`).  The projection is gathered
+        over the FSDP axes as a block's params are (split along its
+        contracted dim, it would leave z a partial sum, which the block's
+        first norm sums into the whole batch on every rank)."""
         cfg, mtp = self.cfg, params["mtp"]
-        emb_next = self.embed(params, tokens[:, 1:])               # (B, S-1, D)
-        z = torch.cat([tfm.apply_norm(cfg, mtp["norm_h"], h[:, :-1]),
-                       tfm.apply_norm(cfg, mtp["norm_e"], emb_next)], dim=-1) \
-            @ self._gather_param(mtp["proj"])
+        h_in, tok_next, ranks = _mtp_inputs(h, tokens)
+        emb_next = self.embed(params, tok_next)                     # (B, S-1, D)
+        x = torch.cat([tfm.apply_norm(cfg, mtp["norm_h"], h_in),
+                       tfm.apply_norm(cfg, mtp["norm_e"], emb_next)], dim=-1)
+        # with `ranks`, on each rank's own tokens, as the main stack's blocks;
+        # z laid out as the stream before and after its block, as the main
+        # stack's layers are (`_keeper`): the TP policy's proj splits z's D
+        # over 'model', the block's row-parallel products leave partial sums
+        keep = self._keeper(h)
+        z = keep(shards.leave(ranks, shards.mm(ranks, shards.enter(ranks, x),
+                                               self._gather_param(mtp["proj"]))))
         pos = self.default_positions(z.shape[0], z.shape[1])
-        z = tfm.apply_block(mtp["block"], cfg, self.segs[-1][0], z, pos, mesh=self.mesh,
-                            gather=self._gather)
+        z = keep(tfm.apply_block(mtp["block"], cfg, self.segs[-1][0], z, pos, mesh=self.mesh,
+                                 gather=self._gather))
         logits = self.logits(params, tfm.apply_norm(cfg, params["final_norm"], z))
-        return _next_token_nll(logits, tokens[:, 1:])
+        return _next_token_nll(logits, tok_next)
 
     # ---- serving ----
 
@@ -369,6 +377,28 @@ class LM:
         return self.logits(params, h)[:, 0], new_caches
 
 
+def _mtp_inputs(h, tokens):
+    """(h[:, :-1], tokens[:, 1:], the ranks of their blocks or None): a
+    DTensor h split along its sequence (`shards.tokens`) gives both laid
+    out along the stream's split, DTensor's uneven blocks of S - 1 (ceil-
+    sized, the last one shorter): this rank's block of h[:, :-1] starts
+    where its block of h does (the stream splits S evenly, so the ceil of
+    (S - 1) / n is S / n), its tokens from the rows' whole token sequence."""
+    ranks = shards.tokens(h)
+    if ranks is None:
+        return h[:, :-1], tokens[:, 1:], None
+    from torch.distributed.tensor import Replicate
+    b, s, d = h.shape
+    (start, _), (z0, zl) = ranks.seq_block(s), ranks.seq_block(s - 1)
+    if start != z0:
+        raise ValueError(f"the MTP head: a stream of {s} tokens split unevenly {ranks.rows}")
+    h_in = shards.from_local(ranks.enter(h)[:, :zl], ranks.mesh, ranks.rows, (b, s - 1, d))
+    zr = shards.Ranks(h_in, tokens=True)
+    rows = shards.as_dtensor(tokens, ranks.mesh).redistribute(
+        ranks.mesh, [Replicate() if p.is_shard(1) else p for p in ranks.rows]).to_local()
+    return h_in, zr.wrap(rows[:, z0 + 1:z0 + 1 + zl], zr.rows), zr
+
+
 def _last_token(x):
     """x[:, -1:] of (B, S, D).  A DTensor x split along its sequence gives
     it from the block that holds the last position: every other block
@@ -427,20 +457,6 @@ def _next_token_nll(logits, tokens):
     return loss.redistribute(mesh, [Replicate()] * mesh.ndim)
 
 
-def _block(n: int, mesh, placements, dim: int) -> tuple[int, int]:
-    """(first index, length) of this rank's block of a dim of length n
-    split by `placements` (DTensor's nested `torch.chunk` blocks, in mesh
-    order)."""
-    start = 0
-    for i, p in enumerate(placements):
-        if p.is_shard(dim):
-            size = mesh.size(i)
-            chunk = -(-n // size)
-            at = min(mesh.get_local_rank(i) * chunk, n)
-            start, n = start + at, min(chunk, n - at)
-    return start, n
-
-
 def _vocab_parallel_nll(logits, tokens):
     """`_next_token_nll` of DTensor logits split along the vocab (Shard(2)),
     and along the batch and the sequence or not, on each rank's block
@@ -455,8 +471,8 @@ def _vocab_parallel_nll(logits, tokens):
     b, s, v = logits.shape
     rows = shards.as_dtensor(tokens, mesh).redistribute(
         mesh, [p if p.is_shard(0) else Replicate() for p in placements]).to_local()
-    s0, sl = _block(s, mesh, placements, 1)
-    v0, _ = _block(v, mesh, placements, 2)
+    s0, sl = shards.chunk(s, mesh, placements, 1)
+    v0, _ = shards.chunk(v, mesh, placements, 2)
     targets = torch.roll(rows, -1, 1)[:, s0:s0 + sl].to(torch.int64) - v0
     groups = [mesh.get_group(i) for i, p in enumerate(placements) if p.is_shard(2)]
     nll = _VocabParallelNLL.apply(logits.to_local(), targets, groups)

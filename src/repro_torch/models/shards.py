@@ -22,7 +22,15 @@ a row-parallel weight (Shard(0)) takes the activation's matching block and
 its partial products are all-reduced, a column-parallel one (Shard(1))
 has its output columns all-gathered (Megatron's f / g), and the gradients
 follow (the activation's is all-reduced where the weight's columns were
-split; a weight's is a partial sum over the row dims).
+split; a weight's is a partial sum over the row dims).  A block may also
+run on each rank's block of its channels (a `layout` splitting them over
+the split dims, as `ssm._mamba1_channels` does, Megatron's split of a
+block): weights enter on their block (`local`, `split`) or whole
+(`read`), a whole-row activation that every channel block reads gets its
+gradient all-reduced (`shared`), and partial products are summed
+(`partial`, `reduce`).  A token block's sequence may split unevenly
+(DTensor's ceil-sized blocks): `wrap` gives each block's DTensor its
+global shape.
 """
 from __future__ import annotations
 
@@ -34,6 +42,33 @@ def as_dtensor(t, mesh):
     from torch.distributed.tensor import DTensor, Replicate
     return t if isinstance(t, DTensor) else DTensor.from_local(
         t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def from_local(t, mesh, placements, shape):
+    """`DTensor.from_local` of a local block whose DTensor has the global
+    `shape` (contiguous): a split dim that does not divide takes DTensor's
+    uneven blocks (`torch.chunk`'s: ceil-sized, the last shorter), which
+    `from_local` without a shape would take for even ones."""
+    from torch.distributed.tensor import DTensor
+    shape = torch.Size(shape)
+    stride = [1] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        stride[i] = stride[i + 1] * shape[i + 1]
+    return DTensor.from_local(t, mesh, list(placements), run_check=False, shape=shape,
+                              stride=tuple(stride))
+
+
+def chunk(size: int, mesh, placements, dim: int) -> tuple[int, int]:
+    """(first index, length) of this rank's block of a dim `dim` of `size`
+    laid out by `placements`: DTensor's nested `torch.chunk` blocks, in
+    mesh order, ceil-sized with a shorter (or empty) last one."""
+    start, n = 0, size
+    for i, p in enumerate(placements):
+        if p.is_shard(dim):
+            c = -(-n // mesh.size(i))
+            at = min(mesh.get_local_rank(i) * c, n)
+            start, n = start + at, min(c, n - at)
+    return start, n
 
 
 def redistributed(t, mesh, placements):
@@ -64,6 +99,9 @@ class Ranks:
         self.mesh = x.device_mesh
         kept = (Shard(0), Shard(1)) if tokens else (Shard(0),)
         self.rows = [p if p in kept else Replicate() for p in x.placements]
+        # the sequence's length (x's dim 1), which a token block's rows may
+        # split unevenly
+        self.seq = x.shape[1] if tokens else None
 
     def rows_at(self, lead: int) -> list:
         """The rows' placements of a tensor whose batch dim is `lead` (the
@@ -75,16 +113,32 @@ class Ranks:
         """The first position of this rank's block of a sequence of `seq`
         split by the rows (the mesh dims that split it, in mesh order:
         DTensor's nested blocks)."""
-        block, n = 0, 1
-        for i, p in enumerate(self.rows):
-            if p.is_shard(1):
-                block, n = block * self.mesh.size(i) + self.mesh.get_local_rank(i), \
-                    n * self.mesh.size(i)
-        return block * (-(-seq // n))
+        return self.seq_block(seq)[0]
+
+    def seq_block(self, seq: int) -> tuple[int, int]:
+        """(first position, length) of this rank's block of a sequence of
+        `seq` split by the rows."""
+        return self.chunk(seq, self.rows, 1)
+
+    def chunk(self, size: int, placements, dim: int) -> tuple[int, int]:
+        """`chunk` on this block's mesh."""
+        return chunk(size, self.mesh, placements, dim)
 
     def wrap(self, t, placements):
-        from torch.distributed.tensor import DTensor
-        return DTensor.from_local(t, self.mesh, list(placements), run_check=False)
+        """A local block laid out by `placements` -> its DTensor: a dim a
+        mesh dim splits is that many blocks long, but a token block's
+        sequence (dim 1 split by the rows' sequence dims), which is
+        `self.seq` long (uneven blocks where it does not divide)."""
+        shape = list(t.shape)
+        for i, p in enumerate(placements):
+            if p.is_shard():
+                shape[p.dim] *= self.mesh.size(i)
+        if self.seq is not None and any(p.is_shard(1) for p in placements):
+            if not all(r.is_shard(1) for p, r in zip(placements, self.rows) if p.is_shard(1)):
+                raise ValueError("wrap: a token block's dim 1 split by a mesh dim that does "
+                                 "not split its sequence")
+            shape[1] = self.seq
+        return from_local(t, self.mesh, placements, shape)
 
     def enter(self, x, placements=None):
         """x's local block laid out by `placements` (default: its rows,
@@ -119,11 +173,48 @@ class Ranks:
         from torch.distributed.tensor import Replicate
         return self.local(t, [Replicate()] * self.mesh.ndim)
 
+    def read(self, t, layout):
+        """A weight whole on every rank, of which each rank's block in
+        `layout` reads its own part: its gradient a partial sum over the
+        row dims and the mesh dims that split the block."""
+        from torch.distributed.tensor import Partial, Replicate
+        grad = [Partial() if r.is_shard() or p.is_shard() else Replicate()
+                for r, p in zip(self.rows, layout)]
+        return redistributed(as_dtensor(t, self.mesh), self.mesh,
+                             [Replicate()] * self.mesh.ndim).to_local(grad_placements=grad)
+
+    def split(self, layout, dim: int) -> list:
+        """The placements of a weight's block along its dim `dim` where
+        `layout` splits a block (its split dims), whole elsewhere."""
+        from torch.distributed.tensor import Replicate, Shard
+        return [Shard(dim) if p.is_shard() and not r.is_shard() else Replicate()
+                for r, p in zip(self.rows, layout)]
+
+    def rows_split(self, layout, dim: int) -> list:
+        """The placements of an activation's block along its dim `dim`
+        where `layout` splits a block: the rows', and Shard(dim) on the
+        split dims."""
+        return [r if r.is_shard() else p for r, p in zip(self.rows, self.split(layout, dim))]
+
+    def partial(self, layout) -> list:
+        """The rows with a block's products laid out by `layout` partial
+        sums over its split dims (`reduce` sums them)."""
+        from torch.distributed.tensor import Partial
+        return [Partial() if p.is_shard() and not r.is_shard() else r
+                for r, p in zip(self.rows, layout)]
+
     def relayout(self, t, src, dst):
         """A local block laid out by `src` -> its block laid out by `dst`."""
         if list(src) == list(dst):
             return t
         return redistributed(self.wrap(t, src), self.mesh, dst).to_local()
+
+    def shared(self, t, layout):
+        """t (whole rows) read whole by each rank's block in `layout`: the
+        same t, its gradient a partial sum over the mesh dims that split
+        the block (each rank's covers its own block), all-reduced."""
+        grad = self.partial(layout)
+        return t if grad == self.rows else self.wrap(t, self.rows).to_local(grad_placements=grad)
 
     def reduce(self, t, placements):
         """A local block laid out by `placements` (Partial: partial sums)
@@ -201,11 +292,19 @@ def einsum(ranks: Ranks | None, eq: str, a, w):
 
 def block(ranks: Ranks | None, t, layout, dims: dict):
     """t (whole rows) -> its block in `layout`, the placements of a state
-    whose dim d is t's dim dims[d] (a state dim t lacks is whole in t).
-    Without `ranks` (plain tensors), t."""
+    whose dim d is t's dim dims[d] (a state dim t lacks is whole in t, and
+    read whole by each rank's block over the mesh dims that split that
+    dim: `shared`).  Without `ranks` (plain tensors), t."""
     if ranks is None:
         return t
-    return ranks.relayout(t, _translate(ranks.rows, dims), _translate(layout, dims))
+    from torch.distributed.tensor import Replicate
+    unsplit = [Replicate() if p.is_shard() and p.dim in dims else p for p in layout]
+    return ranks.relayout(ranks.shared(t, unsplit), _translate(ranks.rows, dims),
+                          _translate(layout, dims))
+
+
+def shared(ranks: Ranks | None, t, layout):
+    return t if ranks is None else ranks.shared(t, layout)
 
 
 def gather(ranks: Ranks | None, t, layout, dims: dict):

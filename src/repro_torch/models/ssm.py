@@ -26,6 +26,14 @@ scan, `D` and the gate run in f32; Mamba-2 casts to the model dtype before
 its gated RMS norm.  `A_log`, `D` and `dt_bias` are f32 leaves in any
 model dtype.  No library conv or scan kernel is used.
 
+A placed block (DTensor x, `_ssm_on_shards`) runs on each rank's local
+rows.  A block without a state runs in `_mamba1_channels` /
+`_mamba2_channels`, with the same scan (`_mamba1_scan`, `_ssd_scan`):
+under a 'model' split of the channel params (the TP policy) on each
+rank's block of the channels throughout, Megatron's split of the block,
+and on whole rows where nothing splits them.  A decode, and Mamba-2's
+block of head dims, run `mamba1` / `mamba2` on the state's block.
+
 The decode state is a dict ``{"h": f32 (B, di, n) | (B, P, hd, n),
 "conv_tail": (B, K-1, C) in the model dtype}`` -- the reference's
 `SSMState` NamedTuple as the dict its `_asdict()` gives, so the port's
@@ -176,8 +184,9 @@ def _mamba1_scan_chunks(h0, a, bx, q: int):
 
 def mamba1(params, cfg: ModelConfig, x, state: dict | None = None, ranks=None, layout=None):
     """x (B, S, D) -> (y (B, S, D), new state).  Chunked selective scan.
-    With `ranks` (`_ssm_on_shards`), x is a rank's local rows and the
-    state its block in `layout`, over which the scan runs."""
+    With `ranks` (`_ssm_on_shards`: a decode, and Mamba-2's head-dim block
+    without a state), x is a rank's local rows and the state its block in
+    `layout`, over which the scan runs."""
     s = cfg.ssm
     b, seq, _ = x.shape
     di, n, r = d_inner(cfg), s.d_state, _dt_rank(cfg)
@@ -195,29 +204,90 @@ def mamba1(params, cfg: ModelConfig, x, state: dict | None = None, ranks=None, l
     a_cont = -torch.exp(shards.param(ranks, params["A_log"]))       # (di, n)
 
     q = min(s.chunk, seq)
-    h = state["h"] if state is not None else torch.zeros((b, di, n), dtype=torch.float32,
-                                                          device=x.device)
     xf32 = xs.to(torch.float32)
     dims = {0: 0, 1: 2}         # the state (B, di, n)'s dims in (B, S, di)
     dt_h, x_h = shards.block(ranks, dt, layout, dims), shards.block(ranks, xf32, layout, dims)
     a_h = shards.block(ranks, a_cont, layout, {1: 0})
+    bmat, cmat = (shards.shared(ranks, t, layout) for t in (bmat, cmat))
+    h = state["h"] if state is not None else torch.zeros((b, x_h.shape[2], n),
+                                                          dtype=torch.float32, device=x.device)
+    ys, h = _mamba1_scan(h, dt_h, x_h, a_h, bmat, cmat, q)
+    # D and the gate on the block (elementwise: the same bits as on whole
+    # rows), gathered in the model dtype
+    d_h = shards.block(ranks, shards.param(ranks, params["D"]), layout, {1: 0})
+    z_h = shards.block(ranks, z, layout, dims).to(torch.float32)
+    y = ((ys + d_h * x_h) * F.silu(z_h)).to(x.dtype)
+    y = shards.gather(ranks, y, layout, dims)
+    return shards.mm(ranks, y, params["out_proj"]), {"h": h, "conv_tail": new_tail}
+
+
+def _mamba1_scan(h, dt, xf, a_cont, bmat, cmat, q: int):
+    """The chunked selective scan of dt, x (B, S, d) f32 against A (d, n)
+    and B, C (B, S, n) from the state h (B, d, n): the chunks `SCAN_GROUP`
+    at a time, then the remainder chunk.  -> (y (B, S, d), the last
+    state)."""
+    seq = dt.shape[1]
     ys = []
     whole, step = seq - seq % q, q * SCAN_GROUP
-    # the chunks, SCAN_GROUP at a time, then the remainder chunk
     for start in list(range(0, whole, step)) + ([whole] if whole < seq else []):
         stop = min(start + step, whole) if start < whole else seq
         part = slice(start, stop)
-        dt_q, x_q = dt_h[:, part], x_h[:, part]
-        a = torch.exp(dt_q[..., None] * a_h)                        # (B, g*Q, di, n)
-        bx = (dt_q * x_q)[..., None] * bmat[:, part, None, :]       # (B, g*Q, di, n)
+        dt_q, x_q = dt[:, part], xf[:, part]
+        a = torch.exp(dt_q[..., None] * a_cont)                     # (B, g*Q, d, n)
+        bx = (dt_q * x_q)[..., None] * bmat[:, part, None, :]       # (B, g*Q, d, n)
         hs, h = _mamba1_scan_chunks(h, a, bx, min(q, stop - start))
         for j, hs_q in enumerate(hs):
             ys.append(torch.einsum("bqdn,bqn->bqd", hs_q,
                                    cmat[:, start + j * q: start + (j + 1) * q]))
-    y = shards.gather(ranks, torch.cat(ys, dim=1), layout, dims) \
-        + shards.param(ranks, params["D"]) * xf32
-    y = (y * F.silu(z.to(torch.float32))).to(x.dtype)
-    return shards.mm(ranks, y, params["out_proj"]), {"h": h, "conv_tail": new_tail}
+    return torch.cat(ys, dim=1), h
+
+
+def _columns(t, spans):
+    """t's last-dim entries [a, a + n) for each (a, n) of `spans`, in
+    order: one slice (a view) where they are adjacent, as on whole rows."""
+    runs = []
+    for a, n in spans:
+        if runs and sum(runs[-1]) == a:
+            runs[-1] = (runs[-1][0], runs[-1][1] + n)
+        else:
+            runs.append((a, n))
+    parts = [t[..., a:a + n] for a, n in runs]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
+def _mamba1_channels(params, cfg: ModelConfig, x, ranks, layout):
+    """`mamba1` of a rank's whole rows x (B, S, D), without a state, on its
+    block of di in `layout` throughout (whole rows where `layout` splits
+    nothing), as Megatron splits a block: x @
+    in_proj's columns of its xs and z channels (in_proj gathered, a
+    (D, 2 di) weight, where its output would be (B, S, 2 di)); the conv,
+    dt_proj's columns, dt_bias, A, D and the gate on the block; x_proj and
+    out_proj row-parallel (their partial products all-reduced).  A
+    whole-row activation every block reads (x, x_proj's output) gets its
+    gradient all-reduced (`shards.Ranks.shared`).  -> (y (B, S, D) whole
+    rows, {"h": (B, di_l, n), "conv_tail": (B, K-1, di_l)} on the block)."""
+    s = cfg.ssm
+    seq = x.shape[1]
+    di, n, r = d_inner(cfg), s.d_state, _dt_rank(cfg)
+    c0, cl = ranks.chunk(di, layout, 1)
+    xz = ranks.shared(x, layout) @ _columns(ranks.read(params["in_proj"], layout),
+                                           ((c0, cl), (di + c0, cl)))
+    xs, z = xz[..., :cl], xz[..., cl:]
+    on = ranks.split(layout, 0)
+    xs, new_tail = causal_conv(xs, ranks.local(params["conv_w"], ranks.split(layout, 1)),
+                               ranks.local(params["conv_b"], on))
+    dbc = ranks.shared(ranks.reduce(xs @ ranks.local(params["x_proj"], on),
+                                    ranks.partial(layout)), layout)         # (B, S, r+2n)
+    dt = softplus((dbc[..., :r] @ ranks.local(params["dt_proj"], ranks.split(layout, 1)))
+                  .to(torch.float32) + ranks.local(params["dt_bias"], on))  # (B, S, di_l)
+    bmat, cmat = dbc[..., r: r + n].to(torch.float32), dbc[..., r + n:].to(torch.float32)
+    xf32 = xs.to(torch.float32)
+    h = torch.zeros((x.shape[0], cl, n), dtype=torch.float32, device=x.device)
+    ys, h = _mamba1_scan(h, dt, xf32, -torch.exp(ranks.local(params["A_log"], on)), bmat,
+                         cmat, min(s.chunk, seq))
+    y = ((ys + ranks.local(params["D"], on) * xf32) * F.silu(z.to(torch.float32))).to(x.dtype)
+    out = ranks.reduce(y @ ranks.local(params["out_proj"], on), ranks.partial(layout))
+    return out, {"h": h, "conv_tail": new_tail}
 
 
 def mamba1_decode(params, cfg: ModelConfig, x, state: dict):
@@ -279,22 +349,78 @@ def mamba2(params, cfg: ModelConfig, x, state: dict | None = None, ranks=None, l
 
     q = min(s.chunk, seq)
     xh = xs.to(torch.float32).reshape(b, seq, p, hd)
-    h = state["h"] if state is not None else torch.zeros((b, p, hd, n), dtype=torch.float32,
-                                                          device=x.device)
     heads, chans = {0: 0, 1: 2}, {0: 0, 1: 2, 2: 3}   # the state (B, P, hd, n)'s dims
     dt_h, dta_h = (shards.block(ranks, t, layout, heads) for t in (dt, dta))
     xh_h = shards.block(ranks, xh, layout, chans)
-    ys = []
-    for start in range(0, seq, q):      # the chunks, then the remainder chunk
-        part = slice(start, start + q)
-        h, y_q = _ssd_chunk(h, dt_h[:, part], dta_h[:, part], bmat[:, part], cmat[:, part],
-                            xh_h[:, part])
-        ys.append(y_q)
-    y = shards.gather(ranks, torch.cat(ys, dim=1), layout, chans).reshape(b, seq, di)
-    y = y + (shards.param(ranks, params["D"])[:, None] * xh).reshape(b, seq, di)
-    y = y * F.silu(z.to(torch.float32))
-    y = layers.rms_norm(y.to(x.dtype), shards.param(ranks, params["norm"]))
+    bmat, cmat = (shards.shared(ranks, t, layout) for t in (bmat, cmat))
+    h = state["h"] if state is not None else torch.zeros(
+        (b,) + tuple(xh_h.shape[2:]) + (n,), dtype=torch.float32, device=x.device)
+    ys, h = _ssd_scan(h, dt_h, dta_h, bmat, cmat, xh_h, q)
+    # D and the f32 gate on the block (elementwise: the same bits as on
+    # whole rows), gathered in the model dtype for the norm over di
+    d_h = shards.block(ranks, shards.param(ranks, params["D"]), layout, {1: 0})
+    z_h = shards.block(ranks, z.reshape(b, seq, p, hd), layout, chans).to(torch.float32)
+    y = ((ys + d_h[:, None] * xh_h) * F.silu(z_h)).to(x.dtype)
+    y = shards.gather(ranks, y, layout, chans).reshape(b, seq, di)
+    y = layers.rms_norm(y, shards.param(ranks, params["norm"]))
     return shards.mm(ranks, y, params["out_proj"]), {"h": h, "conv_tail": new_tail}
+
+
+def _ssd_scan(h, dt, dta, bmat, cmat, xh, q: int):
+    """SSD's chunks (`_ssd_chunk`), then the remainder chunk, of dt, dta
+    (B, S, P), B, C (B, S, n) and x (B, S, P, hd) from the state h (B, P,
+    hd, n).  -> (y (B, S, P, hd), the last state)."""
+    ys = []
+    for start in range(0, dt.shape[1], q):
+        part = slice(start, start + q)
+        h, y_q = _ssd_chunk(h, dt[:, part], dta[:, part], bmat[:, part], cmat[:, part],
+                            xh[:, part])
+        ys.append(y_q)
+    return torch.cat(ys, dim=1), h
+
+
+def _mamba2_channels(params, cfg: ModelConfig, x, ranks, layout):
+    """`mamba2` of a rank's whole rows x (B, S, D), without a state, on its
+    block of heads in `layout` throughout (whole rows where `layout` splits
+    nothing), as `_mamba1_channels`: x @
+    in_proj's columns of its z, x and dt channels and of B and C (whole,
+    which every block reads: their conv runs on every rank); D, the f32
+    gate and the gated RMS norm on the block, the norm's sum of squares
+    over di all-reduced (f32, as the reference's mean); out_proj
+    row-parallel.  -> (y (B, S, D) whole rows, {"h": (B, P_l, hd, n),
+    "conv_tail": (B, K-1, di + 2n) whole rows})."""
+    s = cfg.ssm
+    b, seq, _ = x.shape
+    di, n, hd = d_inner(cfg), s.d_state, s.headdim
+    h0, hl = ranks.chunk(di // hd, layout, 1)
+    c0, cl = h0 * hd, hl * hd
+    # in_proj (D, 2di+2n+P): z | x B C | dt
+    cols = ((c0, cl), (di + c0, cl), (2 * di, 2 * n), (2 * di + 2 * n + h0, hl))
+    proj = ranks.shared(x, layout) @ _columns(ranks.read(params["in_proj"], layout), cols)
+    z, xbc, dt_raw = proj[..., :cl], proj[..., cl:2 * cl + 2 * n], proj[..., -hl:]
+    conv = ((c0, cl), (di, 2 * n))                        # conv (K, di+2n): x B C
+    xbc, tail = causal_conv(xbc, *(_columns(ranks.read(params[k], layout), conv)
+                                   for k in ("conv_w", "conv_b")))
+    xs = xbc[..., :cl]
+    bmat = xbc[..., cl: cl + n].to(torch.float32)
+    cmat = xbc[..., cl + n:].to(torch.float32)
+    on = ranks.split(layout, 0)
+    dt = softplus(dt_raw.to(torch.float32) + ranks.local(params["dt_bias"], on))   # (B, S, P_l)
+    dta = dt * -torch.exp(ranks.local(params["A_log"], on))
+    xh = xs.to(torch.float32).reshape(b, seq, hl, hd)
+    h = torch.zeros((b, hl, hd, n), dtype=torch.float32, device=x.device)
+    ys, h = _ssd_scan(h, dt, dta, bmat, cmat, xh, min(s.chunk, seq))
+    y = ((ys + ranks.local(params["D"], on)[:, None] * xh)
+         * F.silu(z.reshape(b, seq, hl, hd).to(torch.float32))).to(x.dtype).reshape(b, seq, cl)
+    # the gated RMS norm over di, its sum of squares summed over the blocks
+    # (each block reads the sum: `shared`)
+    y = layers.rms_norm(y, ranks.local(params["norm"], on), mean_sq=lambda x32: ranks.shared(
+        ranks.reduce(torch.sum(torch.square(x32), dim=-1, keepdim=True),
+                     ranks.partial(layout)), layout) / di)
+    out = ranks.reduce(y @ ranks.local(params["out_proj"], on), ranks.partial(layout))
+    # the tail's x channels gathered beside B's and C's
+    whole = ranks.relayout(tail[..., :cl], ranks.rows_split(layout, 2), ranks.rows)
+    return out, {"h": h, "conv_tail": torch.cat([whole, tail[..., cl:]], dim=-1)}
 
 
 def ssm_block(params, cfg: ModelConfig, x, state: dict | None = None):
@@ -304,26 +430,65 @@ def ssm_block(params, cfg: ModelConfig, x, state: dict | None = None):
     return fn(params, cfg, x, state)
 
 
+def _scan_layout(ranks, cfg: ModelConfig) -> list:
+    """The layout a scan without a given state (training, prefill) runs
+    in, the state's (B, di, n) / (B, P, hd, n) block: the rows' batch
+    split, and 'model', where it splits no rows, on the channels the TP
+    policy splits the SSM's channel params along (`parallel.sharding`:
+    Mamba-1's `dt_proj` / `dt_bias` / `A_log` di, Mamba-2's `dt_bias` / `D`
+    heads), where they divide over it.  Mamba-2's heads that do not divide
+    leave those params whole; the scan then takes the state's other
+    channel dim, its head dims, where they divide (the dim the state rule,
+    `parallel.sharding._cache_spec`, splits in such a state), and runs
+    whole where neither does.  d_state is never split."""
+    from torch.distributed.tensor import Replicate, Shard
+    layout = [r if r == Shard(0) else Replicate() for r in ranks.rows]
+    names = ranks.mesh.mesh_dim_names or ()
+    if "model" not in names or ranks.rows[names.index("model")].is_shard():
+        return layout
+    m = names.index("model")
+    n = ranks.mesh.size(m)
+    s, di = cfg.ssm, d_inner(cfg)
+    chans = [(1, di)] if s.kind == "mamba1" else [(1, di // s.headdim), (2, s.headdim)]
+    dims = [d for d, size in chans if size % n == 0 and size >= n]
+    if n > 1 and dims:
+        layout[m] = Shard(dims[0])
+    return layout
+
+
 def _ssm_on_shards(params, cfg: ModelConfig, x, state: dict | None):
     """`ssm_block` of a DTensor x on each rank's local rows
-    (`shards.Ranks`): the projections on the weights' local blocks, the
-    conv, gates and norm on whole rows, and the scan on the state's block
-    of channels (Mamba-1's di, Mamba-2's heads or head dims; a state split
-    over another dim is gathered for it), so a state never moves whole.
-    Without a state (training, prefill) the scan runs on whole rows.  The
-    new state keeps the given state's layout."""
+    (`shards.Ranks`).  Without a state (training, prefill), on the block of
+    channels `_scan_layout` gives: a block of di / heads (or whole rows)
+    throughout (`_mamba1_channels`, `_mamba2_channels`), in which the new
+    state is returned; Mamba-2's block of head dims (no weight splits di
+    so) only in the scan and the gate (`mamba2`), the projections, conv
+    and norm on whole rows.  With a state (decode), the scan and the gate
+    on the state's block of channels (Mamba-1's di, Mamba-2's heads or
+    head dims; a state split over another dim is gathered for it), so a
+    state never moves whole (`mamba1`, `mamba2`); the new state keeps the
+    state's layout."""
     from torch.distributed.tensor import Replicate, Shard
-    fn = mamba1 if cfg.ssm.kind == "mamba1" else mamba2
     ranks = shards.Ranks(x)
     mesh = ranks.mesh
     if state is None:
-        y, new = fn(params, cfg, ranks.enter(x), None, ranks, ranks.rows)
-        return ranks.leave(y), {k: ranks.leave(t) for k, t in new.items()}
+        layout = _scan_layout(ranks, cfg)
+        tail = ranks.rows
+        if Shard(2) in layout:
+            y, new = mamba2(params, cfg, ranks.enter(x), None, ranks, layout)
+        elif cfg.ssm.kind == "mamba1":
+            y, new = _mamba1_channels(params, cfg, ranks.enter(x), ranks, layout)
+            tail = ranks.rows_split(layout, 2)
+        else:
+            y, new = _mamba2_channels(params, cfg, ranks.enter(x), ranks, layout)
+        return ranks.leave(y), {"h": ranks.leave(new["h"], layout),
+                                "conv_tail": ranks.leave(new["conv_tail"], tail)}
     h, tail = (shards.as_dtensor(state[k], mesh) for k in ("h", "conv_tail"))
     chans = (1,) if cfg.ssm.kind == "mamba1" else (1, 2)
     layout = [r if r == Shard(0) else p if isinstance(p, Shard) and p.dim in chans
               else Replicate() for r, p in zip(ranks.rows, h.placements)]
     local = {"h": ranks.enter(h, layout), "conv_tail": ranks.enter(tail)}
+    fn = mamba1 if cfg.ssm.kind == "mamba1" else mamba2
     y, new = fn(params, cfg, ranks.enter(x), local, ranks, layout)
     return ranks.leave(y), {"h": ranks.leave(new["h"], layout, h.placements),
                             "conv_tail": ranks.leave(new["conv_tail"], dst=tail.placements)}

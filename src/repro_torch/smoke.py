@@ -230,13 +230,15 @@ card and fails on anything wrong -- there is no CPU fallback.
    the card == the dry run's within 512 B a tensor; ``dryrun_step``: #7
    and `bum_sort` through the merged embedding backward), and the
    production cell qwen1.5-0.5b x decode_32k on a fake world of 256 in a
-   subprocess, and twelve mini cells on fake (2, 2, 2) worlds in
+   subprocess, and sixteen mini cells on fake (2, 2, 2) worlds in
    subprocesses beside it (the reference's three, Mamba-1's training, the
    absorbed MLA decode, zamba2's hybrid training and decode, three
    whose residual stream splits along its sequence, and qwen3-8b's TP
-   training and prefill at a vocab of 32768: each traces, shows the
-   collective kind named, and holds JAX's argument bytes a device; the
-   last two hold their temp bytes to JAX's);
+   training and prefill at a vocab of 32768, and the TP policy's SSM and
+   MLA training and deepseek-v3's MTP head on uneven sequence blocks: each
+   traces, shows the collective kind named, and holds JAX's argument bytes
+   a device; the last six hold their temp bytes to JAX's, the last four
+   their largest storage to the term at its block too);
 18. the LM example scripts (slice 22's entry points,
    `smoke_examples.examples_phase`): `examples.lm_pretrain` at its
    defaults (its loss falls) and `examples.serve_lm` at its defaults and

@@ -27,7 +27,7 @@
    process groups come and go), its JSON row's summary and wall time
    printed.
 4. The mini cells (`MINI_CELLS`): smoke configs at a shape of their own
-   (Shape("t", 32, 8, kind), or a smaller batch) on fake (2, 2, 2)
+   (Shape("t", 32, 8, kind), or another batch or sequence) on fake (2, 2, 2)
    ('pod', 'data', 'model') worlds, fake tensors on the CPU (as the CPU
    tests trace them; no CUDA context a process), one subprocess a cell
    (``python -m repro_torch.smoke_dryrun ARCH KIND --batch N --device
@@ -44,13 +44,19 @@
    at batch 8 and a vocab of 32768, where the logits take most of the
    memory as at production: the TP (baseline) policy's training (its
    logits split along the vocab, scored by `lm._vocab_parallel_nll`) and
-   the prefill (the last token's head product, `LM._head_rows`).  Gates:
-   each traces; the collective kind named is in its trace; its argument
-   bytes a device equal JAX's; the two vocab cells' temp bytes at most
-   `MiniCell.max_temp` (twice JAX's recorded temp for the training, 1.5
-   times the whole head in f32 for the prefill).  Temp bytes, the largest
-   storage, flops, wire bytes (each collective kind's too) and seconds
-   printed.
+   the prefill (the last token's head product, `LM._head_rows`); and four
+   whose blocks run on each rank's share of the work: the TP (baseline)
+   policy's training of falcon-mamba-7b and zamba2-7b (at 128 tokens; the
+   SSM block on each rank's channels, `ssm._scan_layout`) and of
+   deepseek-v3 (at 128 tokens: MLA's attention, the MTP block's too, on
+   each rank's heads), and deepseek-v3's at batch 4 and 256 tokens (the
+   MTP block on each rank's uneven block of 255 tokens).  Gates: each
+   traces; the collective kind named is in its trace; its argument bytes
+   a device equal JAX's; the six gated cells' temp bytes at most
+   `MiniCell.max_temp` (twice JAX's recorded temp for the TP vocab
+   training, 1.5 times the whole head in f32 for the prefill, JAX's for
+   the four), the four's largest storage at most `MiniCell.max_largest`.  Temp bytes, the largest storage,
+   flops, wire bytes (each collective kind's too) and seconds printed.
 
 `dryrun_phase(device, card, smoke=True)` runs the same on the smoke config
 at a small shape (gloo on the CPU), which the CPU tests rehearse.
@@ -101,7 +107,21 @@ class MiniCell(NamedTuple):
     memory is gated), checked against JAX on the CPU by
     tests/test_torch_launch_dryrun.py::test_mini_cells_record_jax_bytes;
     `max_temp` the most temp bytes a device the port's trace may show, or
-    None."""
+    None; `max_largest` the largest storage it may make, or None.
+
+    The limits: the TP vocab cell's temp twice JAX's; the prefill vocab
+    cell's 1.5 times the whole head in f32, 3 * head // 2 (head = 64 x
+    32768 x 4 B).  The four cells of the TP policy's SSM scans and MLA
+    attention and of the MTP head's uneven blocks: temp at most JAX's, and
+    their largest storage at most the term that 'model' = 2 halves, at its
+    block (B_l rows a rank, 2 of 8 here; S the cell's sequence):
+    falcon-mamba-7b's scan terms (B_l, S, di / 2, n) f32, 2 x 32 x 64 x 8
+    x 4; deepseek-v3's score tiles (B_l, H / 2, S, S) f32 under the TP
+    policy, 2 x 2 x 128 x 128 x 4, and (B_l, H, S / 2, S) f32 on the
+    sequence split, 1 x 4 x 128 x 256 x 4; zamba2-7b's shared attention's
+    score tile (B_l, H / 2, S, S) f32, 2 x 2 x 128 x 128 x 4, above its SSD
+    block's largest term at the head block, in_proj's output (B_l, S, di
+    + 2n + P / 2) f32, 2 x 128 x 164 x 4 (whole, 296 channels, above it)."""
     arch: str
     shape: Shape
     coll: str | None
@@ -110,10 +130,12 @@ class MiniCell(NamedTuple):
     policy: str = "optimized"
     jax_temp: int | None = None
     max_temp: int | None = None
+    max_largest: int | None = None
 
     @property
     def name(self) -> str:
         return " ".join([self.arch, self.shape.kind, str(self.shape.global_batch)]
+                        + ([f"s{self.shape.seq}"] if self.shape.seq != MINI_SEQ else [])
                         + ([self.policy] if self.policy != "optimized" else [])
                         + ([f"v{self.vocab}"] if self.vocab else []))
 
@@ -122,8 +144,9 @@ class MiniCell(NamedTuple):
         return cfg if self.vocab is None else dataclasses.replace(cfg, vocab=self.vocab)
 
 
-def _mini(arch: str, kind: str, batch: int, coll, jax_bytes: int, **kw) -> MiniCell:
-    return MiniCell(arch, Shape("t", MINI_SEQ, batch, kind), coll, jax_bytes, **kw)
+def _mini(arch: str, kind: str, batch: int, coll, jax_bytes: int, seq: int = MINI_SEQ,
+          **kw) -> MiniCell:
+    return MiniCell(arch, Shape("t", seq, batch, kind), coll, jax_bytes, **kw)
 
 
 BIG_VOCAB = 32768
@@ -146,6 +169,19 @@ MINI_CELLS = (
           policy="baseline", jax_temp=21557752, max_temp=2 * 21557752),
     _mini("qwen3-8b", "prefill", 8, None, 2393728, vocab=BIG_VOCAB, jax_temp=138560,
           max_temp=3 * 64 * BIG_VOCAB * 4 // 2),
+    # the TP policy's SSM scans on each rank's channels and MLA attention on
+    # each rank's heads (deepseek-v3's MTP block too), and the MTP block on
+    # each rank's uneven block of S - 1 tokens (the batch on ('pod', 'data'),
+    # the sequence on 'model'): temp at most JAX's, the largest storage at
+    # most the term at its block (`MiniCell`)
+    _mini("falcon-mamba-7b", "train", 8, None, 732164, policy="baseline", jax_temp=5843136,
+          max_temp=5843136, max_largest=2 * 32 * 64 * 8 * 4),
+    _mini("zamba2-7b", "train", 8, None, 1008260, seq=128, policy="baseline",
+          jax_temp=18267264, max_temp=18267264, max_largest=2 * 2 * 128 * 128 * 4),
+    _mini("deepseek-v3-671b", "train", 8, None, 3957572, seq=128, policy="baseline",
+          jax_temp=16631984, max_temp=16631984, max_largest=2 * 2 * 128 * 128 * 4),
+    _mini("deepseek-v3-671b", "train", 4, "all-to-all", 6307140, seq=256, jax_temp=19488432,
+          max_temp=19488432, max_largest=1 * 4 * 128 * 256 * 4),
 )
 
 
@@ -213,7 +249,8 @@ def mini_cell(cell: MiniCell, device, attribute: int = 0) -> dict:
 def _cli(cell: MiniCell) -> list[str]:
     """`main`'s arguments for `cell`."""
     return [cell.arch, cell.shape.kind, "--batch", str(cell.shape.global_batch),
-            "--policy", cell.policy] + (["--vocab", str(cell.vocab)] if cell.vocab else [])
+            "--seq", str(cell.shape.seq), "--policy", cell.policy] \
+        + (["--vocab", str(cell.vocab)] if cell.vocab else [])
 
 
 def start_mini_cells() -> list:
@@ -268,6 +305,9 @@ def check_mini(rows: list[dict]) -> list[str]:
         if cell.max_temp is not None and row["temp_size_in_bytes"] > cell.max_temp:
             problems.append(f"mini cell {cell.name}: temp {row['temp_size_in_bytes']} B > "
                             f"{cell.max_temp} B (JAX's {cell.jax_temp} B)")
+        if cell.max_largest is not None and row["largest_storage"] > cell.max_largest:
+            problems.append(f"mini cell {cell.name}: largest storage {row['largest_storage']} B "
+                            f"> {cell.max_largest} B")
     return problems
 
 
@@ -381,7 +421,9 @@ def dryrun_phase(device, card: str, smoke: bool = False) -> dict:
               f"{r['trace_s']:.2f} s): ok, args {r['argument_size_in_bytes']} B (JAX "
               f"{mc.jax_bytes} B), temp {r['temp_size_in_bytes']} B"
               + (f" (JAX {mc.jax_temp} B, limit {mc.max_temp} B)" if mc.max_temp else "")
-              + f", largest storage {r['largest_storage']} B, flops/dev {r['flops']:.0f}, "
+              + f", largest storage {r['largest_storage']} B"
+              + (f" (limit {mc.max_largest} B)" if mc.max_largest else "")
+              + f", flops/dev {r['flops']:.0f}, "
               f"wire/dev {r['wire']:.0f} B {json.dumps(r['wire_by_kind'])}, bytes/dev "
               f"{r['bytes']:.0f} [{card}]", flush=True)
     problems = check(real, mem, device.type == "cuda") + check_mini(mini)
@@ -418,21 +460,22 @@ def check(real: dict, mem: dict, on_card: bool) -> list[str]:
 
 
 def main(argv=None) -> None:
-    """``python -m repro_torch.smoke_dryrun ARCH KIND [--batch 8] [--policy
-    optimized] [--vocab V] [--device cuda] [--attribute K]``: one mini
-    cell; its JSON row printed last (with `--attribute`, the K largest
+    """``python -m repro_torch.smoke_dryrun ARCH KIND [--batch 8] [--seq 32]
+    [--policy optimized] [--vocab V] [--device cuda] [--attribute K]``: one
+    mini cell; its JSON row printed last (with `--attribute`, the K largest
     storages live at its peak, each with its op and source lines)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("arch")
     ap.add_argument("kind")
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=MINI_SEQ)
     ap.add_argument("--policy", default="optimized", choices=["baseline", "optimized"])
     ap.add_argument("--vocab", type=int)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--attribute", type=int, default=0)
     args = ap.parse_args(argv)
     torch.set_num_threads(1)
-    cell = _mini(args.arch, args.kind, args.batch, None, 0, vocab=args.vocab,
+    cell = _mini(args.arch, args.kind, args.batch, None, 0, seq=args.seq, vocab=args.vocab,
                  policy=args.policy)
     print(json.dumps(mini_cell(cell, args.device, args.attribute)))
 

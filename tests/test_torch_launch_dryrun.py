@@ -9,10 +9,14 @@ deepseek-v2-lite's train step and falcon-mamba-7b's decode step) and
 falcon-mamba-7b's train step, deepseek-v2-lite's absorbed MLA decode and
 zamba2-7b's hybrid train and decode steps; and three whose residual stream
 splits along its sequence (qwen3-8b's train step and zamba2-7b's prefill
-at batch 2, deepseek-v2-lite's prefill at batch 4); and two whose logits
+at batch 2, deepseek-v2-lite's prefill at batch 4); two whose logits
 take most of the memory (qwen3-8b at a vocab of 32768, batch 8: the TP
 policy's training, whose logits split along the vocab, and the prefill's
-last-token head product).  The port traces each on a fake world of 8
+last-token head product); and four whose temp bytes are held to JAX's and
+whose largest storage to the term 'model' halves: the TP policy's
+training of falcon-mamba-7b, zamba2-7b and deepseek-v3 (both at 128
+tokens), and deepseek-v3's at batch 4 and 256 tokens, whose MTP block
+runs on uneven sequence blocks.  The port traces each on a fake world of 8
 under `FakeTensorMode` (one subprocess a cell, `smoke_dryrun.mini_cell`),
 JAX compiles all of them in one subprocess with eight host devices; all
 run at once.  The collective kind a cell names appears in the port's
@@ -24,6 +28,14 @@ held to JAX's (`MiniCell.max_temp`).  The flops, wire bytes and the
 other memory fields are printed beside JAX's, not gated: XLA counts
 every op before fusion and a scan body once, the trace counts matmuls on
 the local shards.
+
+`StepTrace` counts a functional collective's result (a fake world's
+all-gather; the gathered embedding table of the mini prefill).  A
+state-less SSM scan runs on each rank's channel block (`ssm._scan_layout`,
+held to the reference's TP rule for the channel params, and its state
+rule where the heads do not divide), and deepseek-v3's MTP block on each
+rank's heads (TP) or uneven sequence block (FSDP-pure).  A remat'd
+layer's chunked attention keeps no keys live past the layer's forward.
 
 The per-device flops of a one-layer smoke cell (qwen1.5-0.5b's prefill,
 2 x 16 tokens, world 1) equal a hand count of its matmuls exactly; on a
@@ -54,10 +66,12 @@ SRC = str(ROOT / "src")
 
 
 def _id(cell, last) -> str:
-    """A cell's test id: arch-kind-`last`, and -b<batch> off batch 8, the
-    policy off the optimized one, -v<vocab> where the vocab is replaced."""
-    b = cell.shape.global_batch
+    """A cell's test id: arch-kind-`last`, and -b<batch> off batch 8,
+    -s<seq> off 32 tokens, the policy off the optimized one, -v<vocab> where
+    the vocab is replaced."""
+    b, seq = cell.shape.global_batch, cell.shape.seq
     return f"{cell.arch}-{cell.shape.kind}-{last}" + ("" if b == 8 else f"-b{b}") \
+        + ("" if seq == 32 else f"-s{seq}") \
         + ("" if cell.policy == "optimized" else f"-{cell.policy}") \
         + ("" if cell.vocab is None else f"-v{cell.vocab}")
 
@@ -176,7 +190,7 @@ def test_mini_cells_record_jax_bytes(cell, mini_cells):
 
 
 @pytest.mark.parametrize("cell", [pytest.param(c, id=_id(c, "memory")) for c in MINI_CELLS
-                                  if c.max_temp is not None])
+                                  if c.vocab is not None])
 def test_mini_cells_hold_the_logits_memory_to_jax(cell, mini_cells):
     """At a vocab of 32768 the logits dominate.  The TP policy's training
     scores its vocab-split logits on each rank's block (no whole-batch
@@ -252,3 +266,176 @@ def test_corrected_metrics_equal_the_direct_count():
     for key in ("flops", "bytes", "wire"):
         assert direct[key] > 0
         assert est[key] == pytest.approx(direct[key], rel=1e-9), key
+
+
+@pytest.mark.parametrize("cell", [pytest.param(c, id=_id(c, "memory")) for c in MINI_CELLS
+                                  if c.max_largest is not None])
+def test_mini_cells_hold_the_block_memory_to_jax(cell, mini_cells):
+    """The TP policy's SSM scans on each rank's channels, its MLA attention
+    on each rank's heads (deepseek-v3's MTP block too) and the MTP block on
+    each rank's uneven block of S - 1 tokens: temp bytes a device at most
+    JAX's, and no storage larger than `MiniCell.max_largest` (the term
+    that 'model' = 2 halves, at its block; see `MiniCell`).  Phase 17 gates
+    both on the card."""
+    mine, ref = mini_cells[cell.name], mini_cells["jax"][cell.name]
+    print(f"{cell.name}: temp {mine['temp_bytes']} B (limit {cell.max_temp}, JAX "
+          f"{ref['temp_bytes']}), largest storage {mine['largest_storage']} B (limit "
+          f"{cell.max_largest})")
+    assert cell.max_temp == ref["temp_bytes"]
+    assert mine["temp_bytes"] <= cell.max_temp
+    assert mine["largest_storage"] <= cell.max_largest
+    assert mine["args_bytes"] == ref["args_bytes"]
+
+
+def test_step_trace_counts_a_collectives_result():
+    """A functional collective's result is a storage the step made: a fake
+    world's all-gather of (1024, 64) f32 over 4 ranks makes 1 MiB, live
+    until it dies, in the peak and in `at_peak()` with its op; the
+    result's `wait` counts it once."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with dryrun.fake_world(4), FakeTensorMode() as fake:
+        x = torch.empty(1024, 64)
+        trace = dryrun.StepTrace(fake, known=[x], attribute=4)
+        with trace:
+            y = funcol.all_gather_tensor(x, 0, dist.group.WORLD)
+            y = y.wait() if isinstance(y, funcol.AsyncCollectiveTensor) else y
+            assert tuple(y.shape) == (4096, 64) and trace.live == 4096 * 64 * 4
+            del y
+    assert trace.peak == trace.largest == 4096 * 64 * 4 and trace.live == 0
+    assert [(a["op"], a["shape"]) for a in trace.at_peak()] == [
+        ("_c10d_functional.all_gather_into_tensor.default", [4096, 64])]
+    assert trace.collectives == [("all_gather_into_tensor", 4096 * 64 * 4, 4)]
+
+
+def test_the_embedding_table_gathered_for_a_prefill_is_counted():
+    """The FSDP-pure prefill of qwen3-8b at a vocab of 32768 looks its
+    tokens up in the whole table, gathered over the batch's mesh dims:
+    that (32768, 64) f32 all-gather is among the storages at its peak."""
+    from repro_torch import smoke_dryrun
+    cell = next(c for c in MINI_CELLS if c.shape.kind == "prefill" and c.vocab is not None)
+    row = smoke_dryrun.mini_cell(cell, "cpu", attribute=4)
+    assert any(a["op"].startswith("_c10d_functional.") and a["shape"] == [cell.vocab, 64]
+               for a in row["at_peak"]), row["at_peak"]
+
+
+def _spy(monkeypatch, module, name, record):
+    orig = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        record(*args, **kwargs)
+        return orig(*args, **kwargs)
+    monkeypatch.setattr(module, name, spy)
+
+
+@pytest.mark.parametrize("arch,kind,batch,policy", [
+    ("falcon-mamba-7b", "train", 4, "baseline"),         # di over 'model'
+    ("zamba2-7b", "train", 4, "baseline"),               # heads
+    ("zamba2-7b", "prefill", 2, "optimized"),            # the sequence on 'model'
+])
+def test_the_ssm_scans_run_on_each_ranks_channels(monkeypatch, arch, kind, batch, policy):
+    """On a fake ('data', 'model') = (2, 2) world, a state-less scan (the TP
+    policy's training; the FSDP-pure prefill, whose sequence 'model'
+    splits) runs on each rank's block of the state's channels over
+    'model' (`ssm._scan_layout`), not on whole rows: every scan's state
+    holds half of Mamba-1's di or of Mamba-2's heads."""
+    from repro_torch.models import ssm
+    seen = []
+    for name in ("_mamba1_scan", "_ssd_scan"):
+        _spy(monkeypatch, ssm, name, lambda h, *args: seen.append(tuple(h.shape)))
+    cfg = get_smoke_config(arch)
+    chans = ssm.d_inner(cfg) if cfg.ssm.kind == "mamba1" else ssm.d_inner(cfg) // cfg.ssm.headdim
+    with dryrun.fake_world(4):
+        mesh = Mesh((2, 2), ("data", "model"), device="cpu")
+        dryrun._compile_cell(cfg, Shape("t", 16, batch, kind), mesh, policy)
+    assert seen, "no placed scan"
+    assert all(shape[1] == chans // 2 for shape in seen), (chans, seen)
+
+
+def test_the_scan_layout_follows_the_reference_channel_split():
+    """`ssm._scan_layout` splits over 'model' the channels the reference's
+    TP rule (`repro.parallel.sharding.param_specs`) splits `dt_bias` along:
+    Mamba-1's di, Mamba-2's heads (zamba2-7b's 112 at 16, its smoke
+    config's 8 at 2).  Where the heads do not divide (3 heads of 64 at 2),
+    `dt_bias` stays whole, and the scan takes the head dims, the dim the
+    reference's state rule (`_cache_spec`) splits in that state; where
+    neither divides (3 heads of 3), it runs whole."""
+    import dataclasses as dc
+    import types
+    import numpy as np
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro.parallel.sharding import ShardingPolicy, _cache_spec, param_specs
+    from repro_torch.configs import get_config
+    from repro_torch.models import shards, ssm
+    z, f = get_smoke_config("zamba2-7b"), get_smoke_config("falcon-mamba-7b")
+    cases = [   # (config, 'model' size, the state dim split or None)
+        (get_config("zamba2-7b"), 16, 1), (z, 2, 1), (get_config("falcon-mamba-7b"), 16, 1),
+        (f, 2, 1), (dc.replace(z, d_model=96, ssm=dc.replace(z.ssm, headdim=64)), 2, 2),
+        (dc.replace(z, d_model=9, n_heads=1, ssm=dc.replace(z.ssm, headdim=3, expand=1)), 2, None),
+    ]
+    with dryrun.fake_world(32):
+        for cfg, n, want in cases:
+            mesh = Mesh((32 // n, n), ("data", "model"), device="cpu")
+            x = DTensor.from_local(torch.zeros(2, 4, cfg.d_model), mesh.device_mesh,
+                                   [Shard(0), Replicate()], run_check=False)
+            layout = ssm._scan_layout(shards.Ranks(x), cfg)
+            assert layout == [Shard(0), Replicate() if want is None else Shard(want)], \
+                (cfg.name, n, layout)
+            di = ssm.d_inner(cfg)
+            bias = (1, di if cfg.ssm.kind == "mamba1" else di // cfg.ssm.headdim)
+            ref = param_specs(cfg, {f"seg0_{cfg.ssm.kind}": {"ssm": {"dt_bias": np.zeros(bias)}}},
+                              types.SimpleNamespace(shape={"data": 32 // n, "model": n}),
+                              ShardingPolicy())[f"seg0_{cfg.ssm.kind}"]["ssm"]["dt_bias"]
+            assert (ref[1] == "model") == (want == 1), (cfg.name, ref)
+            if want == 2:
+                state = (1,) + tuple(ssm.init_ssm_state(cfg, 2, torch.float32,
+                                                        "meta")["h"].shape)
+                assert _cache_spec("h", state, (), n, 1, ShardingPolicy())[3] == "model"
+
+
+def test_a_remat_layer_keeps_no_keys_of_its_chunked_attention():
+    """A layer under remat (`torch.utils.checkpoint`) whose chunked
+    attention (4096 tokens) reads keys the layer made (as a gathered
+    sequence's) leaves only its output live after the forward: the query
+    blocks' checkpoints take k and v as inputs, where a closure held them
+    to the backward (a placed layer's gathered keys and values, each
+    layer's, at deepseek-v3's peak at two pods)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.models import attention
+
+    def layer(x):
+        k = x * 2
+        return attention._sdpa_chunked(x, k, k, causal=True)
+    with FakeTensorMode() as fake:
+        x = torch.empty(1, 4096, 1, 64, requires_grad=True)
+        trace = dryrun.StepTrace(fake, known=[x])
+        with trace:
+            y = checkpoint(layer, x, use_reentrant=False)
+            live = trace.live
+            y.sum().backward()
+    nbytes = 4096 * 64 * 4
+    assert nbytes <= live < 2 * nbytes, live         # y, not k too
+
+
+@pytest.mark.parametrize("policy,batch,seq,dim", [("baseline", 4, 16, 2), ("optimized", 2, 24, 1)])
+def test_the_mtp_block_runs_on_each_ranks_heads_and_tokens(monkeypatch, policy, batch, seq, dim):
+    """deepseek-v3's MTP block on a fake ('data', 'model') = (2, 2) world:
+    under the TP policy its attention keeps the heads' split over 'model'
+    (its z laid out as the stream, not split along D by the projection's
+    columns); under the FSDP-pure policy at batch 2 its S - 1 = 23 tokens
+    split along the stream's sequence split over 'model', in DTensor's
+    uneven blocks (12 and 11)."""
+    from torch.distributed.tensor import Shard
+    from repro_torch.models import attention
+    seen = []
+    _spy(monkeypatch, attention, "_sdpa_on_shards",
+         lambda q, k, v, causal: seen.append((q.shape[1], list(q.placements))))
+    cfg = dataclasses.replace(get_smoke_config("deepseek-v3-671b"), d_model=256)
+    with dryrun.fake_world(4):
+        mesh = Mesh((2, 2), ("data", "model"), device="cpu")
+        dryrun._compile_cell(cfg, Shape("t", seq, batch, "train"), mesh, policy)
+    mtp = [pl for s, pl in seen if s == seq - 1]
+    assert mtp and all(s in (seq, seq - 1) for s, _ in seen), seen
+    assert all(pl[1] == Shard(dim) for _, pl in seen), seen

@@ -4,10 +4,10 @@ traced at world 1 on fake CPU tensors and run for real as a placed
 (DTensor) train step over a world-1 gloo group (the first loss equals
 `LM.loss` bit for bit, the params stay finite), beside the production
 cell qwen1.5-0.5b x decode_32k dry-run on a fake world of 256 in a
-subprocess (fake tensors on the CPU) and the twelve mini cells on fake
+subprocess (fake tensors on the CPU) and the sixteen mini cells on fake
 (2, 2, 2) worlds in subprocesses beside it (each traces, shows the
-collective kind named and JAX's argument bytes, the two vocab cells'
-temp bytes within their limits).  The card-only gates (the
+collective kind named and JAX's argument bytes, the six gated cells'
+temp bytes and the four's largest storage within their limits).  The card-only gates (the
 arguments' bytes against the allocator's, the kernels' launches) are the
 card's."""
 import pytest

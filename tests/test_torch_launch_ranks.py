@@ -71,16 +71,16 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
-def _inputs(arch, overrides, kind, n_batch, rng):
+def _inputs(arch, overrides, kind, n_batch, rng, seq=SEQ):
     cfg = dataclasses.replace(get_smoke_config(arch), **overrides)
     params = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     batch = {}
-    for path, t in tree_paths(input_specs(cfg, Shape("t", SEQ, n_batch, kind))):
+    for path, t in tree_paths(input_specs(cfg, Shape("t", seq, n_batch, kind))):
         if t.dtype.is_floating_point:
             a = (0.1 * rng.standard_normal(tuple(t.shape))).astype(np.float32)
             batch[path] = torch.from_numpy(a).to(t.dtype)
         else:
-            hi = cfg.vocab if path[-1] == "tokens" else SEQ
+            hi = cfg.vocab if path[-1] == "tokens" else seq
             batch[path] = torch.from_numpy(rng.integers(0, hi, tuple(t.shape)).astype(np.int32))
     from repro_torch.optim.adamw import tree_from_paths
     return cfg, params, tree_from_paths(batch.items())
